@@ -1,0 +1,31 @@
+"""Average virtual sites: positions from their parents, and the transpose
+(J^T) that moves a site's force onto its parents.  The same functions as
+the JAX package's constraints/vsites.py (apply_vsites :37,
+spread_vsite_forces :19) for 2- and 3-particle average sites."""
+
+from __future__ import annotations
+
+import torch
+
+
+def apply_vsites(spec, static, positions):
+    if not static.n_vsites_avg:
+        return positions
+    p = positions[spec.vs_avg_p]                      # (Va, 3, 3)
+    site = torch.sum(spec.vs_avg_w[:, :, None] * p, dim=1)
+    out = positions.clone()
+    out[spec.vs_avg_idx] = site
+    return out
+
+
+def spread_vsite_forces(spec, static, forces):
+    """Site forces onto parents with the site weights; site rows -> 0."""
+    if not static.n_vsites_avg:
+        return forces
+    fs = forces[spec.vs_avg_idx]                       # (Va, 3)
+    out = forces.clone()
+    out[spec.vs_avg_idx] = 0.0
+    for k in range(3):
+        out.index_add_(0, spec.vs_avg_p[:, k],
+                       spec.vs_avg_w[:, k:k + 1] * fs)
+    return out

@@ -1,0 +1,372 @@
+"""Cell-pair sweep: cell sort, sorted fields and the plain direct-space sum.
+
+Atoms are sorted into fixed-capacity cells every `rebuild_interval` steps
+and the direct-space sum runs over (C x C) blocks between each cell and a
+static half stencil of neighbour cells (Newton's third law credits each
+pair's reaction to the neighbour).  Coordinates are cell-local (box-frame
+position minus cell centre), so for stencil offset o the pair displacement
+is a_loc - (b_loc + o*h): periodic wraps vanish into the per-offset shift.
+Exclusions are a bitmask over atom-index differences within a window W.
+
+The same plan and physics as the JAX package's forces/cellpair.py
+(make_config :148, build_cellsort :432, _sorted_arrays :880,
+_sweep_regular :667), for orthorhombic boxes.  `sweep` is the plain
+energy+force sum; ops/sweep.py holds the hand-written force-only kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class CellSort:
+    slot_atom: torch.Tensor      # (S,) atom per cell slot (N = empty)
+    inv_slot: torch.Tensor       # (N,) slot of each atom
+    overflow: torch.Tensor       # () bool, latched across rebuilds
+    ref_positions: torch.Tensor  # (N, 3) at the rebuild
+    image: torch.Tensor          # (N, 3) floor(pos / box) at the rebuild
+    stencil_invalid: torch.Tensor
+    drift_exceeded: torch.Tensor
+    # an excluded pair was binned >= 2 cells apart: the kernel's skip of
+    # the exclusion test at far offsets would then miss it (set only when
+    # build_cellsort is given the excluded pairs)
+    excl_span_exceeded: torch.Tensor = None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CellPairConfig:
+    cutoff: float
+    skin: float
+    grid: tuple                  # cells per dimension
+    capacity: int                # atoms per cell (C)
+    offsets: np.ndarray          # (n_off, 3) half stencil, self first
+    nbr_map: np.ndarray          # (n_cells, n_off) neighbour cell per offset
+    rebuild_interval: int
+    excl_window: int             # W
+    excl_words: int              # ceil((2W+1)/31)
+    half_stencil: bool
+    regular: bool
+    window: tuple
+    trimmed: tuple = ()
+
+    @property
+    def r_list(self) -> float:
+        return self.cutoff + self.skin
+
+    @property
+    def n_cells(self) -> int:
+        return int(np.prod(self.grid))
+
+    @property
+    def n_offsets(self) -> int:
+        return len(self.offsets)
+
+
+def _neighbor_offsets(grid, window) -> np.ndarray:
+    def per_dim(n, w):
+        if n >= 2 * w + 1:
+            return range(-w, w + 1)
+        return range(0, min(n, 2 * w + 1))
+    return np.array([(a, b, c)
+                     for a in per_dim(grid[0], window[0])
+                     for b in per_dim(grid[1], window[1])
+                     for c in per_dim(grid[2], window[2])], np.int64)
+
+
+def make_config(cutoff: float, box_diag, n_atoms: int, exc_i, exc_j,
+                skin: float = 0.1, rebuild_interval: int = 16,
+                cells_per_cutoff: int = 2, density_margin: float = 1.35,
+                capacity: int | None = None) -> CellPairConfig:
+    """Plan the cell grid, capacity and half stencil for an orthorhombic
+    box.  The port needs a regular grid (>= 2w+1 cells per dimension)."""
+    widths = np.asarray(box_diag, np.float64)
+    r_list = cutoff + skin
+    target = r_list / cells_per_cutoff
+    grid = tuple(max(int(np.floor(L / target)), 1) for L in widths)
+    cell_size = widths / np.array(grid)
+    window = tuple(int(np.ceil(r_list / cell_size[d])) for d in range(3))
+    n_cells = int(np.prod(grid))
+    if capacity is None:
+        density = n_atoms / float(np.prod(widths))
+        cap = int(np.ceil(density * float(np.prod(widths)) / n_cells
+                          * density_margin)) + 2
+        capacity = max(int(np.ceil(cap / 8)) * 8, 8)
+    regular = all(g >= 2 * w + 1 for g, w in zip(grid, window))
+    if not regular:
+        raise ValueError(
+            f"the cell-pair sweep needs >= 2w+1 cells per dimension; got "
+            f"grid {grid}, window {window} (box too small for the cutoff)")
+    offsets = _neighbor_offsets(grid, window)
+    sel = [o for o in offsets.tolist() if (o[0], o[1], o[2]) > (0, 0, 0)]
+    offsets = np.array([[0, 0, 0]] + sel, np.int64)
+    # drop offsets whose closest cell-to-cell approach exceeds r_list
+    gap = np.maximum(np.abs(offsets) - 1, 0) * cell_size[None, :]
+    drop = np.sqrt(np.sum(gap * gap, axis=1)) > r_list
+    trimmed = ()
+    if np.any(drop):
+        trimmed = tuple(map(tuple, np.maximum(
+            np.abs(offsets[drop]) - 1, 0).tolist()))
+        offsets = offsets[~drop]
+    cz = np.arange(n_cells)
+    c3 = np.stack([cz // (grid[1] * grid[2]), (cz // grid[2]) % grid[1],
+                   cz % grid[2]], axis=1)
+    nb3 = (c3[:, None, :] + offsets[None, :, :]) % np.array(grid)
+    nbr = (nb3[..., 0] * grid[1] + nb3[..., 1]) * grid[2] + nb3[..., 2]
+    exc_i = np.asarray(exc_i, np.int64)
+    exc_j = np.asarray(exc_j, np.int64)
+    W = int(np.abs(exc_i - exc_j).max()) if len(exc_i) else 0
+    return CellPairConfig(
+        cutoff=float(cutoff), skin=float(skin), grid=grid,
+        capacity=int(capacity), offsets=offsets, nbr_map=nbr,
+        rebuild_interval=int(rebuild_interval), excl_window=W,
+        excl_words=max((2 * W + 1 + 30) // 31, 1), half_stencil=True,
+        regular=True, window=window, trimmed=trimmed)
+
+
+def build_exclusion_words(n_atoms: int, exc_i, exc_j, W: int,
+                          n_words: int) -> np.ndarray:
+    """(N, n_words) int32: bit (d + W) set when (i, i+d) is excluded."""
+    words = np.zeros((n_atoms, n_words), np.int64)
+    a = np.asarray(exc_i, np.int64)
+    b = np.asarray(exc_j, np.int64)
+    for i, j in ((a, b), (b, a)):
+        bit = j - i + W
+        np.bitwise_or.at(words, (i, bit // 31), np.left_shift(1, bit % 31))
+    return words.astype(np.int32)
+
+
+def build_cellsort(positions, box_diag, cfg: CellPairConfig,
+                   excl_ij=None) -> CellSort:
+    """Bin atoms into cells and fill the slot tables.  `excl_ij` (the
+    excluded pairs as index tensors) switches on the excl-span latch."""
+    n = positions.shape[0]
+    dev = positions.device
+    dtype = positions.dtype
+    grid = torch.as_tensor(cfg.grid, dtype=torch.int64, device=dev)
+    C = cfg.capacity
+    n_cells = cfg.n_cells
+    gridf = torch.as_tensor(cfg.grid, dtype=dtype, device=dev)
+
+    # the static stencil covers r_list only while window * width / grid
+    # >= r_list (a shrinking box could break it)
+    wcell = torch.as_tensor(cfg.window, dtype=dtype, device=dev) \
+        * box_diag / gridf
+    stencil_invalid = torch.any(wcell < cfg.r_list)
+    if cfg.trimmed:
+        gap = torch.as_tensor(cfg.trimmed, dtype=dtype, device=dev) \
+            * (box_diag / gridf)
+        stencil_invalid = stencil_invalid | torch.any(
+            torch.sqrt(torch.sum(gap * gap, dim=1)) <= cfg.r_list)
+
+    image = torch.floor(positions / box_diag)
+    frac = positions / box_diag - image
+    cell3 = torch.minimum(torch.clamp((frac * gridf).to(torch.int64), min=0),
+                          grid - 1)
+    flat = (cell3[:, 0] * cfg.grid[1] + cell3[:, 1]) * cfg.grid[2] \
+        + cell3[:, 2]
+
+    excl_span = None
+    if excl_ij is not None and len(excl_ij[0]):
+        d3 = cell3[excl_ij[0]] - cell3[excl_ij[1]]
+        d3 = torch.remainder(d3 + grid // 2, grid) - grid // 2
+        excl_span = torch.any(torch.amax(torch.abs(d3), dim=1) >= 2)
+
+    order = torch.argsort(flat, stable=True)
+    sorted_flat = flat[order]
+    starts = torch.searchsorted(
+        sorted_flat, torch.arange(n_cells, dtype=torch.int64, device=dev))
+    rank = torch.arange(n, dtype=torch.int64, device=dev) \
+        - starts[sorted_flat]
+    overflow = torch.any(rank >= C)
+    slot = sorted_flat * C + torch.clamp(rank, max=C - 1)
+    slot_atom = torch.full((n_cells * C,), n, dtype=torch.int64, device=dev)
+    slot_atom[slot] = order
+    inv_slot = torch.empty((n,), dtype=torch.int64, device=dev)
+    inv_slot[order] = slot
+    return CellSort(slot_atom=slot_atom, inv_slot=inv_slot,
+                    overflow=overflow, ref_positions=positions,
+                    image=image.to(torch.int64),
+                    stencil_invalid=stencil_invalid,
+                    drift_exceeded=torch.zeros((), dtype=torch.bool,
+                                               device=dev),
+                    excl_span_exceeded=excl_span)
+
+
+def sorted_fields(params, positions, box_diag, cellsort: CellSort,
+                  cfg: CellPairConfig) -> dict:
+    """Per-slot fields in cell-major order, each (n_cells * C,): cell-local
+    coordinates x/y/z (box-frame position minus cell centre), charge q,
+    sigma `sig`, sqrt(epsilon) `seps`, atom index `gid` (negative and
+    unique on empty slots), exclusion word `ew`, and per-cell occupancy
+    `count` (n_cells,).  Empty slots are inert: far-away sentinels with
+    q = eps = 0.
+
+    The local coordinates are formed in float64 and rounded once: float32
+    absolute coordinates carry ~5e-7 nm of rounding in an 8 nm box, which
+    a float32 subtraction of rounded cell centres would pass on to every
+    pair distance."""
+    n = positions.shape[0]
+    sa = cellsort.slot_atom
+    pad = sa >= n
+    safe = torch.where(pad, torch.zeros_like(sa), sa)
+    dtype = positions.dtype
+    dev = positions.device
+    box64 = box_diag.double()
+    pos = positions.double() - cellsort.image.double() * box64
+    h = box64 / torch.as_tensor(cfg.grid, dtype=torch.float64, device=dev)
+    cell = torch.arange(cfg.n_cells, device=dev)
+    c3 = torch.stack([cell // (cfg.grid[1] * cfg.grid[2]),
+                      (cell // cfg.grid[2]) % cfg.grid[1],
+                      cell % cfg.grid[2]], dim=1).double() + 0.5
+    centers = (c3 * h).repeat_interleave(cfg.capacity, dim=0)   # (S, 3)
+    out = {}
+    for c, name in enumerate("xyz"):
+        v = torch.where(pad, torch.full_like(pos[safe, c], 1e6 * (1 + c)),
+                        pos[safe, c])
+        out[name] = (v - centers[:, c]).to(dtype).contiguous()
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    out["q"] = torch.where(pad, zero, params["charge"][safe]).contiguous()
+    out["sig"] = torch.where(pad, zero + 1.0,
+                             params["sigma"][safe]).contiguous()
+    out["seps"] = torch.where(pad, zero,
+                              torch.sqrt(params["eps"][safe])).contiguous()
+    slots = torch.arange(sa.shape[0], device=dev)
+    out["gid"] = torch.where(pad, -1 - slots, sa).to(torch.int32).contiguous()
+    out["ew"] = torch.where(pad, torch.zeros_like(sa),
+                            params["excl_words"][safe, 0].to(torch.int64)
+                            ).to(torch.int32).contiguous()
+    out["count"] = torch.sum((~pad).reshape(cfg.n_cells, cfg.capacity),
+                             dim=1).to(torch.int32).contiguous()
+    return out
+
+
+def offset_shifts(cfg: CellPairConfig, box_diag) -> torch.Tensor:
+    """(n_off, 3) per-offset image shift o * h (h = box / grid), formed in
+    float64 and rounded once."""
+    box64 = box_diag.double()
+    h = box64 / torch.as_tensor(cfg.grid, dtype=torch.float64,
+                                device=box_diag.device)
+    return (torch.as_tensor(cfg.offsets, dtype=torch.float64,
+                            device=box_diag.device) * h).to(box_diag.dtype)
+
+
+def erfc_approx(x):
+    """Abramowitz & Stegun 7.1.26 rational erfc (|err| < 1.5e-7, x >= 0),
+    the form the sweep kernel uses."""
+    t = 1.0 / (1.0 + 0.3275911 * x)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    return poly * torch.exp(-x * x)
+
+
+def ewald_pair_eg(alpha: float, erfc_fn):
+    """LJ (Lorentz sigma, Berthelot sqrt-eps product) + Ewald real-space
+    Coulomb: f(qq, sig, eps, r2, inv_r, inv_r2) -> (e, dE/dr^2)."""
+    two_over_sqrt_pi = 2.0 / math.sqrt(math.pi)
+
+    def f(qq, sig, eps, r2, inv_r, inv_r2):
+        x6 = (sig * sig * inv_r2) ** 3
+        e_lj = 4.0 * eps * x6 * (x6 - 1.0)
+        g_lj = -4.0 * eps * (6.0 * x6 * x6 - 3.0 * x6) * inv_r2
+        ar = alpha * r2 * inv_r
+        erfc_ar = erfc_fn(ar)
+        e_c = qq * erfc_ar * inv_r
+        g_c = -0.5 * qq * inv_r2 * (erfc_ar * inv_r + two_over_sqrt_pi
+                                    * alpha * torch.exp(-ar * ar))
+        return e_lj + e_c, g_lj + g_c
+
+    return f
+
+
+# elements of one (n_cells, C, P*C) pair tile: bounds each temporary of
+# the chunked sweep (one offset at a time at 100k atoms, ~31 MB in f32;
+# small tiles also keep the CPU sweep in cache)
+TILE_ELEMS = 1 << 19
+
+
+def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
+          coulomb_scale: float, with_energy: bool = True,
+          excl_skip: bool = False, erfc_fn=None):
+    """Plain direct-space sum over the half stencil, chunked over offsets.
+
+    Returns (energy, slot forces (n_cells * C, 3)).  excl_skip drops the
+    exclusion test at offsets with any |o| >= 2, as the kernel does (sound
+    while the cell sort's excl-span latch stays clear).  erfc_fn defaults
+    to the exact erfc; the kernel's plain twin passes erfc_approx."""
+    nc, C = cfg.n_cells, cfg.capacity
+    x, y, z = (fields[k].reshape(nc, C) for k in "xyz")
+    dtype = x.dtype
+    dev = x.device
+    q = fields["q"].reshape(nc, C)
+    sig = fields["sig"].reshape(nc, C)
+    seps = fields["seps"].reshape(nc, C)
+    gid = fields["gid"].reshape(nc, C).to(torch.int64)
+    ew = fields["ew"].reshape(nc, C).to(torch.int64)
+    W = cfg.excl_window
+    cutoff2 = cfg.cutoff * cfg.cutoff
+    pair_eg = ewald_pair_eg(alpha, erfc_fn or torch.special.erfc)
+    nbr = torch.as_tensor(cfg.nbr_map, device=dev)
+    qa = coulomb_scale * q
+    far = np.max(np.abs(cfg.offsets), axis=1) >= 2
+    fx, fy, fz = (torch.zeros((nc, C), dtype=dtype, device=dev)
+                  for _ in range(3))
+    energy = torch.zeros((), dtype=dtype, device=dev)
+
+    P_max = max(1, TILE_ELEMS // (nc * C * C))
+    chunks = [[0]]
+    rest = list(range(1, cfg.n_offsets))
+    chunks += [rest[i:i + P_max] for i in range(0, len(rest), P_max)]
+    for ob in chunks:
+        self_block = ob == [0]
+        P = len(ob)
+        obt = torch.as_tensor(ob, device=dev)
+        b = nbr[:, obt]                                       # (nc, P)
+        t = shifts[obt]                                       # (P, 3)
+        d = []
+        for comp, src in enumerate((x, y, z)):
+            bv = (src[b] + t[None, :, comp:comp + 1]).reshape(nc, P * C)
+            d.append(src[:, :, None] - bv[:, None, :])        # (nc, C, P*C)
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        valid = r2 < cutoff2
+        if self_block:
+            valid = valid & ~torch.eye(C, dtype=torch.bool, device=dev)
+        check = [not (excl_skip and far[o]) for o in ob]
+        if W > 0 and any(check):
+            dg = gid[b].reshape(nc, P * C)[:, None, :] - gid[:, :, None]
+            in_win = torch.abs(dg) <= W
+            bit = torch.where(in_win, dg + W, torch.zeros_like(dg))
+            excl = in_win & (((ew[:, :, None] >> bit) & 1) == 1)
+            if not all(check):
+                mask = torch.as_tensor(check, device=dev)
+                excl = excl & mask.repeat_interleave(C)[None, None, :]
+            keep = valid & ~excl
+        else:
+            keep = valid
+        r2s = torch.where(valid, torch.clamp(r2, min=1e-6),
+                          torch.ones_like(r2))
+        inv_r = torch.rsqrt(r2s)
+        inv_r2 = inv_r * inv_r
+        qq = qa[:, :, None] * q[b].reshape(nc, P * C)[:, None, :]
+        sg = 0.5 * (sig[:, :, None] + sig[b].reshape(nc, P * C)[:, None, :])
+        ep = seps[:, :, None] * seps[b].reshape(nc, P * C)[:, None, :]
+        e, g = pair_eg(qq, sg, ep, r2s, inv_r, inv_r2)
+        zero = torch.zeros((), dtype=dtype, device=dev)
+        g2 = torch.where(keep, -2.0 * g, zero)
+        if with_energy:
+            factor = 0.5 if self_block else 1.0
+            energy = energy + factor * torch.sum(torch.where(keep, e, zero))
+        fa = [torch.sum(g2 * dc, dim=2) for dc in d]
+        fx, fy, fz = fx + fa[0], fy + fa[1], fz + fa[2]
+        if not self_block:
+            for comp, fc in enumerate((fx, fy, fz)):
+                react = -torch.sum(g2 * d[comp], dim=1).reshape(nc, P, C)
+                for p in range(P):
+                    fc.index_add_(0, b[:, p], react[:, p])
+    f_slots = torch.stack([fx.reshape(-1), fy.reshape(-1), fz.reshape(-1)],
+                          dim=1)
+    return energy, f_slots

@@ -1,0 +1,217 @@
+"""Smooth particle-mesh Ewald reciprocal space (Essmann et al. 1995).
+
+Cardinal B-splines of order 5, a scatter-add charge spread (index_add_),
+the reciprocal energy over the rfftn half spectrum, and analytic
+interpolation forces
+    F_d[i] = -q_i (K_d / L_d) sum_taps dM_d M_e M_f Phi[tap],
+with Phi = dE/dQ from one irfftn.  B-spline derivatives are analytic
+(dM_n(x) = M_{n-1}(x) - M_{n-1}(x-1)); nothing differentiates through the
+Cox-de Boor |x| kinks, which f32 rounding can land exactly on.
+
+Parameter choice and energy follow the JAX package's forces/pme.py
+(setup_pme :191, grid_energy :844, recip_forces :159).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..units import ONE_4PI_EPS0
+
+PME_ORDER = 5
+
+
+def find_fft_dimension(minimum: int) -> int:
+    """Smallest 2,3,5-smooth integer >= minimum."""
+    n = max(int(minimum), 5)
+    while True:
+        m = n
+        for f in (2, 3, 5):
+            while m % f == 0:
+                m //= f
+        if m == 1:
+            return n
+        n += 1
+
+
+def choose_alpha(cutoff: float, tol: float) -> float:
+    return math.sqrt(-math.log(2.0 * tol)) / cutoff
+
+
+def choose_grid(alpha: float, box_diag, tol: float):
+    return tuple(find_fft_dimension(
+        int(math.ceil(2.0 * alpha * L / (3.0 * tol ** 0.2))))
+        for L in box_diag)
+
+
+def _Mn_np(n: int, x: np.ndarray) -> np.ndarray:
+    if n == 2:
+        return np.clip(1.0 - np.abs(x - 1.0), 0.0, None)
+    return (x * _Mn_np(n - 1, x) + (n - x) * _Mn_np(n - 1, x - 1.0)) / (n - 1)
+
+
+def bspline_moduli(order: int, K: int) -> np.ndarray:
+    """|b(m)|^2 of the Euler exponential spline; zeros of the denominator
+    are interpolated from their neighbours, as OpenMM does."""
+    knots = _Mn_np(order, np.arange(1, order, dtype=np.float64))
+    m = np.arange(K)
+    k = np.arange(order - 1)
+    denom = np.sum(knots[None, :] * np.exp(
+        2j * np.pi * m[:, None] * k[None, :] / K), axis=1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        bm2 = 1.0 / np.abs(denom) ** 2
+    bad = ~np.isfinite(bm2) | (np.abs(denom) < 1e-7)
+    for i in np.nonzero(bad)[0]:
+        bm2[i] = 0.5 * (bm2[(i - 1) % K] + bm2[(i + 1) % K])
+    return bm2
+
+
+def _M(n, x):
+    if n == 2:
+        return torch.clamp(1.0 - torch.abs(x - 1.0), min=0.0)
+    return (x * _M(n - 1, x) + (n - x) * _M(n - 1, x - 1.0)) / (n - 1)
+
+
+def bspline_weights(w, order: int = PME_ORDER):
+    """M_order(w + j), j = 0..order-1, for w in [0, 1): shape w + (order,)."""
+    x = w[..., None] + torch.arange(order, dtype=w.dtype, device=w.device)
+    return _M(order, x)
+
+
+def bspline_weights_d(w, order: int = PME_ORDER):
+    """dM_order/du at the taps: M_{order-1}(x) - M_{order-1}(x - 1)."""
+    x = w[..., None] + torch.arange(order, dtype=w.dtype, device=w.device)
+    return _M(order - 1, x) - _M(order - 1, x - 1.0)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PmeSetup:
+    alpha: float
+    grid: tuple
+    bm2x: np.ndarray
+    bm2y: np.ndarray
+    bm2z: np.ndarray
+
+
+def setup_pme(cutoff: float, tol: float, box_diag, alpha=None, grid=None,
+              cell_grid=None) -> PmeSetup:
+    """alpha and grid as OpenMM chooses them; with `cell_grid` each K is
+    rounded up to a multiple of the cell grid, as the JAX package plans
+    it for the cell-pair strategy (a denser grid is only more accurate)."""
+    a = alpha if alpha else choose_alpha(cutoff, tol)
+    g = tuple(int(k) for k in (grid if grid else
+                               choose_grid(a, box_diag, tol)))
+    if cell_grid is not None:
+        g = tuple(-(-k // c) * c for k, c in zip(g, cell_grid))
+    return PmeSetup(alpha=a, grid=g,
+                    bm2x=bspline_moduli(PME_ORDER, g[0]),
+                    bm2y=bspline_moduli(PME_ORDER, g[1]),
+                    bm2z=bspline_moduli(PME_ORDER, g[2]))
+
+
+def _eterm(setup: PmeSetup, box_diag, dtype, device):
+    """exp(-pi^2 m^2 / alpha^2) / m^2 * |b(m)|^2 on the rfft half grid
+    (zero at m = 0), without the conjugate-pair doubling."""
+    K1, K2, K3 = setup.grid
+    K3h = K3 // 2 + 1
+    kw = dict(dtype=dtype, device=device)
+    m1 = torch.fft.fftfreq(K1, d=1.0 / K1, **kw)
+    m2 = torch.fft.fftfreq(K2, d=1.0 / K2, **kw)
+    m3 = torch.arange(K3h, **kw)
+    mx = m1[:, None, None] / box_diag[0]
+    my = m2[None, :, None] / box_diag[1]
+    mz = m3[None, None, :] / box_diag[2]
+    m_sq = mx * mx + my * my + mz * mz
+    bm2 = (torch.as_tensor(setup.bm2x, **kw)[:, None, None]
+           * torch.as_tensor(setup.bm2y, **kw)[None, :, None]
+           * torch.as_tensor(setup.bm2z[:K3h], **kw)[None, None, :])
+    m_sq_safe = torch.where(m_sq > 0, m_sq, torch.ones_like(m_sq))
+    return torch.where(m_sq > 0, torch.exp(-math.pi ** 2 * m_sq_safe
+                                           / (setup.alpha ** 2))
+                       / m_sq_safe * bm2, torch.zeros_like(m_sq))
+
+
+def _taps(setup: PmeSetup, positions, box_diag):
+    """Per-atom tap indices (N, order) and weights per dimension."""
+    K = torch.as_tensor(setup.grid, dtype=positions.dtype,
+                        device=positions.device)
+    frac = positions / box_diag
+    u = (frac - torch.floor(frac)) * K
+    ti = torch.floor(u)
+    w = u - ti
+    ti = ti.to(torch.int64)
+    j = torch.arange(PME_ORDER, device=positions.device)
+    idx = [torch.remainder(ti[:, d:d + 1] - j, setup.grid[d])
+           for d in range(3)]
+    wts = [bspline_weights(w[:, d]) for d in range(3)]
+    dwts = [bspline_weights_d(w[:, d]) for d in range(3)]
+    return idx, wts, dwts
+
+
+def spread(setup: PmeSetup, charges, idx, wts):
+    """B-spline charge grid (K1, K2, K3) by index_add_, one x tap at a time
+    to bound the (N, order^2) temporaries."""
+    K1, K2, K3 = setup.grid
+    n = charges.shape[0]
+    Q = torch.zeros(K1 * K2 * K3, dtype=charges.dtype,
+                    device=charges.device)
+    yz = (idx[1][:, :, None] * K3 + idx[2][:, None, :]).reshape(n, -1)
+    wyz = (wts[1][:, :, None] * wts[2][:, None, :]).reshape(n, -1)
+    for t in range(PME_ORDER):
+        flat = idx[0][:, t:t + 1] * (K2 * K3) + yz
+        val = (charges * wts[0][:, t])[:, None] * wyz
+        Q.index_add_(0, flat.reshape(-1), val.reshape(-1))
+    return Q.reshape(K1, K2, K3)
+
+
+def grid_energy_and_potential(setup: PmeSetup, Q, box_diag):
+    """(energy, Phi = dE/dQ) of a charge grid: one rfftn, one irfftn."""
+    K1, K2, K3 = setup.grid
+    dtype = Q.dtype
+    eterm = _eterm(setup, box_diag, dtype, Q.device)
+    K3h = K3 // 2 + 1
+    F = torch.fft.rfftn(Q)
+    S2 = F.real ** 2 + F.imag ** 2
+    k3 = torch.arange(K3h, device=Q.device)
+    double = ((k3 >= 1) & (k3 <= (K3 - 1) // 2)).to(dtype) + 1.0
+    volume = box_diag[0] * box_diag[1] * box_diag[2]
+    c = ONE_4PI_EPS0 / (2.0 * math.pi * volume)
+    energy = c * torch.sum(eterm * double[None, None, :] * S2)
+    phi = (2.0 * c * (K1 * K2 * K3)) * torch.fft.irfftn(
+        eterm * F, s=(K1, K2, K3))
+    return energy, phi
+
+
+def reciprocal_energy(setup: PmeSetup, charges, positions, box_diag):
+    idx, wts, _ = _taps(setup, positions, box_diag)
+    Q = spread(setup, charges, idx, wts)
+    return grid_energy_and_potential(setup, Q, box_diag)[0]
+
+
+def recip_energy_forces(setup: PmeSetup, charges, positions, box_diag):
+    """(energy, forces (N, 3)) of the reciprocal sum, forces analytic."""
+    K1, K2, K3 = setup.grid
+    n = positions.shape[0]
+    idx, wts, dwts = _taps(setup, positions, box_diag)
+    Q = spread(setup, charges, idx, wts)
+    energy, phi = grid_energy_and_potential(setup, Q, box_diag)
+    phi = phi.reshape(-1)
+    yz = (idx[1][:, :, None] * K3 + idx[2][:, None, :]).reshape(n, -1)
+    w_yz = (wts[1][:, :, None] * wts[2][:, None, :]).reshape(n, -1)
+    dy_z = (dwts[1][:, :, None] * wts[2][:, None, :]).reshape(n, -1)
+    y_dz = (wts[1][:, :, None] * dwts[2][:, None, :]).reshape(n, -1)
+    gx = gy = gz = torch.zeros(n, dtype=positions.dtype,
+                               device=positions.device)
+    for t in range(PME_ORDER):
+        ph = phi[idx[0][:, t:t + 1] * (K2 * K3) + yz]          # (N, 25)
+        gx = gx + dwts[0][:, t] * torch.sum(w_yz * ph, dim=1)
+        gy = gy + wts[0][:, t] * torch.sum(dy_z * ph, dim=1)
+        gz = gz + wts[0][:, t] * torch.sum(y_dz * ph, dim=1)
+    scale = torch.as_tensor(setup.grid, dtype=positions.dtype,
+                            device=positions.device) / box_diag
+    forces = -charges[:, None] * torch.stack([gx, gy, gz], dim=1) * scale
+    return energy, forces

@@ -1,0 +1,125 @@
+"""SWM4-NDP water box builder: the system of the benchmark configuration.
+
+The same parameters, lattice and random orientations as the JAX package's
+io/builders.py::build_water_box, so both packages build identical systems
+from the same arguments (the committed 100k-atom snapshot was made there).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..forces.cmmotion import CMMotionRemover
+from ..forces.drude import DrudeForce
+from ..forces.nonbonded import NonbondedForce
+from ..system import System, ThreeParticleAverageSite
+from ..units import ONE_4PI_EPS0
+
+# SWM4-NDP site parameters (Lamoureux, Harder, Vorobyov, Roux, MacKerell,
+# Chem. Phys. Lett. 418 (2006) 245), M site at r_OM = 0.24034 A.
+SWM4_O_MASS = 15.6
+SWM4_D_MASS = 0.4
+SWM4_H_MASS = 1.0
+SWM4_Q_D = -1.71636
+SWM4_Q_H = 0.55733
+SWM4_Q_M = -1.11466
+SWM4_O_SIGMA = 0.318395
+SWM4_O_EPS = 0.21094 * 4.184
+SWM4_ALPHA = ONE_4PI_EPS0 * SWM4_Q_D ** 2 / (100000 * 4.184)
+SWM4_D_OH = 0.09572
+SWM4_D_HH = 0.15139
+SWM4_R_OM = 0.024034  # nm
+_D_OHMID = float(np.sqrt(SWM4_D_OH ** 2 - (SWM4_D_HH / 2.0) ** 2))
+SWM4_M_W23 = SWM4_R_OM / (2.0 * _D_OHMID)
+SWM4_M_W1 = 1.0 - 2.0 * SWM4_M_W23
+
+# number density of water at ~1 g/cm3, molecules / nm^3
+WATER_NUMBER_DENSITY = 33.33
+
+
+def add_swm4_molecule(system: System, nonbonded: NonbondedForce,
+                      drude: DrudeForce) -> int:
+    start = system.getNumParticles()
+    system.addParticle(SWM4_O_MASS)
+    system.addParticle(SWM4_D_MASS)
+    system.addParticle(SWM4_H_MASS)
+    system.addParticle(SWM4_H_MASS)
+    system.addParticle(0.0)
+    nonbonded.addParticle(-SWM4_Q_D, SWM4_O_SIGMA, SWM4_O_EPS)
+    nonbonded.addParticle(SWM4_Q_D, 1.0, 0.0)
+    nonbonded.addParticle(SWM4_Q_H, 1.0, 0.0)
+    nonbonded.addParticle(SWM4_Q_H, 1.0, 0.0)
+    nonbonded.addParticle(SWM4_Q_M, 1.0, 0.0)
+    for j in range(5):
+        for k in range(j):
+            nonbonded.addException(start + j, start + k, 0, 1, 0)
+    system.addConstraint(start, start + 2, SWM4_D_OH)
+    system.addConstraint(start, start + 3, SWM4_D_OH)
+    system.addConstraint(start + 2, start + 3, SWM4_D_HH)
+    system.setVirtualSite(start + 4, ThreeParticleAverageSite(
+        start, start + 2, start + 3, SWM4_M_W1, SWM4_M_W23, SWM4_M_W23))
+    drude.addParticle(start + 1, start, -1, -1, -1, SWM4_Q_D, SWM4_ALPHA,
+                      1, 1)
+    return start
+
+
+def swm4_molecule_positions(origin: np.ndarray) -> np.ndarray:
+    """Site positions of one molecule at rest geometry."""
+    return origin + np.array([
+        [0.0, 0.0, 0.0],
+        [0.0, 0.0, 0.0],
+        [SWM4_D_OH, 0.0, 0.0],
+        [-0.023999, 0.092663, 0.0],
+        [0.0, 0.0, 0.0],
+    ])
+
+
+def build_water_box(n_molecules: int, method: int = NonbondedForce.PME,
+                    cutoff: float = 1.0, ewald_tol: float = 5e-4,
+                    add_cm_motion: bool = True,
+                    density: float = WATER_NUMBER_DENSITY):
+    """SWM4-NDP water in a cubic box at the given number density, on a
+    uniform random subset of lattice sites with random orientations.
+    Returns (system, positions); 20000 molecules give the 100k-atom
+    benchmark system."""
+    grid = int(np.ceil(n_molecules ** (1.0 / 3.0)))
+    box = (n_molecules / density) ** (1.0 / 3.0)
+    spacing = box / grid
+
+    system = System()
+    nonbonded = NonbondedForce()
+    drude = DrudeForce()
+    system.addForce(nonbonded)
+    system.addForce(drude)
+    system.setDefaultPeriodicBoxVectors((box, 0, 0), (0, box, 0),
+                                        (0, 0, box))
+    nonbonded.setNonbondedMethod(method)
+    nonbonded.setCutoffDistance(cutoff)
+    nonbonded.setEwaldErrorTolerance(ewald_tol)
+
+    positions = []
+    rng = np.random.default_rng(1234)
+    sites = np.sort(rng.choice(grid ** 3, size=n_molecules, replace=False))
+    for site in sites:
+        i = site // (grid * grid)
+        j = (site // grid) % grid
+        k = site % grid
+        origin = (np.array([i, j, k]) + 0.5) * spacing
+        mol = swm4_molecule_positions(origin)
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        w, x, y, z = q
+        rot = np.array([
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+             2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+             2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x),
+             1 - 2 * (x * x + y * y)],
+        ])
+        mol = (mol - origin) @ rot.T + origin
+        add_swm4_molecule(system, nonbonded, drude)
+        positions.append(mol)
+    if add_cm_motion:
+        system.addForce(CMMotionRemover())
+    return system, np.concatenate(positions, axis=0)

@@ -1,0 +1,109 @@
+"""System description: particles, constraints, virtual sites, forces, box.
+
+OpenMM-shaped host-side builders (addParticle, addConstraint,
+setVirtualSite, setDefaultPeriodicBoxVectors, addForce), as in the JAX
+package's system.py.  core/spec.build_spec compiles a System and an
+integrator into tensors.  The port takes orthorhombic boxes only.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+
+class VirtualSite:
+    """Base class of massless sites placed from other particles."""
+
+    particles: Tuple[int, ...]
+
+
+class TwoParticleAverageSite(VirtualSite):
+    def __init__(self, particle1: int, particle2: int, weight1: float,
+                 weight2: float):
+        self.particles = (particle1, particle2)
+        self.weights = (weight1, weight2)
+
+
+class ThreeParticleAverageSite(VirtualSite):
+    """pos = w1*p1 + w2*p2 + w3*p3 (the SWM4-NDP water M site)."""
+
+    def __init__(self, particle1: int, particle2: int, particle3: int,
+                 weight1: float, weight2: float, weight3: float):
+        self.particles = (particle1, particle2, particle3)
+        self.weights = (weight1, weight2, weight3)
+
+
+class System:
+    """Container for the physical description of a simulated system."""
+
+    def __init__(self):
+        self._masses: List[float] = []
+        self._constraints: List[Tuple[int, int, float]] = []
+        self._virtual_sites: dict[int, VirtualSite] = {}
+        self._forces: List[object] = []
+        self._box = ((2.0, 0.0, 0.0), (0.0, 2.0, 0.0), (0.0, 0.0, 2.0))
+
+    def addParticle(self, mass: float) -> int:
+        self._masses.append(float(mass))
+        return len(self._masses) - 1
+
+    def getNumParticles(self) -> int:
+        return len(self._masses)
+
+    def getParticleMass(self, index: int) -> float:
+        return self._masses[index]
+
+    def setParticleMass(self, index: int, mass: float) -> None:
+        self._masses[index] = float(mass)
+
+    def addConstraint(self, particle1: int, particle2: int,
+                      distance: float) -> int:
+        self._constraints.append((int(particle1), int(particle2),
+                                  float(distance)))
+        return len(self._constraints) - 1
+
+    def getNumConstraints(self) -> int:
+        return len(self._constraints)
+
+    def getConstraintParameters(self, index: int) -> Tuple[int, int, float]:
+        return self._constraints[index]
+
+    def setVirtualSite(self, index: int, site: VirtualSite) -> None:
+        self._virtual_sites[int(index)] = site
+
+    def isVirtualSite(self, index: int) -> bool:
+        return int(index) in self._virtual_sites
+
+    def getVirtualSite(self, index: int) -> VirtualSite:
+        return self._virtual_sites[int(index)]
+
+    def addForce(self, force) -> int:
+        self._forces.append(force)
+        return len(self._forces) - 1
+
+    def getNumForces(self) -> int:
+        return len(self._forces)
+
+    def getForce(self, index: int):
+        return self._forces[index]
+
+    def getForces(self) -> Sequence[object]:
+        return list(self._forces)
+
+    def removeForce(self, index: int) -> None:
+        del self._forces[index]
+
+    def setDefaultPeriodicBoxVectors(self, a, b, c) -> None:
+        box = tuple(tuple(float(v) for v in row) for row in (a, b, c))
+        if any(box[i][j] != 0.0 for i in range(3) for j in range(3)
+               if i != j):
+            raise ValueError("the PyTorch port takes orthorhombic boxes "
+                             "only")
+        self._box = box
+
+    def getDefaultPeriodicBoxVectors(self):
+        return self._box
+
+    def usesPeriodicBoundaryConditions(self) -> bool:
+        return any(getattr(f, "usesPeriodicBoundaryConditions",
+                           lambda: False)() for f in self._forces)

@@ -1,0 +1,73 @@
+"""Card-only checks of the PyTorch port: kernel B1 against its plain
+version on CUDA tensors, its refusals, and the Context stepping through
+it.  Marked `gpu`; each test skips (through the `cuda` fixture) where no
+CUDA card is present.  On the card (tests/conftest.py imports JAX, which
+the machine with the card lacks): python -m pytest -m gpu --noconftest
+tests/test_torch_gpu.py"""
+
+import numpy as np
+import pytest
+import torch
+
+import openmm_drudenose_tpu_torch as dt
+from openmm_drudenose_tpu_torch.forces import cellpair
+from openmm_drudenose_tpu_torch.io import builders
+from openmm_drudenose_tpu_torch.ops import sweep
+from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def _ctx(device, precision="single"):
+    system, pos = builders.build_water_box(216, cutoff=0.6)
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    integ.setMaxDrudeDistance(0.02)
+    ctx = dt.Context(system, integ, precision=precision, device=device)
+    ctx.setPositions(pos)
+    ctx.setVelocitiesToTemperature(300.0, seed=1)
+    ctx._ensure_neighbors()
+    return ctx, integ
+
+
+def _fields(ctx):
+    st, nb = ctx._state, ctx._nb
+    box = torch.diagonal(st.box)
+    return (nb.fields(st.positions, box, st.neighbors), nb.cfg,
+            cellpair.offset_shifts(nb.cfg, box), nb.alpha, ONE_4PI_EPS0)
+
+
+def test_kernel_matches_plain_on_card(cuda):
+    ctx, _ = _ctx(cuda)
+    args = _fields(ctx)
+    f_k = sweep.pair_forces(*args)
+    torch.cuda.synchronize()
+    f_p = sweep.pair_forces_plain(*args)
+    scale = float(torch.max(torch.abs(f_p)))
+    assert float(torch.max(torch.abs(f_k - f_p))) <= 2e-5 * scale
+
+
+def test_kernel_refuses_float64(cuda):
+    ctx, _ = _ctx(cuda)
+    fields, cfg, shifts, alpha, scale = _fields(ctx)
+    f64 = {k: (v.double() if v.is_floating_point() else v)
+           for k, v in fields.items()}
+    with pytest.raises(ValueError):
+        sweep.pair_forces(f64, cfg, shifts.double(), alpha, scale)
+
+
+def test_context_steps_through_kernel(cuda):
+    ctx, integ = _ctx(cuda)
+    before = sweep.launches["b1_sweep"]
+    integ.step(20)
+    torch.cuda.synchronize()
+    assert sweep.launches["b1_sweep"] - before >= 20
+    st = ctx.getState(positions=True, energy=True)
+    assert np.all(np.isfinite(st.getPositions()))
+    assert np.isfinite(st.getPotentialEnergy())
