@@ -25,11 +25,29 @@ seconds):
      must hold, bath temperatures and the conserved energy must be
      finite and plausible; ms/step and ns/day, and the stream time of
      each part of the force pass beside the whole step
-  4. the `kernels` JSON line, then the result line.
+  4. kernel B2 (ops/sweep_chunked.py, csrc/sweep_chunked.cu) and the
+     large single-card path: B2 forced at 100k against B1 on the bench
+     fields; then the system of the JAX package's 1M-atom single-device
+     run (scripts/bench_1m_single.py: the same water, integrator and
+     wall, single precision, setVelocitiesToTemperature(300, seed=0)),
+     started from the bench snapshot tiled 2x2x2 (800,000 atoms, 30^3
+     cells) because a lattice start latches the drift check in both
+     packages; the gates route its sweep to B2.  64 settling steps; B2
+     on its fields against its plain version (<= 2e-5), the plain
+     version in f64 (the f32 floor) and B1 (<= 2e-5), two launches
+     bit-identical, B2, B1 and plain timed with their bound; 64 timed
+     steps with the launch counts reset just before and read just after
+     (B2 launched, B1 never); no latch, the wall held, everything
+     finite, the f32 force pass against f64 (the f32 floor); ms/step,
+     ns/day, bath temperatures and the breakdown (no temperature window:
+     fresh velocities are not equilibrated)
+  5. the seconds of each phase, the `kernels` JSON line, then the result
+     line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -38,6 +56,11 @@ import time
 
 T0 = time.time()
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the large single-card path: the bench snapshot tiled TILE^3 times
+# (800,000 atoms at TILE = 2), settling and timed steps
+TILE = 2
+N_SETTLE_BIG = 64
+N_TIMED_BIG = 64
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): float32 outside the
 # tensor cores, and HBM3 bandwidth
@@ -52,6 +75,16 @@ OPS_PER_PAIR = 50
 
 def log(msg):
     print(f"[chip_smoke {time.time() - T0:7.1f}s] {msg}", flush=True)
+
+
+_mark = [T0]
+
+
+def phase_mark():
+    """Seconds since the previous mark (the start for the first)."""
+    now = time.time()
+    dt_s, _mark[0] = now - _mark[0], now
+    return dt_s
 
 
 def fail(msg):
@@ -102,6 +135,24 @@ def pair_counts(fields, cfg, shifts):
     return n_tests, n_cut
 
 
+def sweep_bound(fields, cfg, shifts):
+    """(bound ms, "operations" or "bytes", pair tests, pairs inside the
+    cutoff, bytes) of the direct-space sweep on these fields: the larger
+    of its FP32 operations over the card's peak and the bytes it must
+    move (each field read once, the forces written once) over the
+    memory rate.  B1 and B2 compute the same function, so both are held
+    to this one bound."""
+    n_tests, n_cut = pair_counts(fields, cfg, shifts)
+    n_slots = cfg.n_cells * cfg.capacity
+    n_bytes = (n_slots * (8 * 4 + 3 * 4) + cfg.n_cells * 4
+               + cfg.n_cells * cfg.n_offsets * 4 + cfg.n_offsets * 16)
+    t_ops = (OPS_PER_TEST * n_tests + OPS_PER_PAIR * n_cut) \
+        / PEAK_FP32_FLOPS * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    return max(t_ops, t_bytes), bound_by, n_tests, n_cut, n_bytes
+
+
 def cutoff_flips(fa, fb, cfg, sha, shb):
     """Slots of atoms in a pair that two precisions put on opposite sides
     of the cutoff (r^2 rounds differently within ~1e-7 of cutoff^2; the
@@ -148,6 +199,318 @@ def f32_floor(got, ref, skip=None):
             float(torch.sqrt(torch.mean(d * d))) / scale)
 
 
+def check_after_steps(ctx, phase):
+    """Fail unless no latch is set, the hard wall held and positions,
+    energies and bath temperatures are finite; returns the bath
+    temperatures."""
+    import numpy as np
+    import torch
+    nbl = ctx._state.neighbors
+    latches = {"overflow": bool(nbl.overflow),
+               "drift": bool(nbl.drift_exceeded),
+               "excl_span": bool(nbl.excl_span_exceeded)
+               if nbl.excl_span_exceeded is not None else False,
+               "hardwall_runaway": ctx.hardwallRunaway}
+    if any(latches.values()):
+        fail(f"a latch is set: {latches}")
+    spec = ctx._spec
+    p = (ctx._state.positions.double() + ctx._state.pos_err.double())
+    drude = torch.nonzero(spec.is_pair & ~spec.is_parent)[:, 0]
+    dist = torch.linalg.norm(p[drude] - p[spec.partner[drude]], dim=1)
+    dmax = float(torch.max(dist))
+    state = ctx.getState(positions=True, energy=True, groups=True)
+    temps = state.getGroupTemperatures()
+    e_cons = ctx.getConservedEnergy()
+    pe = state.getPotentialEnergy()
+    log(f"{phase} latches clear; max core-Drude distance {dmax:.6f} nm; "
+        f"bath temperatures {np.round(temps, 3).tolist()} K; PE {pe:.1f}, "
+        f"conserved {e_cons:.1f} kJ/mol")
+    if dmax > 0.02 * 1.00001:
+        fail(f"hard wall broken: {dmax}")
+    if not np.all(np.isfinite(state.getPositions())):
+        fail("non-finite positions")
+    if not (np.all(np.isfinite(temps)) and np.isfinite(e_cons)
+            and np.isfinite(pe)):
+        fail("non-finite temperatures or energies")
+    return temps
+
+
+def breakdown(ctx, kernel, name, ms_step, card, phase, reps=5):
+    """Stream time of each part of the force pass at the current state,
+    against the whole step."""
+    import torch
+    from openmm_drudenose_tpu_torch.constraints.vsites import apply_vsites
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
+    box_diag = torch.diagonal(st.box)
+    pos_comp = apply_vsites(ctx._spec, ctx._static, st.positions)
+    fields = nb.fields(pos_comp, box_diag, st.neighbors)
+    parts = {
+        "sorted_fields": lambda: nb.fields(pos_comp, box_diag, st.neighbors),
+        name: lambda: kernel(
+            fields, cfg, cellpair.offset_shifts(cfg, box_diag), nb.alpha,
+            ONE_4PI_EPS0),
+        "pme_recip": lambda: nb.recip(pos_comp, box_diag),
+        "pair_terms": lambda: nb.extras(pos_comp, box_diag),
+        "force_pass": lambda: ctx._forces_only(st.positions, st.box,
+                                               st.neighbors, st.pos_err),
+        "cell_rebuild": lambda: ctx._neighbor_fn(st.positions, st.box),
+    }
+    times = {k: cuda_time_ms(fn, reps) for k, fn in parts.items()}
+    log(f"{phase} breakdown (ms of stream time): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times.items())
+        + f"; whole step {ms_step:.3f} on {card}")
+    return times
+
+
+def force_pass_floor(ctx, ctx64):
+    """The f32 context's force pass against the f64 context's at the same
+    state: (max, max over all atoms, rms, cutoff-flipped pairs, max|F|),
+    the max leaving out the atoms of pairs the two passes (each at its
+    own virtual-site positions) put on opposite sides of the cutoff, and
+    the parents of flipped virtual sites, whose forces land there."""
+    import torch
+    from openmm_drudenose_tpu_torch.constraints.vsites import apply_vsites
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    ctx._ensure_forces()
+    ctx64._ensure_forces()
+    f32_forces = ctx._state.forces
+    f64_forces = ctx64._state.forces
+    nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
+    box_diag = torch.diagonal(st.box)
+    shifts = cellpair.offset_shifts(cfg, box_diag)
+    # the f32 pass takes its distances from the compensated positions
+    fa = nb.fields(apply_vsites(ctx._spec, ctx._static, st.positions),
+                   box_diag, st.neighbors,
+                   ctx._exact_positions(st.positions, st.pos_err))
+    box64 = torch.diagonal(ctx64._state.box)
+    fb = nb.fields(apply_vsites(ctx64._spec, ctx64._static,
+                                ctx64._state.positions), box64, st.neighbors)
+    # each pass with its own box's offset shifts
+    slot_flips, n_flip = cutoff_flips(fa, fb, cfg, shifts,
+                                      cellpair.offset_shifts(cfg, box64))
+    n_atoms = st.positions.shape[0]
+    sa = st.neighbors.slot_atom
+    atom_flips = torch.zeros(n_atoms, dtype=torch.bool, device=sa.device)
+    atom_flips[sa[slot_flips & (sa < n_atoms)]] = True
+    sites = atom_flips[ctx._spec.vs_avg_idx]
+    atom_flips[ctx._spec.vs_avg_p[sites].reshape(-1)] = True
+    ferr_all, _ = f32_floor(f32_forces, f64_forces)
+    ferr, frms = f32_floor(f32_forces, f64_forces, atom_flips)
+    fs = float(torch.max(torch.abs(f64_forces)))
+    return ferr, ferr_all, frms, n_flip, fs
+
+
+def phase_big(card, bench_args, bench_system):
+    """4. kernel B2 and the large single-card path: B2 forced at 100k
+    against B1 on the bench fields; the bench snapshot tiled TILE^3
+    times (800,000 atoms, 30^3 cells, where the gates route the sweep to
+    B2), fresh 300 K velocities (seed 0), N_SETTLE_BIG settling steps;
+    B2 on its fields against its plain version, the plain version in f64
+    and B1, launched twice for bit-identical forces, timed beside B1 and
+    plain; N_TIMED_BIG steps with the launch counts reset just before and
+    read just after (B2 launched, B1 never); latches, wall, finiteness,
+    the f32 force pass against f64, the breakdown.  Returns B2's kernel
+    entry."""
+    import numpy as np
+    import torch
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.io import builders
+    from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0, ns_per_day
+
+    f2 = sweep_chunked.pair_forces(*bench_args)
+    f1 = sweep.pair_forces(*bench_args)
+    torch.cuda.synchronize()
+    scale = float(torch.max(torch.abs(f1)))
+    err = float(torch.max(torch.abs(f2 - f1))) / scale
+    ms100 = cuda_time_ms(lambda: sweep_chunked.pair_forces(*bench_args), 20)
+    plan = sweep_chunked.plan_for(bench_args[1])
+    log(f"4 B2 forced at 100k vs B1: max|dF|/max|F| = {err:.3e}; B2 "
+        f"{ms100:.4f} ms (brick {plan.brick}, {plan.total_chunks} "
+        f"chunks) on {card}")
+    if not err <= 2e-5:
+        fail(f"B2 disagrees with B1 at 100k: {err:.3e}")
+    del f1, f2
+
+    # a lattice start latches the drift check within 64 steps in both
+    # packages (violently unequilibrated), so the path starts from the
+    # equilibrated 100k snapshot tiled TILE x TILE x TILE
+    t = time.time()
+    snap = np.load(os.path.join(HERE, "data", "bench_equil_100k.npz"))
+    n0 = int(snap["n_atoms"])
+    box0 = np.diagonal(np.array(bench_system.getDefaultPeriodicBoxVectors(),
+                                np.float64))
+    shifts3 = np.array([[i, j, k] for i in range(TILE) for j in range(TILE)
+                        for k in range(TILE)], np.float64) * box0
+    pos = (np.asarray(snap["positions"], np.float64)[None]
+           + shifts3[:, None, :]).reshape(-1, 3)
+    system, _ = builders.build_water_box(TILE ** 3 * n0 // 5)
+    # a box float32 holds exactly: the f32 and f64 contexts then simulate
+    # the same box, and the f32-vs-f64 check compares arithmetic only
+    box = (TILE * box0).astype(np.float32).astype(np.float64)
+    system.setDefaultPeriodicBoxVectors((box[0], 0, 0), (0, box[1], 0),
+                                        (0, 0, box[2]))
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    integ.setMaxDrudeDistance(0.02)
+    ctx = dt.Context(system, integ, precision="single", device="cuda")
+    cap0 = ctx._cp_cfg.capacity
+    ctx.setPositions(pos)
+    ctx.setVelocitiesToTemperature(300.0, seed=0)
+    ctx._ensure_neighbors()
+    nb, cfg = ctx._nb, ctx._cp_cfg
+    n_atoms = pos.shape[0]
+    tag = f"{n_atoms // 1000}k"
+    plan = sweep_chunked.plan_for(cfg)
+    log(f"4 context in {time.time() - t:.1f} s: {n_atoms} atoms, the 100k "
+        f"snapshot tiled {TILE}x{TILE}x{TILE}, cell grid {cfg.grid}, "
+        f"capacity {cap0} (auto) -> {cfg.capacity}, {cfg.n_offsets} "
+        f"offsets, PME grid {nb.pme.grid}; route {nb.sweep_kernel} (JAX "
+        f"chunk height {nb.pallas_chunk}); B2 brick {plan.brick}, frame "
+        f"{plan.frame}, {plan.total_chunks} chunks, frame buffer "
+        f"{plan.frame_floats(cfg.capacity) * 4} bytes "
+        f"({plan.frame_floats(cfg.capacity)} floats, int32 max "
+        f"{2 ** 31 - 1})")
+    if nb.sweep_kernel != "b2":
+        fail(f"the {tag} config routes to {nb.sweep_kernel}, not B2")
+    # the frame buffer of the JAX package's 1M-atom configuration (33^3
+    # cells, auto capacity 40, 48 once grown) must index in int32 too
+    for C in (40, 48):
+        c1m = dataclasses.replace(cfg, grid=(33, 33, 33), capacity=C)
+        p1m = sweep_chunked.plan_for(c1m)
+        log(f"4 at 1M atoms (33^3 cells, C = {C}): brick {p1m.brick}, "
+            f"{p1m.total_chunks} chunks, frame buffer "
+            f"{p1m.frame_floats(C) * 4} bytes ({p1m.frame_floats(C)} "
+            f"floats)")
+        if p1m.frame_floats(C) > sweep_chunked.INT32_MAX:
+            fail("the 1M frame buffer overflows int32 indices")
+    t = time.time()
+    integ.step(N_SETTLE_BIG)
+    torch.cuda.synchronize()
+    log(f"4 {N_SETTLE_BIG} settling steps in {time.time() - t:.2f} s; "
+        f"capacity {ctx._cp_cfg.capacity}")
+    # a window in which a cell overflowed reruns its steps at a grown
+    # capacity (two launches a step): time such a window again
+    for _ in range(2):
+        cap_before = ctx._cp_cfg.capacity
+        for k in sweep.launches:
+            sweep.launches[k] = 0
+        torch.cuda.synchronize()
+        t = time.time()
+        integ.step(N_TIMED_BIG)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches = dict(sweep.launches)
+        ms_step = wall / N_TIMED_BIG * 1e3
+        nsd = ns_per_day(N_TIMED_BIG / wall, integ.getStepSize())
+        log(f"4 {N_TIMED_BIG} steps at {tag} in {wall:.2f} s: {ms_step:.2f} "
+            f"ms/step, {nsd:.4f} ns/day on {card}; launches {launches}; "
+            f"capacity {cap_before} -> {ctx._cp_cfg.capacity}")
+        if launches["b2_sweep"] < 1:
+            fail("the large path never launched kernel B2")
+        if launches["b1_sweep"] != 0:
+            fail("the large path launched kernel B1")
+        if ctx._cp_cfg.capacity == cap_before:
+            break
+    else:
+        fail("the capacity grew in two timed windows running")
+    # the kernels at the state and shapes the counted window ended with
+    # (a grown capacity is a new config)
+    nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
+    if nb.sweep_kernel != "b2":
+        fail(f"the {tag} config routes to {nb.sweep_kernel}, not B2")
+    box_diag = torch.diagonal(st.box)
+    fields = nb.fields(st.positions, box_diag, st.neighbors)
+    shifts = cellpair.offset_shifts(cfg, box_diag)
+    args = (fields, cfg, shifts, nb.alpha, ONE_4PI_EPS0)
+    f_k = sweep_chunked.pair_forces(*args)
+    f_k2 = sweep_chunked.pair_forces(*args)
+    f_b1 = sweep.pair_forces(*args)
+    torch.cuda.synchronize()
+    identical = torch.equal(f_k, f_k2)
+    f_p = sweep_chunked.pair_forces_plain(*args)
+    scale = float(torch.max(torch.abs(f_p)))
+    max_abs_err = float(torch.max(torch.abs(f_k - f_p)))
+    err_plain = max_abs_err / scale
+    err_b1 = float(torch.max(torch.abs(f_k - f_b1))) / scale
+    del f_k2, f_b1, f_p
+    f64 = {k: (v.double() if v.is_floating_point() else v)
+           for k, v in fields.items()}
+    f_p64 = sweep_chunked.pair_forces_plain(f64, cfg, shifts.double(),
+                                            nb.alpha, ONE_4PI_EPS0)
+    flips, n_flip = cutoff_flips(fields, f64, cfg, shifts, shifts.double())
+    err64_all, _ = f32_floor(f_k, f_p64)
+    err64, rms64 = f32_floor(f_k, f_p64, flips)
+    del f64, f_p64, f_k
+    torch.cuda.empty_cache()
+    log(f"4 B2 at {tag} (capacity {cfg.capacity}) vs plain f32: "
+        f"max|dF|/max|F| = {err_plain:.3e} (max|F| {scale:.1f}); vs plain "
+        f"f64: max {err64:.3e} ({err64_all:.3e} with the "
+        f"{int(flips.sum())} atoms of {n_flip} cutoff-flipped pairs), rms {rms64:.3e}; vs B1 {err_b1:.3e}; two "
+        f"launches bit-identical: {identical}")
+    if not (np.isfinite(err_plain) and err_plain <= 2e-5):
+        fail(f"B2 disagrees with its plain version: {err_plain:.3e}")
+    if not (err64 <= 1e-4 and rms64 <= 5e-6):
+        fail(f"B2 misses the f32 floor against f64: max {err64:.3e}, "
+             f"rms {rms64:.3e}")
+    if not err_b1 <= 2e-5:
+        fail(f"B2 disagrees with B1 at {tag}: {err_b1:.3e}")
+    if not identical:
+        fail("two B2 launches on the same fields gave different forces")
+    ms = cuda_time_ms(lambda: sweep_chunked.pair_forces(*args), 10)
+    ms_b1 = cuda_time_ms(lambda: sweep.pair_forces(*args), 10)
+    plain_ms = cuda_time_ms(lambda: sweep_chunked.pair_forces_plain(*args),
+                            2)
+    bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(fields, cfg,
+                                                              shifts)
+    # the brick choice (sweep_chunked.choose_brick) against its rivals
+    by_brick = {b: cuda_time_ms(
+        lambda b=b: sweep_chunked.pair_forces(*args, brick=b), 10)
+        for b in ((2, 2, 2), (2, 2, 4))}
+    log(f"4 B2 by brick at C = {cfg.capacity}: " + ", ".join(
+        f"{b} {t:.4f} ms" for b, t in by_brick.items())
+        + f"; chosen {sweep_chunked.plan_for(cfg).brick} on {card}")
+    del args, fields
+    log(f"4 at {tag}: B2 {ms:.4f} ms, B1 {ms_b1:.4f} ms, plain {plain_ms:.3f} "
+        f"ms, bound {bound_ms:.4f} ms ({bound_by}: {n_tests} pair tests, "
+        f"{n_cut} inside the cutoff, {n_bytes} bytes) on {card}")
+
+    check_after_steps(ctx, "4")
+
+    st = ctx._state
+    integ64 = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    integ64.setMaxDrudeDistance(0.02)
+    ctx64 = dt.Context(system, integ64, precision="double",
+                       nb_options={"capacity": ctx._cp_cfg.capacity},
+                       device="cuda")
+    ctx64.setPositions((st.positions.double() + st.pos_err.double())
+                       .cpu().numpy())
+    ferr, ferr_all, frms, n_flip, fs = force_pass_floor(ctx, ctx64)
+    del ctx64
+    torch.cuda.empty_cache()
+    log(f"4 force pass f32 vs f64 at {tag}: max {ferr:.3e} ({ferr_all:.3e} "
+        f"with the atoms of {n_flip} cutoff-flipped pairs), rms "
+        f"{frms:.3e} (max|F| {fs:.1f})")
+    if not (ferr <= 1e-4 and frms <= 5e-6):
+        fail(f"the f32 force pass at {tag} misses the f32 floor against "
+             "f64")
+    breakdown(ctx, sweep_chunked.pair_forces, "b2_sweep", ms_step, card,
+              "4", reps=3)
+    log(f"4 peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    return {
+        "name": "b2_sweep", "route": "cuda",
+        "source": "openmm_drudenose_tpu_torch/csrc/sweep_chunked.cu",
+        "replaces": "openmm_drudenose_tpu/ops/pallas_sweep.py:851",
+        "launches": launches["b2_sweep"],
+        "launches_per_step": launches["b2_sweep"] / N_TIMED_BIG,
+        "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
 def main():
     # ---- 0. device --------------------------------------------------------
     import torch
@@ -166,11 +529,11 @@ def main():
         f"{torch.version.cuda}, python {sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_seconds = {"0 device": phase_mark()}
 
     import numpy as np
     sys.path.insert(0, HERE)
     import openmm_drudenose_tpu_torch as dt
-    from openmm_drudenose_tpu_torch.constraints.vsites import apply_vsites
     from openmm_drudenose_tpu_torch.forces import cellpair
     from openmm_drudenose_tpu_torch.io import builders
     from openmm_drudenose_tpu_torch.ops import sweep
@@ -183,10 +546,12 @@ def main():
     sweep.build()
     build_s = time.time() - t
     ptxas = [ln.strip() for ln in sweep.build_log.splitlines()
-             if "registers" in ln or "smem" in ln or "spill" in ln]
-    log(f"1 build: B1 built by nvcc in {build_s:.1f} s")
+             if "registers" in ln or "smem" in ln or "spill" in ln
+             or ln.startswith("==")]
+    log(f"1 build: B1 and B2 built by nvcc in {build_s:.1f} s")
     for ln in ptxas:
         log(f"  {ln}")
+    phase_seconds["1 build"] = phase_mark()
 
     # ---- 2. kernel parity at full size -----------------------------------
     snap = np.load(os.path.join(HERE, "data", "bench_equil_100k.npz"))
@@ -240,43 +605,17 @@ def main():
     del f64, f_p64
     ms = cuda_time_ms(lambda: sweep.pair_forces(*args), 20)
     plain_ms = cuda_time_ms(lambda: sweep.pair_forces_plain(*args), 3)
-    n_tests, n_cut = pair_counts(fields, cfg, shifts)
-    n_slots = cfg.n_cells * cfg.capacity
-    n_bytes = (n_slots * (8 * 4 + 3 * 4) + cfg.n_cells * 4
-               + cfg.n_cells * cfg.n_offsets * 4 + cfg.n_offsets * 16)
-    t_ops = (OPS_PER_TEST * n_tests + OPS_PER_PAIR * n_cut) \
-        / PEAK_FP32_FLOPS * 1e3
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(fields, cfg,
+                                                              shifts)
     log(f"2 B1 {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}: {n_tests} pair tests, {n_cut} inside the cutoff, "
         f"{n_bytes} bytes) on {card}")
+    phase_seconds["2 B1 at 100k"] = phase_mark()
 
     # ---- 3. the slice --------------------------------------------------------
-    ctx._ensure_forces()
-    f32_forces = ctx._state.forces
     ctx64, _ = make_ctx("double")
-    ctx64._ensure_forces()
-    f64_forces = ctx64._state.forces
-    # cutoff flips between the two passes (each at its own virtual-site
-    # positions), on the f32 context's slots
-    fa = nb.fields(apply_vsites(ctx._spec, ctx._static, st.positions),
-                   box_diag, st.neighbors)
-    fb = nb.fields(apply_vsites(ctx64._spec, ctx64._static,
-                                ctx64._state.positions),
-                   torch.diagonal(ctx64._state.box), st.neighbors)
-    slot_flips, n_flip = cutoff_flips(fa, fb, cfg, shifts, shifts.double())
-    sa = st.neighbors.slot_atom
-    atom_flips = torch.zeros(n_atoms, dtype=torch.bool, device=sa.device)
-    atom_flips[sa[slot_flips & (sa < n_atoms)]] = True
-    # a flipped virtual site's force lands on its parents
-    sites = atom_flips[ctx._spec.vs_avg_idx]
-    atom_flips[ctx._spec.vs_avg_p[sites].reshape(-1)] = True
-    ferr_all, _ = f32_floor(f32_forces, f64_forces)
-    ferr, frms = f32_floor(f32_forces, f64_forces, atom_flips)
-    fs = float(torch.max(torch.abs(f64_forces)))
-    del ctx64, f64_forces, fa, fb
+    ferr, ferr_all, frms, n_flip, fs = force_pass_floor(ctx, ctx64)
+    del ctx64
     torch.cuda.empty_cache()
     log(f"3 force pass f32 vs f64: max {ferr:.3e} ({ferr_all:.3e} with "
         f"the atoms of {n_flip} cutoff-flipped pairs), rms {frms:.3e} "
@@ -299,60 +638,28 @@ def main():
         f"{nsd:.3f} ns/day on {card}; launches {launches}")
     if launches["b1_sweep"] < 1:
         fail("the main path never launched kernel B1")
-    nbl = ctx._state.neighbors
-    latches = {"overflow": bool(nbl.overflow),
-               "drift": bool(nbl.drift_exceeded),
-               "excl_span": bool(nbl.excl_span_exceeded)
-               if nbl.excl_span_exceeded is not None else False,
-               "hardwall_runaway": ctx.hardwallRunaway}
-    if any(latches.values()):
-        fail(f"a latch is set: {latches}")
-    spec = ctx._spec
-    p = (ctx._state.positions.double() + ctx._state.pos_err.double())
-    drude = torch.nonzero(spec.is_pair & ~spec.is_parent)[:, 0]
-    dist = torch.linalg.norm(p[drude] - p[spec.partner[drude]], dim=1)
-    dmax = float(torch.max(dist))
-    state = ctx.getState(positions=True, energy=True, groups=True)
-    temps = state.getGroupTemperatures()
-    e_cons = ctx.getConservedEnergy()
-    pe = state.getPotentialEnergy()
-    log(f"3 latches clear; max core-Drude distance {dmax:.6f} nm; bath "
-        f"temperatures {np.round(temps, 3).tolist()} K; PE {pe:.1f}, "
-        f"conserved {e_cons:.1f} kJ/mol")
-    if dmax > 0.02 * 1.00001:
-        fail(f"hard wall broken: {dmax}")
-    if not np.all(np.isfinite(state.getPositions())):
-        fail("non-finite positions")
-    if not (np.all(np.isfinite(temps)) and np.isfinite(e_cons)
-            and np.isfinite(pe)):
-        fail("non-finite temperatures or energies")
+    temps = check_after_steps(ctx, "3")
     if not (250.0 < temps[0] < 350.0 and 150.0 < temps[1] < 450.0
             and 0.0 < temps[2] < 10.0):
         fail(f"implausible bath temperatures {temps}")
 
-    # where one step's time goes: stream time of each part of the force
-    # pass at the current state, against the whole step
-    st = ctx._state
-    box_diag = torch.diagonal(st.box)
-    pos_comp = apply_vsites(ctx._spec, ctx._static, st.positions)
-    fields = nb.fields(pos_comp, box_diag, st.neighbors)
-    parts = {
-        "sorted_fields": lambda: nb.fields(pos_comp, box_diag, st.neighbors),
-        "b1_sweep": lambda: sweep.pair_forces(
-            fields, cfg, cellpair.offset_shifts(cfg, box_diag), nb.alpha,
-            ONE_4PI_EPS0),
-        "pme_recip": lambda: nb.recip(pos_comp, box_diag),
-        "pair_terms": lambda: nb.extras(pos_comp, box_diag),
-        "force_pass": lambda: ctx._forces_only(st.positions, st.box,
-                                               st.neighbors, st.pos_err),
-        "cell_rebuild": lambda: ctx._neighbor_fn(st.positions, st.box),
-    }
-    times = {k: cuda_time_ms(fn, 5) for k, fn in parts.items()}
-    log("3 breakdown (ms of stream time): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in times.items())
-        + f"; whole step {ms_step:.3f} on {card}")
+    breakdown(ctx, sweep.pair_forces, "b1_sweep", ms_step, card, "3")
+    bench_args = (nb.fields(ctx._state.positions,
+                            torch.diagonal(ctx._state.box),
+                            ctx._state.neighbors), cfg,
+                  cellpair.offset_shifts(cfg, torch.diagonal(ctx._state.box)),
+                  nb.alpha, ONE_4PI_EPS0)
+    phase_seconds["3 the 100k slice"] = phase_mark()
+    del ctx, integ
+    torch.cuda.empty_cache()
 
-    # ---- 4. kernel summary --------------------------------------------------
+    # ---- 4. B2 and the large path ------------------------------------------
+    b2_entry = phase_big(card, bench_args, system)
+    phase_seconds["4 B2 and the large path"] = phase_mark()
+
+    # ---- 5. kernel summary --------------------------------------------------
+    log("seconds per phase: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_seconds.items()))
     kernels = [{
         "name": "b1_sweep", "route": "cuda",
         "source": "openmm_drudenose_tpu_torch/csrc/sweep.cu",
@@ -361,7 +668,7 @@ def main():
         "launches_per_step": launches["b1_sweep"] / n_steps,
         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-    }]
+    }, b2_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

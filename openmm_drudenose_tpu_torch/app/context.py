@@ -3,8 +3,8 @@
 OpenMM-shaped semantics (setPositions, setVelocities,
 setVelocitiesToTemperature, getState, step) as in the JAX package's
 app/context.py.  The in-step force pass (`_forces_only`, the JAX
-forces_only :248) adds the direct-space sweep forces (kernel B1 in
-float32), the analytic PME reciprocal forces, the exception/correction
+forces_only :248) adds the direct-space sweep forces (kernel B1 or B2
+in float32), the analytic PME reciprocal forces, the exception/correction
 terms and the Drude forces at the virtual-site-composed positions, then
 moves site forces onto their parents.  `step` (:564 there) alternates a
 cell-sort rebuild with a block of `rebuild_interval` fused steps and reads
@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from .. import precision as precision_mod
-from ..constraints.vsites import apply_vsites, spread_vsite_forces
+from ..constraints.vsites import (apply_vsites, apply_vsites_relative,
+                                  spread_vsite_forces)
 from ..core import spec as spec_mod
 from ..core.state import zeros_state
 from ..integrators import tgnh
@@ -91,7 +92,9 @@ class Context:
     def __init__(self, system, integrator, precision="single",
                  nb_options: dict | None = None, device=None):
         """nb_options: {"capacity": C} pins the cell capacity (the bench
-        pins the one its snapshot was measured with)."""
+        pins the one its snapshot was measured with); {"use_pallas": 3}
+        sends the float32 sweep to the chunked kernel B2 whatever the
+        gates say (the JAX option of that name)."""
         # full-float32 products wherever a matmul could reach r^2 or
         # forces (TF32 keeps ~3 decimal digits)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -145,6 +148,19 @@ class Context:
             self._state = self._state.replace(neighbors=None)
             self._forces_valid = False
 
+    def _exact_positions(self, positions, pos_err):
+        """Float64 positions with the virtual sites, at positions + pos_err:
+        the positions the integrator carries, before rounding to float32
+        (None without pos_err).  The nonbonded terms take their distances
+        from them: an SWM4-NDP core and its Drude carry +-1.7 e about
+        0.01 nm apart, and the independent float32 rounding of the two
+        (~1e-6 nm at 16 nm from the origin) shows in the field of that
+        dipole at ~1e-4 of max|F|."""
+        if pos_err is None:
+            return None
+        return apply_vsites_relative(self._spec, self._static,
+                                     positions.double() + pos_err.double())
+
     def _forces_only(self, positions, box, neighbors, pos_err):
         """Total force on the particles (no energy)."""
         spec, static = self._spec, self._static
@@ -153,9 +169,10 @@ class Context:
         f = torch.zeros_like(pos)
         nb = self._nb
         if nb is not None:
-            f = nb.sweep_forces(pos, box_diag, neighbors)
-            f = f + nb.recip(pos, box_diag)[1]
-            f = f + nb.extras(pos, box_diag)[1]
+            exact = self._exact_positions(positions, pos_err)
+            f = nb.sweep_forces(pos, box_diag, neighbors, exact)
+            f = f + nb.recip(pos, box_diag, exact)[1]
+            f = f + nb.extras(pos, box_diag, exact)[1]
         for term in self._terms:
             f = f + term.energy_forces(pos, box_diag, pos_err=pos_err)[1]
         return spread_vsite_forces(spec, static, f)
@@ -167,9 +184,10 @@ class Context:
         e = torch.zeros((), dtype=pos.dtype, device=pos.device)
         nb = self._nb
         if nb is not None:
-            e = e + nb.sweep_energy(pos, box_diag, neighbors)
-            e = e + nb.recip_energy(pos, box_diag)
-            e = e + nb.extras(pos, box_diag)[0]
+            exact = self._exact_positions(positions, pos_err)
+            e = e + nb.sweep_energy(pos, box_diag, neighbors, exact)
+            e = e + nb.recip_energy(pos, box_diag, exact)
+            e = e + nb.extras(pos, box_diag, exact)[0]
         for term in self._terms:
             e = e + term.energy_forces(pos, box_diag, pos_err=pos_err)[0]
         return e

@@ -18,6 +18,22 @@ def apply_vsites(spec, static, positions):
     return out
 
 
+def apply_vsites_relative(spec, static, positions):
+    """apply_vsites in the form p0 + w1 (p1 - p0) + w2 (p2 - p0), for
+    float64 positions with the spec's float32 weights: their rounding
+    then moves a site by ~1e-8 of its offset from its first parent, not
+    by ~1e-7 of its distance from the origin."""
+    if not static.n_vsites_avg:
+        return positions
+    p = positions[spec.vs_avg_p]                      # (Va, 3, 3)
+    w = spec.vs_avg_w.to(positions.dtype)
+    site = p[:, 0] + torch.sum(w[:, 1:, None] * (p[:, 1:] - p[:, :1]),
+                               dim=1)
+    out = positions.clone()
+    out[spec.vs_avg_idx] = site
+    return out
+
+
 def spread_vsite_forces(spec, static, forces):
     """Site forces onto parents with the site weights; site rows -> 0."""
     if not static.n_vsites_avg:

@@ -10,8 +10,9 @@ Exclusions are a bitmask over atom-index differences within a window W.
 
 The same plan and physics as the JAX package's forces/cellpair.py
 (make_config :148, build_cellsort :432, _sorted_arrays :880,
-_sweep_regular :667), for orthorhombic boxes.  `sweep` is the plain
-energy+force sum; ops/sweep.py holds the hand-written force-only kernel.
+_sweep_regular :667), for orthorhombic boxes.  `pair_tiles` is the plain
+pair sum and `sweep` the energy+force sum over it; ops/sweep.py and
+ops/sweep_chunked.py hold the hand-written force-only kernels.
 """
 
 from __future__ import annotations
@@ -198,7 +199,7 @@ def build_cellsort(positions, box_diag, cfg: CellPairConfig,
 
 
 def sorted_fields(params, positions, box_diag, cellsort: CellSort,
-                  cfg: CellPairConfig) -> dict:
+                  cfg: CellPairConfig, exact=None) -> dict:
     """Per-slot fields in cell-major order, each (n_cells * C,): cell-local
     coordinates x/y/z (box-frame position minus cell centre), charge q,
     sigma `sig`, sqrt(epsilon) `seps`, atom index `gid` (negative and
@@ -209,7 +210,9 @@ def sorted_fields(params, positions, box_diag, cellsort: CellSort,
     The local coordinates are formed in float64 and rounded once: float32
     absolute coordinates carry ~5e-7 nm of rounding in an 8 nm box, which
     a float32 subtraction of rounded cell centres would pass on to every
-    pair distance."""
+    pair distance.  `exact` (float64 positions, the float32 ones plus the
+    integrator's compensation) replaces positions there, so the sweep
+    sees the positions the integrator carries, not their rounding."""
     n = positions.shape[0]
     sa = cellsort.slot_atom
     pad = sa >= n
@@ -217,7 +220,8 @@ def sorted_fields(params, positions, box_diag, cellsort: CellSort,
     dtype = positions.dtype
     dev = positions.device
     box64 = box_diag.double()
-    pos = positions.double() - cellsort.image.double() * box64
+    pos = (positions.double() if exact is None else exact) \
+        - cellsort.image.double() * box64
     h = box64 / torch.as_tensor(cfg.grid, dtype=torch.float64, device=dev)
     cell = torch.arange(cfg.n_cells, device=dev)
     c3 = torch.stack([cell // (cfg.grid[1] * cfg.grid[2]),
@@ -289,15 +293,21 @@ def ewald_pair_eg(alpha: float, erfc_fn):
 TILE_ELEMS = 1 << 19
 
 
-def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
-          coulomb_scale: float, with_energy: bool = True,
-          excl_skip: bool = False, erfc_fn=None):
-    """Plain direct-space sum over the half stencil, chunked over offsets.
+def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
+               coulomb_scale: float, with_energy: bool = True,
+               excl_skip: bool = False, erfc_fn=None):
+    """The half-stencil pair sum, one chunk of offsets at a time.
 
-    Returns (energy, slot forces (n_cells * C, 3)).  excl_skip drops the
-    exclusion test at offsets with any |o| >= 2, as the kernel does (sound
-    while the cell sort's excl-span latch stays clear).  erfc_fn defaults
-    to the exact erfc; the kernel's plain twin passes erfc_approx."""
+    Yields (ob, b, g2, d, e) per chunk: the offset indices `ob` (the self
+    offset alone first), the neighbour cell of every cell at each of them
+    `b` (nc, P), the pair factor g2 = -2 dE/dr^2 with excluded and
+    out-of-range pairs zeroed (nc, C, P*C), the displacements d = a - b
+    per component and the chunk's energy (None without with_energy).  A
+    pair's force on the home slot is g2 * d, its reaction on the
+    neighbour slot -g2 * d.  excl_skip drops the exclusion test at offsets
+    with any |o| >= 2, as the kernels do (sound while the cell sort's
+    excl-span latch stays clear).  erfc_fn defaults to the exact erfc;
+    the kernels' plain versions pass erfc_approx."""
     nc, C = cfg.n_cells, cfg.capacity
     x, y, z = (fields[k].reshape(nc, C) for k in "xyz")
     dtype = x.dtype
@@ -313,9 +323,6 @@ def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
     nbr = torch.as_tensor(cfg.nbr_map, device=dev)
     qa = coulomb_scale * q
     far = np.max(np.abs(cfg.offsets), axis=1) >= 2
-    fx, fy, fz = (torch.zeros((nc, C), dtype=dtype, device=dev)
-                  for _ in range(3))
-    energy = torch.zeros((), dtype=dtype, device=dev)
 
     P_max = max(1, TILE_ELEMS // (nc * C * C))
     chunks = [[0]]
@@ -357,15 +364,37 @@ def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
         e, g = pair_eg(qq, sg, ep, r2s, inv_r, inv_r2)
         zero = torch.zeros((), dtype=dtype, device=dev)
         g2 = torch.where(keep, -2.0 * g, zero)
+        e_chunk = None
         if with_energy:
             factor = 0.5 if self_block else 1.0
-            energy = energy + factor * torch.sum(torch.where(keep, e, zero))
+            e_chunk = factor * torch.sum(torch.where(keep, e, zero))
+        yield ob, b, g2, d, e_chunk
+
+
+def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
+          coulomb_scale: float, with_energy: bool = True,
+          excl_skip: bool = False, erfc_fn=None):
+    """Plain direct-space sum over the half stencil (pair_tiles), each
+    reaction added straight onto its neighbour slot.
+
+    Returns (energy, slot forces (n_cells * C, 3))."""
+    nc, C = cfg.n_cells, cfg.capacity
+    dtype, dev = fields["x"].dtype, fields["x"].device
+    fx, fy, fz = (torch.zeros((nc, C), dtype=dtype, device=dev)
+                  for _ in range(3))
+    energy = torch.zeros((), dtype=dtype, device=dev)
+    for ob, b, g2, d, e in pair_tiles(fields, cfg, shifts, alpha,
+                                      coulomb_scale, with_energy,
+                                      excl_skip, erfc_fn):
+        if e is not None:
+            energy = energy + e
         fa = [torch.sum(g2 * dc, dim=2) for dc in d]
         fx, fy, fz = fx + fa[0], fy + fa[1], fz + fa[2]
-        if not self_block:
+        if ob != [0]:
             for comp, fc in enumerate((fx, fy, fz)):
-                react = -torch.sum(g2 * d[comp], dim=1).reshape(nc, P, C)
-                for p in range(P):
+                react = -torch.sum(g2 * d[comp], dim=1).reshape(
+                    nc, len(ob), C)
+                for p in range(len(ob)):
                     fc.index_add_(0, b[:, p], react[:, p])
     f_slots = torch.stack([fx.reshape(-1), fy.reshape(-1), fz.reshape(-1)],
                           dim=1)

@@ -6,8 +6,10 @@ configuration runs: Ewald/PME with the cell-pair strategy.  The compiled
 term splits the work as the JAX force-only step does
 (forces/nonbonded.py:823-898 there):
 
-  sweep_forces : direct-space forces; the hand-written kernel B1
-                 (ops/sweep.py) in float32, the plain sweep otherwise
+  sweep_forces : direct-space forces; in float32 a hand-written kernel,
+                 B1 (ops/sweep.py) or the chunked B2
+                 (ops/sweep_chunked.py) as the JAX gates route the config
+                 (ops/sweep.py::route), the plain sweep otherwise
   recip        : PME reciprocal energy and analytic forces (forces/pme.py)
   extras       : exceptions, reciprocal exclusion corrections, the Ewald
                  self term and the dispersion tail (forces/pairterms.py)
@@ -24,6 +26,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..ops import sweep, sweep_chunked
 from ..units import ONE_4PI_EPS0
 from . import cellpair, pairterms, pme as pme_mod
 
@@ -221,9 +224,14 @@ class NonbondedTerm:
                 exc_i, exc_j, pairterms.ewald_correction_eg(
                     t(ONE_4PI_EPS0 * charge[exc_i] * charge[exc_j]),
                     self.alpha), device)
-        # the kernel (float32) skips the exclusion test at far stencil
-        # offsets; every rebuild then latches whether that stays sound
+        # the kernels (float32) skip the exclusion test at far stencil
+        # offsets; every rebuild then latches whether that stays sound.
+        # Which kernel, and the JAX gate's chunk height, are recorded as
+        # the JAX force records uses_pallas / pallas_chunk
         self.use_kernel = dtype == torch.float32
+        self.sweep_kernel, self.pallas_chunk = (
+            sweep.route(self.cfg, opts.get("use_pallas"))
+            if self.use_kernel else (None, None))
         self.excl_skip = self.use_kernel and bool(
             opts.get("excl_skip", True))
         self.excl_ij = ((torch.as_tensor(exc_i, device=device),
@@ -234,48 +242,48 @@ class NonbondedTerm:
         return cellpair.build_cellsort(positions, box_diag, self.cfg,
                                        excl_ij=self.excl_ij)
 
-    def fields(self, positions, box_diag, cellsort):
+    def fields(self, positions, box_diag, cellsort, exact=None):
         return cellpair.sorted_fields(self.params, positions, box_diag,
-                                      cellsort, self.cfg)
+                                      cellsort, self.cfg, exact)
 
-    def sweep_forces(self, positions, box_diag, cellsort):
+    def sweep_forces(self, positions, box_diag, cellsort, exact=None):
         """Direct-space forces (N, 3), atom order."""
-        fields = self.fields(positions, box_diag, cellsort)
+        fields = self.fields(positions, box_diag, cellsort, exact)
         shifts = cellpair.offset_shifts(self.cfg, box_diag)
         if self.use_kernel:
-            from ..ops import sweep
-            f = sweep.pair_forces(fields, self.cfg, shifts, self.alpha,
-                                  ONE_4PI_EPS0, excl_skip=self.excl_skip)
+            kernel = (sweep_chunked if self.sweep_kernel == "b2" else sweep)
+            f = kernel.pair_forces(fields, self.cfg, shifts, self.alpha,
+                                   ONE_4PI_EPS0, excl_skip=self.excl_skip)
         else:
             _, f = cellpair.sweep(fields, self.cfg, shifts, self.alpha,
                                   ONE_4PI_EPS0, with_energy=False)
         return f[cellsort.inv_slot]
 
-    def sweep_energy(self, positions, box_diag, cellsort):
+    def sweep_energy(self, positions, box_diag, cellsort, exact=None):
         """Direct-space energy (the plain sweep, exact erfc)."""
-        fields = self.fields(positions, box_diag, cellsort)
+        fields = self.fields(positions, box_diag, cellsort, exact)
         shifts = cellpair.offset_shifts(self.cfg, box_diag)
         e, _ = cellpair.sweep(fields, self.cfg, shifts, self.alpha,
                               ONE_4PI_EPS0, with_energy=True)
         return e
 
-    def recip(self, positions, box_diag):
+    def recip(self, positions, box_diag, exact=None):
         """(energy, forces) of the PME reciprocal sum."""
         return pme_mod.recip_energy_forces(self.pme, self.params["charge"],
-                                           positions, box_diag)
+                                           positions, box_diag, exact)
 
-    def recip_energy(self, positions, box_diag):
+    def recip_energy(self, positions, box_diag, exact=None):
         return pme_mod.reciprocal_energy(self.pme, self.params["charge"],
-                                         positions, box_diag)
+                                         positions, box_diag, exact)
 
-    def extras(self, positions, box_diag):
+    def extras(self, positions, box_diag, exact=None):
         """(energy, forces): exceptions, exclusion corrections, self term,
         dispersion tail."""
         e = positions.new_zeros(()) + self.pme_self
         f = torch.zeros_like(positions)
         for term in (self.exc_term, self.corr_term):
             if term is not None:
-                et, ft = term(positions, box_diag)
+                et, ft = term(positions, box_diag, exact)
                 e = e + et
                 f = f + ft
         if self.disp is not None:

@@ -5,7 +5,8 @@ are O(n_pairs) terms over index lists fixed at compile time.  Each pair
 function eg(r2_safe, r2_raw) -> (e, g = dE/dr^2) gives the energy and,
 through f_i = -2 g delta = -f_j, the forces, which are summed per atom
 with index_add_.  The same math as the JAX package's forces/pairterms.py
-(exception_eg, ewald_correction_eg).
+(exception_eg, ewald_correction_eg), but the correction's force takes a
+series at small r, where the closed form loses float32 precision.
 """
 
 from __future__ import annotations
@@ -22,14 +23,21 @@ def min_image(delta, box_diag):
 
 
 def make_pair_list_term(i_idx, j_idx, eg_fn, device, periodic: bool = True):
-    """term(positions, box_diag) -> (energy, forces (N, 3))."""
+    """term(positions, box_diag, exact=None) -> (energy, forces (N, 3));
+    `exact` (float64 positions) gives the displacements, rounded once."""
     ii = torch.as_tensor(np.asarray(i_idx, np.int64), device=device)
     jj = torch.as_tensor(np.asarray(j_idx, np.int64), device=device)
 
-    def term(positions, box_diag):
-        delta = positions[ii] - positions[jj]
-        if periodic:
-            delta = min_image(delta, box_diag)
+    def term(positions, box_diag, exact=None):
+        if exact is None:
+            delta = positions[ii] - positions[jj]
+            if periodic:
+                delta = min_image(delta, box_diag)
+        else:
+            delta = exact[ii] - exact[jj]
+            if periodic:
+                delta = min_image(delta, box_diag.double())
+            delta = delta.to(positions.dtype)
         r2 = torch.sum(delta * delta, dim=-1)
         r2s = torch.clamp(r2, min=1e-10)
         e, g = eg_fn(r2s, r2)
@@ -59,15 +67,33 @@ def exception_eg(qq, sigma, eps):
     return eg
 
 
+# x = alpha r below which the correction's force takes the series: the
+# closed form subtracts two nearly equal terms there (float32 keeps
+# ~eps / x^2 of it), and a core-Drude pair a fraction of a picometre
+# apart loses every float32 digit
+SERIES_X = 0.5
+# N(x) / x^3 = (2 / sqrt(pi)) sum_n c_n x^(2n-2) with
+# N(x) = erf(x) - (2x / sqrt(pi)) exp(-x^2) and
+# c_n = (-1)^(n+1) 2n / ((2n + 1) n!); thirteen terms leave < 1e-17 of
+# it at x <= SERIES_X
+_SERIES_C = tuple((-1) ** (n + 1) * 2 * n / ((2 * n + 1) * math.factorial(n))
+                  for n in range(1, 14))
+
+
 def ewald_correction_eg(qq, alpha: float):
     """Reciprocal-space exclusion correction -qq erf(ar)/r (qq pre-scaled
-    by ONE_4PI_EPS0); r -> 0 limit -qq 2a/sqrt(pi), zero force."""
+    by ONE_4PI_EPS0); r -> 0 limit -qq 2a/sqrt(pi), zero force.
+
+    dE/dr^2 = qq N(ar) / (2 r^3) with N(x) = erf(x) - (2x/sqrt(pi))
+    exp(-x^2).  Below x = SERIES_X it comes from the series of N(x)/x^3
+    (the JAX package's closed form cancels there: in float32 its error
+    grows as 1/r as a Drude closes on its core); above, from the closed
+    form."""
     two_over_sqrt_pi = 2.0 / math.sqrt(math.pi)
 
     def eg(r2s, r2):
         near0 = r2 < 1e-10
         inv_r = torch.rsqrt(r2s)
-        inv_r2 = inv_r * inv_r
         r = r2s * inv_r
         ar = alpha * r
         erf_ar = torch.special.erf(ar)
@@ -75,7 +101,13 @@ def ewald_correction_eg(qq, alpha: float):
                               erf_ar * inv_r)
         dedr = -qq * (two_over_sqrt_pi * alpha * torch.exp(-ar * ar)
                       - erf_ar * inv_r) * inv_r
-        g = torch.where(near0, torch.zeros_like(dedr), 0.5 * dedr * inv_r)
+        x2 = ar * ar
+        series = torch.full_like(x2, _SERIES_C[-1])
+        for c in _SERIES_C[-2::-1]:
+            series = series * x2 + c
+        g_series = (0.5 * two_over_sqrt_pi * alpha ** 3) * qq * series
+        g = torch.where(ar < SERIES_X, g_series, 0.5 * dedr * inv_r)
+        g = torch.where(near0, torch.zeros_like(g), g)
         return e, g
 
     return eg

@@ -135,14 +135,17 @@ def _eterm(setup: PmeSetup, box_diag, dtype, device):
                        / m_sq_safe * bm2, torch.zeros_like(m_sq))
 
 
-def _taps(setup: PmeSetup, positions, box_diag):
-    """Per-atom tap indices (N, order) and weights per dimension."""
-    K = torch.as_tensor(setup.grid, dtype=positions.dtype,
+def _taps(setup: PmeSetup, positions, box_diag, exact=None):
+    """Per-atom tap indices (N, order) and weights per dimension.  With
+    `exact` (float64 positions) the grid coordinates are formed in float64
+    and only the in-cell fractions rounded to the positions' type."""
+    src = positions if exact is None else exact
+    K = torch.as_tensor(setup.grid, dtype=src.dtype,
                         device=positions.device)
-    frac = positions / box_diag
+    frac = src / box_diag.to(src.dtype)
     u = (frac - torch.floor(frac)) * K
     ti = torch.floor(u)
-    w = u - ti
+    w = (u - ti).to(positions.dtype)
     ti = ti.to(torch.int64)
     j = torch.arange(PME_ORDER, device=positions.device)
     idx = [torch.remainder(ti[:, d:d + 1] - j, setup.grid[d])
@@ -186,17 +189,20 @@ def grid_energy_and_potential(setup: PmeSetup, Q, box_diag):
     return energy, phi
 
 
-def reciprocal_energy(setup: PmeSetup, charges, positions, box_diag):
-    idx, wts, _ = _taps(setup, positions, box_diag)
+def reciprocal_energy(setup: PmeSetup, charges, positions, box_diag,
+                      exact=None):
+    idx, wts, _ = _taps(setup, positions, box_diag, exact)
     Q = spread(setup, charges, idx, wts)
     return grid_energy_and_potential(setup, Q, box_diag)[0]
 
 
-def recip_energy_forces(setup: PmeSetup, charges, positions, box_diag):
-    """(energy, forces (N, 3)) of the reciprocal sum, forces analytic."""
+def recip_energy_forces(setup: PmeSetup, charges, positions, box_diag,
+                        exact=None):
+    """(energy, forces (N, 3)) of the reciprocal sum, forces analytic;
+    `exact` as in _taps."""
     K1, K2, K3 = setup.grid
     n = positions.shape[0]
-    idx, wts, dwts = _taps(setup, positions, box_diag)
+    idx, wts, dwts = _taps(setup, positions, box_diag, exact)
     Q = spread(setup, charges, idx, wts)
     energy, phi = grid_energy_and_potential(setup, Q, box_diag)
     phi = phi.reshape(-1)

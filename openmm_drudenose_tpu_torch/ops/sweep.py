@@ -10,8 +10,14 @@ one-hot reaction sums.
 
 `pair_forces` is the entry point.  For a CPU tensor it runs the plain
 version (`pair_forces_plain`); for a CUDA tensor it launches the kernel or
-raises.  The kernel builds at first use with nvcc into
-build/torch_kernels/<source hash>/ and is loaded with ctypes.
+raises.  The kernels of csrc/ build at first use, one nvcc per source, all
+started together, into build/torch_kernels/<hash of every source>/, and
+are loaded with ctypes.
+
+`supports` and `choose_chunk` are the JAX package's two gates
+(ops/pallas_sweep.py:52, :498), kept as plain arithmetic on the config;
+`route` sends a config to B1 or to the chunked kernel B2
+(ops/sweep_chunked.py) as forces/nonbonded.py:823-876 there does.
 """
 
 from __future__ import annotations
@@ -29,15 +35,17 @@ import torch
 
 from ..forces import cellpair
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "sweep.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = {"sweep": CSRC / "sweep.cu",
+           "sweep_chunked": CSRC / "sweep_chunked.cu"}
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# launches of the kernel, counted where it is launched and nowhere else
-launches = {"b1_sweep": 0}
+# launches of each kernel, counted where it is launched and nowhere else
+launches = {"b1_sweep": 0, "b2_sweep": 0}
 
-_lib = None
+_libs = {}
 build_log = ""
 
 
@@ -51,43 +59,152 @@ def _nvcc() -> str:
                        "machine with the GPU (CUDA toolkit required)")
 
 
-def build() -> Path:
-    """Compile csrc/sweep.cu into a shared library keyed by the source
-    hash; written under a temporary name and renamed, so no lock exists."""
+def build() -> dict:
+    """Compile every source of csrc/ into its own shared library, one nvcc
+    process per source, all started together.  The directory is keyed by
+    the hash of all sources and the flags; each library is written under
+    a temporary name and renamed, so no lock exists.  Returns
+    {name: library path}."""
     global build_log
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out_dir = BUILD_ROOT / key[:16]
-    lib = out_dir / "libsweep.so"
-    if lib.exists():
-        return lib
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name, src in sorted(SOURCES.items()):
+        key.update(name.encode() + src.read_bytes())
+    out_dir = BUILD_ROOT / key.hexdigest()[:16]
+    libs = {name: out_dir / f"lib{name}.so" for name in SOURCES}
+    todo = [name for name, lib in libs.items() if not lib.exists()]
+    if not todo:
+        return libs
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
+    nvcc = _nvcc()
+    jobs = {}
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{build_log}")
-        os.replace(tmp, lib)
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (proc, tmp)
+        logs, failed = [], []
+        for name, (proc, tmp) in jobs.items():
+            out, _ = proc.communicate()
+            logs.append(f"== {SOURCES[name].name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+            else:
+                os.replace(tmp, libs[name])
+        build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for proc, tmp in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return libs
+
+
+def load(name: str, declare):
+    """The ctypes handle of one built library, built at first use;
+    `declare(lib)` sets its functions' argument and result types."""
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build()[name]))
+        declare(lib)
+        _libs[name] = lib
     return lib
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sweep_forces.argtypes = [vp] * 13 + [ci, ci, ci, cf, cf, cf,
-                                                 ci, vp]
-        lib.sweep_forces.restype = ci
-        lib.sweep_max_capacity.restype = ci
-        _lib = lib
-    return _lib
+def _declare(lib):
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sweep_forces.argtypes = [vp] * 13 + [ci, ci, ci, cf, cf, cf, ci, vp]
+    lib.sweep_forces.restype = ci
+    lib.sweep_max_capacity.restype = ci
+
+
+# the JAX gates' VMEM budget (the ~16 MB scoped-VMEM limit of a TPU core,
+# less headroom); it decides the route only, no kernel of the port uses it
+_TPU_VMEM_BUDGET = 12 * 1024 * 1024
+
+
+def _kernel_takes(cfg) -> bool:
+    """The conditions both JAX gates start from: a regular half-stencil
+    grid, one exclusion word, a full stencil along x."""
+    return (cfg.regular and cfg.half_stencil and cfg.excl_words == 1
+            and 2 * cfg.excl_window + 1 <= 31
+            and cfg.grid[0] >= 2 * cfg.window[0] + 1)
+
+
+def supports(cfg) -> bool:
+    """The JAX full-layer kernel's gate (pallas_sweep.py::supports, for a
+    float32 config): the (y, z) plane fits its VMEM budget and fills at
+    least one 128-lane tile."""
+    n_yz = cfg.grid[1] * cfg.grid[2]
+    n_lay = 2 * cfg.window[0] + 1
+    lay_stride = -(-2 * n_yz // 128) * 128
+    fr_stride = -(-n_yz // 128) * 128
+    vmem = 4 * cfg.capacity * n_lay * (8 * lay_stride + 2 * 3 * fr_stride)
+    return (_kernel_takes(cfg) and vmem <= _TPU_VMEM_BUDGET
+            and n_yz >= 128)
+
+
+def choose_chunk(cfg, force: bool = False):
+    """The JAX chunked kernel's y-chunk height (pallas_sweep.py::
+    choose_chunk, for a float32 config), or None: only where supports()
+    fails unless `force`; the largest divisor cy of gy reaching the y
+    stencil, filling >= 128 lanes and fitting the VMEM budget, preferring
+    the least lane padding and pair tiles <= 512 lanes."""
+    if not _kernel_takes(cfg):
+        return None
+    if supports(cfg) and not force:
+        return None
+    gx, gy, gz = cfg.grid
+    C = cfg.capacity
+    offs = np.array(cfg.offsets, np.int64)
+    wx = int(np.max(np.abs(offs[:, 0])))
+    wy = int(np.max(np.abs(offs[:, 1])))
+    n_lay = 2 * wx + 1
+    best = None
+    for cy in range(1, gy + 1):
+        if gy % cy:
+            continue
+        if cy < max(wy, 1) or cy + 2 * wy + 2 > 2 * gy:
+            continue
+        lanes = cy * gz
+        if lanes < 128:
+            continue
+        ch_stride = -(-(cy + 2 * wy + 2) * gz // 128) * 128
+        fr_stride = -(-(cy + 2 * wy) * gz // 128) * 128
+        vmem = 4 * C * (n_lay * 8 * ch_stride + ch_stride
+                        + 2 * 3 * (-(-lanes // 128) * 128
+                                   + n_lay * fr_stride))
+        if vmem > _TPU_VMEM_BUDGET:
+            continue
+        pad = (-(-lanes // 128) * 128) / lanes
+        key = (pad, lanes > 512, -cy)
+        if best is None or key < best[0]:
+            best = (key, cy)
+    return None if best is None else best[1]
+
+
+def route(cfg, use_pallas=None):
+    """(kernel, chunk) of a float32 sweep: ("b2", cy) where the JAX
+    package takes its chunked kernel (supports() fails and choose_chunk()
+    finds a chunk, or use_pallas == 3 forces it, the JAX option of the
+    same name), else ("b1", None).  B1 also keeps the configs where
+    neither JAX gate engages: those gates are Mosaic's lane rules, and
+    one CTA per cell has no such limit.  The chunk height is the JAX
+    gate's record; B2's own tiling is sized for the card
+    (sweep_chunked.choose_brick)."""
+    if use_pallas == 3:
+        return "b2", choose_chunk(cfg, force=True)
+    if not supports(cfg):
+        cy = choose_chunk(cfg)
+        if cy is not None:
+            return "b2", cy
+    return "b1", None
 
 
 def check_excl_flags(cfg, excl_skip: bool) -> np.ndarray:
@@ -115,7 +232,8 @@ def _device_tables(cfg, excl_skip, dev):
     return hit[1], hit[2]
 
 
-def _check_config(cfg):
+def check_config(cfg):
+    """Raise unless the kernels take the config."""
     if not (cfg.half_stencil and cfg.regular):
         raise ValueError("the sweep kernel takes regular half-stencil "
                          "grids only")
@@ -124,6 +242,26 @@ def _check_config(cfg):
     if cfg.excl_words != 1 or 2 * cfg.excl_window + 1 > 31:
         raise ValueError("the sweep kernel takes one-word exclusion masks "
                          "only (2W+1 <= 31)")
+
+
+def check_fields(fields, cfg):
+    """Raise unless the sorted fields are what the kernels take:
+    contiguous float32 and int32 slot arrays on one CUDA device."""
+    dev = fields["x"].device
+    n_slots = cfg.n_cells * cfg.capacity
+    for k in ("x", "y", "z", "q", "sig", "seps"):
+        t = fields[k]
+        if t.dtype != torch.float32 or t.shape != (n_slots,) \
+                or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"field {k}: need contiguous float32 "
+                             f"({n_slots},) on {dev}")
+    for k, shape in (("gid", (n_slots,)), ("ew", (n_slots,)),
+                     ("count", (cfg.n_cells,))):
+        t = fields[k]
+        if t.dtype != torch.int32 or t.shape != shape \
+                or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"field {k}: need contiguous int32 {shape} "
+                             f"on {dev}")
 
 
 def pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
@@ -142,35 +280,23 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
     fields: cellpair.sorted_fields output; shifts: (n_off, 3) per-offset
     image shift.  CPU tensors run the plain version; CUDA tensors launch
     the kernel (float32 only) or raise."""
-    _check_config(cfg)
+    check_config(cfg)
     x = fields["x"]
     if x.device.type == "cpu":
         return pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
                                  excl_skip)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    n_slots = cfg.n_cells * cfg.capacity
-    for k in ("x", "y", "z", "q", "sig", "seps"):
-        t = fields[k]
-        if t.dtype != torch.float32 or t.shape != (n_slots,) \
-                or not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"field {k}: need contiguous float32 "
-                             f"({n_slots},) on {x.device}")
-    for k, shape in (("gid", (n_slots,)), ("ew", (n_slots,)),
-                     ("count", (cfg.n_cells,))):
-        t = fields[k]
-        if t.dtype != torch.int32 or t.shape != shape \
-                or not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"field {k}: need contiguous int32 {shape} "
-                             f"on {x.device}")
-    lib = _load()
+    check_fields(fields, cfg)
+    lib = load("sweep", _declare)
     if cfg.capacity > lib.sweep_max_capacity():
         raise ValueError(f"cell capacity {cfg.capacity} exceeds the "
                          f"kernel's {lib.sweep_max_capacity()}")
     dev = x.device
     nbr, chk = _device_tables(cfg, excl_skip, dev)
     sh = shifts.to(device=dev, dtype=torch.float32).contiguous()
-    f = torch.zeros((n_slots, 3), dtype=torch.float32, device=dev)
+    f = torch.zeros((cfg.n_cells * cfg.capacity, 3), dtype=torch.float32,
+                    device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.sweep_forces(

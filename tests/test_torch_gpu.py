@@ -1,9 +1,10 @@
-"""Card-only checks of the PyTorch port: kernel B1 against its plain
-version on CUDA tensors, its refusals, and the Context stepping through
-it.  Marked `gpu`; each test skips (through the `cuda` fixture) where no
-CUDA card is present.  On the card (tests/conftest.py imports JAX, which
-the machine with the card lacks): python -m pytest -m gpu --noconftest
-tests/test_torch_gpu.py"""
+"""Card-only checks of the PyTorch port: kernels B1 and B2 against their
+plain versions on CUDA tensors, B2's bit-identical repeat launches, their
+refusals, and the Context stepping through each.  Marked `gpu`; each
+test skips (through the `cuda` fixture) where no CUDA card is present.
+On the card (tests/conftest.py imports JAX, which the machine with the
+card lacks): python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
+"""
 
 import numpy as np
 import pytest
@@ -12,7 +13,7 @@ import torch
 import openmm_drudenose_tpu_torch as dt
 from openmm_drudenose_tpu_torch.forces import cellpair
 from openmm_drudenose_tpu_torch.io import builders
-from openmm_drudenose_tpu_torch.ops import sweep
+from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
 
 pytestmark = pytest.mark.gpu
@@ -25,11 +26,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ctx(device, precision="single"):
+def _ctx(device, precision="single", nb_options=None):
     system, pos = builders.build_water_box(216, cutoff=0.6)
     integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
     integ.setMaxDrudeDistance(0.02)
-    ctx = dt.Context(system, integ, precision=precision, device=device)
+    ctx = dt.Context(system, integ, precision=precision, device=device,
+                     nb_options=nb_options)
     ctx.setPositions(pos)
     ctx.setVelocitiesToTemperature(300.0, seed=1)
     ctx._ensure_neighbors()
@@ -68,6 +70,48 @@ def test_context_steps_through_kernel(cuda):
     integ.step(20)
     torch.cuda.synchronize()
     assert sweep.launches["b1_sweep"] - before >= 20
+    st = ctx.getState(positions=True, energy=True)
+    assert np.all(np.isfinite(st.getPositions()))
+    assert np.isfinite(st.getPotentialEnergy())
+
+
+def test_b2_matches_plain_on_card(cuda):
+    ctx, _ = _ctx(cuda)
+    args = _fields(ctx)
+    f_k = sweep_chunked.pair_forces(*args)
+    torch.cuda.synchronize()
+    f_p = sweep_chunked.pair_forces_plain(*args)
+    scale = float(torch.max(torch.abs(f_p)))
+    assert float(torch.max(torch.abs(f_k - f_p))) <= 2e-5 * scale
+    f_b1 = sweep.pair_forces(*args)
+    assert float(torch.max(torch.abs(f_k - f_b1))) <= 2e-5 * scale
+
+
+def test_b2_launches_are_bit_identical(cuda):
+    ctx, _ = _ctx(cuda)
+    args = _fields(ctx)
+    first = sweep_chunked.pair_forces(*args)
+    for _ in range(3):
+        assert torch.equal(sweep_chunked.pair_forces(*args), first)
+
+
+def test_b2_refuses_float64(cuda):
+    ctx, _ = _ctx(cuda)
+    fields, cfg, shifts, alpha, scale = _fields(ctx)
+    f64 = {k: (v.double() if v.is_floating_point() else v)
+           for k, v in fields.items()}
+    with pytest.raises(ValueError):
+        sweep_chunked.pair_forces(f64, cfg, shifts.double(), alpha, scale)
+
+
+def test_context_steps_through_b2(cuda):
+    ctx, integ = _ctx(cuda, nb_options={"use_pallas": 3})
+    assert ctx._nb.sweep_kernel == "b2"
+    before = dict(sweep.launches)
+    integ.step(20)
+    torch.cuda.synchronize()
+    assert sweep.launches["b2_sweep"] - before["b2_sweep"] >= 20
+    assert sweep.launches["b1_sweep"] == before["b1_sweep"]
     st = ctx.getState(positions=True, energy=True)
     assert np.all(np.isfinite(st.getPositions()))
     assert np.isfinite(st.getPotentialEnergy())
