@@ -12,17 +12,27 @@ seconds):
 
   0. device: the nvidia-smi name/power-limit line; exits non-zero without
      CUDA, before printing any result
-  1. build: nvcc builds kernel B1 (ops/sweep.py, csrc/sweep.cu); prints
-     the build seconds and ptxas' register/shared-memory lines
+  1. build: nvcc builds kernels B1 (ops/sweep.py, csrc/sweep.cu) and B2
+     (ops/sweep_chunked.py, csrc/sweep_chunked.cu), both on the warp-tile
+     pair loop of csrc/pair_tile.cuh; prints the build seconds and
+     ptxas' register/shared-memory lines, then (c) each kernel's
+     registers, static shared memory and local bytes as read from the
+     card (cudaFuncGetAttributes), the card's limits, and the warps an SM
+     holds of each
   2. kernel parity at full size: B1 against its plain version (f32, on
      the card, max|dF| / max|F| <= 2e-5) and against the plain version in
      f64 (the f32 floor: max|dF| / max|F| <= 1e-4 over the atoms of pairs
      both precisions put on the same side of the cutoff, rms|dF| / max|F|
-     <= 5e-6 over all); B1, plain and the bound timed
+     <= 5e-6 over all); B1, plain and the bound timed.  Then (a) the
+     bench fields with one more exclusion, over 40 atom indices (W = 40,
+     three mask words): B1 and B2 against the plain version (<= 2e-5)
+     and the plain version in f64 (the f32 floor); (b) the bench
+     snapshot sorted at capacity 160: B1 and B2 against the plain
+     version (<= 2e-5)
   3. the slice: the Context's force pass in f32 against the same pass in
      f64 (the same f32 floor), then 100 steps with the launch counts reset
-     just before and read just after; no latch may be set, the hard wall
-     must hold, bath temperatures and the conserved energy must be
+     just before and read just after (B1 launched); no latch may be set,
+     the hard wall must hold, bath temperatures and the conserved energy must be
      finite and plausible; ms/step and ns/day, and the stream time of
      each part of the force pass beside the whole step
   4. kernel B2 (ops/sweep_chunked.py, csrc/sweep_chunked.cu) and the
@@ -35,9 +45,10 @@ seconds):
      packages; the gates route its sweep to B2.  64 settling steps; B2
      on its fields against its plain version (<= 2e-5), the plain
      version in f64 (the f32 floor) and B1 (<= 2e-5), two launches
-     bit-identical, B2, B1 and plain timed with their bound; 64 timed
-     steps with the launch counts reset just before and read just after
-     (B2 launched, B1 never); no latch, the wall held, everything
+     bit-identical, B2 (also by brick), B1 and plain timed with their
+     bound; 64 timed steps with the launch counts reset just before and
+     read just after (B2 launched, B1 never); no latch, the wall held,
+     everything
      finite, the f32 force pass against f64 (the f32 floor); ms/step,
      ns/day, bath temperatures and the breakdown (no temperature window:
      fresh velocities are not equilibrated)
@@ -61,6 +72,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 TILE = 2
 N_SETTLE_BIG = 64
 N_TIMED_BIG = 64
+# B2's bricks timed against the one it runs (sweep_chunked.BRICK)
+RIVAL_BRICKS = ((2, 2, 2), (1, 2, 4), (1, 2, 2))
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): float32 outside the
 # tensor cores, and HBM3 bandwidth
@@ -199,6 +212,133 @@ def f32_floor(got, ref, skip=None):
             float(torch.sqrt(torch.mean(d * d))) / scale)
 
 
+def report_limits(cfgs):
+    """(c) each kernel's registers, static shared memory and local bytes,
+    read from the card, the card's limits, and the warps an SM holds of
+    each (B2 at the brick it takes for each config of `cfgs`, {tag:
+    config}).  Returns {kernel name: registers}."""
+    import numpy as np
+    from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
+    b1_warps = sweep.load("sweep", sweep._declare).sweep_warps_per_cta()
+    sms, b1_ctas = sweep.occupancy("cuda")
+    lim = sweep_chunked.card_limits("cuda")
+    a1 = sweep.attributes()
+    a2 = sweep_chunked.attributes()
+    b2 = []
+    for tag, cfg in cfgs.items():
+        brick = sweep_chunked.choose_brick(cfg, lim)
+        warps = int(np.prod(brick))
+        smem = sweep_chunked.smem_bytes(brick, cfg.capacity)
+        b2.append(f"{tag} (C = {cfg.capacity}): brick {brick}, "
+                  f"{sweep_chunked.resident_ctas(brick, cfg.capacity, lim)}"
+                  f" CTAs of {warps} warps an SM, {smem} B dynamic shared "
+                  "memory a CTA")
+    log(f"1 (c) B1 {a1['regs']} registers, {a1['static_smem']} B static "
+        f"shared memory, {a1['local_bytes']} B local, "
+        f"{b1_ctas * b1_warps} warps an SM ({b1_warps} a CTA, "
+        f"{b1_ctas} CTAs, cudaOccupancyMaxActiveBlocksPerMultiprocessor; "
+        f"{sms} SMs); B2 {a2['regs']} registers, "
+        f"{a2['static_smem']} B static, {a2['local_bytes']} B local; "
+        + "; ".join(b2))
+    log(f"1 (c) card: {lim.smem_block} B shared memory a CTA may opt in "
+        f"to, {lim.smem_sm} B an SM ({lim.smem_reserved} B reserved a "
+        f"CTA), {lim.regs_sm} registers and {lim.threads_sm} threads an SM")
+    return {"b1_sweep": a1["regs"], "b2_sweep": a2["regs"]}
+
+
+def held(tag, got, ref, limit):
+    """max|got - ref| / max|ref|, failing the run above `limit`."""
+    import numpy as np
+    import torch
+    err = float(torch.max(torch.abs(got - ref))) \
+        / float(torch.max(torch.abs(ref)))
+    if not (np.isfinite(err) and err <= limit):
+        fail(f"{tag}: max|dF|/max|F| = {err:.3e} > {limit}")
+    return err
+
+
+def check_words(ctx, system):
+    """(a) the bench fields with one more exclusion, between atoms 0 and
+    40 (W = 40, three words; every intramolecular bit then lies in word
+    1): B1 and B2 against the plain version (<= 2e-5) and the plain
+    version in f64 (the f32 floor).  The exclusion test runs at every
+    offset (the added pair may sit two cells apart)."""
+    import numpy as np
+    import torch
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
+    nonbonded = next(f for f in system.getForces()
+                     if type(f).__name__ == "NonbondedForce")
+    exc = np.array([e[:2] for e in nonbonded._exceptions] + [(0, 40)])
+    W = int(np.abs(exc[:, 0] - exc[:, 1]).max())
+    n_words = (2 * W + 1 + 30) // 31
+    cfg_w = dataclasses.replace(cfg, excl_window=W, excl_words=n_words)
+    params = dict(nb.params, excl_words=torch.as_tensor(
+        cellpair.build_exclusion_words(st.positions.shape[0], exc[:, 0],
+                                       exc[:, 1], W, n_words),
+        device=st.positions.device))
+    box_diag = torch.diagonal(st.box)
+    fields = cellpair.sorted_fields(params, st.positions, box_diag,
+                                    st.neighbors, cfg_w)
+    shifts = cellpair.offset_shifts(cfg_w, box_diag)
+    args = (fields, cfg_w, shifts, nb.alpha, ONE_4PI_EPS0, False)
+    route = sweep.route(cfg_w, limits=sweep_chunked.card_limits("cuda"))
+    f_p = sweep.pair_forces_plain(*args)
+    f64 = {k: (v.double() if v.is_floating_point() else v)
+           for k, v in fields.items()}
+    f_p64 = sweep.pair_forces_plain(f64, cfg_w, shifts.double(), nb.alpha,
+                                    ONE_4PI_EPS0, False)
+    flips, n_flip = cutoff_flips(fields, f64, cfg_w, shifts, shifts.double())
+    msg = []
+    for name, kernel in (("B1", sweep), ("B2", sweep_chunked)):
+        f_k = kernel.pair_forces(*args)
+        torch.cuda.synchronize()
+        err = held(f"(a) {name} at W = {W}", f_k, f_p, 2e-5)
+        err64, rms64 = f32_floor(f_k, f_p64, flips)
+        if not (err64 <= 1e-4 and rms64 <= 5e-6):
+            fail(f"(a) {name} at W = {W} misses the f32 floor against f64: "
+                 f"max {err64:.3e}, rms {rms64:.3e}")
+        msg.append(f"{name} vs plain {err:.3e}, vs plain f64 max {err64:.3e}"
+                   f" rms {rms64:.3e}")
+    log(f"2 (a) W = {W}, {n_words} exclusion words (route {route[0]}): "
+        + "; ".join(msg) + f" ({n_flip} cutoff-flipped pairs left out of "
+        "the max)")
+
+
+def check_capacity(ctx, card, C=160):
+    """(b) the bench snapshot sorted at capacity C: B1 and B2 against the
+    plain version (<= 2e-5), both timed."""
+    import torch
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    nb, st = ctx._nb, ctx._state
+    cfg_c = dataclasses.replace(ctx._cp_cfg, capacity=C)
+    box_diag = torch.diagonal(st.box)
+    cs = cellpair.build_cellsort(st.positions, box_diag, cfg_c)
+    fields = cellpair.sorted_fields(nb.params, st.positions, box_diag, cs,
+                                    cfg_c)
+    args = (fields, cfg_c, cellpair.offset_shifts(cfg_c, box_diag),
+            nb.alpha, ONE_4PI_EPS0)
+    lim = sweep_chunked.card_limits("cuda")
+    route = sweep.route(cfg_c, limits=lim)
+    f_p = sweep.pair_forces_plain(*args)
+    msg = []
+    for name, kernel in (("B1", sweep), ("B2", sweep_chunked)):
+        f_k = kernel.pair_forces(*args)
+        torch.cuda.synchronize()
+        err = held(f"(b) {name} at capacity {C}", f_k, f_p, 2e-5)
+        ms = cuda_time_ms(lambda: kernel.pair_forces(*args), 5)
+        msg.append(f"{name} vs plain {err:.3e}, {ms:.4f} ms")
+    log(f"2 (b) capacity {C} (route {route[0]}; B2 brick "
+        f"{sweep_chunked.choose_brick(cfg_c, lim)}): " + "; ".join(msg)
+        + f" on {card}")
+    del f_p, fields, cs
+    torch.cuda.empty_cache()
+
+
 def check_after_steps(ctx, phase):
     """Fail unless no latch is set, the hard wall held and positions,
     energies and bath temperatures are finite; returns the bath
@@ -321,13 +461,14 @@ def phase_big(card, bench_args, bench_system):
     from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
     from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0, ns_per_day
 
+    card_lim = sweep_chunked.card_limits("cuda")
     f2 = sweep_chunked.pair_forces(*bench_args)
     f1 = sweep.pair_forces(*bench_args)
     torch.cuda.synchronize()
     scale = float(torch.max(torch.abs(f1)))
     err = float(torch.max(torch.abs(f2 - f1))) / scale
     ms100 = cuda_time_ms(lambda: sweep_chunked.pair_forces(*bench_args), 20)
-    plan = sweep_chunked.plan_for(bench_args[1])
+    plan = sweep_chunked.plan_for(bench_args[1], limits=card_lim)
     log(f"4 B2 forced at 100k vs B1: max|dF|/max|F| = {err:.3e}; B2 "
         f"{ms100:.4f} ms (brick {plan.brick}, {plan.total_chunks} "
         f"chunks) on {card}")
@@ -363,7 +504,7 @@ def phase_big(card, bench_args, bench_system):
     nb, cfg = ctx._nb, ctx._cp_cfg
     n_atoms = pos.shape[0]
     tag = f"{n_atoms // 1000}k"
-    plan = sweep_chunked.plan_for(cfg)
+    plan = sweep_chunked.plan_for(cfg, limits=card_lim)
     log(f"4 context in {time.time() - t:.1f} s: {n_atoms} atoms, the 100k "
         f"snapshot tiled {TILE}x{TILE}x{TILE}, cell grid {cfg.grid}, "
         f"capacity {cap0} (auto) -> {cfg.capacity}, {cfg.n_offsets} "
@@ -379,7 +520,7 @@ def phase_big(card, bench_args, bench_system):
     # cells, auto capacity 40, 48 once grown) must index in int32 too
     for C in (40, 48):
         c1m = dataclasses.replace(cfg, grid=(33, 33, 33), capacity=C)
-        p1m = sweep_chunked.plan_for(c1m)
+        p1m = sweep_chunked.plan_for(c1m, limits=card_lim)
         log(f"4 at 1M atoms (33^3 cells, C = {C}): brick {p1m.brick}, "
             f"{p1m.total_chunks} chunks, frame buffer "
             f"{p1m.frame_floats(C) * 4} bytes ({p1m.frame_floats(C)} "
@@ -465,13 +606,16 @@ def phase_big(card, bench_args, bench_system):
                             2)
     bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(fields, cfg,
                                                               shifts)
-    # the brick choice (sweep_chunked.choose_brick) against its rivals
+    # B2's brick (sweep_chunked.BRICK) against its rivals
+    lim = sweep_chunked.card_limits("cuda")
+    chosen = sweep_chunked.choose_brick(cfg, lim)
     by_brick = {b: cuda_time_ms(
         lambda b=b: sweep_chunked.pair_forces(*args, brick=b), 10)
-        for b in ((2, 2, 2), (2, 2, 4))}
+        for b in RIVAL_BRICKS
+        if sweep_chunked.resident_ctas(b, cfg.capacity, lim) > 0}
     log(f"4 B2 by brick at C = {cfg.capacity}: " + ", ".join(
         f"{b} {t:.4f} ms" for b, t in by_brick.items())
-        + f"; chosen {sweep_chunked.plan_for(cfg).brick} on {card}")
+        + f"; chosen {chosen} on {card}")
     del args, fields
     log(f"4 at {tag}: B2 {ms:.4f} ms, B1 {ms_b1:.4f} ms, plain {plain_ms:.3f} "
         f"ms, bound {bound_ms:.4f} ms ({bound_by}: {n_tests} pair tests, "
@@ -506,6 +650,7 @@ def phase_big(card, bench_args, bench_system):
         "replaces": "openmm_drudenose_tpu/ops/pallas_sweep.py:851",
         "launches": launches["b2_sweep"],
         "launches_per_step": launches["b2_sweep"] / N_TIMED_BIG,
+        "capacity": cfg.capacity, "brick": list(chosen),
         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }
@@ -551,6 +696,16 @@ def main():
     log(f"1 build: B1 and B2 built by nvcc in {build_s:.1f} s")
     for ln in ptxas:
         log(f"  {ln}")
+    # the bench configs: 100k (15^3 cells, C = 48) and 800k (30^3, C = 48
+    # and the 56 it grows to)
+    from openmm_drudenose_tpu_torch.forces.cellpair import make_config
+    c100k = make_config(1.0, [8.0] * 3, 100000, [0], [4], capacity=48)
+    c100k = dataclasses.replace(c100k, grid=(15, 15, 15))
+    regs = report_limits({
+        "100k": c100k,
+        "800k": dataclasses.replace(c100k, grid=(30, 30, 30)),
+        "800k grown": dataclasses.replace(c100k, grid=(30, 30, 30),
+                                          capacity=56)})
     phase_seconds["1 build"] = phase_mark()
 
     # ---- 2. kernel parity at full size -----------------------------------
@@ -611,6 +766,9 @@ def main():
         f"({bound_by}: {n_tests} pair tests, {n_cut} inside the cutoff, "
         f"{n_bytes} bytes) on {card}")
     phase_seconds["2 B1 at 100k"] = phase_mark()
+    check_words(ctx, system)
+    check_capacity(ctx, card)
+    phase_seconds["2 (a), (b) words and capacity"] = phase_mark()
 
     # ---- 3. the slice --------------------------------------------------------
     ctx64, _ = make_ctx("double")
@@ -655,6 +813,7 @@ def main():
 
     # ---- 4. B2 and the large path ------------------------------------------
     b2_entry = phase_big(card, bench_args, system)
+    b2_entry["registers"] = regs["b2_sweep"]
     phase_seconds["4 B2 and the large path"] = phase_mark()
 
     # ---- 5. kernel summary --------------------------------------------------
@@ -666,6 +825,7 @@ def main():
         "replaces": "openmm_drudenose_tpu/ops/pallas_sweep.py:440",
         "launches": launches["b1_sweep"],
         "launches_per_step": launches["b1_sweep"] / n_steps,
+        "capacity": cfg.capacity, "registers": regs["b1_sweep"],
         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
     }, b2_entry]

@@ -1,184 +1,193 @@
-// Direct-space cell-pair sweep, forces only: the Hopper counterpart of the
-// TPU kernel ops/pallas_sweep.py::pair_forces_pallas in the JAX package.
+// Kernel B1: the direct-space cell-pair sweep, forces only; the Hopper
+// counterpart of the TPU kernel ops/pallas_sweep.py::pair_forces_pallas
+// in the JAX package.
 //
 // Physics: LJ with Lorentz sigma and Berthelot sqrt(eps) product, plus
 // Ewald real-space Coulomb with the Abramowitz & Stegun 7.1.26 erfc (the
 // same polynomial as the TPU kernel, so the two agree term for term).
 // Pairs: the home cell against itself (a != b, row forces only) and the
 // half stencil of neighbour cells, each pair's reaction credited to the
-// neighbour slot (Newton's third law).  Cutoff test, r^2 clamp 1e-6, a
-// one-word exclusion bitmask over atom-index differences within W, tested
-// only at offsets flagged in `check_excl`.
+// neighbour slot (Newton's third law).  Cutoff test, r^2 clamp 1e-6, an
+// exclusion bitmask of any number of 31-bit words over atom-index
+// differences within W, tested only at offsets flagged in `check_excl`.
 //
-// Design: one CTA per home cell, one thread per home slot.  Each stencil
-// neighbour's occupied slots are staged in shared memory; every thread
-// walks them, keeps its row force in registers, and the per-neighbour
-// reactions are summed across each warp with shuffles and added to a
-// shared buffer, which goes to device memory with one atomicAdd per slot
-// and component.  What bounds it: the pair arithmetic (~5e8 pair tests at
-// the 100k-atom bench size, 15^3 cells, C = 48, 63 offsets) — the inputs
-// are a few MB.  A later version can tile several home cells per CTA and
-// drop the warp reductions.
+// What bounds it: the pair arithmetic (1.9e8 pair tests, 3.6e7 inside
+// the cutoff, at the 100k-atom bench size: 15^3 cells, 63 offsets); the
+// inputs are a few MB.  So the design spends the card's issue slots on
+// pairs and little else:
+//
+//  * Work units of (home cell, 32-slot part, 8 stencil offsets), taken in
+//    order from a counter by as many warps as the card holds at once:
+//    the card stays busy to the end (one warp per (cell, part) left a
+//    tail of a second partial wave) and empty parts cost nothing.  No CTA
+//    barrier anywhere: each warp stages its tiles in shared memory of its
+//    own and syncs with __syncwarp only.
+//  * The pair loop is the warp-tile walk of pair_tile.cuh: each diagonal
+//    step pairs every lane with a distinct neighbour slot, so reactions
+//    sum with plain adds rotated through the lanes instead of a 5-level
+//    shuffle reduction per neighbour slot; a remainder part or tile past
+//    32 slots takes the broadcast walk over it, with partial sums in a
+//    column of shared memory a lane.
+//  * Each (neighbour slot, unit, offset) reaction goes to device memory
+//    with one atomicAdd a component, skipped where it is zero (pairs
+//    beyond the cutoff); each home slot's row force once a unit.
+//
+// Any cell capacity (tiles of 32 on both sides) and any number of
+// exclusion words (kRegWords of them in registers, the rest read from
+// device memory).  The atomics make the last bits depend on the order in
+// which warps finish; kernel B2 (sweep_chunked.cu) is the deterministic
+// sweep.
 //
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "pair_tile.cuh"
+
 namespace {
 
-constexpr int kMaxCap = 128;
+using pair_tile::Fields;
+using pair_tile::Params;
+using pair_tile::Tile;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+constexpr int kWarps = 4;           // warps a CTA
+constexpr int kOffsetsPerUnit = 8;  // stencil offsets a work unit
 
-__global__ void sweep_forces_kernel(
-    const float* __restrict__ x, const float* __restrict__ y,
-    const float* __restrict__ z, const float* __restrict__ q,
-    const float* __restrict__ sig, const float* __restrict__ seps,
-    const int* __restrict__ gid, const int* __restrict__ ew,
-    const int* __restrict__ count, const int* __restrict__ nbr,
-    const float* __restrict__ shift, const int* __restrict__ check_excl,
-    float* __restrict__ f, int cap, int n_off, float cutoff2, float alpha,
-    float coulomb_scale, int excl_window) {
-  __shared__ float sx[kMaxCap], sy[kMaxCap], sz[kMaxCap], sq[kMaxCap];
-  __shared__ float ssig[kMaxCap], sseps[kMaxCap];
-  __shared__ int sgid[kMaxCap];
-  __shared__ float rx[kMaxCap], ry[kMaxCap], rz[kMaxCap];
-
-  const int cell = blockIdx.x;
-  const int a = threadIdx.x;
-  const int lane = a & 31;
-  const int na = count[cell];
-  const bool active = a < na;
-  const int sa = cell * cap + a;
-  const float xa = active ? x[sa] : 0.f;
-  const float ya = active ? y[sa] : 0.f;
-  const float za = active ? z[sa] : 0.f;
-  const float qa = active ? coulomb_scale * q[sa] : 0.f;
-  const float siga = active ? sig[sa] : 1.f;
-  const float sepsa = active ? seps[sa] : 0.f;
-  const int gida = active ? gid[sa] : -1;
-  const int ewa = active ? ew[sa] : 0;
-  const float two_over_sqrt_pi = 1.1283791670955126f;
-
-  float fx = 0.f, fy = 0.f, fz = 0.f;
-  for (int o = 0; o < n_off; ++o) {
-    const int bc = nbr[cell * n_off + o];
-    const int nb = count[bc];
-    const float tx = shift[3 * o], ty = shift[3 * o + 1],
-                tz = shift[3 * o + 2];
-    const bool self = (o == 0);
-    const bool chk = check_excl[o] != 0 && excl_window > 0;
-    __syncthreads();
-    for (int s = threadIdx.x; s < nb; s += blockDim.x) {
-      const int sb = bc * cap + s;
-      sx[s] = x[sb] + tx;
-      sy[s] = y[sb] + ty;
-      sz[s] = z[sb] + tz;
-      sq[s] = q[sb];
-      ssig[s] = sig[sb];
-      sseps[s] = seps[sb];
-      sgid[s] = gid[sb];
-      rx[s] = 0.f;
-      ry[s] = 0.f;
-      rz[s] = 0.f;
-    }
-    __syncthreads();
-    for (int b = 0; b < nb; ++b) {
-      const float dx = xa - sx[b];
-      const float dy = ya - sy[b];
-      const float dz = za - sz[b];
-      // unfused, in the plain version's order: the cutoff test then
-      // decides every pair exactly as the plain version does
-      const float r2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
-                                           __fmul_rn(dy, dy)),
-                                 __fmul_rn(dz, dz));
-      bool keep = active && r2 < cutoff2 && !(self && b == a);
-      if (chk) {
-        const int dg = sgid[b] - gida;
-        if (dg <= excl_window && dg >= -excl_window &&
-            ((ewa >> (dg + excl_window)) & 1))
-          keep = false;
-      }
-      float g2 = 0.f;
-      if (keep) {
-        const float r2s = fmaxf(r2, 1e-6f);
-        const float inv_r = rsqrtf(r2s);
-        const float inv_r2 = inv_r * inv_r;
-        const float qq = qa * sq[b];
-        const float sg = 0.5f * (siga + ssig[b]);
-        const float ep = sepsa * sseps[b];
-        const float s2 = sg * sg * inv_r2;
-        const float x6 = s2 * s2 * s2;
-        const float g_lj = -4.f * ep * (6.f * x6 * x6 - 3.f * x6) * inv_r2;
-        const float ar = alpha * r2s * inv_r;
-        const float t = 1.f / (1.f + 0.3275911f * ar);
-        const float expm = expf(-ar * ar);
-        const float erfc_ar =
-            t * (0.254829592f +
-                 t * (-0.284496736f +
-                      t * (1.421413741f +
-                           t * (-1.453152027f + t * 1.061405429f)))) *
-            expm;
-        const float g_c = -0.5f * qq * inv_r2 *
-                          (erfc_ar * inv_r + two_over_sqrt_pi * alpha * expm);
-        g2 = -2.f * (g_lj + g_c);
-      }
-      const float px = g2 * dx, py = g2 * dy, pz = g2 * dz;
-      fx += px;
-      fy += py;
-      fz += pz;
-      if (!self) {
-        const float sxr = warp_sum(px), syr = warp_sum(py),
-                    szr = warp_sum(pz);
-        if (lane == 0) {
-          atomicAdd(&rx[b], -sxr);
-          atomicAdd(&ry[b], -syr);
-          atomicAdd(&rz[b], -szr);
+// A work unit is (home cell, 32-slot part, group of kOffsetsPerUnit
+// offsets); warps take units in order from the counter *next_unit until
+// none is left, so the card stays busy to the end (a unit whose part is
+// empty is skipped at once).
+__global__ void __launch_bounds__(kWarps * 32)
+    sweep_forces_kernel(Fields fd, const int* __restrict__ nbr,
+                        const float* __restrict__ shift,
+                        const int* __restrict__ check_excl,
+                        float* __restrict__ f, int* __restrict__ next_unit,
+                        int n_cells, int cap, int parts, int n_off,
+                        int n_groups, Params p) {
+  __shared__ Tile tiles[kWarps][2];
+  __shared__ pair_tile::Partials partials[kWarps];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int n_units = n_cells * parts * n_groups;
+  Tile& t = tiles[warp][0];   // the neighbour tile
+  Tile& th = tiles[warp][1];  // the home part
+  pair_tile::Partials& part = partials[warp];
+  for (;;) {
+    int unit = 0;
+    if (lane == 0) unit = atomicAdd(next_unit, 1);
+    unit = __shfl_sync(0xffffffffu, unit, 0);
+    if (unit >= n_units) break;
+    const int cp = unit / n_groups;
+    const int o0 = (unit - cp * n_groups) * kOffsetsPerUnit;
+    const int cell = cp / parts;
+    const int a0 = (cp - cell * parts) * 32;
+    const int na = min(fd.count[cell] - a0, 32);  // home atoms of the part
+    if (na <= 0) continue;                        // warp-uniform
+    const pair_tile::Box home =
+        pair_tile::stage(th, fd, cell * cap + a0, na, 0.f, 0.f, 0.f, lane);
+    float fx = 0.f, fy = 0.f, fz = 0.f, rx, ry, rz;
+    for (int o = o0; o < min(o0 + kOffsetsPerUnit, n_off); ++o) {
+      const int bc = nbr[cell * n_off + o];
+      const int nb = fd.count[bc];
+      const float tx = shift[3 * o], ty = shift[3 * o + 1],
+                  tz = shift[3 * o + 2];
+      const bool chk = check_excl[o] != 0 && p.excl_window > 0;
+      for (int b0 = 0; b0 < nb; b0 += 32) {
+        const int nb_t = min(nb - b0, 32);
+        const pair_tile::Box nbox =
+            pair_tile::stage(t, fd, bc * cap + b0, nb_t, tx, ty, tz, lane);
+        if (o != 0 && pair_tile::beyond(home, nbox, p.cutoff2)) continue;
+        pair_tile::tile_pair(o == 0, fd, p, cell * cap, a0, na, th, t,
+                             bc * cap + b0, nb_t, b0, tx, ty, tz, chk, lane,
+                             part, fx, fy, fz, rx, ry, rz);
+        if (o != 0 && lane < nb_t) {
+          float* fb = f + 3 * (bc * cap + b0 + lane);
+          if (rx != 0.f) atomicAdd(fb, rx);
+          if (ry != 0.f) atomicAdd(fb + 1, ry);
+          if (rz != 0.f) atomicAdd(fb + 2, rz);
         }
+        __syncwarp();  // the tile is restaged next
       }
     }
-    if (!self) {
-      __syncthreads();
-      for (int s = threadIdx.x; s < nb; s += blockDim.x) {
-        float* fb = f + 3 * (bc * cap + s);
-        atomicAdd(fb, rx[s]);
-        atomicAdd(fb + 1, ry[s]);
-        atomicAdd(fb + 2, rz[s]);
-      }
+    if (lane < na) {
+      float* fa = f + 3 * (cell * cap + a0 + lane);
+      atomicAdd(fa, fx);
+      atomicAdd(fa + 1, fy);
+      atomicAdd(fa + 2, fz);
     }
-  }
-  if (active) {
-    atomicAdd(&f[3 * sa], fx);
-    atomicAdd(&f[3 * sa + 1], fy);
-    atomicAdd(&f[3 * sa + 2], fz);
   }
 }
 
 }  // namespace
 
-extern "C" int sweep_max_capacity() { return kMaxCap; }
+// Warps a CTA.
+extern "C" int sweep_warps_per_cta() { return kWarps; }
 
+// out[0..3]: registers a thread, static shared memory, the most threads
+// a CTA may have and local (spill) memory a thread, as compiled for the
+// card.
+extern "C" int sweep_attributes(int* out) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, sweep_forces_kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = a.maxThreadsPerBlock;
+  out[3] = (int)a.localSizeBytes;
+  return 0;
+}
+
+// out[0..1]: the current card's SMs and the CTAs of the kernel an SM
+// holds at once; the caller reads them once and passes their product to
+// sweep_forces as max_ctas.
+extern "C" int sweep_occupancy(int* out) {
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount,
+                                 dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[1], sweep_forces_kernel, kWarps * 32, 0);
+  return (int)err;
+}
+
+// f: (n_slots, 3), zeroed by the caller; ew: (n_slots, n_words);
+// next_unit: one int of work space on the card (set to 0 here);
+// max_ctas: the CTAs the card holds at once (sweep_occupancy).
 extern "C" int sweep_forces(const void* x, const void* y, const void* z,
                             const void* q, const void* sig, const void* seps,
                             const void* gid, const void* ew,
                             const void* count, const void* nbr,
                             const void* shift, const void* check_excl,
-                            void* f, int n_cells, int cap, int n_off,
-                            float cutoff2, float alpha, float coulomb_scale,
-                            int excl_window, void* stream) {
-  if (cap < 1 || cap > kMaxCap || n_cells < 1 || n_off < 1)
+                            void* f, void* next_unit, int n_cells, int cap,
+                            int n_off, float cutoff2, float alpha,
+                            float coulomb_scale, int excl_window,
+                            int n_words, int max_ctas, void* stream) {
+  const long long parts = (cap + 31) / 32;
+  const long long n_groups = (n_off + kOffsetsPerUnit - 1) / kOffsetsPerUnit;
+  const long long units = (long long)n_cells * parts * n_groups;
+  if (cap < 1 || n_cells < 1 || n_off < 1 || n_words < 1 || max_ctas < 1 ||
+      3LL * n_cells * cap > INT32_MAX ||
+      (long long)n_cells * cap * n_words > INT32_MAX ||
+      (long long)n_cells * n_off > INT32_MAX || units > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  const int threads = ((cap + 31) / 32) * 32;
-  sweep_forces_kernel<<<n_cells, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)y, (const float*)z, (const float*)q,
-      (const float*)sig, (const float*)seps, (const int*)gid,
-      (const int*)ew, (const int*)count, (const int*)nbr,
-      (const float*)shift, (const int*)check_excl, (float*)f, cap, n_off,
-      cutoff2, alpha, coulomb_scale, excl_window);
+  Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
+            (const float*)q,   (const float*)sig,  (const float*)seps,
+            (const int*)gid,   (const int*)ew,     (const int*)count};
+  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words};
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(next_unit, 0, sizeof(int), s);
+  if (err != cudaSuccess) return (int)err;
+  // as many CTAs as the card holds at once (they loop over the units)
+  const int blocks = (int)std::min<long long>(
+      (units + kWarps - 1) / kWarps, (long long)max_ctas);
+  sweep_forces_kernel<<<blocks, kWarps * 32, 0, s>>>(
+      fd, (const int*)nbr, (const float*)shift, (const int*)check_excl,
+      (float*)f, (int*)next_unit, n_cells, cap, (int)parts, n_off,
+      (int)n_groups, p);
   return (int)cudaGetLastError();
 }

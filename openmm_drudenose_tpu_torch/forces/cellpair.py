@@ -6,7 +6,8 @@ static half stencil of neighbour cells (Newton's third law credits each
 pair's reaction to the neighbour).  Coordinates are cell-local (box-frame
 position minus cell centre), so for stencil offset o the pair displacement
 is a_loc - (b_loc + o*h): periodic wraps vanish into the per-offset shift.
-Exclusions are a bitmask over atom-index differences within a window W.
+Exclusions are a bitmask over atom-index differences within a window W,
+kept in 31-bit words.
 
 The same plan and physics as the JAX package's forces/cellpair.py
 (make_config :148, build_cellsort :432, _sorted_arrays :880,
@@ -203,9 +204,10 @@ def sorted_fields(params, positions, box_diag, cellsort: CellSort,
     """Per-slot fields in cell-major order, each (n_cells * C,): cell-local
     coordinates x/y/z (box-frame position minus cell centre), charge q,
     sigma `sig`, sqrt(epsilon) `seps`, atom index `gid` (negative and
-    unique on empty slots), exclusion word `ew`, and per-cell occupancy
-    `count` (n_cells,).  Empty slots are inert: far-away sentinels with
-    q = eps = 0.
+    unique on empty slots), the exclusion words `ew` (n_cells * C,
+    n_words), row-major: a slot's words side by side, and per-cell
+    occupancy `count` (n_cells,).  Empty slots are inert: far-away
+    sentinels with q = eps = 0 and no exclusion bit.
 
     The local coordinates are formed in float64 and rounded once: float32
     absolute coordinates carry ~5e-7 nm of rounding in an 8 nm box, which
@@ -241,9 +243,9 @@ def sorted_fields(params, positions, box_diag, cellsort: CellSort,
                               torch.sqrt(params["eps"][safe])).contiguous()
     slots = torch.arange(sa.shape[0], device=dev)
     out["gid"] = torch.where(pad, -1 - slots, sa).to(torch.int32).contiguous()
-    out["ew"] = torch.where(pad, torch.zeros_like(sa),
-                            params["excl_words"][safe, 0].to(torch.int64)
-                            ).to(torch.int32).contiguous()
+    words = params["excl_words"][safe]                      # (S, n_words)
+    out["ew"] = torch.where(pad[:, None], torch.zeros_like(words),
+                            words).to(torch.int32).contiguous()
     out["count"] = torch.sum((~pad).reshape(cfg.n_cells, cfg.capacity),
                              dim=1).to(torch.int32).contiguous()
     return out
@@ -316,7 +318,7 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
     sig = fields["sig"].reshape(nc, C)
     seps = fields["seps"].reshape(nc, C)
     gid = fields["gid"].reshape(nc, C).to(torch.int64)
-    ew = fields["ew"].reshape(nc, C).to(torch.int64)
+    ew = fields["ew"].reshape(nc, C, -1).to(torch.int64)
     W = cfg.excl_window
     cutoff2 = cfg.cutoff * cfg.cutoff
     pair_eg = ewald_pair_eg(alpha, erfc_fn or torch.special.erfc)
@@ -347,7 +349,12 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
             dg = gid[b].reshape(nc, P * C)[:, None, :] - gid[:, :, None]
             in_win = torch.abs(dg) <= W
             bit = torch.where(in_win, dg + W, torch.zeros_like(dg))
-            excl = in_win & (((ew[:, :, None] >> bit) & 1) == 1)
+            # bit dg + W of the home slot's mask: bit % 31 of word bit // 31
+            if ew.shape[2] == 1:
+                word = ew
+            else:
+                word = torch.gather(ew, 2, bit // 31)
+            excl = in_win & (((word >> (bit % 31)) & 1) == 1)
             if not all(check):
                 mask = torch.as_tensor(check, device=dev)
                 excl = excl & mask.repeat_interleave(C)[None, None, :]

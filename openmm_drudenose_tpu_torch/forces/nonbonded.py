@@ -230,7 +230,8 @@ class NonbondedTerm:
         # the JAX force records uses_pallas / pallas_chunk
         self.use_kernel = dtype == torch.float32
         self.sweep_kernel, self.pallas_chunk = (
-            sweep.route(self.cfg, opts.get("use_pallas"))
+            sweep.route(self.cfg, opts.get("use_pallas"),
+                        sweep_chunked.card_limits(device))
             if self.use_kernel else (None, None))
         self.excl_skip = self.use_kernel and bool(
             opts.get("excl_skip", True))

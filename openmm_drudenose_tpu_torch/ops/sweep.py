@@ -1,23 +1,25 @@
 """Kernel B1: the cell-pair sweep's direct-space forces, hand-written in
-CUDA for Hopper (csrc/sweep.cu), with its plain PyTorch version beside it.
+CUDA for Hopper (csrc/sweep.cu, with the warp-tile pair loop of
+csrc/pair_tile.cuh), with its plain PyTorch version beside it.
 
 Replaces the JAX package's TPU kernel ops/pallas_sweep.py::
 pair_forces_pallas (pallas_call at :440).  It computes the same function
 (forces only; LJ + Ewald real space with the A&S erfc; self cell plus the
-half stencil with reactions; exclusion bitmask skipped at offsets with
-any |o| >= 2), not the TPU layout: no doubled layers, lane padding or
-one-hot reaction sums.
+half stencil with reactions; exclusion bitmask, any number of words,
+skipped at offsets with any |o| >= 2), not the TPU layout: no doubled
+layers, lane padding or one-hot reaction sums.  Any cell capacity.
 
 `pair_forces` is the entry point.  For a CPU tensor it runs the plain
 version (`pair_forces_plain`); for a CUDA tensor it launches the kernel or
 raises.  The kernels of csrc/ build at first use, one nvcc per source, all
-started together, into build/torch_kernels/<hash of every source>/, and
-are loaded with ctypes.
+started together, into build/torch_kernels/<hash of every source and
+header>/, and are loaded with ctypes.
 
 `supports` and `choose_chunk` are the JAX package's two gates
 (ops/pallas_sweep.py:52, :498), kept as plain arithmetic on the config;
 `route` sends a config to B1 or to the chunked kernel B2
-(ops/sweep_chunked.py) as forces/nonbonded.py:823-876 there does.
+(ops/sweep_chunked.py) as forces/nonbonded.py:823-876 there does, and
+raises where the kernel it chose does not take the config.
 """
 
 from __future__ import annotations
@@ -38,12 +40,14 @@ from ..forces import cellpair
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"sweep": CSRC / "sweep.cu",
            "sweep_chunked": CSRC / "sweep_chunked.cu"}
+HEADERS = (CSRC / "pair_tile.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches of each kernel, counted where it is launched and nowhere else
 launches = {"b1_sweep": 0, "b2_sweep": 0}
+INT32_MAX = 2 ** 31 - 1
 
 _libs = {}
 build_log = ""
@@ -69,6 +73,8 @@ def build() -> dict:
     key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name, src in sorted(SOURCES.items()):
         key.update(name.encode() + src.read_bytes())
+    for hdr in HEADERS:
+        key.update(hdr.name.encode() + hdr.read_bytes())
     out_dir = BUILD_ROOT / key.hexdigest()[:16]
     libs = {name: out_dir / f"lib{name}.so" for name in SOURCES}
     todo = [name for name, lib in libs.items() if not lib.exists()]
@@ -119,9 +125,53 @@ def load(name: str, declare):
 
 def _declare(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sweep_forces.argtypes = [vp] * 13 + [ci, ci, ci, cf, cf, cf, ci, vp]
+    lib.sweep_forces.argtypes = [vp] * 14 + [ci, ci, ci, cf, cf, cf, ci, ci,
+                                             ci, vp]
     lib.sweep_forces.restype = ci
-    lib.sweep_max_capacity.restype = ci
+    lib.sweep_attributes.argtypes = [vp]
+    lib.sweep_attributes.restype = ci
+    lib.sweep_occupancy.argtypes = [vp]
+    lib.sweep_occupancy.restype = ci
+    lib.sweep_warps_per_cta.restype = ci
+
+
+def kernel_attributes(lib, fn: str) -> dict:
+    """Registers a thread, static shared memory, the most threads a CTA
+    may have and local (spill) bytes a thread of a kernel, read from the
+    card with cudaFuncGetAttributes by the library's function `fn`."""
+    out = (ctypes.c_int * 4)()
+    err = getattr(lib, fn)(ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"{fn} failed: CUDA error {err}")
+    return {"regs": out[0], "static_smem": out[1], "max_threads": out[2],
+            "local_bytes": out[3]}
+
+
+def attributes() -> dict:
+    """B1's kernel_attributes."""
+    return kernel_attributes(load("sweep", _declare), "sweep_attributes")
+
+
+_occupancy = {}
+
+
+def occupancy(device) -> tuple:
+    """(SMs, B1's CTAs resident an SM) of a card, read once from it
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); B1 launches as many
+    CTAs as the card holds at once."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    hit = _occupancy.get(device.index)
+    if hit is None:
+        lib = load("sweep", _declare)
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(device):
+            err = lib.sweep_occupancy(ctypes.cast(out, ctypes.c_void_p))
+        if err != 0:
+            raise RuntimeError(f"sweep_occupancy failed: CUDA error {err}")
+        hit = _occupancy[device.index] = (out[0], max(out[1], 1))
+    return hit
 
 
 # the JAX gates' VMEM budget (the ~16 MB scoped-VMEM limit of a TPU core,
@@ -131,9 +181,9 @@ _TPU_VMEM_BUDGET = 12 * 1024 * 1024
 
 def _kernel_takes(cfg) -> bool:
     """The conditions both JAX gates start from: a regular half-stencil
-    grid, one exclusion word, a full stencil along x."""
-    return (cfg.regular and cfg.half_stencil and cfg.excl_words == 1
-            and 2 * cfg.excl_window + 1 <= 31
+    grid and a full stencil along x.  The JAX gates also ask for one
+    exclusion word; the port's kernels take any number."""
+    return (cfg.regular and cfg.half_stencil
             and cfg.grid[0] >= 2 * cfg.window[0] + 1)
 
 
@@ -146,8 +196,7 @@ def supports(cfg) -> bool:
     lay_stride = -(-2 * n_yz // 128) * 128
     fr_stride = -(-n_yz // 128) * 128
     vmem = 4 * cfg.capacity * n_lay * (8 * lay_stride + 2 * 3 * fr_stride)
-    return (_kernel_takes(cfg) and vmem <= _TPU_VMEM_BUDGET
-            and n_yz >= 128)
+    return _kernel_takes(cfg) and vmem <= _TPU_VMEM_BUDGET and n_yz >= 128
 
 
 def choose_chunk(cfg, force: bool = False):
@@ -189,22 +238,47 @@ def choose_chunk(cfg, force: bool = False):
     return None if best is None else best[1]
 
 
-def route(cfg, use_pallas=None):
-    """(kernel, chunk) of a float32 sweep: ("b2", cy) where the JAX
-    package takes its chunked kernel (supports() fails and choose_chunk()
-    finds a chunk, or use_pallas == 3 forces it, the JAX option of the
-    same name), else ("b1", None).  B1 also keeps the configs where
-    neither JAX gate engages: those gates are Mosaic's lane rules, and
-    one CTA per cell has no such limit.  The chunk height is the JAX
-    gate's record; B2's own tiling is sized for the card
-    (sweep_chunked.choose_brick)."""
+def b1_takes(cfg) -> bool:
+    """Whether kernel B1 takes the config: any capacity and any number of
+    exclusion words; its slot, word, neighbour-map and work-unit indices
+    in int32 (csrc/sweep.cu::sweep_forces refuses the rest)."""
+    n_slots = cfg.n_cells * cfg.capacity
+    units = cfg.n_cells * -(-cfg.capacity // 32) * -(-cfg.n_offsets // 8)
+    return (3 * n_slots <= INT32_MAX
+            and n_slots * cfg.excl_words <= INT32_MAX
+            and cfg.n_cells * cfg.n_offsets <= INT32_MAX
+            and units <= INT32_MAX)
+
+
+def route(cfg, use_pallas=None, limits=None):
+    """(kernel, chunk) of a float32 sweep: the JAX package's choice on the
+    layout, ("b2", cy) where it takes its chunked kernel (supports()
+    fails and choose_chunk() finds a chunk, or use_pallas == 3 forces it,
+    the JAX option of the same name), else ("b1", None).  B1 also keeps
+    the configs where neither JAX gate engages: those gates are Mosaic's
+    lane rules, and B1 has no such limit.  The chunk height is the JAX
+    gate's record; B2's own tiling is its fixed brick
+    (sweep_chunked.choose_brick).
+
+    Raises where the chosen kernel does not take the config (int32
+    indices; for B2 also a CTA that fits `limits`, the card's:
+    sweep_chunked.card_limits)."""
+    from . import sweep_chunked
+    cy = None
     if use_pallas == 3:
-        return "b2", choose_chunk(cfg, force=True)
-    if not supports(cfg):
+        kernel, cy = "b2", choose_chunk(cfg, force=True)
+    elif not supports(cfg):
         cy = choose_chunk(cfg)
-        if cy is not None:
-            return "b2", cy
-    return "b1", None
+        kernel = "b2" if cy is not None else "b1"
+    else:
+        kernel = "b1"
+    takes = (sweep_chunked.b2_takes(cfg, limits) if kernel == "b2"
+             else b1_takes(cfg))
+    if not takes:
+        raise ValueError(f"kernel {kernel.upper()} does not take the config"
+                         f" (grid {cfg.grid}, capacity {cfg.capacity}, "
+                         f"{cfg.excl_words} exclusion words)")
+    return kernel, cy
 
 
 def check_excl_flags(cfg, excl_skip: bool) -> np.ndarray:
@@ -233,15 +307,12 @@ def _device_tables(cfg, excl_skip, dev):
 
 
 def check_config(cfg):
-    """Raise unless the kernels take the config."""
+    """Raise unless the kernels take the config's layout."""
     if not (cfg.half_stencil and cfg.regular):
         raise ValueError("the sweep kernel takes regular half-stencil "
                          "grids only")
     if tuple(cfg.offsets[0]) != (0, 0, 0):
         raise ValueError("the sweep kernel needs the self offset first")
-    if cfg.excl_words != 1 or 2 * cfg.excl_window + 1 > 31:
-        raise ValueError("the sweep kernel takes one-word exclusion masks "
-                         "only (2W+1 <= 31)")
 
 
 def check_fields(fields, cfg):
@@ -255,7 +326,8 @@ def check_fields(fields, cfg):
                 or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"field {k}: need contiguous float32 "
                              f"({n_slots},) on {dev}")
-    for k, shape in (("gid", (n_slots,)), ("ew", (n_slots,)),
+    for k, shape in (("gid", (n_slots,)),
+                     ("ew", (n_slots, cfg.excl_words)),
                      ("count", (cfg.n_cells,))):
         t = fields[k]
         if t.dtype != torch.int32 or t.shape != shape \
@@ -288,24 +360,28 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     check_fields(fields, cfg)
+    if not b1_takes(cfg):
+        raise ValueError(f"{cfg.n_cells} cells of capacity {cfg.capacity} "
+                         "overflow the kernel's int32 indices")
     lib = load("sweep", _declare)
-    if cfg.capacity > lib.sweep_max_capacity():
-        raise ValueError(f"cell capacity {cfg.capacity} exceeds the "
-                         f"kernel's {lib.sweep_max_capacity()}")
     dev = x.device
     nbr, chk = _device_tables(cfg, excl_skip, dev)
     sh = shifts.to(device=dev, dtype=torch.float32).contiguous()
     f = torch.zeros((cfg.n_cells * cfg.capacity, 3), dtype=torch.float32,
                     device=dev)
+    # the work-unit counter of the launch (sweep_forces sets it to 0)
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    sms, per_sm = occupancy(dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.sweep_forces(
         p(fields["x"]), p(fields["y"]), p(fields["z"]), p(fields["q"]),
         p(fields["sig"]), p(fields["seps"]), p(fields["gid"]),
         p(fields["ew"]), p(fields["count"]), p(nbr), p(sh), p(chk), p(f),
-        cfg.n_cells, cfg.capacity, cfg.n_offsets,
+        p(counter), cfg.n_cells, cfg.capacity, cfg.n_offsets,
         float(cfg.cutoff * cfg.cutoff), float(alpha), float(coulomb_scale),
-        cfg.excl_window, ctypes.c_void_p(stream))
+        cfg.excl_window, cfg.excl_words, sms * per_sm,
+        ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
     launches["b1_sweep"] += 1

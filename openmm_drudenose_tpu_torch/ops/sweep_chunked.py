@@ -1,6 +1,7 @@
 """Kernel B2: the chunked cell-pair sweep with deterministic reactions,
-hand-written in CUDA for Hopper (csrc/sweep_chunked.cu), with its plain
-PyTorch version beside it.
+hand-written in CUDA for Hopper (csrc/sweep_chunked.cu, with the
+warp-tile pair loop of csrc/pair_tile.cuh), with its plain PyTorch
+version beside it.
 
 Replaces the JAX package's TPU kernel ops/pallas_sweep.py::
 pair_forces_pallas_chunked (pallas_call at :851).  It computes the same
@@ -12,12 +13,13 @@ order, so no chunk scatters into another's output and the result does
 not depend on the order in which chunks run.
 
 The chunk is the card's own choice, not the TPU's y-chunk: a brick of
-home cells (`choose_brick`: the most warps resident on an SM within
-227 KB of shared memory and 1024 threads a CTA).  Its frame is the
-brick grown by the stencil's span.  A `ChunkPlan` holds the layout: per
-dimension, chunk count, lowest offset, frame width, and the table of
-(chunk, frame-local index) pairs that cover each cell, which the
-overlap-add pass reads.
+1 x 2 x 2 home cells, one warp each (`BRICK`); `b2_takes` says whether
+its CTA launches within the card's limits as read from the card
+(`card_limits`).  Its frame is the brick grown by the
+stencil's span, a block of device memory of its own.  A `ChunkPlan`
+holds the layout: per dimension, chunk count, lowest offset, frame
+width, and the table of (chunk, frame-local index) pairs that cover each
+cell, which the overlap-add pass reads.
 
 `pair_forces` is the entry point, with sweep.pair_forces' signature.  For
 a CPU tensor it runs the plain version (`pair_forces_plain`), which sums
@@ -39,19 +41,73 @@ import torch
 from ..forces import cellpair
 from . import sweep
 
-# candidate bricks (home cells per chunk); choose_brick takes the one
-# that keeps the most warps resident on an SM
-BRICKS = ((2, 2, 2), (2, 2, 4), (2, 2, 3), (1, 2, 4), (1, 2, 2), (1, 1, 2),
-          (1, 1, 1))
-# dynamic shared memory a CTA may opt in to on Hopper (227 KB), and what
-# an SM holds for all its CTAs (228 KB, 1 KB of it reserved per CTA)
-SMEM_LIMIT = 232448
-SM_SMEM = 233472
-MAX_THREADS = 1024
-# resident threads an SM's 65,536 registers allow at up to 64 registers
-# a thread (ptxas gives the kernel 56)
-SM_THREADS = 1024
-INT32_MAX = 2 ** 31 - 1
+# home cells per chunk, one warp each: of the bricks of 4 to 8 cells
+# (csrc/sweep_chunked.cu's launch bound is 8 warps), the one that ran
+# fastest on the H100 at 800k atoms (chip_smoke.py times its rivals;
+# PERF.md); its CTA fits the H100 up to a capacity of 4429
+BRICK = (1, 2, 2)
+INT32_MAX = sweep.INT32_MAX
+# bytes of one warp's staged tile (pair_tile::Tile: 32 float4 positions
+# and charges, 32 float2 sigma / sqrt(eps), 32 atom indices) and of its
+# broadcast walk's partial sums (pair_tile::Partials: 3 x 8 x 33 floats)
+TILE_BYTES = 32 * (16 + 8 + 4)
+PARTIAL_BYTES = 4 * 3 * 8 * 33
+
+
+@dataclasses.dataclass(frozen=True)
+class CardLimits:
+    """What kernel B2 and the card allow a CTA and an SM: the kernel's
+    registers a thread and static shared memory (cudaFuncGetAttributes),
+    the card's shared memory a CTA may opt in to, an SM's shared memory,
+    the shared memory reserved per CTA, an SM's registers and threads
+    (cudaDeviceGetAttribute)."""
+    regs: int | None
+    static_smem: int
+    max_threads: int
+    smem_block: int
+    smem_sm: int
+    smem_reserved: int
+    regs_sm: int
+    threads_sm: int
+
+
+# the H100's published figures and B2's launch bound (8 warps a CTA),
+# for the plain version on the CPU (where the brick sets only the order of
+# the sums): registers unknown there
+H100 = CardLimits(regs=None, static_smem=0, max_threads=256,
+                  smem_block=232448, smem_sm=233472, smem_reserved=1024,
+                  regs_sm=65536, threads_sm=2048)
+
+_card_limits = {}
+
+
+def attributes() -> dict:
+    """B2's registers, static shared memory, most threads a CTA and
+    local bytes a thread, read from the card (sweep.kernel_attributes)."""
+    return sweep.kernel_attributes(sweep.load("sweep_chunked", _declare),
+                                   "chunk_sweep_attributes")
+
+
+def card_limits(device):
+    """CardLimits read from the card; None for a CPU device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    hit = _card_limits.get(str(device))
+    if hit is None:
+        lib = sweep.load("sweep_chunked", _declare)
+        dev = (ctypes.c_int * 6)()
+        err = lib.chunk_sweep_device(ctypes.cast(dev, ctypes.c_void_p))
+        if err != 0:
+            raise RuntimeError(f"chunk_sweep_device failed: CUDA error "
+                               f"{err}")
+        a = attributes()
+        hit = _card_limits[str(device)] = CardLimits(
+            regs=a["regs"], static_smem=a["static_smem"],
+            max_threads=a["max_threads"], smem_block=dev[0],
+            smem_sm=dev[1], smem_reserved=dev[2], regs_sm=dev[3],
+            threads_sm=dev[4])
+    return hit
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -127,14 +183,31 @@ class ChunkPlan:
         return row.reshape(gx * gy * gz, lx * ly * lz)
 
 
-def smem_bytes(brick, frame, capacity: int) -> int:
-    """Dynamic shared memory of one CTA (chunk_sweep_smem_bytes): the
-    frame, the per-warp reaction parts, seven staged fields per home
-    cell's neighbour slots and two counts per home cell."""
-    nh, nf = int(np.prod(brick)), int(np.prod(frame))
-    parts = -(-capacity // 32)
-    return 4 * (nf * 3 * capacity + parts * nh * 3 * capacity
-                + 7 * nh * capacity + 2 * nh)
+def smem_bytes(brick, capacity: int) -> int:
+    """Dynamic shared memory of one CTA (chunk_sweep_smem_bytes): two
+    staged tiles (the neighbour's and the home part), the partial sums
+    and one (3, C) row-force buffer a warp (the frame lives in device
+    memory)."""
+    return int(np.prod(brick)) * (2 * TILE_BYTES + PARTIAL_BYTES
+                                  + 12 * capacity)
+
+
+def resident_ctas(brick, capacity: int, limits=None) -> int:
+    """CTAs of this brick an SM holds at once (0: it does not launch):
+    the fewest that its shared memory, threads and (where known)
+    registers allow."""
+    lim = limits or H100
+    threads = 32 * int(np.prod(brick))
+    smem = smem_bytes(brick, capacity) + lim.static_smem
+    if threads > lim.max_threads or smem > lim.smem_block:
+        return 0
+    ctas = min(lim.smem_sm // (smem + lim.smem_reserved),
+               lim.threads_sm // threads, 32)
+    if lim.regs is not None:
+        # registers go to a warp in units of 256
+        per_warp = -(-lim.regs * 32 // 256) * 256
+        ctas = min(ctas, lim.regs_sm // per_warp // (threads // 32))
+    return ctas
 
 
 def make_plan(cfg, brick) -> ChunkPlan:
@@ -163,46 +236,36 @@ def make_plan(cfg, brick) -> ChunkPlan:
                      offsets=tuple(map(tuple, offs.tolist())))
 
 
-def choose_brick(cfg) -> tuple:
-    """The brick of BRICKS (cut to the grid) whose CTAs keep the most
-    warps resident on an SM, from their threads (one warp per 32 home
-    slots of each home cell, at most MAX_THREADS), their shared memory
-    (at most SMEM_LIMIT) and the SM's registers; among equals, the one
-    with two CTAs an SM or more (one runs on while another waits at a
-    barrier), then the one with the fewest frame cells per home cell.
-    On the H100 at 800k atoms this picks 2x2x2 at C = 48 (two CTAs of 16
-    warps an SM) and 2x2x4 at C = 56, where a 2x2x2 CTA needs 120 KB and
-    fits once an SM (the two are timed side by side by chip_smoke.py
-    phase 4)."""
-    C = cfg.capacity
-    offs = np.asarray(cfg.offsets, np.int64)
-    span = offs.max(axis=0) - offs.min(axis=0)
-    best = None
-    for brick in BRICKS:
-        brick = tuple(min(b, g) for b, g in zip(brick, cfg.grid))
-        frame = tuple(int(b + s) for b, s in zip(brick, span))
-        home = int(np.prod(brick))
-        threads = home * -(-C // 32) * 32
-        smem = smem_bytes(brick, frame, C)
-        if threads > MAX_THREADS or smem > SMEM_LIMIT:
-            continue
-        ctas = min(SM_SMEM // (smem + 1024), SM_THREADS // threads)
-        key = (ctas * threads, min(ctas, 2), -np.prod(frame) / home)
-        if best is None or key > best[0]:
-            best = (key, brick)
-    if best is None:
-        raise ValueError(f"cell capacity {C} leaves no brick whose frame "
-                         f"fits {SMEM_LIMIT} bytes of shared memory")
-    return best[1]
+def choose_brick(cfg, limits=None):
+    """BRICK cut to the grid, or None where its CTA does not launch under
+    `limits` (the card's, or the H100's published figures without
+    registers)."""
+    brick = tuple(min(b, g) for b, g in zip(BRICK, cfg.grid))
+    return brick if resident_ctas(brick, cfg.capacity, limits) > 0 else None
+
+
+def b2_takes(cfg, limits=None) -> bool:
+    """Whether kernel B2 takes the config: its brick's CTA launches
+    (choose_brick) and its frames and slot and word indices stay in
+    int32 (csrc/sweep_chunked.cu::chunk_sweep_forces refuses the
+    rest)."""
+    brick = choose_brick(cfg, limits)
+    if brick is None or not sweep.b1_takes(cfg):
+        return False
+    return make_plan(cfg, brick).frame_floats(cfg.capacity) <= INT32_MAX
 
 
 _plans = {}
 
 
-def plan_for(cfg, brick=None) -> ChunkPlan:
+def plan_for(cfg, brick=None, limits=None) -> ChunkPlan:
     """The plan of `cfg` (cached per config; the config is held so its id
-    stays valid); brick None takes choose_brick(cfg)."""
-    brick = tuple(brick) if brick is not None else choose_brick(cfg)
+    stays valid); brick None takes choose_brick(cfg, limits)."""
+    brick = tuple(brick) if brick is not None \
+        else choose_brick(cfg, limits)
+    if brick is None:
+        raise ValueError(f"cell capacity {cfg.capacity} leaves no brick "
+                         "whose CTA fits the card")
     key = (id(cfg), brick)
     hit = _plans.get(key)
     if hit is None:
@@ -243,9 +306,12 @@ def pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
 def _declare(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.chunk_sweep_forces.argtypes = [vp] * 18 + [ci] * 5 + [cf] * 3 \
-        + [ci, vp]
+        + [ci, ci, vp]
     lib.chunk_sweep_forces.restype = ci
-    lib.chunk_sweep_max_capacity.restype = ci
+    lib.chunk_sweep_attributes.argtypes = [vp]
+    lib.chunk_sweep_attributes.restype = ci
+    lib.chunk_sweep_device.argtypes = [vp]
+    lib.chunk_sweep_device.restype = ci
     lib.chunk_sweep_smem_bytes.argtypes = [vp, ci]
     lib.chunk_sweep_smem_bytes.restype = ci
 
@@ -270,8 +336,9 @@ def _device_tables(cfg, plan, excl_skip, dev):
 def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
                 excl_skip=True, brick=None):
     """Slot forces (n_cells * C, 3) of the direct-space sum, as
-    sweep.pair_forces.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel (float32 only) or raise."""
+    sweep.pair_forces; brick None takes choose_brick from the card's
+    limits.  CPU tensors run the plain version; CUDA tensors launch the
+    kernel (float32 only) or raise."""
     sweep.check_config(cfg)
     x = fields["x"]
     if x.device.type == "cpu":
@@ -282,20 +349,21 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
     sweep.check_fields(fields, cfg)
     lib = sweep.load("sweep_chunked", _declare)
     C = cfg.capacity
-    if C > lib.chunk_sweep_max_capacity():
-        raise ValueError(f"cell capacity {C} exceeds the kernel's "
-                         f"{lib.chunk_sweep_max_capacity()}")
-    plan = plan_for(cfg, brick)
+    limits = card_limits(x.device)
+    plan = plan_for(cfg, brick, limits)
     plan_c = (ctypes.c_int * 15)(*plan.as_ints())
     plan_p = ctypes.cast(plan_c, ctypes.c_void_p)
     smem = lib.chunk_sweep_smem_bytes(plan_p, C)
-    if smem > SMEM_LIMIT:
+    if smem + limits.static_smem > limits.smem_block \
+            or 32 * int(np.prod(plan.brick)) > limits.max_threads:
         raise ValueError(f"brick {plan.brick} needs {smem} bytes of shared "
-                         f"memory, more than {SMEM_LIMIT}")
+                         f"memory, more than the card's "
+                         f"{limits.smem_block}, or too many threads")
     n_frame = plan.frame_floats(C)
-    if n_frame > INT32_MAX or cfg.n_cells * C * 3 > INT32_MAX:
-        raise ValueError(f"{n_frame} frame floats overflow the kernel's "
-                         "int32 indices")
+    if n_frame > INT32_MAX or not sweep.b1_takes(cfg):
+        raise ValueError(f"{n_frame} frame floats or {cfg.n_cells} cells "
+                         f"of capacity {C} overflow the kernel's int32 "
+                         "indices")
     dev = x.device
     offs, chk, tx, ty, tz = _device_tables(cfg, plan, excl_skip, dev)
     sh = shifts.to(device=dev, dtype=torch.float32).contiguous()
@@ -310,7 +378,7 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
         p(ty), p(tz), p(frames), p(f), plan_p,
         tx.shape[1], ty.shape[1], tz.shape[1], C, cfg.n_offsets,
         float(cfg.cutoff * cfg.cutoff), float(alpha), float(coulomb_scale),
-        cfg.excl_window, ctypes.c_void_p(stream))
+        cfg.excl_window, cfg.excl_words, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"chunked sweep kernel launch failed: CUDA "
                            f"error {err}")

@@ -19,6 +19,7 @@ import torch
 
 import openmm_drudenose_tpu as dn
 import openmm_drudenose_tpu_torch as dt
+from openmm_drudenose_tpu.forces import cellpair as jcp
 from openmm_drudenose_tpu.io import builders as jbuilders
 from openmm_drudenose_tpu.ops import pallas_sweep as jps
 from openmm_drudenose_tpu_torch.forces import cellpair as tcp
@@ -159,15 +160,19 @@ def test_frame_rows_match_tables(tctx64):
 
 
 def test_choose_brick_fits_the_card(tctx64):
+    """Without a register count (the H100's published figures), the brick
+    of the JAX 1M configuration's 33^3 grid keeps eight CTAs or more
+    resident, and its frames index in int32."""
     cfg = tctx64._cp_cfg
-    for C, want in ((32, (2, 2, 4)), (48, (2, 2, 2)), (56, (2, 2, 4)),
-                    (128, (1, 2, 2))):
+    for C, want, ctas in ((32, (1, 2, 2), 10), (48, (1, 2, 2), 10),
+                          (56, (1, 2, 2), 9), (128, (1, 2, 2), 8)):
         c = dataclasses.replace(cfg, capacity=C, grid=(33, 33, 33))
         brick = sweep_chunked.choose_brick(c)
         assert brick == want
         plan = sweep_chunked.make_plan(c, brick)
-        assert sweep_chunked.smem_bytes(brick, plan.frame, C) \
-            <= sweep_chunked.SMEM_LIMIT
+        assert sweep_chunked.smem_bytes(brick, C) \
+            <= sweep_chunked.H100.smem_block
+        assert sweep_chunked.resident_ctas(brick, C) == ctas
         assert plan.frame_floats(C) <= sweep_chunked.INT32_MAX
         assert plan.total_chunks >= 132
 
@@ -286,15 +291,35 @@ def test_float64_context_runs_the_plain_sweep(tctx64):
     assert tctx64._nb.sweep_kernel is None
 
 
-def test_wrapper_refuses_unsupported_config(ctx32):
-    """Like B1's wrapper: exclusion windows wider than one mask word are
-    refused on any device."""
-    _, tctx = ctx32
-    nb = tctx._nb
-    wide = dataclasses.replace(nb.cfg, excl_window=20, excl_words=2)
-    box = torch.diagonal(tctx._state.box)
-    fields = nb.fields(tctx._state.positions, box, tctx._state.neighbors)
-    with pytest.raises(ValueError):
-        sweep_chunked.pair_forces(fields, wide,
-                                  tcp.offset_shifts(wide, box), nb.alpha,
-                                  ONE_4PI_EPS0)
+def test_wrapper_refuses_unsupported_config():
+    """Like B1's wrapper, B2's takes exclusion masks of two words (the
+    kernel takes any number): on the CPU its plain version matches the
+    JAX sweep, which runs such a config on XLA, to 2e-5 x max|f|."""
+    out = []
+    for pkg, build, kw in ((dn, jbuilders, {"strategy": "cellpair"}),
+                           (dt, tbuilders, {"device": "cpu"})):
+        system, pos = build.build_water_box(N_MOL, cutoff=CUTOFF)
+        nonbonded = next(f for f in system.getForces()
+                         if type(f).__name__ == "NonbondedForce")
+        nonbonded.addException(0, 20, 0.0, 1.0, 0.0)
+        integ = pkg.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+        ctx = pkg.Context(system, integ, precision="single", **kw)
+        ctx.setPositions(pos)
+        ctx._ensure_neighbors()
+        out.append(ctx)
+    jctx, tctx = out
+    assert tctx._cp_cfg.excl_window == 20 and tctx._cp_cfg.excl_words == 2
+    nb_fn, nb_params = next(t for t in jctx._terms
+                            if hasattr(t[0], "cellpair_cfg"))
+    pos = _drifted(tctx, 7, np.float32)
+    _, f_ref = jcp.pair_energy_forces(
+        nb_params, jnp.asarray(pos), jnp.diagonal(jctx._state.box),
+        jctx._state.neighbors, jctx._cp_cfg, nb_fn.pair_eg,
+        nb_fn.coulomb_scale, with_energy=False)
+    f_ref = np.asarray(f_ref)
+    fields, cfg, shifts, alpha, scale = _args(tctx, pos)
+    f_slots = sweep_chunked.pair_forces(fields, cfg, shifts, alpha, scale,
+                                        excl_skip=False)
+    f = f_slots[tctx._state.neighbors.inv_slot].numpy()
+    np.testing.assert_allclose(f, f_ref, rtol=0,
+                               atol=2e-5 * np.abs(f_ref).max())

@@ -223,15 +223,43 @@ def test_b1_plain_matches_jax_pallas_interpret(ctx32):
                                atol=2e-5 * np.abs(f_ref).max())
 
 
-def test_kernel_wrapper_refuses_unsupported_config(ctx32):
-    """The wrapper refuses configs the kernel does not take (exclusion
-    windows wider than one mask word), on any device."""
-    import dataclasses
-    _, tctx = ctx32
+def _two_word_contexts():
+    """The JAX and the port's f32 Context with one more exclusion, over 20
+    atom indices: W = 20, two mask words."""
+    out = []
+    for pkg, build, kw in ((dn, jbuilders, {"strategy": "cellpair"}),
+                           (dt, tbuilders, {"device": "cpu"})):
+        system, pos = build.build_water_box(N_MOL, cutoff=CUTOFF)
+        nonbonded = next(f for f in system.getForces()
+                         if type(f).__name__ == "NonbondedForce")
+        nonbonded.addException(0, 20, 0.0, 1.0, 0.0)
+        integ = pkg.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+        ctx = pkg.Context(system, integ, precision="single", **kw)
+        ctx.setPositions(pos)
+        ctx._ensure_neighbors()
+        out.append(ctx)
+    return out
+
+
+def test_kernel_wrapper_refuses_unsupported_config():
+    """The wrapper takes exclusion masks of two words (the kernel takes
+    any number): on the CPU its plain version matches the JAX sweep, which
+    runs such a config on XLA, to 2e-5 x max|f|."""
+    jctx, tctx = _two_word_contexts()
+    assert tctx._cp_cfg.excl_window == 20 and tctx._cp_cfg.excl_words == 2
+    nb_fn, nb_params = _jax_nb(jctx)
+    pos = _drifted(tctx, 4, np.float32)
+    _, f_ref = jcp.pair_energy_forces(
+        nb_params, jnp.asarray(pos), jnp.diagonal(jctx._state.box),
+        jctx._state.neighbors, jctx._cp_cfg, nb_fn.pair_eg,
+        nb_fn.coulomb_scale, with_energy=False)
+    f_ref = np.asarray(f_ref)
     nb = tctx._nb
-    wide = dataclasses.replace(nb.cfg, excl_window=20, excl_words=2)
     box = torch.diagonal(tctx._state.box)
-    fields = nb.fields(tctx._state.positions, box, tctx._state.neighbors)
-    with pytest.raises(ValueError):
-        sweep.pair_forces(fields, wide, tcp.offset_shifts(wide, box),
-                          nb.alpha, ONE_4PI_EPS0)
+    fields = nb.fields(torch.as_tensor(pos), box, tctx._state.neighbors)
+    f_slots = sweep.pair_forces(fields, nb.cfg, tcp.offset_shifts(nb.cfg,
+                                box), nb.alpha, ONE_4PI_EPS0,
+                                excl_skip=False)
+    f = f_slots[tctx._state.neighbors.inv_slot].numpy()
+    np.testing.assert_allclose(f, f_ref, rtol=0,
+                               atol=2e-5 * np.abs(f_ref).max())

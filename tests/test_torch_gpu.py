@@ -1,6 +1,7 @@
 """Card-only checks of the PyTorch port: kernels B1 and B2 against their
-plain versions on CUDA tensors, B2's bit-identical repeat launches, their
-refusals, and the Context stepping through each.  Marked `gpu`; each
+plain versions on CUDA tensors, also with exclusion masks of three words
+and at capacity 160; B2's bit-identical repeat launches; the limits read from the card and the
+routing by them; their refusals, and the Context stepping through each.  Marked `gpu`; each
 test skips (through the `cuda` fixture) where no CUDA card is present.
 On the card (tests/conftest.py imports JAX, which the machine with the
 card lacks): python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
@@ -26,8 +27,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ctx(device, precision="single", nb_options=None):
+def _ctx(device, precision="single", nb_options=None, exception=None):
     system, pos = builders.build_water_box(216, cutoff=0.6)
+    if exception is not None:
+        nonbonded = next(f for f in system.getForces()
+                         if type(f).__name__ == "NonbondedForce")
+        nonbonded.addException(*exception, 0.0, 1.0, 0.0)
     integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
     integ.setMaxDrudeDistance(0.02)
     ctx = dt.Context(system, integ, precision=precision, device=device,
@@ -115,3 +120,52 @@ def test_context_steps_through_b2(cuda):
     st = ctx.getState(positions=True, energy=True)
     assert np.all(np.isfinite(st.getPositions()))
     assert np.isfinite(st.getPotentialEnergy())
+
+
+def _held_to_plain(args):
+    f_p = sweep.pair_forces_plain(*args)
+    scale = float(torch.max(torch.abs(f_p)))
+    for kernel in (sweep, sweep_chunked):
+        f_k = kernel.pair_forces(*args)
+        torch.cuda.synchronize()
+        assert float(torch.max(torch.abs(f_k - f_p))) <= 2e-5 * scale
+
+
+def test_kernels_take_three_exclusion_words(cuda):
+    """An exclusion over 40 atom indices: W = 40, three mask words, every
+    intramolecular exclusion in word 1."""
+    ctx, _ = _ctx(cuda, exception=(0, 40))
+    assert ctx._cp_cfg.excl_words == 3
+    assert ctx._nb.sweep_kernel in ("b1", "b2")
+    _held_to_plain(_fields(ctx))
+
+
+def test_kernels_take_capacity_160(cuda):
+    ctx, _ = _ctx(cuda, nb_options={"capacity": 160})
+    assert ctx._cp_cfg.capacity == 160
+    assert ctx._nb.sweep_kernel in ("b1", "b2")
+    _held_to_plain(_fields(ctx))
+
+
+def test_limits_read_from_the_card(cuda):
+    for kernel in (sweep, sweep_chunked):
+        a = kernel.attributes()
+        assert 0 < a["regs"] <= 255 and a["local_bytes"] >= 0
+    lim = sweep_chunked.card_limits(cuda)
+    assert lim.max_threads >= 256 and lim.smem_block >= 48 * 1024
+    assert lim.regs == sweep_chunked.attributes()["regs"]
+    ctx, _ = _ctx(cuda)
+    cfg = ctx._cp_cfg
+    brick = sweep_chunked.choose_brick(cfg, lim)
+    assert sweep_chunked.resident_ctas(brick, cfg.capacity, lim) >= 1
+
+
+def test_route_on_card_limits(cuda):
+    import dataclasses
+    ctx, _ = _ctx(cuda)
+    lim = sweep_chunked.card_limits(cuda)
+    for C in (160, 512):
+        cfg = dataclasses.replace(ctx._cp_cfg, capacity=C)
+        assert sweep_chunked.b2_takes(cfg, lim)
+        assert sweep.route(cfg, limits=lim)[0] == "b1"
+        assert sweep.route(cfg, use_pallas=3, limits=lim)[0] == "b2"

@@ -15,7 +15,8 @@ import openmm_drudenose_tpu_torch
 from openmm_drudenose_tpu_torch import convert
 from openmm_drudenose_tpu_torch.app import context
 from openmm_drudenose_tpu_torch.io import builders
-from openmm_drudenose_tpu_torch.ops import sweep
+from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
+from openmm_drudenose_tpu_torch.tools import walk_model
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "openmm_drudenose_tpu"
