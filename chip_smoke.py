@@ -33,8 +33,10 @@ seconds):
      f64 (the same f32 floor), then 100 steps with the launch counts reset
      just before and read just after (B1 launched); no latch may be set,
      the hard wall must hold, bath temperatures and the conserved energy must be
-     finite and plausible; ms/step and ns/day, and the stream time of
-     each part of the force pass beside the whole step
+     finite and plausible (getState(energy=True) counted apart: B1's
+     energy instantiation launched, no plain sweep on the card); ms/step
+     and ns/day, and the stream time of each part of the force pass
+     beside the whole step
   4. kernel B2 (ops/sweep_chunked.py, csrc/sweep_chunked.cu) and the
      large single-card path: B2 forced at 100k against B1 on the bench
      fields; then the system of the JAX package's 1M-atom single-device
@@ -47,23 +49,50 @@ seconds):
      version in f64 (the f32 floor) and B1 (<= 2e-5), two launches
      bit-identical, B2 (also by brick), B1 and plain timed with their
      bound; 64 timed steps with the launch counts reset just before and
-     read just after (B2 launched, B1 never); no latch, the wall held,
-     everything
-     finite, the f32 force pass against f64 (the f32 floor); ms/step,
-     ns/day, bath temperatures and the breakdown (no temperature window:
-     fresh velocities are not equilibrated)
-  5. the seconds of each phase, the `kernels` JSON line, then the result
-     line.
+     read just after (B2 launched, B1 never); B2's energy instantiation
+     against the plain energy (f32, 1e-6 of |E|) and f64 (1e-5 of |E|),
+     two launches bit-identical, timed with its bound; no latch, the wall
+     held, everything finite (the state's energy by B2's energy, no plain
+     sweep on the card), the f32 force pass against f64 (the f32 floor);
+     ms/step, ns/day, bath temperatures and the breakdown (no temperature
+     window: fresh velocities are not equilibrated)
+  5. the reference example at its own size (its examples/nacl_tg.py
+     workflow through the port's Simulation): the generated NaCl box
+     (492 waters, 10 Na+, 10 Cl-: 2,500 atoms, the dense strategy),
+     single precision; minimize(200) (the energy must fall), 300 K
+     velocities, MonteCarloBarostat(1.01325, 300, 100),
+     StateDataReporter every 500 steps, 2,000 steps: no latch, the wall
+     held, finite energies, the bath temperatures averaged over the run
+     (every 10 steps) in phase 3's bands and the last ones in wider
+     bands, the box changed (a move was accepted); ms/step; a checkpoint
+     saved, 100 steps, loaded, 100 steps: positions bit for bit in
+     PyTorch's default mode (every scatter-add of the port sums in a
+     fixed order: ops/scatter.py)
+  6. NPT at full width through B1: the 100k system and snapshot of
+     phase 3 with MonteCarloBarostat(1.01325, 300, 25); B1's energy
+     against the plain energy (f32, 1e-6 of |E|) and f64 (1e-5 of |E|),
+     two launches bit-identical, timed with its bound; 400 steps (16
+     attempts) with the counts reset just before and read just after:
+     b1_energy = 2 an attempt, no plain sweep; ms/step against phase 3's
+     without the barostat, and the host time spent inside the attempts;
+     latches, wall, finiteness; then a forced 0.9x
+     linear shrink: the cell grid planned again, B1 (forces and energy)
+     held against its plain version on the new grid
+  7. the seconds of each phase, the `kernels` JSON line (each kernel's
+     force and energy instantiations), then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 T0 = time.time()
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -84,6 +113,23 @@ PEAK_BYTES_PER_S = 3.35e12
 # and its row/reaction accumulation (~50, counting rsqrt and exp as one)
 OPS_PER_TEST = 9
 OPS_PER_PAIR = 50
+# the energy instantiation: each pair inside the cutoff costs the LJ
+# energy, erfcf (~25 operations: CUDA's rational approximation with its
+# exp) and a float64 add (~45 in all)
+OPS_PER_PAIR_ENERGY = 45
+# the force kernels' times recorded before they gained their energy
+# instantiation (NVIDIA H100 80GB HBM3, 700 W): B1 at 100k, B2 at 800k
+# (C = 56); each run prints its own beside them
+RECORDED_MS = {"b1_sweep": 0.7322, "b2_sweep": 7.0916}
+# relative limits of the energy instantiations: against the plain energy
+# in f32 and in f64, of |E|
+E_PLAIN_REL = 1e-6
+E_F64_REL = 1e-5
+# phase 5: the example's own steps, barostat and reporter intervals, and
+# the checkpoint replay; phase 6: the NPT steps and barostat interval
+EX_STEPS, EX_BARO, EX_REPORT, EX_REPLAY = 2000, 100, 500, 100
+EX_SAMPLE = 10
+NPT_STEPS, NPT_BARO = 400, 25
 
 
 def log(msg):
@@ -148,18 +194,20 @@ def pair_counts(fields, cfg, shifts):
     return n_tests, n_cut
 
 
-def sweep_bound(fields, cfg, shifts):
+def sweep_bound(fields, cfg, shifts, energy=False):
     """(bound ms, "operations" or "bytes", pair tests, pairs inside the
     cutoff, bytes) of the direct-space sweep on these fields: the larger
     of its FP32 operations over the card's peak and the bytes it must
-    move (each field read once, the forces written once) over the
-    memory rate.  B1 and B2 compute the same function, so both are held
-    to this one bound."""
+    move (each field read once, the forces, or the energy, written once)
+    over the memory rate.  B1 and B2 compute the same function, so both
+    are held to this one bound (one for each instantiation)."""
     n_tests, n_cut = pair_counts(fields, cfg, shifts)
     n_slots = cfg.n_cells * cfg.capacity
-    n_bytes = (n_slots * (8 * 4 + 3 * 4) + cfg.n_cells * 4
-               + cfg.n_cells * cfg.n_offsets * 4 + cfg.n_offsets * 16)
-    t_ops = (OPS_PER_TEST * n_tests + OPS_PER_PAIR * n_cut) \
+    n_bytes = (n_slots * 8 * 4 + cfg.n_cells * 4
+               + cfg.n_cells * cfg.n_offsets * 4 + cfg.n_offsets * 16
+               + (8 if energy else n_slots * 3 * 4))
+    per_pair = OPS_PER_PAIR_ENERGY if energy else OPS_PER_PAIR
+    t_ops = (OPS_PER_TEST * n_tests + per_pair * n_cut) \
         / PEAK_FP32_FLOPS * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
@@ -201,6 +249,63 @@ def cutoff_flips(fa, fb, cfg, sha, shb):
     return (hits > 0).reshape(-1), n_flip
 
 
+def counted(fn):
+    """(fn(), launches, plain sweeps on the card) with every count set to
+    0 just before fn() and read just after."""
+    import torch
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.ops import sweep
+    for k in sweep.launches:
+        sweep.launches[k] = 0
+    cellpair.plain_sweeps["cuda"] = 0
+    torch.cuda.synchronize()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(sweep.launches), cellpair.plain_sweeps["cuda"]
+
+
+def energy_check(tag, kernel, fields, cfg, shifts, alpha, card):
+    """A kernel's energy instantiation on these fields against its plain
+    version in f32 (E_PLAIN_REL of |E|) and in f64 (E_F64_REL of |E|),
+    launched twice for the same bits, timed beside the plain version and
+    the bound.  Returns the numbers of its `kernels` entry."""
+    import torch
+    from openmm_drudenose_tpu_torch.ops import sweep
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    args = (fields, cfg, shifts, alpha, ONE_4PI_EPS0)
+    e1 = kernel.pair_energy(*args)
+    e2 = kernel.pair_energy(*args)
+    torch.cuda.synchronize()
+    identical = bool(torch.equal(e1, e2))
+    ek = float(e1)
+    ep = float(sweep.pair_energy_plain(*args))
+    f64 = {k: (v.double() if v.is_floating_point() else v)
+           for k, v in fields.items()}
+    ep64 = float(sweep.pair_energy_plain(f64, cfg, shifts.double(), alpha,
+                                         ONE_4PI_EPS0))
+    del f64
+    torch.cuda.empty_cache()
+    rel, rel64 = abs(ek - ep) / abs(ep), abs(ek - ep64) / abs(ep64)
+    ms = cuda_time_ms(lambda: kernel.pair_energy(*args), 20)
+    plain_ms = cuda_time_ms(lambda: sweep.pair_energy_plain(*args), 2)
+    bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(
+        fields, cfg, shifts, energy=True)
+    log(f"{tag} energy {ek:.6f} kJ/mol; plain f32 {ep:.6f} (|dE|/|E| "
+        f"{rel:.3e}), plain f64 {ep64:.6f} ({rel64:.3e}); two launches "
+        f"bit-identical: {identical}; {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {n_tests} pair tests, "
+        f"{n_cut} inside the cutoff, {n_bytes} bytes) on {card}")
+    if not (np.isfinite(ek) and rel <= E_PLAIN_REL):
+        fail(f"{tag} energy disagrees with its plain version: {rel:.3e}")
+    if not rel64 <= E_F64_REL:
+        fail(f"{tag} energy misses f64: {rel64:.3e}")
+    if not identical:
+        fail(f"{tag}: two energy launches gave different bits")
+    return {"max_abs_err": abs(ek - ep), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "capacity": cfg.capacity}
+
+
 def f32_floor(got, ref, skip=None):
     """(max, rms) of |got - ref| over max|ref|; the max leaves out the
     rows in `skip` (cutoff flips), the rms takes every row."""
@@ -224,6 +329,8 @@ def report_limits(cfgs):
     lim = sweep_chunked.card_limits("cuda")
     a1 = sweep.attributes()
     a2 = sweep_chunked.attributes()
+    e1 = sweep.attributes(energy=True)
+    e2 = sweep_chunked.attributes(energy=True)
     b2 = []
     for tag, cfg in cfgs.items():
         brick = sweep_chunked.choose_brick(cfg, lim)
@@ -240,10 +347,15 @@ def report_limits(cfgs):
         f"{sms} SMs); B2 {a2['regs']} registers, "
         f"{a2['static_smem']} B static, {a2['local_bytes']} B local; "
         + "; ".join(b2))
+    log(f"1 (c) energy instantiations: B1 {e1['regs']} registers, "
+        f"{e1['static_smem']} B static shared memory, {e1['local_bytes']} B "
+        f"local, {sweep.occupancy('cuda', energy=True)[1]} CTAs an SM; B2 "
+        f"{e2['regs']} registers, {e2['local_bytes']} B local")
     log(f"1 (c) card: {lim.smem_block} B shared memory a CTA may opt in "
         f"to, {lim.smem_sm} B an SM ({lim.smem_reserved} B reserved a "
         f"CTA), {lim.regs_sm} registers and {lim.threads_sm} threads an SM")
-    return {"b1_sweep": a1["regs"], "b2_sweep": a2["regs"]}
+    return {"b1_sweep": a1["regs"], "b2_sweep": a2["regs"],
+            "b1_energy": e1["regs"], "b2_energy": e2["regs"]}
 
 
 def held(tag, got, ref, limit):
@@ -616,12 +728,21 @@ def phase_big(card, bench_args, bench_system):
     log(f"4 B2 by brick at C = {cfg.capacity}: " + ", ".join(
         f"{b} {t:.4f} ms" for b, t in by_brick.items())
         + f"; chosen {chosen} on {card}")
+    e_entry = energy_check(f"4 B2 at {tag}", sweep_chunked, fields, cfg,
+                           shifts, nb.alpha, card)
     del args, fields
-    log(f"4 at {tag}: B2 {ms:.4f} ms, B1 {ms_b1:.4f} ms, plain {plain_ms:.3f} "
-        f"ms, bound {bound_ms:.4f} ms ({bound_by}: {n_tests} pair tests, "
-        f"{n_cut} inside the cutoff, {n_bytes} bytes) on {card}")
+    log(f"4 at {tag}: B2 {ms:.4f} ms (recorded before the energy "
+        f"instantiation: {RECORDED_MS['b2_sweep']} ms on NVIDIA H100 80GB "
+        f"HBM3, 700 W), B1 {ms_b1:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_tests} "
+        f"pair tests, {n_cut} inside the cutoff, {n_bytes} bytes) on {card}")
 
-    check_after_steps(ctx, "4")
+    _, e_launches, plain = counted(lambda: check_after_steps(ctx, "4"))
+    log(f"4 the state's energy: launches {e_launches}, plain sweeps on the "
+        f"card {plain}")
+    if e_launches["b2_energy"] < 1 or plain:
+        fail("the 800k state's energy did not come from B2's energy "
+             "instantiation alone")
 
     st = ctx._state
     integ64 = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
@@ -644,16 +765,251 @@ def phase_big(card, bench_args, bench_system):
               "4", reps=3)
     log(f"4 peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
-    return {
-        "name": "b2_sweep", "route": "cuda",
-        "source": "openmm_drudenose_tpu_torch/csrc/sweep_chunked.cu",
-        "replaces": "openmm_drudenose_tpu/ops/pallas_sweep.py:851",
+    src = "openmm_drudenose_tpu_torch/csrc/sweep_chunked.cu"
+    tpu = "openmm_drudenose_tpu/ops/pallas_sweep.py:851"
+    return [{
+        "name": "b2_sweep", "instantiation": "forces", "route": "cuda",
+        "source": src, "replaces": tpu,
         "launches": launches["b2_sweep"],
         "launches_per_step": launches["b2_sweep"] / N_TIMED_BIG,
         "capacity": cfg.capacity, "brick": list(chosen),
-        "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-    }
+        "max_abs_err": max_abs_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "b2_energy", "instantiation": "energy", "route": "cuda",
+        "source": src, "replaces": tpu,
+        "launches": e_launches["b2_energy"], "brick": list(chosen),
+        **e_entry, "library_ms": None,
+    }]
+
+
+def phase_example(card):
+    """5. The reference example at its own size through the port's
+    Simulation (examples/nacl_tg.py's workflow): the generated NaCl box,
+    minimize(200), 300 K velocities, the barostat every EX_BARO steps,
+    StateDataReporter every EX_REPORT, EX_STEPS steps; then the
+    checkpoint replay.  Returns ms/step."""
+    import torch
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.io import builders
+    system, pos = builders.build_nacl_water_box(n_water=492, n_na=10,
+                                                n_cl=10)
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20)
+    integ.setMaxDrudeDistance(0.02)
+    system.addForce(dt.MonteCarloBarostat(1.01325, 300.0, EX_BARO))
+    sim = dt.Simulation(None, system, integ, precision="single")
+    ctx = sim.context
+    if ctx._nb.strategy != "dense":
+        fail(f"the example's box took the {ctx._nb.strategy} strategy")
+    ctx.setPositions(pos)
+    pe0 = ctx.getState(energy=True).getPotentialEnergy()
+    t = time.time()
+    sim.minimizeEnergy(maxIterations=200)
+    torch.cuda.synchronize()
+    t_min = time.time() - t
+    pe1 = ctx.getState(energy=True).getPotentialEnergy()
+    log(f"5 {system.getNumParticles()} atoms, {system.getNumConstraints()} "
+        f"constraints, dense strategy; PE {pe0:.1f} -> {pe1:.1f} kJ/mol by "
+        f"minimize(200) in {t_min:.2f} s")
+    if not (np.isfinite(pe1) and pe1 < pe0):
+        fail("minimization did not lower the energy")
+    ctx.setVelocitiesToTemperature(300.0)
+    out = io.StringIO()
+    sim.reporters.append(dt.StateDataReporter(
+        out, EX_REPORT, step=True, time=True, potentialEnergy=True,
+        kineticEnergy=True, temperature=True, density=True,
+        groupTemperatures=True, speed=True))
+    box0 = ctx.getState().getPeriodicBoxVectors()
+    nkbt = ctx._spec.nh_nkbt.double().numpy()
+    targets = np.array([300.0, 300.0, 1.0])
+    samples = []
+
+    def drive():
+        # the steps in blocks of EX_SAMPLE (the reporters fire where they
+        # are due, as in one call), each block's last bath temperatures
+        # read from the integrator's host-side chain state
+        for _ in range(EX_STEPS // EX_SAMPLE):
+            sim.step(EX_SAMPLE)
+            samples.append(ctx._state.group_ke.double().numpy() / nkbt
+                           * targets)
+
+    t = time.time()
+    _, launches, plain = counted(drive)
+    wall = time.time() - t
+    ms_step = wall / EX_STEPS * 1e3
+    mean_temps = np.mean(samples, axis=0)
+    for line in out.getvalue().strip().splitlines():
+        log(f"5 | {line}")
+    st = ctx.getState(positions=True, energy=True, groups=True)
+    temps = st.getGroupTemperatures()
+    box1 = st.getPeriodicBoxVectors()
+    spec = ctx._spec
+    p = ctx._state.positions.double() + ctx._state.pos_err.double()
+    drude = torch.nonzero(spec.is_pair & ~spec.is_parent)[:, 0]
+    dmax = float(torch.max(torch.linalg.norm(
+        p[drude] - p[spec.partner[drude]], dim=1)))
+    log(f"5 {EX_STEPS} steps in {wall:.2f} s: {ms_step:.3f} ms/step, "
+        f"{EX_STEPS * 1e-6 / wall * 86400:.3f} ns/day on {card}; launches "
+        f"{launches}; bath temperatures at the end "
+        f"{np.round(temps, 3).tolist()} K, over the run (every "
+        f"{EX_SAMPLE} steps) {np.round(mean_temps, 3).tolist()} K; "
+        f"box {box0[0, 0]:.5f} -> {box1[0, 0]:.5f} nm; barostat move size "
+        f"{ctx._state.baro_scale:.5f} nm^3; max core-Drude distance "
+        f"{dmax:.6f} nm; runaway latch {ctx.hardwallRunaway}")
+    if ctx.hardwallRunaway:
+        fail("the hard-wall runaway latch is set")
+    if dmax > 0.02 * 1.00001:
+        fail(f"hard wall broken: {dmax}")
+    if not (np.isfinite(st.getPotentialEnergy())
+            and np.isfinite(st.getKineticEnergy())
+            and np.all(np.isfinite(st.getPositions()))):
+        fail("non-finite energies or positions")
+    # the bands on the run's mean: after the minimized lattice releases
+    # ~1e4 kJ/mol into ~1.5e3 internal DOF, the single NH chain swings
+    # the instantaneous group-0 temperature over 210-350 K within 2 ps
+    if not (250.0 < mean_temps[0] < 350.0 and 150.0 < mean_temps[1] < 450.0
+            and 0.0 < mean_temps[2] < 10.0):
+        fail(f"implausible bath temperatures {mean_temps}")
+    # and the last instantaneous ones in a band wide enough for that swing
+    # (runs have ended at 340-374 K), so that a thermostat fault near the
+    # end still fails
+    if not (200.0 < temps[0] < 420.0 and 150.0 < temps[1] < 450.0
+            and 0.0 < temps[2] < 10.0):
+        fail(f"implausible bath temperatures at the end {temps}")
+    if np.array_equal(box1, box0):
+        fail("no barostat move was accepted")
+
+    # the checkpoint replay, in PyTorch's default (not deterministic)
+    # mode, as a user runs it: every scatter-add of the port sums in a
+    # fixed order (ops/scatter.py)
+    path = os.path.join(HERE, "build", "chip_smoke", "nacl.chk")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if torch.are_deterministic_algorithms_enabled():
+        fail("PyTorch's deterministic mode is on")
+    sim.saveCheckpoint(path)
+    sim.step(EX_REPLAY)
+    first = ctx._state.positions.clone()
+    sim.loadCheckpoint(path)
+    sim.step(EX_REPLAY)
+    second = ctx._state.positions.clone()
+    same = bool(torch.equal(first, second))
+    log(f"5 checkpoint saved at step {sim.currentStep - EX_REPLAY}, "
+        f"{EX_REPLAY} steps, loaded, {EX_REPLAY} steps: positions bit for "
+        f"bit {same} (max |dx| "
+        f"{float(torch.max(torch.abs(first - second))):.3e} nm)")
+    if not same:
+        fail("the checkpoint replay did not give the same positions")
+    return ms_step
+
+
+def phase_npt(card, ms_step_nvt, pos, vel, cap):
+    """6. NPT at full width through B1: the 100k system with
+    MonteCarloBarostat(1.01325, 300, NPT_BARO) from the snapshot; B1's
+    energy held and timed; NPT_STEPS steps counted; the state checked;
+    then a forced 0.9x linear shrink: the grid planned again and B1 held
+    against its plain version on it.  Returns B1's energy entry."""
+    import torch
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.integrators import barostat
+    from openmm_drudenose_tpu_torch.io import builders
+    from openmm_drudenose_tpu_torch.ops import sweep
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    system, _ = builders.build_water_box(pos.shape[0] // 5)
+    system.addForce(dt.MonteCarloBarostat(1.01325, 300.0, NPT_BARO))
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    integ.setMaxDrudeDistance(0.02)
+    ctx = dt.Context(system, integ, precision="single",
+                     nb_options={"capacity": cap}, device="cuda")
+    ctx.setPositions(pos)
+    ctx.setVelocities(vel)
+    ctx._ensure_forces()
+    nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
+    if nb.sweep_kernel != "b1":
+        fail(f"the 100k NPT config routes to {nb.sweep_kernel}, not B1")
+    box_diag = torch.diagonal(st.box)
+    entry = energy_check("6 B1 at 100k", sweep,
+                         nb.fields(st.positions, box_diag, st.neighbors),
+                         cfg, cellpair.offset_shifts(cfg, box_diag),
+                         nb.alpha, card)
+    vol0 = float(torch.prod(torch.diagonal(st.box).double()))
+    # the host time spent inside the attempts (their two host reads wait
+    # for the work queued before them): the barostat's cost without the
+    # host's drift between phases
+    inside = []
+    attempt = barostat.maybe_attempt_mc_move
+
+    def timed_attempt(spec, static, state, *a, **kw):
+        t0 = time.perf_counter()
+        out = attempt(spec, static, state, *a, **kw)
+        if out is not state:
+            inside.append(time.perf_counter() - t0)
+        return out
+
+    barostat.maybe_attempt_mc_move = timed_attempt
+    t = time.time()
+    try:
+        _, launches, plain = counted(lambda: integ.step(NPT_STEPS))
+    finally:
+        barostat.maybe_attempt_mc_move = attempt
+    wall = time.time() - t
+    ms_step = wall / NPT_STEPS * 1e3
+    attempts = len(range(0, NPT_STEPS, NPT_BARO))
+    st = ctx._state
+    vol1 = float(torch.prod(torch.diagonal(st.box).double()))
+    if len(inside) != attempts:
+        fail(f"{len(inside)} attempts timed, {attempts} expected")
+    log(f"6 {NPT_STEPS} NPT steps in {wall:.2f} s: {ms_step:.2f} ms/step "
+        f"against {ms_step_nvt:.2f} without the barostat in phase 3 "
+        f"({ms_step - ms_step_nvt:+.2f}) on {card}; {attempts} attempts, "
+        f"{np.mean(inside) * 1e3:.2f} ms each inside the attempt (min "
+        f"{np.min(inside) * 1e3:.2f}, max {np.max(inside) * 1e3:.2f}): "
+        f"{np.sum(inside) * 1e3 / NPT_STEPS:.3f} ms/step; "
+        f"launches {launches}; plain sweeps on the card {plain}; volume "
+        f"{vol0:.3f} -> {vol1:.3f} nm^3, move size {st.baro_scale:.4f} "
+        f"nm^3, {st.baro_naccept} of {st.baro_nattempt} accepted since the "
+        f"last adaptation")
+    if launches["b1_energy"] != 2 * attempts or plain:
+        fail(f"expected {2 * attempts} B1 energy launches and no plain "
+             "sweep in the NPT steps")
+    if launches["b1_sweep"] < NPT_STEPS or launches["b2_sweep"]:
+        fail("the NPT steps did not run their forces through B1")
+    _, check_launches, plain = counted(lambda: check_after_steps(ctx, "6"))
+    if check_launches["b1_energy"] != 1 or plain:
+        fail(f"the state's energy: {check_launches}, {plain} plain sweeps")
+    entry["launches"] = launches["b1_energy"]
+    entry["launches_per_step"] = launches["b1_energy"] / NPT_STEPS
+
+    # a forced 0.9x linear shrink past the stencil
+    grid0 = cfg.grid
+    new_pos, new_box = barostat.scale_molecules(ctx._spec, ctx._static,
+                                                st.positions, st.box, 0.9)
+    ctx._state = st.replace(positions=new_pos, box=new_box, neighbors=None)
+    ctx._forces_valid = False
+    ctx._ensure_neighbors()
+    nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
+    if cfg.grid == grid0:
+        fail("the shrunk box kept its cell grid")
+    box_diag = torch.diagonal(st.box)
+    fields = nb.fields(st.positions, box_diag, st.neighbors)
+    shifts = cellpair.offset_shifts(cfg, box_diag)
+    args = (fields, cfg, shifts, nb.alpha, ONE_4PI_EPS0)
+    f_k = sweep.pair_forces(*args)
+    e_k = float(sweep.pair_energy(*args))
+    torch.cuda.synchronize()
+    f_p = sweep.pair_forces_plain(*args)
+    e_p = float(sweep.pair_energy_plain(*args))
+    err = held("6 B1 forces on the replanned grid", f_k, f_p, 2e-5)
+    rel = abs(e_k - e_p) / abs(e_p)
+    box_w = float(box_diag[0])
+    log(f"6 0.9x shrink: box {box_w:.4f} nm, cell grid {grid0} -> "
+        f"{cfg.grid}, capacity {cfg.capacity}, {cfg.n_offsets} offsets, PME "
+        f"grid {nb.pme.grid}, route {nb.sweep_kernel}; B1 vs plain there: "
+        f"forces {err:.3e} of max|F|, energy {rel:.3e} of |E|")
+    if not rel <= E_PLAIN_REL:
+        fail(f"B1's energy on the replanned grid: {rel:.3e}")
+    return entry
 
 
 def main():
@@ -676,7 +1032,6 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     phase_seconds = {"0 device": phase_mark()}
 
-    import numpy as np
     sys.path.insert(0, HERE)
     import openmm_drudenose_tpu_torch as dt
     from openmm_drudenose_tpu_torch.forces import cellpair
@@ -762,9 +1117,11 @@ def main():
     plain_ms = cuda_time_ms(lambda: sweep.pair_forces_plain(*args), 3)
     bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(fields, cfg,
                                                               shifts)
-    log(f"2 B1 {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}: {n_tests} pair tests, {n_cut} inside the cutoff, "
-        f"{n_bytes} bytes) on {card}")
+    log(f"2 B1 {ms:.4f} ms (recorded before the energy instantiation: "
+        f"{RECORDED_MS['b1_sweep']} ms on NVIDIA H100 80GB HBM3, 700 W; "
+        f"{regs['b1_sweep']} registers), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_tests} "
+        f"pair tests, {n_cut} inside the cutoff, {n_bytes} bytes) on {card}")
     phase_seconds["2 B1 at 100k"] = phase_mark()
     check_words(ctx, system)
     check_capacity(ctx, card)
@@ -782,21 +1139,23 @@ def main():
         fail("the f32 force pass misses the f32 floor against f64")
 
     n_steps = 100
-    for k in sweep.launches:
-        sweep.launches[k] = 0
-    torch.cuda.synchronize()
     t = time.time()
-    integ.step(n_steps)
-    torch.cuda.synchronize()
+    _, launches, plain = counted(lambda: integ.step(n_steps))
     wall = time.time() - t
-    launches = dict(sweep.launches)
     ms_step = wall / n_steps * 1e3
     nsd = ns_per_day(n_steps / wall, integ.getStepSize())
     log(f"3 {n_steps} steps in {wall:.2f} s: {ms_step:.2f} ms/step, "
-        f"{nsd:.3f} ns/day on {card}; launches {launches}")
-    if launches["b1_sweep"] < 1:
-        fail("the main path never launched kernel B1")
-    temps = check_after_steps(ctx, "3")
+        f"{nsd:.3f} ns/day on {card}; launches {launches}; plain sweeps on "
+        f"the card {plain}")
+    if launches["b1_sweep"] < 1 or plain:
+        fail("the main path never launched kernel B1, or ran the plain "
+             "sweep")
+    temps, e_launches, plain = counted(lambda: check_after_steps(ctx, "3"))
+    log(f"3 the state's energy: launches {e_launches}, plain sweeps on the "
+        f"card {plain}")
+    if e_launches["b1_energy"] != 1 or plain:
+        fail("getState(energy=True) did not come from B1's energy "
+             "instantiation alone")
     if not (250.0 < temps[0] < 350.0 and 150.0 < temps[1] < 450.0
             and 0.0 < temps[2] < 10.0):
         fail(f"implausible bath temperatures {temps}")
@@ -812,23 +1171,38 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 4. B2 and the large path ------------------------------------------
-    b2_entry = phase_big(card, bench_args, system)
-    b2_entry["registers"] = regs["b2_sweep"]
+    b2_entries = phase_big(card, bench_args, system)
+    for e in b2_entries:
+        e["registers"] = regs[e["name"]]
     phase_seconds["4 B2 and the large path"] = phase_mark()
 
-    # ---- 5. kernel summary --------------------------------------------------
+    # ---- 5. the reference example at its own size ----------------------------
+    phase_example(card)
+    phase_seconds["5 the NaCl example"] = phase_mark()
+
+    # ---- 6. NPT at full width through B1 -------------------------------------
+    b1_energy = phase_npt(card, ms_step, pos, vel, cap)
+    phase_seconds["6 NPT at 100k"] = phase_mark()
+
+    # ---- 7. kernel summary --------------------------------------------------
     log("seconds per phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_seconds.items()))
+    src, tpu = ("openmm_drudenose_tpu_torch/csrc/sweep.cu",
+                "openmm_drudenose_tpu/ops/pallas_sweep.py:440")
     kernels = [{
-        "name": "b1_sweep", "route": "cuda",
-        "source": "openmm_drudenose_tpu_torch/csrc/sweep.cu",
-        "replaces": "openmm_drudenose_tpu/ops/pallas_sweep.py:440",
+        "name": "b1_sweep", "instantiation": "forces", "route": "cuda",
+        "source": src, "replaces": tpu,
         "launches": launches["b1_sweep"],
         "launches_per_step": launches["b1_sweep"] / n_steps,
         "capacity": cfg.capacity, "registers": regs["b1_sweep"],
-        "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-    }, b2_entry]
+        "max_abs_err": max_abs_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "b1_energy", "instantiation": "energy", "route": "cuda",
+        "source": src, "replaces": tpu, "registers": regs["b1_energy"],
+        **b1_energy, "library_ms": None,
+    }, *b2_entries]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,13 @@
 engine, beside the JAX package it is held against.
 
 The main path: build a System (io/builders.build_water_box gives the
-SWM4-NDP benchmark water), bind a DrudeTGNHIntegrator into a Context and
-step it.  The direct-space sweep runs in a hand-written CUDA kernel
-(ops/sweep.py, csrc/sweep.cu); everything else is plain PyTorch.  Entry
-points run on CUDA unless the caller passes device="cpu".
+SWM4-NDP benchmark water, build_nacl_water_box the reference example's
+NaCl solution), bind a DrudeTGNHIntegrator into a Context (or a
+Simulation with its reporters) and step it, with a MonteCarloBarostat
+for NPT.  The direct-space sweep of large systems and its energy run in
+hand-written CUDA kernels (ops/sweep.py, ops/sweep_chunked.py, csrc/);
+everything else is plain PyTorch.  Entry points run on CUDA unless the
+caller passes device="cpu".
 
     import openmm_drudenose_tpu_torch as dt
     from openmm_drudenose_tpu_torch.io.builders import build_water_box
@@ -19,7 +22,9 @@ points run on CUDA unless the caller passes device="cpu".
 
 from .app.context import Context, State
 from .app.integrator import DrudeTGNHIntegrator
-from .forces.cmmotion import CMMotionRemover
+from .app.serialization import load_checkpoint, save_checkpoint
+from .app.simulation import CheckpointReporter, Simulation, StateDataReporter
+from .forces.cmmotion import CMMotionRemover, MonteCarloBarostat
 from .forces.drude import DrudeForce
 from .forces.nonbonded import NonbondedForce
 from .system import System, ThreeParticleAverageSite, TwoParticleAverageSite
@@ -27,6 +32,8 @@ from .units import BOLTZ, ONE_4PI_EPS0
 
 __all__ = [
     "System", "TwoParticleAverageSite", "ThreeParticleAverageSite",
-    "DrudeForce", "NonbondedForce", "CMMotionRemover",
-    "DrudeTGNHIntegrator", "Context", "State", "BOLTZ", "ONE_4PI_EPS0",
+    "DrudeForce", "NonbondedForce", "CMMotionRemover", "MonteCarloBarostat",
+    "DrudeTGNHIntegrator", "Context", "State", "Simulation",
+    "StateDataReporter", "CheckpointReporter", "save_checkpoint",
+    "load_checkpoint", "BOLTZ", "ONE_4PI_EPS0",
 ]

@@ -1,15 +1,24 @@
 """Context: binds a System and a DrudeTGNHIntegrator into a simulation.
 
 OpenMM-shaped semantics (setPositions, setVelocities,
-setVelocitiesToTemperature, getState, step) as in the JAX package's
-app/context.py.  The in-step force pass (`_forces_only`, the JAX
-forces_only :248) adds the direct-space sweep forces (kernel B1 or B2
-in float32), the analytic PME reciprocal forces, the exception/correction
-terms and the Drude forces at the virtual-site-composed positions, then
-moves site forces onto their parents.  `step` (:564 there) alternates a
-cell-sort rebuild with a block of `rebuild_interval` fused steps and reads
-the overflow latch once per 8 blocks; the drift, excl-span and hard-wall
-latches are checked at the end of each call (:630-700 there).
+setVelocitiesToTemperature, setPeriodicBoxVectors, applyConstraints,
+applyVelocityConstraints, minimizeEnergy, reinitialize, getState, step)
+as in the JAX package's app/context.py.  The in-step force pass
+(`_forces_only`, the JAX forces_only :248) adds the direct-space sweep
+forces (kernel B1 or B2 in float32 on the cell-pair strategy, the dense
+sum on the dense one), the analytic PME reciprocal forces, the
+exception/correction/NBFIX terms and the Drude forces at the
+virtual-site-composed positions, then moves site forces onto their
+parents.  `_potential` is the energy (the kernels' energy instantiation
+for the direct space in float32 on the cell-pair strategy), summed in
+float64.  `step` (:564 there) alternates a cell-sort rebuild with a
+block of `rebuild_interval` fused steps and reads the overflow and
+stencil latches once per 8 blocks; the drift, excl-span and hard-wall
+latches are checked at the end of each call (:630-700 there).  A
+MonteCarloBarostat moves the volume inside the steps
+(integrators/barostat.py); where a shrink leaves the cell stencil short
+of the cutoff, the cell grid and the PME grid are planned again at the
+current box (:438-447 there).
 
 Entry points run on CUDA unless the caller passes device="cpu"; a Context
 without a device on a machine without CUDA raises.
@@ -24,11 +33,12 @@ import numpy as np
 import torch
 
 from .. import precision as precision_mod
+from ..constraints import settle, shake
 from ..constraints.vsites import (apply_vsites, apply_vsites_relative,
                                   spread_vsite_forces)
 from ..core import spec as spec_mod
 from ..core.state import zeros_state
-from ..integrators import tgnh
+from ..integrators import barostat, tgnh
 from ..units import BOLTZ
 
 
@@ -90,8 +100,16 @@ class State:
 
 class Context:
     def __init__(self, system, integrator, precision="single",
+                 strategy: str = "auto", seed: int = 0,
+                 hardwall_strict: bool = False,
                  nb_options: dict | None = None, device=None):
-        """nb_options: {"capacity": C} pins the cell capacity (the bench
+        """strategy: the nonbonded pair sum, "dense", "cellpair" or
+        "auto" (the JAX package's rule, forces/nonbonded.py::
+        choose_strategy).  seed: the barostat's generator.
+        hardwall_strict: raise when a Drude moved more than twice past
+        the hard wall (the Reference platform's throw) instead of
+        bouncing it, warning once and latching hardwallRunaway.
+        nb_options: {"capacity": C} pins the cell capacity (the bench
         pins the one its snapshot was measured with); {"use_pallas": 3}
         sends the float32 sweep to the chunked kernel B2 whatever the
         gates say (the JAX option of that name)."""
@@ -103,19 +121,30 @@ class Context:
         self._system = system
         self._integrator = integrator
         integrator._context = self
+        self._strategy = strategy
+        self._seed = int(seed)
+        self._hardwall_strict = bool(hardwall_strict)
         self._hardwall_warned = False
         self._drift_warned = False
         self._prec = precision_mod.get_precision(precision)
+        self._nb_options = dict(nb_options or {})
+        self._state = None
+        self._init_spec_and_state()
+
+    def _init_spec_and_state(self) -> None:
+        """Compile the system and start a zero state (positions,
+        velocities and thermostat state unset)."""
         r, a = self._prec.real, self._prec.accum
         self._spec, self._static, init_edd = spec_mod.build_spec(
-            system, integrator, r, a, self._device)
-        self._nb_options = dict(nb_options or {})
+            self._system, self._integrator, r, a, self._device)
         self._ke_valid = False
         self._state = None
         self._build_potential()
-        box = np.array(system.getDefaultPeriodicBoxVectors(), np.float64)
+        box = np.array(self._system.getDefaultPeriodicBoxVectors(),
+                       np.float64)
         st = zeros_state(self._static.n_atoms, self._static.n_baths,
-                         self._static.n_chains, box, r, a, self._device)
+                         self._static.n_chains, box, r, a, self._device,
+                         seed=self._seed)
         self._state = st.replace(eta_dot_dot=torch.as_tensor(init_edd,
                                                              dtype=a))
         self._forces_valid = False
@@ -124,14 +153,16 @@ class Context:
     # -- compilation ----------------------------------------------------------
     def _build_potential(self) -> None:
         """(Re)compile the force terms; re-run when the cell capacity
-        grows or the exclusion skip is turned off."""
+        grows, the exclusion skip is turned off or the cell grid is
+        planned again at a new box."""
         r = self._prec.real
         self._nb = None
         self._terms = []
         for f in self._system.getForces():
             if type(f).__name__ == "NonbondedForce":
                 term = f.compile(self._system, r, self._device,
-                                 nb_options=self._nb_options)
+                                 nb_options=self._nb_options,
+                                 strategy=self._strategy)
                 if self._nb is not None:
                     raise NotImplementedError("one NonbondedForce only")
                 self._nb = term
@@ -142,11 +173,20 @@ class Context:
         self._cp_cfg = self._nb.cfg if self._nb is not None else None
         self._rebuild_interval = (self._cp_cfg.rebuild_interval
                                   if self._cp_cfg is not None else None)
-        self._stepper = tgnh.Stepper(self._static, self._forces_only)
+        self._plan_box = np.array(self._system.getDefaultPeriodicBoxVectors(),
+                                  np.float64)
+        self._stepper = tgnh.Stepper(
+            self._static, self._forces_only,
+            self._mc_move if self._static.baro_freq else None)
         self._pe_valid = False
         if self._state is not None:
             self._state = self._state.replace(neighbors=None)
             self._forces_valid = False
+
+    def _mc_move(self, spec, state):
+        """The barostat's move at this step (integrators/barostat.py)."""
+        return barostat.maybe_attempt_mc_move(
+            spec, self._static, state, self._potential, self._forces_only)
 
     def _exact_positions(self, positions, pos_err):
         """Float64 positions with the virtual sites, at positions + pos_err:
@@ -178,18 +218,25 @@ class Context:
         return spread_vsite_forces(spec, static, f)
 
     def _potential(self, positions, box, neighbors, pos_err):
-        """Total potential energy (the plain sweep for the direct space)."""
+        """Total potential energy, a float64 0-d tensor: each part in the
+        positions' type (the direct space by the kernels' energy
+        instantiation on the cell-pair strategy in float32, in float64
+        there) and the parts summed in float64, so that the barostat's
+        Metropolis test sees no float32 rounding of |E| (~1e6 kJ/mol at
+        100k atoms, where a float32 ulp is 0.06-0.12 kJ/mol)."""
         box_diag = torch.diagonal(box)
         pos = apply_vsites(self._spec, self._static, positions)
-        e = torch.zeros((), dtype=pos.dtype, device=pos.device)
+        e = torch.zeros((), dtype=torch.float64, device=pos.device)
         nb = self._nb
         if nb is not None:
             exact = self._exact_positions(positions, pos_err)
-            e = e + nb.sweep_energy(pos, box_diag, neighbors, exact)
-            e = e + nb.recip_energy(pos, box_diag, exact)
-            e = e + nb.extras(pos, box_diag, exact)[0]
+            e = e + nb.sweep_energy(pos, box_diag, neighbors, exact).double()
+            e = e + nb.recip_energy(pos, box_diag, exact).double()
+            e = e + nb.extras(pos, box_diag, exact,
+                              with_forces=False)[0].double()
         for term in self._terms:
-            e = e + term.energy_forces(pos, box_diag, pos_err=pos_err)[0]
+            e = e + term.energy_forces(pos, box_diag, pos_err=pos_err,
+                                       with_forces=False)[0].double()
         return e
 
     # -- state manipulation ---------------------------------------------------
@@ -237,9 +284,86 @@ class Context:
             velocities=v.to(device=self._device, dtype=self._prec.real))
         self._ke_valid = False
 
+    def _periodic_cutoff(self) -> float:
+        """Largest cutoff of a periodic cutoff NonbondedForce, or 0.0: the
+        quantity that the rule cutoff <= min box width / 2 bounds."""
+        cut = 0.0
+        for f in self._system.getForces():
+            if (type(f).__name__ == "NonbondedForce"
+                    and f.usesPeriodicBoundaryConditions()
+                    and f.getNonbondedMethod() != f.NoCutoff):
+                cut = max(cut, f.getCutoffDistance())
+        return cut
+
+    def _validate_box_widths(self, box, origin: str) -> None:
+        """Raise where the cutoff exceeds half the smallest box width:
+        minimum imaging would miss images."""
+        cut = self._periodic_cutoff()
+        if not cut:
+            return
+        w_min = float(np.min(np.diagonal(np.asarray(box, np.float64))))
+        if cut > w_min / 2 + 1e-9:
+            raise ValueError(
+                f"{origin}: cutoff {cut} exceeds half the smallest "
+                f"perpendicular box width {w_min} — minimum imaging "
+                "would miss images (shrink the cutoff or enlarge the "
+                "box)")
+
+    def setPeriodicBoxVectors(self, a, b, c) -> None:
+        box = np.array([a, b, c], np.float64)
+        if np.any(box[~np.eye(3, dtype=bool)] != 0.0):
+            raise ValueError("the PyTorch port takes orthorhombic boxes "
+                             "only")
+        self._validate_box_widths(box, "setPeriodicBoxVectors")
+        self._state = self._state.replace(
+            box=torch.as_tensor(box, dtype=self._prec.real,
+                                device=self._device), neighbors=None)
+        self._forces_valid = False
+        self._pe_valid = False
+
+    def _all_constraints(self):
+        """Every distance constraint as (idx (C, 2), dist (C,)): the
+        SETTLE triangles' three sides, in the JAX package's order."""
+        spec = self._spec
+        t = spec.settle_idx
+        idx = torch.cat([t[:, (0, 1)], t[:, (0, 2)], t[:, (1, 2)]], dim=0)
+        d = spec.settle_dist
+        dist = torch.cat([d[:, 0], d[:, 0], d[:, 1]], dim=0)
+        return idx, dist
+
+    def applyConstraints(self, tol: float) -> None:
+        """Project the positions onto the constraints (Jacobi SHAKE from
+        the current directions, constraints/shake.py), then place the
+        virtual sites."""
+        if not self._static.n_settle:
+            return
+        spec, static = self._spec, self._static
+        idx, dist = self._all_constraints()
+        pos = self._state.positions
+        delta = shake.apply_position_constraints(
+            pos, torch.zeros_like(pos), spec.inv_mass, idx, dist,
+            float(tol), shake.MAX_ITER)
+        self._state = self._state.replace(
+            positions=apply_vsites(spec, static, pos + delta))
+        self._forces_valid = False
+        self._pe_valid = False
+
+    def applyVelocityConstraints(self, tol: float) -> None:
+        """Remove the velocity components along the constraints (the
+        rigid-triangle solve of constraints/settle.py, exact; `tol` is
+        the OpenMM signature's)."""
+        if not self._static.n_settle:
+            return
+        spec = self._spec
+        v = settle.apply_velocity_constraints(
+            self._state.positions, self._state.velocities, spec.inv_mass,
+            spec.settle_idx, spec.settle_dist)
+        self._state = self._state.replace(velocities=v)
+        self._ke_valid = False
+
     # -- neighbour structure and forces ---------------------------------------
     def _ensure_neighbors(self) -> None:
-        if self._nb is None or self._state.neighbors is not None:
+        if self._cp_cfg is None or self._state.neighbors is not None:
             return
         for _ in range(8):
             box_diag = torch.diagonal(self._state.box)
@@ -252,8 +376,11 @@ class Context:
                 self._build_potential()
                 continue
             if bool(nbl.stencil_invalid):
-                raise RuntimeError("the cell stencil no longer covers the "
-                                   "cutoff at the current box")
+                # a barostat shrink left the stencil short of the cutoff:
+                # plan the cell grid (and the cell-aligned PME grid) again
+                # at the current box
+                self._replan_at_box()
+                continue
             if not bool(nbl.overflow):
                 break
             self._grow_pair_capacity()
@@ -262,11 +389,23 @@ class Context:
                                "growth")
         self._state = self._state.replace(neighbors=nbl)
 
-    def _grow_pair_capacity(self) -> None:
-        """Grow the cell capacity from the measured occupancy and
-        recompile (capacity + 8 at least, so a retry always progresses)."""
+    def _replan_at_box(self) -> None:
+        """Make the current box the system's default and recompile: a new
+        cell grid, stencil and PME grid (the kernels' device tables and
+        B2's plan follow the new config)."""
+        box = self._state.box.double().cpu().numpy()
+        self._system.setDefaultPeriodicBoxVectors(
+            tuple(box[0]), tuple(box[1]), tuple(box[2]))
+        self._build_potential()
+
+    def _grow_pair_capacity(self, positions=None) -> None:
+        """Grow the cell capacity from the occupancy measured at
+        `positions` (the state's by default) and recompile (capacity + 8
+        at least, so a retry always progresses)."""
         cfg = self._cp_cfg
-        pos = self._state.positions.double().cpu().numpy()
+        if positions is None:
+            positions = self._state.positions
+        pos = positions.double().cpu().numpy()
         box = np.diagonal(self._state.box.double().cpu().numpy())
         grid = np.asarray(cfg.grid)
         frac = pos / box
@@ -301,15 +440,26 @@ class Context:
 
     # -- stepping -------------------------------------------------------------
     def step(self, steps: int) -> None:
-        """Advance `steps` steps: [rebuild -> rebuild_interval fused steps]
-        blocks; the overflow latch is read once per 8 blocks, and a chunk
-        that overflowed is rerun from its saved start with a larger
-        capacity."""
+        """Advance `steps` steps.  Dense strategy: one fused multi-step.
+        Cell-pair strategy: [rebuild -> rebuild_interval fused steps]
+        blocks; the overflow and stencil latches are read once per 8
+        blocks.  A chunk that overflowed is rerun from its saved start
+        (the barostat's generator too) with a larger capacity; after a
+        chunk whose rebuilds found the stencil short of cutoff + skin,
+        the grid is planned again before the next.  The 8 x 16 steps of a
+        chunk hold a few volume moves of ~1e-3 of a cell width each, so
+        the stencil ends such a chunk short of cutoff + skin by a small
+        fraction of the 0.1 nm skin."""
         self._ensure_forces()
         steps = int(steps)
         spec = self._spec
-        if self._nb is None:
+        if self._cp_cfg is None:
             self._state = self._stepper.multi_step(spec, self._state, steps)
+            if self._static.baro_freq:
+                # no stencil latch here: hold the box to the
+                # minimum-image rule after the volume moves
+                self._validate_box_widths(self._state.box.double().cpu(),
+                                          "barostat volume move")
         else:
             interval = self._rebuild_interval
             chunk = 8 * interval
@@ -318,6 +468,7 @@ class Context:
                 k_chunk = min(chunk, remaining)
                 self._ensure_neighbors()
                 saved = self._state
+                gen0 = saved.baro_gen.get_state()
                 for _ in range(8):
                     st = saved
                     r = k_chunk
@@ -327,7 +478,11 @@ class Context:
                                                     self._cp_cfg.skin)
                         st = self._stepper.multi_step(spec, st, k)
                         r -= k
-                    if bool(st.neighbors.overflow):
+                    overflow, short = torch.stack(
+                        [st.neighbors.overflow,
+                         st.neighbors.stencil_invalid]).tolist()
+                    if overflow:
+                        saved.baro_gen.set_state(gen0)
                         self._state = saved
                         self._grow_pair_capacity()
                         self._state = self._state.replace(neighbors=None)
@@ -340,6 +495,12 @@ class Context:
                     raise RuntimeError("cell capacity still overflowing "
                                        "after growth")
                 remaining -= k_chunk
+                if short:
+                    self._check_rebuild_drift()
+                    self._check_excl_span()
+                    self._replan_at_box()
+                    # the state's forces are those of its positions
+                    self._forces_valid = True
             self._check_rebuild_drift()
             self._check_excl_span()
         self._ke_valid = True
@@ -373,11 +534,18 @@ class Context:
         hw = self._state.hardwall_runaway
         if hw is None or not bool(hw):
             return
+        if self._hardwall_strict:
+            self.clearHardwallRunaway()
+            raise RuntimeError(
+                "Drude particle moved too far beyond hard wall constraint "
+                "(displacement exceeded 2x maxDrudeDistance); the system "
+                "has likely become unstable — reduce the step size or "
+                "check initial positions")
         if not self._hardwall_warned:
             self._hardwall_warned = True
             warnings.warn(
                 "a Drude particle transiently moved >2x past the hard wall "
-                "(bounced back; the sticky hardwallRunaway flag is set)",
+                "(bounced back; set hardwall_strict=True to raise instead)",
                 RuntimeWarning, stacklevel=3)
 
     @property
@@ -389,6 +557,113 @@ class Context:
         self._state = self._state.replace(hardwall_runaway=torch.zeros(
             (), dtype=torch.bool, device=self._device))
         self._hardwall_warned = False
+
+    def minimizeEnergy(self, tolerance: float = 10.0,
+                       maxIterations: int = 500) -> None:
+        """FIRE minimization (the JAX package's, app/context.py:740-826):
+        the same dt/alpha schedule, the 0.01 nm cap on each iteration's
+        largest displacement, the stop at force RMS <= tolerance
+        (kJ/mol/nm) or maxIterations; kept only where the energy fell;
+        then the constraints are projected, Drudes clamped to 0.99 of the
+        hard wall and the virtual sites placed.
+
+        The loop reads forces only (one force pass and one host read an
+        iteration); the energy is read before and after.  On the
+        cell-pair strategy the cells are sorted again whenever an atom
+        has moved more than half the skin since the last sort (the JAX
+        loop keeps its first sort throughout, ROADMAP.md Queue C)."""
+        spec, static = self._spec, self._static
+        self._ensure_neighbors()
+        st = self._state
+        box = st.box
+        movable = (spec.inv_mass > 0)[:, None]
+        pos = st.positions
+        neighbors = st.neighbors
+        sort_ref = pos
+        half_skin = (0.5 * self._cp_cfg.skin if self._cp_cfg is not None
+                     else None)
+        pe_before = float(self._potential(pos, box, neighbors, None))
+        vel = torch.zeros_like(pos)
+        dt = torch.tensor(1e-4, dtype=pos.dtype, device=pos.device)
+        alpha = torch.tensor(0.1, dtype=pos.dtype, device=pos.device)
+        n_pos = 0
+        self._minimize_sorts = 1
+        for _ in range(int(maxIterations)):
+            f = self._forces_only(pos, box, neighbors, None)
+            f = torch.where(movable, f, torch.zeros_like(f))
+            p = torch.sum(f * vel)
+            f_norm = torch.sqrt(torch.sum(f * f))
+            v_norm = torch.sqrt(torch.sum(vel * vel))
+            up = p > 0
+            vel = torch.where(
+                up, (1 - alpha) * vel + alpha * f
+                * (v_norm / torch.clamp(f_norm, min=1e-12)),
+                torch.zeros_like(vel))
+            # the JAX loop's counter of uphill-free iterations passes 5
+            fast = up & (n_pos >= 5)
+            dt = torch.where(fast, torch.clamp(dt * 1.1, max=1e-2),
+                             torch.where(up, dt, dt * 0.5))
+            alpha = torch.where(fast, alpha * 0.99,
+                                torch.where(up, alpha, torch.full_like(
+                                    alpha, 0.1)))
+            vel = vel + dt * f
+            move = dt * vel
+            max_move = torch.max(torch.abs(move))
+            pos = pos + move * torch.clamp(
+                0.01 / torch.clamp(max_move, min=1e-12), max=1.0)
+            rms = f_norm / float(np.sqrt(pos.numel()))
+            if half_skin is not None:
+                d = pos - sort_ref
+                disp2 = torch.max(torch.sum(d * d, dim=1))
+                host = torch.stack([rms.double(), up.double(),
+                                    disp2.double()]).tolist()
+            else:
+                host = torch.stack([rms.double(), up.double()]).tolist()
+            n_pos = n_pos + 1 if host[1] else 0
+            if host[0] <= tolerance:
+                break
+            if half_skin is not None and host[2] > half_skin * half_skin:
+                neighbors = self._sort_for_minimize(pos, box)
+                sort_ref = pos
+                self._minimize_sorts += 1
+        pe_after = float(self._potential(pos, box, neighbors, None))
+        if not pe_after < pe_before:
+            return  # never make things worse (already near a minimum)
+        self._state = self._state.replace(
+            positions=pos,
+            pos_err=(None if st.pos_err is None
+                     else torch.zeros_like(st.pos_err)))
+        self.applyConstraints(self._integrator.getConstraintTolerance())
+        if static.has_hardwall and static.has_pairs:
+            # the minimizer knows nothing of the integrator's hard wall:
+            # clamp Drude offsets back inside it, so that the first step
+            # does not (rightly) latch a runaway
+            p_ = self._state.positions
+            is_drude = (spec.is_pair & ~spec.is_parent)[:, None]
+            parent = p_[spec.partner]
+            delta = p_ - parent
+            dist = torch.sqrt(torch.clamp(torch.sum(delta * delta, dim=-1),
+                                          min=1e-24))
+            scale = torch.clamp(0.99 * spec.max_drude_distance / dist,
+                                max=1.0)
+            p_ = torch.where(is_drude, parent + delta * scale[:, None], p_)
+            self._state = self._state.replace(positions=p_)
+        self._state = self._state.replace(
+            positions=apply_vsites(spec, static, self._state.positions),
+            neighbors=None)
+        self._forces_valid = False
+        self._pe_valid = False
+        self._ke_valid = False
+
+    def _sort_for_minimize(self, positions, box):
+        """A fresh cell sort at `positions`, the capacity grown until no
+        cell overflows."""
+        for _ in range(8):
+            nbl = self._nb.cellsort(positions, torch.diagonal(box))
+            if not bool(nbl.overflow):
+                return nbl
+            self._grow_pair_capacity(positions)
+        raise RuntimeError("cell capacity still overflowing after growth")
 
     @property
     def neighborListOverflowed(self) -> bool:
@@ -424,12 +699,31 @@ class Context:
 
     def getState(self, positions: bool = False, velocities: bool = False,
                  forces: bool = False, energy: bool = False,
-                 groups: bool = False) -> State:
+                 groups: bool = False, enforcePeriodicBox: bool = False,
+                 **kwargs) -> State:
+        """OpenMM's keyword spellings (getPositions=True, ...) are taken
+        too.  enforcePeriodicBox wraps whole molecules: each residue moves
+        by the box image of its geometric centre."""
+        positions = positions or kwargs.get("getPositions", False)
+        velocities = velocities or kwargs.get("getVelocities", False)
+        forces = forces or kwargs.get("getForces", False)
+        energy = energy or kwargs.get("getEnergy", False)
         st = self._state
         kw = {"time": float(st.time), "step": int(st.step),
               "box": st.box.double().cpu().numpy()}
         if positions:
-            kw["positions"] = st.positions.double().cpu().numpy()
+            pos = st.positions.double().cpu().numpy()
+            if enforcePeriodicBox:
+                box_d = np.diagonal(kw["box"])
+                resid = self._spec.resid.cpu().numpy()
+                n_res = self._static.n_residues
+                counts = np.bincount(resid, minlength=n_res).astype(
+                    np.float64)
+                centers = np.stack([
+                    np.bincount(resid, weights=pos[:, c], minlength=n_res)
+                    for c in range(3)], axis=1) / counts[:, None]
+                pos = pos - np.floor(centers / box_d)[resid] * box_d
+            kw["positions"] = pos
         if velocities:
             kw["velocities"] = st.velocities.double().cpu().numpy()
         if forces:
@@ -459,6 +753,26 @@ class Context:
 
     def getSystem(self):
         return self._system
+
+    def reinitialize(self, preserveState: bool = True) -> None:
+        """Recompile after System or Integrator edits (OpenMM's
+        Context::reinitialize).  With preserveState the positions,
+        velocities, box, time, step, barostat and compensation carry
+        over, and the thermostat chain where its shape is unchanged."""
+        old = self._state
+        self._init_spec_and_state()
+        st = self._state
+        if preserveState and old.positions.shape == st.positions.shape:
+            st = st.replace(
+                positions=old.positions, velocities=old.velocities,
+                box=old.box, time=old.time, step=old.step,
+                pos_err=old.pos_err, baro_scale=old.baro_scale,
+                baro_naccept=old.baro_naccept,
+                baro_nattempt=old.baro_nattempt, baro_gen=old.baro_gen)
+            if old.eta.shape == st.eta.shape:
+                st = st.replace(eta=old.eta, eta_dot=old.eta_dot,
+                                eta_dot_dot=old.eta_dot_dot)
+        self._state = st
 
     def getIntegrator(self):
         return self._integrator

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import scatter
+
 NEWTON_ITERS = 6
 
 
@@ -44,7 +46,7 @@ def _coef_matrix(wa, wb, wc):
 def _apply(target, settle_idx, corr):
     out = target.clone()
     for role in range(3):
-        out.index_add_(0, settle_idx[:, role], corr[role])
+        scatter.index_add_(out, settle_idx[:, role], corr[role])
     return out
 
 

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import scatter
+
 
 def apply_vsites(spec, static, positions):
     if not static.n_vsites_avg:
@@ -42,6 +44,6 @@ def spread_vsite_forces(spec, static, forces):
     out = forces.clone()
     out[spec.vs_avg_idx] = 0.0
     for k in range(3):
-        out.index_add_(0, spec.vs_avg_p[:, k],
-                       spec.vs_avg_w[:, k:k + 1] * fs)
+        scatter.index_add_(out, spec.vs_avg_p[:, k],
+                           spec.vs_avg_w[:, k:k + 1] * fs)
     return out

@@ -15,7 +15,8 @@ from .core.spec import SystemSpec
 from .core.state import SimState
 
 _HOST_SPEC = ("nh_nkbt", "nh_eta_mass", "nh_kbt_chain", "nh_link_active")
-_SCALAR_SPEC = ("dt", "max_drude_distance", "hardwall_scale")
+_SCALAR_SPEC = ("dt", "max_drude_distance", "hardwall_scale",
+                "baro_pressure", "baro_kt")
 _HOST_STATE = ("eta", "eta_dot", "eta_dot_dot", "ke_sum", "group_ke")
 
 
@@ -58,4 +59,9 @@ def state_from_numpy(d: dict, device="cpu") -> SimState:
         bool(np.asarray(hw)) if hw is not None else False, device=device)
     pe = d.get("pos_err")
     kw["pos_err"] = _tensor(pe, device) if pe is not None else None
+    if "baro_scale" in d:
+        kw["baro_scale"] = float(np.asarray(d["baro_scale"]))
+        kw["baro_naccept"] = int(np.asarray(d["baro_naccept"]))
+        kw["baro_nattempt"] = int(np.asarray(d["baro_nattempt"]))
+    kw["baro_gen"] = torch.Generator(device="cpu").manual_seed(0)
     return SimState(**kw)

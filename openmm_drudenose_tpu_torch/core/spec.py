@@ -12,6 +12,7 @@ does and as the reference plugin's initialize() does
     constraint and CMMotionRemover deductions
   - NH chain masses and initial accelerations
   - SETTLE triangles and the average virtual-site tables
+  - the MonteCarloBarostat's frequency, pressure and kT
 
 Per-atom tables go to the simulation device; the NH chain constants stay
 on the host, where the chain is integrated.  The TPU layout tables of the
@@ -25,7 +26,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..units import BOLTZ
+from ..units import BAR_TO_KJ_PER_MOL_NM3, BOLTZ
 from . import topology
 
 
@@ -47,6 +48,7 @@ class StaticSpec:
     n_settle: int
     n_vsites_avg: int
     cm_freq: int                # 0 = no CMMotionRemover
+    baro_freq: int = 0          # 0 = no MonteCarloBarostat
 
     @property
     def n_baths(self) -> int:
@@ -76,6 +78,8 @@ class SystemSpec:
     vs_avg_idx: torch.Tensor    # (Va,)
     vs_avg_p: torch.Tensor      # (Va, 3)
     vs_avg_w: torch.Tensor      # (Va, 3)
+    baro_pressure: float = 0.0  # kJ/mol/nm^3
+    baro_kt: float = 0.0        # kB T of the barostat, kJ/mol
 
 
 def _find_drude_force(system):
@@ -122,7 +126,7 @@ def partition_constraints(system, masses):
 
 def build_spec(system, integrator, real_dtype, accum_dtype, device):
     """Returns (SystemSpec, StaticSpec, initial eta_dot_dot (numpy))."""
-    from ..forces.cmmotion import CMMotionRemover
+    from ..forces.cmmotion import CMMotionRemover, MonteCarloBarostat
     from ..system import ThreeParticleAverageSite, TwoParticleAverageSite
 
     n = system.getNumParticles()
@@ -184,13 +188,16 @@ def build_spec(system, integrator, real_dtype, accum_dtype, device):
     dof[G + 1] = drude_dof
 
     cm_freq = 0
+    baro_freq, baro_pressure, baro_kt = 0, 0.0, 0.0
     for f in system.getForces():
         if isinstance(f, CMMotionRemover):
             cm_freq = f.getFrequency()
             if use_com:
                 dof[G] -= 3
-        elif type(f).__name__ == "MonteCarloBarostat":
-            raise NotImplementedError("NPT is not ported yet")
+        elif isinstance(f, MonteCarloBarostat):
+            baro_freq = f.getFrequency()
+            baro_pressure = f.getDefaultPressure() * BAR_TO_KJ_PER_MOL_NM3
+            baro_kt = BOLTZ * f.getDefaultTemperature()
 
     # ---- NH chain constants (CudaDrudeTGNHKernels.cpp:214-235) --------
     M = integrator.getNumNHChains()
@@ -259,7 +266,8 @@ def build_spec(system, integrator, real_dtype, accum_dtype, device):
         use_drude_nh_chains=use_drude_chains, use_com_temp_group=use_com,
         has_pairs=n_pairs > 0,
         has_hardwall=integrator.getMaxDrudeDistance() > 0,
-        n_settle=len(settle), n_vsites_avg=len(avg_idx), cm_freq=cm_freq)
+        n_settle=len(settle), n_vsites_avg=len(avg_idx), cm_freq=cm_freq,
+        baro_freq=baro_freq)
 
     r, a = real_dtype, accum_dtype
     dev = lambda x, dt=None: torch.as_tensor(x, dtype=dt, device=device)
@@ -278,5 +286,6 @@ def build_spec(system, integrator, real_dtype, accum_dtype, device):
         settle_idx=dev(settle_idx), settle_dist=dev(settle_dist, r),
         vs_avg_idx=dev(np.array(avg_idx, np.int64)),
         vs_avg_p=dev(np.array(avg_p, np.int64).reshape(-1, 3)),
-        vs_avg_w=dev(np.array(avg_w, np.float64).reshape(-1, 3), r))
+        vs_avg_w=dev(np.array(avg_w, np.float64).reshape(-1, 3), r),
+        baro_pressure=float(baro_pressure), baro_kt=float(baro_kt))
     return spec, static, init_edd

@@ -3,7 +3,10 @@
 Per-atom arrays live on the simulation device.  The Nose-Hoover chain
 state (a few numbers per bath) lives on the host in the accumulation
 dtype: the chain is integrated there (integrators/tgnh.py), as the
-reference plugin's host loop does.
+reference plugin's host loop does.  So does the barostat's state (its
+move size and counters, Python numbers) and the torch.Generator its
+proposals and Metropolis tests draw from: the host chooses the attempt
+steps and reads one accept flag per attempt (integrators/barostat.py).
 """
 
 from __future__ import annotations
@@ -35,13 +38,20 @@ class SimState:
     # position is positions + pos_err, keeping the low bits of the tiny
     # Drude-parent displacement that f32 absolute coordinates drop
     pos_err: Optional[torch.Tensor] = None
+    # MonteCarloBarostat: adaptive volume move size (nm^3, 0 = not yet
+    # set), accepted and attempted moves since the last adaptation, and
+    # the host generator of its draws
+    baro_scale: float = 0.0
+    baro_naccept: int = 0
+    baro_nattempt: int = 0
+    baro_gen: Optional[torch.Generator] = None
 
     def replace(self, **kw) -> "SimState":
         return dataclasses.replace(self, **kw)
 
 
 def zeros_state(n_atoms: int, n_baths: int, n_chains: int, box, real_dtype,
-                accum_dtype, device) -> SimState:
+                accum_dtype, device, seed: int = 0) -> SimState:
     kw = dict(dtype=real_dtype, device=device)
     host = dict(dtype=accum_dtype, device="cpu")
     return SimState(
@@ -56,4 +66,5 @@ def zeros_state(n_atoms: int, n_baths: int, n_chains: int, box, real_dtype,
         ke_sum=torch.zeros((), **host),
         group_ke=torch.zeros((n_baths,), **host),
         hardwall_runaway=torch.zeros((), dtype=torch.bool, device=device),
+        baro_gen=torch.Generator(device="cpu").manual_seed(int(seed)),
     )

@@ -26,6 +26,15 @@
 // clamp 1e-6, the self cell with b != a and row forces only, and the
 // exclusion test (bit (dg + W) % 31 of word (dg + W) / 31 of the home
 // atom's mask, any number of words) only at offsets flagged for it.
+//
+// The energy instantiation (kEnergy) walks the same tiles by the
+// broadcast walk, with no forces and no reactions: each lane adds its
+// home atom's pair energies, with CUDA's erfcf as the port's energy path
+// (forces/cellpair.py::sweep with the exact erfc), into a double in the
+// walk's fixed order; the self cell counts each pair from both sides at
+// half weight.  warp_sum and sum_fixed_order finish the sum in an order
+// fixed by the data, so two launches give the same bits.  The
+// force-only instantiation compiles as it did without this flag.
 
 #pragma once
 
@@ -168,14 +177,18 @@ __device__ __forceinline__ bool beyond(const Box& a, const Box& b,
 
 // The force on the lane's atom h from slot j of tile t, by the pair rules
 // above, or zero where the pair is not kept (`valid` false: no such slot).
-template <bool kSelf>
+// With kEnergy, the pair's energy into *pe instead (zero where not kept)
+// and no force.
+template <bool kSelf, bool kEnergy = false>
 __device__ __forceinline__ void pair_force(const Home& h, const Tile& t,
                                            int j, bool valid, int j0,
                                            bool chk, const Params& p,
-                                           float& px, float& py, float& pz) {
+                                           float& px, float& py, float& pz,
+                                           float* pe = nullptr) {
   const float two_over_sqrt_pi = 1.1283791670955126f;
   const int W = p.excl_window;
   px = py = pz = 0.f;
+  if constexpr (kEnergy) *pe = 0.f;
   if (!(valid && h.active)) return;
   const float4 b = t.xyzq[j];
   const float dx = h.x - b.x;
@@ -201,6 +214,11 @@ __device__ __forceinline__ void pair_force(const Home& h, const Tile& t,
   const float ep = h.seps * ss.y;
   const float s2 = sg * sg * inv_r2;
   const float x6 = s2 * s2 * s2;
+  if constexpr (kEnergy) {
+    *pe = 4.f * ep * x6 * (x6 - 1.f) +
+          qq * erfcf(p.alpha * r2s * inv_r) * inv_r;
+    return;
+  }
   const float g_lj = -4.f * ep * (6.f * x6 * x6 - 3.f * x6) * inv_r2;
   const float ar = p.alpha * r2s * inv_r;
   const float tt = __fdividef(1.f, 1.f + 0.3275911f * ar);
@@ -250,16 +268,26 @@ __device__ __forceinline__ void walk(const Home& h, const Tile& t, int na,
 // (nb <= kBcastMax), lane l stores its pair's reaction on slot k in its
 // own column of `part` at each step, with no exchange between lanes;
 // after the walk lane c * kBcastMax + k sums row (c, k) in column order,
-// and lane k takes its three sums into (rx, ry, rz).
-template <bool kSelf, bool kReact>
+// and lane k takes its three sums into (rx, ry, rz).  With kEnergy
+// (and no kReact), only the lane's pair energies, added to *esum in step
+// order (at half weight in the self cell, which meets each pair twice).
+template <bool kSelf, bool kReact, bool kEnergy = false>
 __device__ __forceinline__ void walk_bcast(const Home& h, const Tile& t,
                                            int nb, int j0, bool chk,
                                            const Params& p, int lane,
                                            float& fx, float& fy, float& fz,
                                            float& rx, float& ry, float& rz,
-                                           Partials& part) {
+                                           Partials& part,
+                                           double* esum = nullptr) {
+  static_assert(!(kEnergy && kReact), "the energy walk has no reactions");
   for (int k = 0; k < nb; ++k) {
     float px, py, pz;
+    if constexpr (kEnergy) {
+      float e;
+      pair_force<kSelf, true>(h, t, k, true, j0, chk, p, px, py, pz, &e);
+      *esum += kSelf ? 0.5 * (double)e : (double)e;
+      continue;
+    }
     pair_force<kSelf>(h, t, k, true, j0, chk, p, px, py, pz);
     fx += px;
     fy += py;
@@ -332,6 +360,53 @@ __device__ __forceinline__ void tile_pair(
   } else {
     walk(h, t, na, nb, j0, chk, p, lane, fx, fy, fz, rx, ry, rz);
   }
+}
+
+// The energy of one home part (na atoms from cell slot `abase` + a0)
+// against one staged tile t (nb slots, tile slot j being cell slot
+// j0 + j), added to the lane's *esum by the broadcast walk.
+__device__ __forceinline__ void tile_energy(bool self, const Fields& fd,
+                                            const Params& p, int abase,
+                                            int a0, int na, const Tile& t,
+                                            int nb, int j0, bool chk,
+                                            int lane, Partials& part,
+                                            double& esum) {
+  const Home h = load_home(fd, p, abase, a0 + lane, lane < na);
+  float fx = 0.f, fy = 0.f, fz = 0.f, rx, ry, rz;
+  if (self)
+    walk_bcast<true, false, true>(h, t, nb, j0, chk, p, lane, fx, fy, fz,
+                                  rx, ry, rz, part, &esum);
+  else
+    walk_bcast<false, false, true>(h, t, nb, j0, chk, p, lane, fx, fy, fz,
+                                   rx, ry, rz, part, &esum);
+}
+
+// The sum of the warp's 32 values in a fixed tree order, on lane 0.
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// *out = the sum of in[0 .. n-1] in an order fixed by n: one CTA of
+// kSumThreads threads, each adding a strided share in index order, then
+// a tree in shared memory.  Launched as <<<1, kSumThreads>>>.
+constexpr int kSumThreads = 1024;
+
+__global__ void __launch_bounds__(kSumThreads)
+    sum_fixed_order(const double* __restrict__ in, int n,
+                    double* __restrict__ out) {
+  __shared__ double s[kSumThreads];
+  double v = 0.0;
+  for (int i = threadIdx.x; i < n; i += kSumThreads) v += in[i];
+  s[threadIdx.x] = v;
+  __syncthreads();
+  for (int w = kSumThreads / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *out = s[0];
 }
 
 }  // namespace pair_tile

@@ -1,6 +1,6 @@
-// Kernel B1: the direct-space cell-pair sweep, forces only; the Hopper
-// counterpart of the TPU kernel ops/pallas_sweep.py::pair_forces_pallas
-// in the JAX package.
+// Kernel B1: the direct-space cell-pair sweep; the Hopper counterpart of
+// the TPU kernel ops/pallas_sweep.py::pair_forces_pallas in the JAX
+// package (forces only), with an energy instantiation of its own.
 //
 // Physics: LJ with Lorentz sigma and Berthelot sqrt(eps) product, plus
 // Ewald real-space Coulomb with the Abramowitz & Stegun 7.1.26 erfc (the
@@ -38,6 +38,14 @@
 // which warps finish; kernel B2 (sweep_chunked.cu) is the deterministic
 // sweep.
 //
+// The energy instantiation (sweep_energy) is the same unit loop with the
+// energy walk of pair_tile.cuh: the exact erfc (erfcf), no forces; each
+// unit's energy, summed in double in a fixed order, goes to a partial of
+// its own, and one CTA sums the partials in index order.  The JAX
+// package computes this energy outside Pallas (its XLA sweep); here it
+// is a kernel so that the barostat and getState(energy=True) read it
+// without the plain sweep.  Its energy is the same bits at every launch.
+//
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -59,14 +67,16 @@ constexpr int kOffsetsPerUnit = 8;  // stencil offsets a work unit
 // A work unit is (home cell, 32-slot part, group of kOffsetsPerUnit
 // offsets); warps take units in order from the counter *next_unit until
 // none is left, so the card stays busy to the end (a unit whose part is
-// empty is skipped at once).
+// empty is skipped at once).  With kEnergy the unit's energy goes to
+// e_part[unit] (left zero for an empty part) and no force is written.
+template <bool kEnergy>
 __global__ void __launch_bounds__(kWarps * 32)
-    sweep_forces_kernel(Fields fd, const int* __restrict__ nbr,
-                        const float* __restrict__ shift,
-                        const int* __restrict__ check_excl,
-                        float* __restrict__ f, int* __restrict__ next_unit,
-                        int n_cells, int cap, int parts, int n_off,
-                        int n_groups, Params p) {
+    sweep_kernel(Fields fd, const int* __restrict__ nbr,
+                 const float* __restrict__ shift,
+                 const int* __restrict__ check_excl, float* __restrict__ f,
+                 double* __restrict__ e_part, int* __restrict__ next_unit,
+                 int n_cells, int cap, int parts, int n_off, int n_groups,
+                 Params p) {
   __shared__ Tile tiles[kWarps][2];
   __shared__ pair_tile::Partials partials[kWarps];
   const int warp = threadIdx.x >> 5;
@@ -89,6 +99,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     const pair_tile::Box home =
         pair_tile::stage(th, fd, cell * cap + a0, na, 0.f, 0.f, 0.f, lane);
     float fx = 0.f, fy = 0.f, fz = 0.f, rx, ry, rz;
+    double es = 0.0;
     for (int o = o0; o < min(o0 + kOffsetsPerUnit, n_off); ++o) {
       const int bc = nbr[cell * n_off + o];
       const int nb = fd.count[bc];
@@ -100,19 +111,27 @@ __global__ void __launch_bounds__(kWarps * 32)
         const pair_tile::Box nbox =
             pair_tile::stage(t, fd, bc * cap + b0, nb_t, tx, ty, tz, lane);
         if (o != 0 && pair_tile::beyond(home, nbox, p.cutoff2)) continue;
-        pair_tile::tile_pair(o == 0, fd, p, cell * cap, a0, na, th, t,
-                             bc * cap + b0, nb_t, b0, tx, ty, tz, chk, lane,
-                             part, fx, fy, fz, rx, ry, rz);
-        if (o != 0 && lane < nb_t) {
-          float* fb = f + 3 * (bc * cap + b0 + lane);
-          if (rx != 0.f) atomicAdd(fb, rx);
-          if (ry != 0.f) atomicAdd(fb + 1, ry);
-          if (rz != 0.f) atomicAdd(fb + 2, rz);
+        if constexpr (kEnergy) {
+          pair_tile::tile_energy(o == 0, fd, p, cell * cap, a0, na, t, nb_t,
+                                 b0, chk, lane, part, es);
+        } else {
+          pair_tile::tile_pair(o == 0, fd, p, cell * cap, a0, na, th, t,
+                               bc * cap + b0, nb_t, b0, tx, ty, tz, chk,
+                               lane, part, fx, fy, fz, rx, ry, rz);
+          if (o != 0 && lane < nb_t) {
+            float* fb = f + 3 * (bc * cap + b0 + lane);
+            if (rx != 0.f) atomicAdd(fb, rx);
+            if (ry != 0.f) atomicAdd(fb + 1, ry);
+            if (rz != 0.f) atomicAdd(fb + 2, rz);
+          }
         }
         __syncwarp();  // the tile is restaged next
       }
     }
-    if (lane < na) {
+    if constexpr (kEnergy) {
+      es = pair_tile::warp_sum(es);
+      if (lane == 0) e_part[unit] = es;
+    } else if (lane < na) {
       float* fa = f + 3 * (cell * cap + a0 + lane);
       atomicAdd(fa, fx);
       atomicAdd(fa + 1, fy);
@@ -121,17 +140,65 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// The launch shared by both instantiations: f (forces) or e_part and
+// e_out (energy) are the outputs; the other pointers may be null.
+template <bool kEnergy>
+int launch(const void* x, const void* y, const void* z, const void* q,
+           const void* sig, const void* seps, const void* gid,
+           const void* ew, const void* count, const void* nbr,
+           const void* shift, const void* check_excl, void* f, void* e_part,
+           void* e_out, void* next_unit, int n_cells, int cap, int n_off,
+           float cutoff2, float alpha, float coulomb_scale, int excl_window,
+           int n_words, int max_ctas, void* stream) {
+  const long long parts = (cap + 31) / 32;
+  const long long n_groups = (n_off + kOffsetsPerUnit - 1) / kOffsetsPerUnit;
+  const long long units = (long long)n_cells * parts * n_groups;
+  if (cap < 1 || n_cells < 1 || n_off < 1 || n_words < 1 || max_ctas < 1 ||
+      3LL * n_cells * cap > INT32_MAX ||
+      (long long)n_cells * cap * n_words > INT32_MAX ||
+      (long long)n_cells * n_off > INT32_MAX || units > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
+            (const float*)q,   (const float*)sig,  (const float*)seps,
+            (const int*)gid,   (const int*)ew,     (const int*)count};
+  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words};
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(next_unit, 0, sizeof(int), s);
+  if (err == cudaSuccess && kEnergy)
+    err = cudaMemsetAsync(e_part, 0, units * sizeof(double), s);
+  if (err != cudaSuccess) return (int)err;
+  // as many CTAs as the card holds at once (they loop over the units)
+  const int blocks = (int)std::min<long long>(
+      (units + kWarps - 1) / kWarps, (long long)max_ctas);
+  sweep_kernel<kEnergy><<<blocks, kWarps * 32, 0, s>>>(
+      fd, (const int*)nbr, (const float*)shift, (const int*)check_excl,
+      (float*)f, (double*)e_part, (int*)next_unit, n_cells, cap, (int)parts,
+      n_off, (int)n_groups, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !kEnergy) return (int)err;
+  pair_tile::sum_fixed_order<<<1, pair_tile::kSumThreads, 0, s>>>(
+      (const double*)e_part, (int)units, (double*)e_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Warps a CTA.
 extern "C" int sweep_warps_per_cta() { return kWarps; }
 
+// Work units (and energy partials) of a launch.
+extern "C" int sweep_units(int n_cells, int cap, int n_off) {
+  return n_cells * ((cap + 31) / 32) *
+         ((n_off + kOffsetsPerUnit - 1) / kOffsetsPerUnit);
+}
+
 // out[0..3]: registers a thread, static shared memory, the most threads
 // a CTA may have and local (spill) memory a thread, as compiled for the
-// card.
-extern "C" int sweep_attributes(int* out) {
+// card, of the force (energy = 0) or the energy instantiation.
+extern "C" int sweep_attributes(int* out, int energy) {
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, sweep_forces_kernel);
+  cudaError_t err = energy ? cudaFuncGetAttributes(&a, sweep_kernel<true>)
+                           : cudaFuncGetAttributes(&a, sweep_kernel<false>);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
@@ -140,9 +207,9 @@ extern "C" int sweep_attributes(int* out) {
   return 0;
 }
 
-// out[0..1]: the current card's SMs and the CTAs of the kernel an SM
-// holds at once; the caller reads them once and passes their product to
-// sweep_forces as max_ctas.
+// out[0..2]: the current card's SMs and the CTAs an SM holds at once of
+// the force and of the energy instantiation; the caller reads them once
+// and passes SMs x CTAs to sweep_forces / sweep_energy as max_ctas.
 extern "C" int sweep_occupancy(int* out) {
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
@@ -151,7 +218,10 @@ extern "C" int sweep_occupancy(int* out) {
                                  dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[1], sweep_forces_kernel, kWarps * 32, 0);
+        &out[1], sweep_kernel<false>, kWarps * 32, 0);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[2], sweep_kernel<true>, kWarps * 32, 0);
   return (int)err;
 }
 
@@ -167,27 +237,28 @@ extern "C" int sweep_forces(const void* x, const void* y, const void* z,
                             int n_off, float cutoff2, float alpha,
                             float coulomb_scale, int excl_window,
                             int n_words, int max_ctas, void* stream) {
-  const long long parts = (cap + 31) / 32;
-  const long long n_groups = (n_off + kOffsetsPerUnit - 1) / kOffsetsPerUnit;
-  const long long units = (long long)n_cells * parts * n_groups;
-  if (cap < 1 || n_cells < 1 || n_off < 1 || n_words < 1 || max_ctas < 1 ||
-      3LL * n_cells * cap > INT32_MAX ||
-      (long long)n_cells * cap * n_words > INT32_MAX ||
-      (long long)n_cells * n_off > INT32_MAX || units > INT32_MAX)
-    return (int)cudaErrorInvalidValue;
-  Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
-            (const float*)q,   (const float*)sig,  (const float*)seps,
-            (const int*)gid,   (const int*)ew,     (const int*)count};
-  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words};
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(next_unit, 0, sizeof(int), s);
-  if (err != cudaSuccess) return (int)err;
-  // as many CTAs as the card holds at once (they loop over the units)
-  const int blocks = (int)std::min<long long>(
-      (units + kWarps - 1) / kWarps, (long long)max_ctas);
-  sweep_forces_kernel<<<blocks, kWarps * 32, 0, s>>>(
-      fd, (const int*)nbr, (const float*)shift, (const int*)check_excl,
-      (float*)f, (int*)next_unit, n_cells, cap, (int)parts, n_off,
-      (int)n_groups, p);
-  return (int)cudaGetLastError();
+  return launch<false>(x, y, z, q, sig, seps, gid, ew, count, nbr, shift,
+                       check_excl, f, nullptr, nullptr, next_unit, n_cells,
+                       cap, n_off, cutoff2, alpha, coulomb_scale,
+                       excl_window, n_words, max_ctas, stream);
+}
+
+// The direct-space energy into e_out (one double on the card):
+// e_part: sweep_units() doubles of work space (zeroed here), one partial
+// a work unit, summed by sum_fixed_order.  Other arguments as
+// sweep_forces.
+extern "C" int sweep_energy(const void* x, const void* y, const void* z,
+                            const void* q, const void* sig, const void* seps,
+                            const void* gid, const void* ew,
+                            const void* count, const void* nbr,
+                            const void* shift, const void* check_excl,
+                            void* e_part, void* e_out, void* next_unit,
+                            int n_cells, int cap, int n_off, float cutoff2,
+                            float alpha, float coulomb_scale,
+                            int excl_window, int n_words, int max_ctas,
+                            void* stream) {
+  return launch<true>(x, y, z, q, sig, seps, gid, ew, count, nbr, shift,
+                      check_excl, nullptr, e_part, e_out, next_unit,
+                      n_cells, cap, n_off, cutoff2, alpha, coulomb_scale,
+                      excl_window, n_words, max_ctas, stream);
 }

@@ -1,6 +1,9 @@
-// Kernel B2: the chunked direct-space cell-pair sweep, forces only, with
-// deterministic reactions; the Hopper counterpart of the TPU kernel
-// ops/pallas_sweep.py::pair_forces_pallas_chunked in the JAX package.
+// Kernel B2: the chunked direct-space cell-pair sweep with deterministic
+// reactions; the Hopper counterpart of the TPU kernel
+// ops/pallas_sweep.py::pair_forces_pallas_chunked in the JAX package
+// (forces only), with an energy instantiation of its own
+// (chunk_sweep_energy: one partial a home cell, summed in a fixed order;
+// see pair_tile.cuh).
 //
 // It computes what kernel B1 (sweep.cu) computes, pair for pair, with the
 // same warp-tile pair loop (pair_tile.cuh): LJ with Lorentz sigma and
@@ -82,11 +85,16 @@ __device__ __forceinline__ int wrap(int v, int g) {
 // place of 32 (PERF.md)
 constexpr int kMaxWarps = 8;
 
+// With kEnergy: no frames and no barriers; each warp adds its home
+// cell's pair energies (the energy walk of pair_tile.cuh) and writes
+// their sum to e_part[chunk * home cells + h], zero for an empty cell.
+template <bool kEnergy>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     chunk_sweep_kernel(Fields fd, const int* __restrict__ offsets,
                        const float* __restrict__ shift,
                        const int* __restrict__ check_excl,
-                       float* __restrict__ frames, Plan pl, int cap,
+                       float* __restrict__ frames,
+                       double* __restrict__ e_part, Plan pl, int cap,
                        int n_off, Params p) {
   extern __shared__ float4 smem4[];
   const int nh = pl.bx * pl.by * pl.bz;
@@ -98,7 +106,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   float* rowf = reinterpret_cast<float*>(partials + nh);   // (nh, 3, cap)
 
   const int chunk = blockIdx.x;
-  float* fr = frames + (size_t)chunk * nf * fstride;  // (nf, 3, cap)
+  float* fr = kEnergy ? nullptr : frames + (size_t)chunk * nf * fstride;
   const int x0 = (chunk / (pl.nby * pl.nbz)) * pl.bx;
   const int y0 = ((chunk / pl.nbz) % pl.nby) * pl.by;
   const int z0 = (chunk % pl.nbz) * pl.bz;
@@ -115,11 +123,15 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
   pair_tile::Partials& part = partials[h];
   float* rowh = rowf + h * fstride;
 
-  for (int i = threadIdx.x; i < nf * fstride; i += blockDim.x) fr[i] = 0.f;
-  for (int i = threadIdx.x; i < nh * fstride; i += blockDim.x) rowf[i] = 0.f;
-  __syncthreads();
+  if constexpr (!kEnergy) {
+    for (int i = threadIdx.x; i < nf * fstride; i += blockDim.x) fr[i] = 0.f;
+    for (int i = threadIdx.x; i < nh * fstride; i += blockDim.x)
+      rowf[i] = 0.f;
+    __syncthreads();
+  }
 
   float rx, ry, rz;
+  double es = 0.0;
   for (int o = 0; o < n_off; ++o) {
     if (na > 0) {
       const int ox = offsets[3 * o], oy = offsets[3 * o + 1],
@@ -131,8 +143,10 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
                          pl.gz + wrap(cz + oz, pl.gz);
       const int nb = fd.count[bc];
       // this home cell's neighbour at o in the frame
-      float* fo = fr + (((hx + ox - pl.lox) * pl.fy + (hy + oy - pl.loy)) *
-                            pl.fz + (hz + oz - pl.loz)) * fstride;
+      float* fo = kEnergy ? nullptr
+                          : fr + (((hx + ox - pl.lox) * pl.fy +
+                                   (hy + oy - pl.loy)) * pl.fz +
+                                  (hz + oz - pl.loz)) * fstride;
       for (int a0 = 0; a0 < na; a0 += 32) {
         const int na_t = min(na - a0, 32);
         const pair_tile::Box home = pair_tile::stage(
@@ -143,18 +157,23 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
           const pair_tile::Box nbox =
               pair_tile::stage(t, fd, bc * cap + b0, nb_t, tx, ty, tz, lane);
           if (o != 0 && pair_tile::beyond(home, nbox, p.cutoff2)) continue;
-          pair_tile::tile_pair(o == 0, fd, p, cell * cap, a0, na_t, th, t,
-                               bc * cap + b0, nb_t, b0, tx, ty, tz, chk, lane,
-                               part, fx, fy, fz, rx, ry, rz);
-          if (o != 0 && lane < nb_t) {
-            float* e = fo + b0 + lane;
-            if (rx != 0.f) e[0] += rx;
-            if (ry != 0.f) e[cap] += ry;
-            if (rz != 0.f) e[2 * cap] += rz;
+          if constexpr (kEnergy) {
+            pair_tile::tile_energy(o == 0, fd, p, cell * cap, a0, na_t, t,
+                                   nb_t, b0, chk, lane, part, es);
+          } else {
+            pair_tile::tile_pair(o == 0, fd, p, cell * cap, a0, na_t, th, t,
+                                 bc * cap + b0, nb_t, b0, tx, ty, tz, chk,
+                                 lane, part, fx, fy, fz, rx, ry, rz);
+            if (o != 0 && lane < nb_t) {
+              float* e = fo + b0 + lane;
+              if (rx != 0.f) e[0] += rx;
+              if (ry != 0.f) e[cap] += ry;
+              if (rz != 0.f) e[2 * cap] += rz;
+            }
           }
           __syncwarp();  // the tiles are restaged next
         }
-        if (lane < na_t) {
+        if (!kEnergy && lane < na_t) {
           rowh[a0 + lane] += fx;
           rowh[cap + a0 + lane] += fy;
           rowh[2 * cap + a0 + lane] += fz;
@@ -163,9 +182,12 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     }
     // frame cell h + o of this home cell is h' + o' of another: the
     // barrier orders their writes
-    __syncthreads();
+    if constexpr (!kEnergy) __syncthreads();
   }
-  if (na > 0) {
+  if constexpr (kEnergy) {
+    es = pair_tile::warp_sum(es);
+    if (lane == 0) e_part[chunk * nh + h] = es;
+  } else if (na > 0) {
     float* own = fr + (((hx - pl.lox) * pl.fy + (hy - pl.loy)) * pl.fz +
                        (hz - pl.loz)) * fstride;
     for (int i = lane; i < fstride; i += 32) own[i] += rowh[i];
@@ -224,10 +246,12 @@ Plan make_plan(const int* v) {
 
 // out[0..3]: registers a thread, static shared memory, the most threads
 // a CTA may have and local (spill) memory a thread, as compiled for the
-// card.
-extern "C" int chunk_sweep_attributes(int* out) {
+// card, of the force (energy = 0) or the energy instantiation.
+extern "C" int chunk_sweep_attributes(int* out, int energy) {
   cudaFuncAttributes a;
-  cudaError_t err = cudaFuncGetAttributes(&a, chunk_sweep_kernel);
+  cudaError_t err =
+      energy ? cudaFuncGetAttributes(&a, chunk_sweep_kernel<true>)
+             : cudaFuncGetAttributes(&a, chunk_sweep_kernel<false>);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
@@ -264,6 +288,34 @@ extern "C" int chunk_sweep_smem_bytes(const int* plan, int cap) {
                4 * 3 * cap);
 }
 
+// The checks and the sweep launch shared by both instantiations.
+template <bool kEnergy>
+int launch_sweep(const Fields& fd, const void* offsets, const void* shift,
+                 const void* check_excl, void* frames, void* e_part,
+                 const int* plan, int cap, int n_off, const Params& p,
+                 cudaStream_t s) {
+  const Plan pl = make_plan(plan);
+  const int nh = pl.bx * pl.by * pl.bz;
+  const long long n_chunks = (long long)pl.nbx * pl.nby * pl.nbz;
+  const long long n_slots = (long long)pl.gx * pl.gy * pl.gz * cap;
+  const long long nf = (long long)pl.fx * pl.fy * pl.fz;
+  if (cap < 1 || n_off < 1 || p.n_words < 1 || n_chunks < 1 ||
+      nh > kMaxWarps || 3 * n_slots > INT32_MAX ||
+      n_slots * p.n_words > INT32_MAX ||
+      n_chunks * nf * 3 * cap > INT32_MAX ||
+      n_chunks * nh > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int smem = chunk_sweep_smem_bytes(plan, cap);
+  cudaError_t err = cudaFuncSetAttribute(
+      chunk_sweep_kernel<kEnergy>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  chunk_sweep_kernel<kEnergy><<<(int)n_chunks, nh * 32, smem, s>>>(
+      fd, (const int*)offsets, (const float*)shift, (const int*)check_excl,
+      (float*)frames, (double*)e_part, pl, cap, n_off, p);
+  return (int)cudaGetLastError();
+}
+
 // plan: the 15 ints of Plan, on the host.  frames: n_chunks * nf * 3 * cap
 // floats of work space (zeroed and filled by the sweep); f: (n_slots, 3);
 // ew: (n_slots, n_words).
@@ -275,31 +327,44 @@ extern "C" int chunk_sweep_forces(
     const void* tab_z, void* frames, void* f, const int* plan, int lx,
     int ly, int lz, int cap, int n_off, float cutoff2, float alpha,
     float coulomb_scale, int excl_window, int n_words, void* stream) {
-  const Plan pl = make_plan(plan);
-  const int nh = pl.bx * pl.by * pl.bz;
-  const long long n_chunks = (long long)pl.nbx * pl.nby * pl.nbz;
-  const long long n_slots = (long long)pl.gx * pl.gy * pl.gz * cap;
-  const long long nf = (long long)pl.fx * pl.fy * pl.fz;
-  if (cap < 1 || n_off < 1 || n_words < 1 || n_chunks < 1 ||
-      nh > kMaxWarps || 3 * n_slots > INT32_MAX ||
-      n_slots * n_words > INT32_MAX || n_chunks * nf * 3 * cap > INT32_MAX)
-    return (int)cudaErrorInvalidValue;
-  const int smem = chunk_sweep_smem_bytes(plan, cap);
   Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
             (const float*)q,   (const float*)sig,  (const float*)seps,
             (const int*)gid,   (const int*)ew,     (const int*)count};
   Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words};
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaFuncSetAttribute(
-      chunk_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  chunk_sweep_kernel<<<(int)n_chunks, nh * 32, smem, s>>>(
-      fd, (const int*)offsets, (const float*)shift, (const int*)check_excl,
-      (float*)frames, pl, cap, n_off, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int err = launch_sweep<false>(fd, offsets, shift, check_excl, frames,
+                                nullptr, plan, cap, n_off, p, s);
+  if (err != 0) return err;
+  const Plan pl = make_plan(plan);
+  const long long n_slots = (long long)pl.gx * pl.gy * pl.gz * cap;
   overlap_add_kernel<<<(int)((n_slots + 255) / 256), 256, 0, s>>>(
       (const float*)frames, (const int*)tab_x, (const int*)tab_y,
       (const int*)tab_z, lx, ly, lz, pl, cap, (float*)f);
+  return (int)cudaGetLastError();
+}
+
+// The direct-space energy into e_out (one double on the card): e_part is
+// n_chunks * home cells a chunk doubles of work space, one partial a
+// home cell (every one written), summed by sum_fixed_order.  Other
+// arguments as chunk_sweep_forces.
+extern "C" int chunk_sweep_energy(
+    const void* x, const void* y, const void* z, const void* q,
+    const void* sig, const void* seps, const void* gid, const void* ew,
+    const void* count, const void* offsets, const void* shift,
+    const void* check_excl, void* e_part, void* e_out, const int* plan,
+    int cap, int n_off, float cutoff2, float alpha, float coulomb_scale,
+    int excl_window, int n_words, void* stream) {
+  Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
+            (const float*)q,   (const float*)sig,  (const float*)seps,
+            (const int*)gid,   (const int*)ew,     (const int*)count};
+  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words};
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = launch_sweep<true>(fd, offsets, shift, check_excl, nullptr,
+                               e_part, plan, cap, n_off, p, s);
+  if (err != 0) return err;
+  const Plan pl = make_plan(plan);
+  const int n_part = pl.nbx * pl.nby * pl.nbz * pl.bx * pl.by * pl.bz;
+  pair_tile::sum_fixed_order<<<1, pair_tile::kSumThreads, 0, s>>>(
+      (const double*)e_part, n_part, (double*)e_out);
   return (int)cudaGetLastError();
 }

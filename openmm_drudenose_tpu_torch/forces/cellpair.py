@@ -24,6 +24,8 @@ import math
 import numpy as np
 import torch
 
+from ..ops import scatter
+
 
 @dataclasses.dataclass
 class CellSort:
@@ -289,6 +291,11 @@ def ewald_pair_eg(alpha: float, erfc_fn):
     return f
 
 
+# calls of the plain pair sum on CUDA tensors (the kernels' plain
+# versions, compared with them on the card, and the float64 reference
+# contexts); a float32 main path on the card makes none
+plain_sweeps = {"cuda": 0}
+
 # elements of one (n_cells, C, P*C) pair tile: bounds each temporary of
 # the chunked sweep (one offset at a time at 100k atoms, ~31 MB in f32;
 # small tiles also keep the CPU sweep in cache)
@@ -314,6 +321,8 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
     x, y, z = (fields[k].reshape(nc, C) for k in "xyz")
     dtype = x.dtype
     dev = x.device
+    if dev.type == "cuda":
+        plain_sweeps["cuda"] += 1
     q = fields["q"].reshape(nc, C)
     sig = fields["sig"].reshape(nc, C)
     seps = fields["seps"].reshape(nc, C)
@@ -402,7 +411,7 @@ def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
                 react = -torch.sum(g2 * d[comp], dim=1).reshape(
                     nc, len(ob), C)
                 for p in range(len(ob)):
-                    fc.index_add_(0, b[:, p], react[:, p])
+                    scatter.index_add_(fc, b[:, p], react[:, p])
     f_slots = torch.stack([fx.reshape(-1), fy.reshape(-1), fz.reshape(-1)],
                           dim=1)
     return energy, f_slots

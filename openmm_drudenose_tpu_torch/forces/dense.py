@@ -1,0 +1,72 @@
+"""Dense all-pairs direct-space sum: the strategy of small systems.
+
+For a few thousand atoms the cutoff sphere fills most of the box, so the
+JAX package sends such systems (n <= 4096, or a non-periodic method) to
+an all-pairs sweep over the full ordered pair matrix in row blocks
+(forces/dense.py::pair_energy_forces there, outside Pallas): each
+ordered pair (i, j) is evaluated in row i's block, so row forces are
+complete after one row sum (no reactions, no neighbour structure) and the
+energy is half the sum.  Exclusions are a static (N, N) mask.  The same
+here, in plain PyTorch: a sum that the JAX package leaves to XLA has no
+TPU kernel to port.
+
+The pair function is the cell-pair sweep's (LJ + Ewald real space), with
+the A&S erfc in float32 and the exact erfc in float64, as the JAX
+package's make_pair_eg chooses by type.  Float32 displacements are
+formed in float64 from the compensated positions (`exact`) where given,
+and rounded once (forces/cellpair.py::sorted_fields does the same).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import cellpair
+
+# elements of one (rows, N) block: bounds each temporary
+BLOCK_ELEMS = 1 << 21
+
+
+def pair_energy_forces(params, positions, box_diag, pair_mask, cutoff,
+                       alpha, coulomb_scale, with_energy=True, exact=None):
+    """(energy, forces (N, 3)) of the direct-space sum over all ordered
+    pairs not masked out; energy None without with_energy."""
+    n = positions.shape[0]
+    dtype = positions.dtype
+    erfc = (cellpair.erfc_approx if dtype == torch.float32
+            else torch.special.erfc)
+    pair_eg = cellpair.ewald_pair_eg(alpha, erfc)
+    q = params["charge"]
+    sig = params["sigma"]
+    seps = torch.sqrt(params["eps"])
+    qa = coulomb_scale * q
+    src = positions if exact is None else exact
+    box = box_diag.to(src.dtype)
+    cutoff2 = cutoff * cutoff
+    rows = max(1, min(n, BLOCK_ELEMS // max(n, 1)))
+    energy = positions.new_zeros(()) if with_energy else None
+    forces = []
+    zero = torch.zeros((), dtype=dtype, device=positions.device)
+    for o in range(0, n, rows):
+        sl = slice(o, min(o + rows, n))
+        d = []
+        for c in range(3):
+            dc = src[sl, c][:, None] - src[:, c][None, :]
+            dc = dc - box[c] * torch.round(dc / box[c])
+            d.append(dc.to(dtype))
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        valid = pair_mask[sl] & (r2 < cutoff2)
+        r2s = torch.where(valid, torch.clamp(r2, min=1e-6),
+                          torch.ones_like(r2))
+        inv_r = torch.rsqrt(r2s)
+        inv_r2 = inv_r * inv_r
+        qq = qa[sl, None] * q[None, :]
+        sg = 0.5 * (sig[sl, None] + sig[None, :])
+        ep = seps[sl, None] * seps[None, :]
+        e, g = pair_eg(qq, sg, ep, r2s, inv_r, inv_r2)
+        g2 = torch.where(valid, -2.0 * g, zero)
+        if with_energy:
+            energy = energy + 0.5 * torch.sum(torch.where(valid, e, zero))
+        forces.append(torch.stack([torch.sum(g2 * dc, dim=1) for dc in d],
+                                  dim=1))
+    return energy, torch.cat(forces, dim=0)

@@ -5,9 +5,15 @@
             S(u) = 1 - (1 + u/2) exp(-u), u = thole r / (a1 a2)^(1/6),
             signs (+,-,-,+) for (d1,d2), (d1,c2), (c1,d2), (c1,c2).
 
+  NBTHOLE:  between non-bonded core/shell pairs of different molecules
+            (CHARMM NBTHOLE), only the screening deficit
+            s qq (S(u) - 1) / r = -s qq (1 + u/2) exp(-u) / r over the 4
+            cross pairs (the plain Coulomb is in the nonbonded sum),
+            minimum-imaged.
+
 The same physics as the JAX package's forces/drude.py.  Forces here are
 analytic (no autograd): F = -dE/dr along each pair.  Anisotropic springs
-and NBTHOLE pairs are not on the ported path and are refused.
+are not on the ported path and are refused.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ..ops import scatter
 from ..units import ONE_4PI_EPS0
 
 
@@ -88,8 +95,6 @@ class DrudeForce:
     def compile(self, system, dtype, device):
         if not self._particles:
             return None
-        if self._nbthole:
-            raise NotImplementedError("NBTHOLE pairs are not ported yet")
         p = self._particles
         if any(x[2] >= 0 or x[3] >= 0 for x in p):
             raise NotImplementedError(
@@ -115,6 +120,18 @@ class DrudeForce:
                 t(parent[sp2]),
                 t(thole / (alpha[sp1] * alpha[sp2]) ** (1.0 / 6.0), dtype),
                 t(ONE_4PI_EPS0 * charge[sp1] * charge[sp2], dtype))
+        if self._nbthole:
+            nt = self._nbthole
+            nt1 = np.array([x[0] for x in nt], np.int64)
+            nt2 = np.array([x[1] for x in nt], np.int64)
+            a_thole = np.array([x[2] for x in nt], np.float64)
+            t = lambda a, dt=None: torch.as_tensor(a, dtype=dt,
+                                                   device=device)
+            term.nbthole = (
+                t(drude[nt1]), t(parent[nt1]), t(drude[nt2]),
+                t(parent[nt2]),
+                t(a_thole / (alpha[nt1] * alpha[nt2]) ** (1.0 / 6.0), dtype),
+                t(ONE_4PI_EPS0 * charge[nt1] * charge[nt2], dtype))
         return term
 
 
@@ -128,8 +145,11 @@ class DrudeTerm:
         self.parent = parent
         self.k3 = k3
         self.screened = None
+        self.nbthole = None
 
-    def energy_forces(self, positions, box_diag=None, pos_err=None):
+    def energy_forces(self, positions, box_diag=None, pos_err=None,
+                      with_forces=True):
+        """(energy, forces (N, 3); None without with_forces)."""
         delta = positions[self.drude] - positions[self.parent]
         if pos_err is not None:
             # two-float compensation (core/state.py): the dropped low bits
@@ -137,24 +157,37 @@ class DrudeTerm:
             delta = delta + (pos_err[self.drude] - pos_err[self.parent])
         r2 = torch.sum(delta * delta, dim=-1)
         energy = 0.5 * torch.sum(self.k3 * r2)
+        if not with_forces:
+            if self.screened is not None:
+                energy = energy + screened_energy_forces(
+                    self.screened, positions, False)[0]
+            if self.nbthole is not None:
+                energy = energy + nbthole_energy_forces(
+                    self.nbthole, positions, box_diag, False)[0]
+            return energy, None
         fd = -self.k3[:, None] * delta
         forces = torch.zeros_like(positions)
-        forces.index_add_(0, self.drude, fd)
-        forces.index_add_(0, self.parent, -fd)
+        scatter.index_add_(forces, self.drude, fd)
+        scatter.index_add_(forces, self.parent, -fd)
         if self.screened is not None:
             e_s, f_s = screened_energy_forces(self.screened, positions)
             energy = energy + e_s
             forces = forces + f_s
+        if self.nbthole is not None:
+            e_t, f_t = nbthole_energy_forces(self.nbthole, positions,
+                                             box_diag)
+            energy = energy + e_t
+            forces = forces + f_t
         return energy, forces
 
 
-def screened_energy_forces(screened, positions):
+def screened_energy_forces(screened, positions, with_forces=True):
     """Thole-screened energy over the 4 core/shell cross pairs and its
     analytic forces: dE/dr = s qq (S'(u) scale / r - S(u) / r^2) with
     S'(u) = (1 + u) exp(-u) / 2."""
     d1, c1, d2, c2, scale, qq = screened
     energy = positions.new_zeros(())
-    forces = torch.zeros_like(positions)
+    forces = torch.zeros_like(positions) if with_forces else None
     for ia, ib, sign in ((d1, d2, 1.0), (d1, c2, -1.0), (c1, d2, -1.0),
                          (c1, c2, 1.0)):
         delta = positions[ia] - positions[ib]
@@ -163,8 +196,35 @@ def screened_energy_forces(screened, positions):
         expu = torch.exp(-u)
         s = 1.0 - (1.0 + 0.5 * u) * expu
         energy = energy + torch.sum(sign * qq * s / r)
+        if not with_forces:
+            continue
         dedr = sign * qq * (0.5 * (1.0 + u) * expu * scale / r - s / (r * r))
         f = (-dedr / r)[:, None] * delta
-        forces.index_add_(0, ia, f)
-        forces.index_add_(0, ib, -f)
+        scatter.index_add_(forces, ia, f)
+        scatter.index_add_(forces, ib, -f)
+    return energy, forces
+
+
+def nbthole_energy_forces(nbthole, positions, box_diag, with_forces=True):
+    """NBTHOLE deficit -s qq (1 + u/2) exp(-u) / r over the 4 core/shell
+    cross pairs, minimum-imaged, and its analytic forces:
+    dE/dr = s qq exp(-u) (scale (1 + u) / (2 r) + (1 + u/2) / r^2)."""
+    d1, c1, d2, c2, scale, qq = nbthole
+    energy = positions.new_zeros(())
+    forces = torch.zeros_like(positions) if with_forces else None
+    for ia, ib, sign in ((d1, d2, 1.0), (d1, c2, -1.0), (c1, d2, -1.0),
+                         (c1, c2, 1.0)):
+        delta = positions[ia] - positions[ib]
+        delta = delta - box_diag * torch.round(delta / box_diag)
+        r = torch.sqrt(torch.sum(delta * delta, dim=-1))
+        u = scale * r
+        expu = torch.exp(-u)
+        energy = energy - torch.sum(sign * qq * (1.0 + 0.5 * u) * expu / r)
+        if not with_forces:
+            continue
+        dedr = sign * qq * expu * (0.5 * scale * (1.0 + u) / r
+                                   + (1.0 + 0.5 * u) / (r * r))
+        f = (-dedr / r)[:, None] * delta
+        scatter.index_add_(forces, ia, f)
+        scatter.index_add_(forces, ib, -f)
     return energy, forces

@@ -1,21 +1,28 @@
 """NonbondedForce: Lennard-Jones + Coulomb with exclusions and exceptions.
 
 The builder half mirrors OpenMM's API (as the JAX package's
-forces/nonbonded.py does).  `compile` takes the path the bench
-configuration runs: Ewald/PME with the cell-pair strategy.  The compiled
-term splits the work as the JAX force-only step does
-(forces/nonbonded.py:823-898 there):
+forces/nonbonded.py does).  `compile` takes Ewald/PME on one of the JAX
+package's two fast strategies, chosen by its "auto" rule
+(`choose_strategy`): the dense all-pairs sum (forces/dense.py) for
+n <= 4096 atoms, else the cell-pair sweep.  The compiled term splits the
+work as the JAX force-only step does (forces/nonbonded.py:823-898 there):
 
-  sweep_forces : direct-space forces; in float32 a hand-written kernel,
-                 B1 (ops/sweep.py) or the chunked B2
-                 (ops/sweep_chunked.py) as the JAX gates route the config
-                 (ops/sweep.py::route), the plain sweep otherwise
+  sweep_forces : direct-space forces; on the cell-pair strategy in
+                 float32 a hand-written kernel, B1 (ops/sweep.py) or the
+                 chunked B2 (ops/sweep_chunked.py) as the JAX gates route
+                 the config (ops/sweep.py::route), the plain sweep
+                 otherwise; the dense sum on the dense strategy
+  sweep_energy : the direct-space energy, by the same kernel's energy
+                 instantiation in float32 on the cell-pair strategy
   recip        : PME reciprocal energy and analytic forces (forces/pme.py)
-  extras       : exceptions, reciprocal exclusion corrections, the Ewald
-                 self term and the dispersion tail (forces/pairterms.py)
+  extras       : exceptions, reciprocal exclusion corrections, NBFIX
+                 overrides, the Ewald self term and the dispersion tail
+                 (forces/pairterms.py)
 
 Exceptions are excluded from the main pair sum and added back as explicit
 pair terms (plain Coulomb chargeProd/r + LJ, no cutoff), as in OpenMM.
+NBFIX overrides (addLJPairOverride) replace the combined LJ of their
+pairs inside the cutoff by a correction term over those pairs.
 """
 
 from __future__ import annotations
@@ -28,7 +35,11 @@ import torch
 
 from ..ops import sweep, sweep_chunked
 from ..units import ONE_4PI_EPS0
-from . import cellpair, pairterms, pme as pme_mod
+from . import cellpair, dense, pairterms, pme as pme_mod
+
+# the JAX package's "auto" rule: at most this many atoms go to the dense
+# strategy (forces/nonbonded.py:188-190 there)
+DENSE_MAX_ATOMS = 4096
 
 
 class NonbondedForce:
@@ -41,6 +52,7 @@ class NonbondedForce:
     def __init__(self):
         self._particles: List[Tuple[float, float, float]] = []
         self._exceptions: List[Tuple[int, int, float, float, float]] = []
+        self._lj_overrides: List[Tuple] = []  # (set1, set2, sigma, eps)
         self._method = self.NoCutoff
         self._cutoff = 1.0
         self._use_switching = False
@@ -73,6 +85,16 @@ class NonbondedForce:
                                  float(chargeProd), float(sigma),
                                  float(epsilon)))
         return len(self._exceptions) - 1
+
+    def addLJPairOverride(self, particles1, particles2, sigma: float,
+                          epsilon: float) -> int:
+        """NBFIX pair-specific LJ: every (i in particles1, j in
+        particles2) pair interacts with this sigma/epsilon in place of
+        the Lorentz-Berthelot combination (CHARMM NBFIX)."""
+        self._lj_overrides.append((tuple(int(p) for p in particles1),
+                                   tuple(int(p) for p in particles2),
+                                   float(sigma), float(epsilon)))
+        return len(self._lj_overrides) - 1
 
     def getNumExceptions(self) -> int:
         return len(self._exceptions)
@@ -134,21 +156,59 @@ class NonbondedForce:
         getMolecules())."""
         return [(e[0], e[1]) for e in self._exceptions]
 
-    def compile(self, system, dtype, device, nb_options=None):
+    def compile(self, system, dtype, device, nb_options=None,
+                strategy: str = "auto"):
         n = len(self._particles)
         if n == 0:
             return None
         if n != system.getNumParticles():
             raise ValueError("NonbondedForce must define parameters for "
                              "every particle")
+        if strategy == "auto":
+            strategy = choose_strategy(n, self._method)
         if self._method not in (self.Ewald, self.PME):
             raise NotImplementedError(
-                "the PyTorch port runs Ewald/PME on the cell-pair "
-                "strategy only")
+                "the PyTorch port runs Ewald/PME only")
         if self._use_switching and self._switching_distance >= 0:
             raise NotImplementedError("switched LJ is not ported yet")
-        return NonbondedTerm(self, system, dtype, device,
-                             dict(nb_options or {}))
+        opts = dict(nb_options or {})
+        if strategy == "dense":
+            return DenseTerm(self, system, dtype, device)
+        if strategy == "cellpair":
+            return CellPairTerm(self, system, dtype, device, opts)
+        raise ValueError(f"unknown strategy {strategy!r}; the port has "
+                         "'auto', 'dense' and 'cellpair'")
+
+
+def choose_strategy(n_atoms: int, method: int) -> str:
+    """The JAX package's "auto" rule: the dense all-pairs sum for at most
+    DENSE_MAX_ATOMS atoms or a non-periodic method, else the cell-pair
+    sweep."""
+    if n_atoms <= DENSE_MAX_ATOMS or method in (
+            NonbondedForce.NoCutoff, NonbondedForce.CutoffNonPeriodic):
+        return "dense"
+    return "cellpair"
+
+
+def override_pairs(force, exc_i, exc_j):
+    """NBFIX correction pairs, as the JAX package lists them: per
+    override, every (a, b) of its two sets with a != b, not excluded, once
+    each, as (i, j, sigma, epsilon) arrays."""
+    excluded = {(min(a, b), max(a, b))
+                for a, b in zip(exc_i.tolist(), exc_j.tolist())}
+    out = []
+    for set1, set2, sig_o, eps_o in force._lj_overrides:
+        seen = set()
+        for a in set1:
+            for b in set2:
+                key = (min(a, b), max(a, b))
+                if a == b or key in excluded or key in seen:
+                    continue
+                seen.add(key)
+                out.append((key[0], key[1], sig_o, eps_o))
+    arr = np.array(out, np.float64).reshape(-1, 4)
+    return (arr[:, 0].astype(np.int64), arr[:, 1].astype(np.int64),
+            arr[:, 2], arr[:, 3])
 
 
 def dispersion_coefficient(sigma, eps, cutoff):
@@ -170,9 +230,14 @@ def dispersion_coefficient(sigma, eps, cutoff):
 
 
 class NonbondedTerm:
-    """Compiled NonbondedForce (Ewald/PME, cell-pair strategy)."""
+    """Compiled NonbondedForce (Ewald/PME): what both strategies share,
+    the PME reciprocal sum and the pair-list extras.  `cell_grid` rounds
+    the PME grid up to the cell grid, as the JAX package plans it for the
+    cell-pair strategy."""
 
-    def __init__(self, force, system, dtype, device, opts):
+    cfg = None
+
+    def __init__(self, force, system, dtype, device, cell_grid=None):
         p = force._particles
         n = len(p)
         charge = np.array([x[0] for x in p], np.float64)
@@ -190,40 +255,122 @@ class NonbondedTerm:
         self.n_atoms = n
         self.dtype = dtype
         self.device = device
+        self.cutoff = cutoff
+        self._exc = (exc_i, exc_j)
         t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=device)
-
-        self.cfg = cellpair.make_config(cutoff, box0, n, exc_i, exc_j,
-                                        capacity=opts.get("capacity"))
         alpha0, gx, gy, gz = force._pme_params
         self.pme = pme_mod.setup_pme(
             cutoff=cutoff, tol=force._ewald_tol, box_diag=box0,
             alpha=alpha0 or None, grid=(gx, gy, gz) if gx > 0 else None,
-            cell_grid=self.cfg.grid)
+            cell_grid=cell_grid)
         self.alpha = self.pme.alpha
-        self.params = {
-            "charge": t(charge), "sigma": t(sigma), "eps": t(eps),
-            "excl_words": torch.as_tensor(cellpair.build_exclusion_words(
-                n, exc_i, exc_j, self.cfg.excl_window, self.cfg.excl_words),
-                device=device),
-        }
+        self.params = {"charge": t(charge), "sigma": t(sigma), "eps": t(eps)}
+        # bounds every PME grid value (pme.spread's fixed-point sum)
+        self.charge_bound = float(np.sum(np.abs(charge)))
         self.pme_self = float(-self.alpha / np.sqrt(np.pi) * ONE_4PI_EPS0
                               * np.sum(charge ** 2))
         self.disp = (dispersion_coefficient(sigma, eps, cutoff)
                      if force._use_dispersion_correction else None)
 
+        self.pair_terms = []
         act = (exc_qq != 0.0) | (exc_eps != 0.0)
-        self.exc_term = None
         if np.any(act):
-            self.exc_term = pairterms.make_pair_list_term(
+            self.pair_terms.append(pairterms.make_pair_list_term(
                 exc_i[act], exc_j[act], pairterms.exception_eg(
                     t(ONE_4PI_EPS0 * exc_qq[act]), t(exc_sigma[act]),
-                    t(exc_eps[act])), device)
-        self.corr_term = None
+                    t(exc_eps[act])), device))
         if len(ex):
-            self.corr_term = pairterms.make_pair_list_term(
+            self.pair_terms.append(pairterms.make_pair_list_term(
                 exc_i, exc_j, pairterms.ewald_correction_eg(
                     t(ONE_4PI_EPS0 * charge[exc_i] * charge[exc_j]),
-                    self.alpha), device)
+                    self.alpha), device))
+        if force._lj_overrides:
+            oi, oj, sig_o, eps_o = override_pairs(force, exc_i, exc_j)
+            if len(oi):
+                self.pair_terms.append(pairterms.make_pair_list_term(
+                    oi, oj, pairterms.lj_override_eg(
+                        t(sig_o), t(eps_o),
+                        t(0.5 * (sigma[oi] + sigma[oj])),
+                        t(np.sqrt(eps[oi] * eps[oj])), cutoff), device))
+
+    def recip(self, positions, box_diag, exact=None):
+        """(energy, forces) of the PME reciprocal sum."""
+        return pme_mod.recip_energy_forces(self.pme, self.params["charge"],
+                                           positions, box_diag, exact,
+                                           self.charge_bound)
+
+    def recip_energy(self, positions, box_diag, exact=None):
+        return pme_mod.reciprocal_energy(self.pme, self.params["charge"],
+                                         positions, box_diag, exact,
+                                         self.charge_bound)
+
+    def extras(self, positions, box_diag, exact=None, with_forces=True):
+        """(energy, forces; None without with_forces): exceptions,
+        exclusion corrections, NBFIX overrides, self term, dispersion
+        tail."""
+        e = positions.new_zeros(()) + self.pme_self
+        f = torch.zeros_like(positions) if with_forces else None
+        for term in self.pair_terms:
+            et, ft = term(positions, box_diag, exact, with_forces)
+            e = e + et
+            if with_forces:
+                f = f + ft
+        if self.disp is not None:
+            e = e + self.disp / (box_diag[0] * box_diag[1] * box_diag[2])
+        return e, f
+
+
+class DenseTerm(NonbondedTerm):
+    """The dense strategy: the all-pairs direct-space sum of
+    forces/dense.py over a static (N, N) exclusion mask; no neighbour
+    structure."""
+
+    strategy = "dense"
+
+    def __init__(self, force, system, dtype, device):
+        super().__init__(force, system, dtype, device)
+        n = self.n_atoms
+        exc_i, exc_j = self._exc
+        mask = np.ones((n, n), dtype=bool)
+        np.fill_diagonal(mask, False)
+        mask[exc_i, exc_j] = False
+        mask[exc_j, exc_i] = False
+        self.pair_mask = torch.as_tensor(mask, device=device)
+
+    def _sweep(self, positions, box_diag, exact, with_energy):
+        return dense.pair_energy_forces(
+            self.params, positions, box_diag, self.pair_mask, self.cutoff,
+            self.alpha, ONE_4PI_EPS0, with_energy=with_energy, exact=exact)
+
+    def sweep_forces(self, positions, box_diag, neighbors=None, exact=None):
+        return self._sweep(positions, box_diag, exact, False)[1]
+
+    def sweep_energy(self, positions, box_diag, neighbors=None, exact=None):
+        return self._sweep(positions, box_diag, exact, True)[0]
+
+
+class CellPairTerm(NonbondedTerm):
+    """The cell-pair strategy: sorted fields, the sweep kernels B1/B2 in
+    float32 (their plain versions on the CPU), the plain sweep in
+    float64."""
+
+    strategy = "cellpair"
+
+    def __init__(self, force, system, dtype, device, opts):
+        n = len(force._particles)
+        exc_i = np.array([e[0] for e in force._exceptions], np.int64)
+        exc_j = np.array([e[1] for e in force._exceptions], np.int64)
+        box0 = np.diagonal(np.array(system.getDefaultPeriodicBoxVectors(),
+                                    np.float64)).copy()
+        self.cfg = cellpair.make_config(force._cutoff, box0, n, exc_i, exc_j,
+                                        capacity=opts.get("capacity"))
+        super().__init__(force, system, dtype, device,
+                         cell_grid=self.cfg.grid)
+        self.params["excl_words"] = torch.as_tensor(
+            cellpair.build_exclusion_words(n, exc_i, exc_j,
+                                           self.cfg.excl_window,
+                                           self.cfg.excl_words),
+            device=device)
         # the kernels (float32) skip the exclusion test at far stencil
         # offsets; every rebuild then latches whether that stays sound.
         # Which kernel, and the JAX gate's chunk height, are recorded as
@@ -247,46 +394,32 @@ class NonbondedTerm:
         return cellpair.sorted_fields(self.params, positions, box_diag,
                                       cellsort, self.cfg, exact)
 
+    def _kernel(self):
+        return sweep_chunked if self.sweep_kernel == "b2" else sweep
+
     def sweep_forces(self, positions, box_diag, cellsort, exact=None):
         """Direct-space forces (N, 3), atom order."""
         fields = self.fields(positions, box_diag, cellsort, exact)
         shifts = cellpair.offset_shifts(self.cfg, box_diag)
         if self.use_kernel:
-            kernel = (sweep_chunked if self.sweep_kernel == "b2" else sweep)
-            f = kernel.pair_forces(fields, self.cfg, shifts, self.alpha,
-                                   ONE_4PI_EPS0, excl_skip=self.excl_skip)
+            f = self._kernel().pair_forces(fields, self.cfg, shifts,
+                                           self.alpha, ONE_4PI_EPS0,
+                                           excl_skip=self.excl_skip)
         else:
             _, f = cellpair.sweep(fields, self.cfg, shifts, self.alpha,
                                   ONE_4PI_EPS0, with_energy=False)
         return f[cellsort.inv_slot]
 
     def sweep_energy(self, positions, box_diag, cellsort, exact=None):
-        """Direct-space energy (the plain sweep, exact erfc)."""
+        """Direct-space energy (exact erfc): in float32 the energy
+        instantiation of the kernel that `route` chose (float64 on the
+        card; its plain version on the CPU), else the plain sweep."""
         fields = self.fields(positions, box_diag, cellsort, exact)
         shifts = cellpair.offset_shifts(self.cfg, box_diag)
+        if self.use_kernel:
+            return self._kernel().pair_energy(fields, self.cfg, shifts,
+                                              self.alpha, ONE_4PI_EPS0,
+                                              excl_skip=self.excl_skip)
         e, _ = cellpair.sweep(fields, self.cfg, shifts, self.alpha,
                               ONE_4PI_EPS0, with_energy=True)
         return e
-
-    def recip(self, positions, box_diag, exact=None):
-        """(energy, forces) of the PME reciprocal sum."""
-        return pme_mod.recip_energy_forces(self.pme, self.params["charge"],
-                                           positions, box_diag, exact)
-
-    def recip_energy(self, positions, box_diag, exact=None):
-        return pme_mod.reciprocal_energy(self.pme, self.params["charge"],
-                                         positions, box_diag, exact)
-
-    def extras(self, positions, box_diag, exact=None):
-        """(energy, forces): exceptions, exclusion corrections, self term,
-        dispersion tail."""
-        e = positions.new_zeros(()) + self.pme_self
-        f = torch.zeros_like(positions)
-        for term in (self.exc_term, self.corr_term):
-            if term is not None:
-                et, ft = term(positions, box_diag, exact)
-                e = e + et
-                f = f + ft
-        if self.disp is not None:
-            e = e + self.disp / (box_diag[0] * box_diag[1] * box_diag[2])
-        return e, f

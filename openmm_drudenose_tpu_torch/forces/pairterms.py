@@ -4,9 +4,10 @@ OpenMM exceptions and the Ewald/PME reciprocal-space exclusion corrections
 are O(n_pairs) terms over index lists fixed at compile time.  Each pair
 function eg(r2_safe, r2_raw) -> (e, g = dE/dr^2) gives the energy and,
 through f_i = -2 g delta = -f_j, the forces, which are summed per atom
-with index_add_.  The same math as the JAX package's forces/pairterms.py
-(exception_eg, ewald_correction_eg), but the correction's force takes a
-series at small r, where the closed form loses float32 precision.
+with ops/scatter.py::index_add_.  The same math as the JAX package's
+forces/pairterms.py (exception_eg, ewald_correction_eg, lj_override_eg),
+but the correction's force takes a series at small r, where the closed
+form loses float32 precision.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import math
 import numpy as np
 import torch
 
+from ..ops import scatter
+
 
 def min_image(delta, box_diag):
     """Orthorhombic minimum image of (P, 3) displacements."""
@@ -23,12 +26,13 @@ def min_image(delta, box_diag):
 
 
 def make_pair_list_term(i_idx, j_idx, eg_fn, device, periodic: bool = True):
-    """term(positions, box_diag, exact=None) -> (energy, forces (N, 3));
-    `exact` (float64 positions) gives the displacements, rounded once."""
+    """term(positions, box_diag, exact=None, with_forces=True) -> (energy,
+    forces (N, 3), None without with_forces); `exact` (float64 positions)
+    gives the displacements, rounded once."""
     ii = torch.as_tensor(np.asarray(i_idx, np.int64), device=device)
     jj = torch.as_tensor(np.asarray(j_idx, np.int64), device=device)
 
-    def term(positions, box_diag, exact=None):
+    def term(positions, box_diag, exact=None, with_forces=True):
         if exact is None:
             delta = positions[ii] - positions[jj]
             if periodic:
@@ -41,10 +45,12 @@ def make_pair_list_term(i_idx, j_idx, eg_fn, device, periodic: bool = True):
         r2 = torch.sum(delta * delta, dim=-1)
         r2s = torch.clamp(r2, min=1e-10)
         e, g = eg_fn(r2s, r2)
+        if not with_forces:
+            return torch.sum(e), None
         fpair = (-2.0 * g)[:, None] * delta           # force on i; -f on j
         forces = torch.zeros_like(positions)
-        forces.index_add_(0, ii, fpair)
-        forces.index_add_(0, jj, -fpair)
+        scatter.index_add_(forces, ii, fpair)
+        scatter.index_add_(forces, jj, -fpair)
         return torch.sum(e), forces
 
     return term
@@ -63,6 +69,29 @@ def exception_eg(qq, sigma, eps):
         e_c = qq * inv_r
         g_c = -0.5 * qq * inv_r2 * inv_r
         return e_lj + e_c, g_lj + g_c
+
+    return eg
+
+
+def lj_override_eg(sig_new, eps_new, sig_old, eps_old, cutoff: float):
+    """NBFIX correction: LJ(new parameters) - LJ(combination-rule
+    parameters) inside the cutoff, zero beyond it, so the override
+    replaces the combined interaction that the main sum holds."""
+
+    def lj(sig, eps, inv_r2):
+        x6 = (sig * sig * inv_r2) ** 3
+        return (4.0 * eps * x6 * (x6 - 1.0),
+                -4.0 * eps * (6.0 * x6 * x6 - 3.0 * x6) * inv_r2)
+
+    def eg(r2s, r2):
+        inv_r = torch.rsqrt(r2s)
+        inv_r2 = inv_r * inv_r
+        e_n, g_n = lj(sig_new, eps_new, inv_r2)
+        e_o, g_o = lj(sig_old, eps_old, inv_r2)
+        inside = r2 < cutoff * cutoff
+        zero = torch.zeros_like(e_n)
+        return (torch.where(inside, e_n - e_o, zero),
+                torch.where(inside, g_n - g_o, zero))
 
     return eg
 

@@ -1,6 +1,6 @@
 """Smooth particle-mesh Ewald reciprocal space (Essmann et al. 1995).
 
-Cardinal B-splines of order 5, a scatter-add charge spread (index_add_),
+Cardinal B-splines of order 5, a scatter-add charge spread (ops/scatter.py),
 the reciprocal energy over the rfftn half spectrum, and analytic
 interpolation forces
     F_d[i] = -q_i (K_d / L_d) sum_taps dM_d M_e M_f Phi[tap],
@@ -20,6 +20,7 @@ import math
 import numpy as np
 import torch
 
+from ..ops import scatter
 from ..units import ONE_4PI_EPS0
 
 PME_ORDER = 5
@@ -135,10 +136,11 @@ def _eterm(setup: PmeSetup, box_diag, dtype, device):
                        / m_sq_safe * bm2, torch.zeros_like(m_sq))
 
 
-def _taps(setup: PmeSetup, positions, box_diag, exact=None):
-    """Per-atom tap indices (N, order) and weights per dimension.  With
-    `exact` (float64 positions) the grid coordinates are formed in float64
-    and only the in-cell fractions rounded to the positions' type."""
+def _taps(setup: PmeSetup, positions, box_diag, exact=None, derivs=True):
+    """Per-atom tap indices (N, order), weights and (with derivs) their
+    derivatives per dimension.  With `exact` (float64 positions) the grid
+    coordinates are formed in float64 and only the in-cell fractions
+    rounded to the positions' type."""
     src = positions if exact is None else exact
     K = torch.as_tensor(setup.grid, dtype=src.dtype,
                         device=positions.device)
@@ -151,59 +153,75 @@ def _taps(setup: PmeSetup, positions, box_diag, exact=None):
     idx = [torch.remainder(ti[:, d:d + 1] - j, setup.grid[d])
            for d in range(3)]
     wts = [bspline_weights(w[:, d]) for d in range(3)]
-    dwts = [bspline_weights_d(w[:, d]) for d in range(3)]
+    dwts = ([bspline_weights_d(w[:, d]) for d in range(3)] if derivs
+            else None)
     return idx, wts, dwts
 
 
-def spread(setup: PmeSetup, charges, idx, wts):
-    """B-spline charge grid (K1, K2, K3) by index_add_, one x tap at a time
-    to bound the (N, order^2) temporaries."""
+def spread(setup: PmeSetup, charges, idx, wts, charge_bound=None):
+    """B-spline charge grid (K1, K2, K3), one x tap at a time to bound the
+    (N, order^2) temporaries, summed in int64 fixed point
+    (ops/scatter.py): the same bits on the card whatever order its
+    atomics take.  Every grid value is bounded by sum |q| (the taps'
+    weights are >= 0 and sum to 1); `charge_bound` passes it in, else it
+    is read from `charges` (one host read)."""
     K1, K2, K3 = setup.grid
     n = charges.shape[0]
-    Q = torch.zeros(K1 * K2 * K3, dtype=charges.dtype,
-                    device=charges.device)
+    if charge_bound is None:
+        charge_bound = float(torch.sum(torch.abs(charges)))
+    shift = scatter.fixed_point_shift(charge_bound)
+    acc = torch.zeros(K1 * K2 * K3, dtype=torch.int64,
+                      device=charges.device)
     yz = (idx[1][:, :, None] * K3 + idx[2][:, None, :]).reshape(n, -1)
     wyz = (wts[1][:, :, None] * wts[2][:, None, :]).reshape(n, -1)
     for t in range(PME_ORDER):
         flat = idx[0][:, t:t + 1] * (K2 * K3) + yz
         val = (charges * wts[0][:, t])[:, None] * wyz
-        Q.index_add_(0, flat.reshape(-1), val.reshape(-1))
-    return Q.reshape(K1, K2, K3)
+        scatter.fixed_point_add_(acc, flat.reshape(-1), val.reshape(-1),
+                                 shift)
+    return scatter.from_fixed_point(acc, shift, charges.dtype).reshape(
+        K1, K2, K3)
+
+
+def _grid_energy(setup: PmeSetup, F, eterm, box_diag):
+    """Reciprocal energy of the charge grid's spectrum F (rfftn)."""
+    K3 = setup.grid[2]
+    S2 = F.real ** 2 + F.imag ** 2
+    k3 = torch.arange(K3 // 2 + 1, device=F.device)
+    double = ((k3 >= 1) & (k3 <= (K3 - 1) // 2)).to(eterm.dtype) + 1.0
+    volume = box_diag[0] * box_diag[1] * box_diag[2]
+    c = ONE_4PI_EPS0 / (2.0 * math.pi * volume)
+    return c * torch.sum(eterm * double[None, None, :] * S2), c
 
 
 def grid_energy_and_potential(setup: PmeSetup, Q, box_diag):
     """(energy, Phi = dE/dQ) of a charge grid: one rfftn, one irfftn."""
     K1, K2, K3 = setup.grid
-    dtype = Q.dtype
-    eterm = _eterm(setup, box_diag, dtype, Q.device)
-    K3h = K3 // 2 + 1
+    eterm = _eterm(setup, box_diag, Q.dtype, Q.device)
     F = torch.fft.rfftn(Q)
-    S2 = F.real ** 2 + F.imag ** 2
-    k3 = torch.arange(K3h, device=Q.device)
-    double = ((k3 >= 1) & (k3 <= (K3 - 1) // 2)).to(dtype) + 1.0
-    volume = box_diag[0] * box_diag[1] * box_diag[2]
-    c = ONE_4PI_EPS0 / (2.0 * math.pi * volume)
-    energy = c * torch.sum(eterm * double[None, None, :] * S2)
+    energy, c = _grid_energy(setup, F, eterm, box_diag)
     phi = (2.0 * c * (K1 * K2 * K3)) * torch.fft.irfftn(
         eterm * F, s=(K1, K2, K3))
     return energy, phi
 
 
 def reciprocal_energy(setup: PmeSetup, charges, positions, box_diag,
-                      exact=None):
-    idx, wts, _ = _taps(setup, positions, box_diag, exact)
-    Q = spread(setup, charges, idx, wts)
-    return grid_energy_and_potential(setup, Q, box_diag)[0]
+                      exact=None, charge_bound=None):
+    """The reciprocal energy alone: one rfftn, no potential grid."""
+    idx, wts, _ = _taps(setup, positions, box_diag, exact, derivs=False)
+    Q = spread(setup, charges, idx, wts, charge_bound)
+    eterm = _eterm(setup, box_diag, Q.dtype, Q.device)
+    return _grid_energy(setup, torch.fft.rfftn(Q), eterm, box_diag)[0]
 
 
 def recip_energy_forces(setup: PmeSetup, charges, positions, box_diag,
-                        exact=None):
+                        exact=None, charge_bound=None):
     """(energy, forces (N, 3)) of the reciprocal sum, forces analytic;
     `exact` as in _taps."""
     K1, K2, K3 = setup.grid
     n = positions.shape[0]
     idx, wts, dwts = _taps(setup, positions, box_diag, exact)
-    Q = spread(setup, charges, idx, wts)
+    Q = spread(setup, charges, idx, wts, charge_bound)
     energy, phi = grid_energy_and_potential(setup, Q, box_diag)
     phi = phi.reshape(-1)
     yz = (idx[1][:, :, None] * K3 + idx[2][:, None, :]).reshape(n, -1)

@@ -22,6 +22,7 @@ import torch
 
 from ..constraints import settle
 from ..constraints.vsites import apply_vsites
+from ..ops import scatter
 
 
 def _safe_inv(x):
@@ -36,7 +37,7 @@ def com_and_norm_velocities(spec, static, v):
     if static.use_com_temp_group:
         mom = torch.zeros((static.n_residues, 3), dtype=v.dtype,
                           device=v.device)
-        mom.index_add_(0, spec.resid, spec.mass[:, None] * v)
+        scatter.index_add_(mom, spec.resid, spec.mass[:, None] * v)
         com_vel = mom * spec.res_inv_mass[:, None]
     else:
         com_vel = torch.zeros((static.n_residues, 3), dtype=v.dtype,
@@ -273,11 +274,14 @@ def apply_hardwall(spec, static, positions, velocities, dt, pos_err=None):
 
 class Stepper:
     """One TGNH step and the fused multi-step, around a force pass
-    forces_fn(positions, box, neighbors, pos_err) -> forces (N, 3)."""
+    forces_fn(positions, box, neighbors, pos_err) -> forces (N, 3) and,
+    with a MonteCarloBarostat, its move barostat_fn(spec, state) -> state
+    (velocity-independent; the JAX package's apply_barostat)."""
 
-    def __init__(self, static, forces_fn):
+    def __init__(self, static, forces_fn, barostat_fn=None):
         self.static = static
         self.forces_fn = forces_fn
+        self.barostat_fn = barostat_fn
 
     def nh_half(self, spec, state, v):
         static = self.static
@@ -298,7 +302,8 @@ class Stepper:
         return state, new_v
 
     def update_context_state(self, spec, state):
-        """CM motion removal every cm_freq steps."""
+        """CM motion removal every cm_freq steps, then the barostat
+        (DrudeTGNHIntegrator.cpp:186-189)."""
         cm = self.static.cm_freq
         if cm > 0 and state.step % cm == 0:
             v = state.velocities
@@ -306,6 +311,8 @@ class Stepper:
             v_cm = mom / torch.sum(spec.mass)
             state = state.replace(velocities=torch.where(
                 (spec.inv_mass > 0)[:, None], v - v_cm, v))
+        if self.barostat_fn is not None:
+            state = self.barostat_fn(spec, state)
         return state
 
     def core(self, spec, state, v):
@@ -379,6 +386,10 @@ class Stepper:
             v_cm = mom_h / tm_h
             v_cm_s = vs_a[G] * v_cm
             ke_a[G] = ke_a[G] - m01 * tm_h * np.sum(v_cm_s * v_cm_s)
+        if self.barostat_fn is not None:
+            # between the two NH halves, where the JAX fused body moves
+            # the volume (it reads no velocity)
+            state = self.barostat_fn(spec, state)
         vs_b, eta, ed, edd = propagate_nh_chain(
             spec, static, ke_a, eta, ed, edd, spec.dt)
         state = state.replace(
@@ -414,12 +425,13 @@ class Stepper:
 
 
 def rebuild_neighbors(state, neighbor_fn, skin):
-    """Fresh cell sort; the overflow, drift and excl-span latches carry
-    forward.  Drift latches when one atom moved > 2x skin or the two
+    """Fresh cell sort; the overflow, stencil, drift and excl-span latches
+    carry forward.  Drift latches when one atom moved > 2x skin or the two
     largest displacements sum to > 3x skin since the last rebuild."""
     old = state.neighbors
     nbl = neighbor_fn(state.positions, state.box)
     nbl.overflow = nbl.overflow | old.overflow
+    nbl.stencil_invalid = nbl.stencil_invalid | old.stencil_invalid
     d = state.positions - old.ref_positions
     d2 = torch.sum(d * d, dim=1)
     top2 = torch.topk(d2, 2).values

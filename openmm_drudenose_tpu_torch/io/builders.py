@@ -1,8 +1,10 @@
-"""SWM4-NDP water box builder: the system of the benchmark configuration.
+"""The benchmark and example systems, built in code: SWM4-NDP water, and
+NaCl in SWM4-NDP water (the reference example's system).
 
-The same parameters, lattice and random orientations as the JAX package's
-io/builders.py::build_water_box, so both packages build identical systems
-from the same arguments (the committed 100k-atom snapshot was made there).
+The same parameters, lattices, random orientations and shuffles as the
+JAX package's io/builders.py (build_water_box, build_nacl_water_box), so
+both packages build identical systems from the same arguments (the
+committed 100k-atom snapshot was made there).
 """
 
 from __future__ import annotations
@@ -122,4 +124,65 @@ def build_water_box(n_molecules: int, method: int = NonbondedForce.PME,
         positions.append(mol)
     if add_cm_motion:
         system.addForce(CMMotionRemover())
+    return system, np.concatenate(positions, axis=0)
+
+
+# Drude ion parameters (charge, sigma nm, eps kJ/mol, polarizability nm^3,
+# Drude mass, mass): the CHARMM Drude-2013 ion model
+NACL_IONS = {
+    "NA": (1.0, 0.2430, 0.1305 * 4.184, 0.000157, 0.4, 22.5898),
+    "CL": (-1.0, 0.4612, 0.0719 * 4.184, 0.003969, 0.4, 35.0527),
+}
+
+
+def build_nacl_water_box(n_water: int, n_na: int, n_cl: int,
+                         method: int = NonbondedForce.PME,
+                         cutoff: float = 1.0):
+    """NaCl in SWM4-NDP water, the reference example's system shape
+    (example/nacl_tg.py: ~1 M NaCl), with polarizable Na+/Cl-: waters and
+    ions shuffled (default_rng(7)) over a uniform random subset of the
+    sites of a cubic lattice at water density.  Returns (system,
+    positions)."""
+    density = WATER_NUMBER_DENSITY
+    n_sites = n_water + n_na + n_cl
+    grid = int(np.ceil(n_sites ** (1.0 / 3.0)))
+    box = (n_sites / density) ** (1.0 / 3.0)
+    spacing = box / grid
+
+    system = System()
+    nonbonded = NonbondedForce()
+    drude = DrudeForce()
+    system.addForce(nonbonded)
+    system.addForce(drude)
+    system.setDefaultPeriodicBoxVectors((box, 0, 0), (0, box, 0),
+                                        (0, 0, box))
+    nonbonded.setNonbondedMethod(method)
+    nonbonded.setCutoffDistance(cutoff)
+
+    positions = []
+    kinds = ["NA"] * n_na + ["CL"] * n_cl + ["W"] * n_water
+    rng = np.random.default_rng(7)
+    rng.shuffle(kinds)
+    sites = np.sort(rng.choice(grid ** 3, size=len(kinds), replace=False))
+    for count, site in enumerate(sites):
+        i, j, k = (site // (grid * grid), (site // grid) % grid,
+                   site % grid)
+        origin = (np.array([i, j, k]) + 0.5) * spacing
+        kind = kinds[count]
+        if kind == "W":
+            add_swm4_molecule(system, nonbonded, drude)
+            positions.append(swm4_molecule_positions(origin))
+        else:
+            q, sigma, eps, alpha, d_mass, mass = NACL_IONS[kind]
+            q_d = -np.sqrt(alpha * 100000 * 4.184 / ONE_4PI_EPS0)
+            start = system.getNumParticles()
+            system.addParticle(mass - d_mass)
+            system.addParticle(d_mass)
+            nonbonded.addParticle(q - q_d, sigma, eps)
+            nonbonded.addParticle(q_d, 1.0, 0.0)
+            nonbonded.addException(start, start + 1, 0, 1, 0)
+            drude.addParticle(start + 1, start, -1, -1, -1, q_d,
+                              alpha, 1, 1)
+            positions.append(np.array([origin, origin]))
+    system.addForce(CMMotionRemover())
     return system, np.concatenate(positions, axis=0)

@@ -1,6 +1,9 @@
 """Kernel B1: the cell-pair sweep's direct-space forces, hand-written in
 CUDA for Hopper (csrc/sweep.cu, with the warp-tile pair loop of
-csrc/pair_tile.cuh), with its plain PyTorch version beside it.
+csrc/pair_tile.cuh), with its plain PyTorch version beside it; and the
+kernel's energy instantiation (`pair_energy`, plain version
+`pair_energy_plain`: the direct-space energy with the exact erfc, summed
+in double in an order fixed by the data).
 
 Replaces the JAX package's TPU kernel ops/pallas_sweep.py::
 pair_forces_pallas (pallas_call at :440).  It computes the same function
@@ -46,7 +49,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches of each kernel, counted where it is launched and nowhere else
-launches = {"b1_sweep": 0, "b2_sweep": 0}
+# (the force and the energy instantiations apart)
+launches = {"b1_sweep": 0, "b1_energy": 0, "b2_sweep": 0, "b2_energy": 0}
 INT32_MAX = 2 ** 31 - 1
 
 _libs = {}
@@ -128,35 +132,43 @@ def _declare(lib):
     lib.sweep_forces.argtypes = [vp] * 14 + [ci, ci, ci, cf, cf, cf, ci, ci,
                                              ci, vp]
     lib.sweep_forces.restype = ci
-    lib.sweep_attributes.argtypes = [vp]
+    lib.sweep_energy.argtypes = [vp] * 15 + [ci, ci, ci, cf, cf, cf, ci, ci,
+                                             ci, vp]
+    lib.sweep_energy.restype = ci
+    lib.sweep_attributes.argtypes = [vp, ci]
     lib.sweep_attributes.restype = ci
     lib.sweep_occupancy.argtypes = [vp]
     lib.sweep_occupancy.restype = ci
+    lib.sweep_units.argtypes = [ci, ci, ci]
+    lib.sweep_units.restype = ci
     lib.sweep_warps_per_cta.restype = ci
 
 
-def kernel_attributes(lib, fn: str) -> dict:
+def kernel_attributes(lib, fn: str, energy: bool = False) -> dict:
     """Registers a thread, static shared memory, the most threads a CTA
-    may have and local (spill) bytes a thread of a kernel, read from the
-    card with cudaFuncGetAttributes by the library's function `fn`."""
+    may have and local (spill) bytes a thread of a kernel's force (or
+    energy) instantiation, read from the card with cudaFuncGetAttributes
+    by the library's function `fn`."""
     out = (ctypes.c_int * 4)()
-    err = getattr(lib, fn)(ctypes.cast(out, ctypes.c_void_p))
+    err = getattr(lib, fn)(ctypes.cast(out, ctypes.c_void_p), int(energy))
     if err != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {err}")
     return {"regs": out[0], "static_smem": out[1], "max_threads": out[2],
             "local_bytes": out[3]}
 
 
-def attributes() -> dict:
+def attributes(energy: bool = False) -> dict:
     """B1's kernel_attributes."""
-    return kernel_attributes(load("sweep", _declare), "sweep_attributes")
+    return kernel_attributes(load("sweep", _declare), "sweep_attributes",
+                             energy)
 
 
 _occupancy = {}
 
 
-def occupancy(device) -> tuple:
-    """(SMs, B1's CTAs resident an SM) of a card, read once from it
+def occupancy(device, energy: bool = False) -> tuple:
+    """(SMs, CTAs of B1's force or energy instantiation resident an SM)
+    of a card, read once from it
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); B1 launches as many
     CTAs as the card holds at once."""
     device = torch.device(device)
@@ -165,13 +177,14 @@ def occupancy(device) -> tuple:
     hit = _occupancy.get(device.index)
     if hit is None:
         lib = load("sweep", _declare)
-        out = (ctypes.c_int * 2)()
+        out = (ctypes.c_int * 3)()
         with torch.cuda.device(device):
             err = lib.sweep_occupancy(ctypes.cast(out, ctypes.c_void_p))
         if err != 0:
             raise RuntimeError(f"sweep_occupancy failed: CUDA error {err}")
-        hit = _occupancy[device.index] = (out[0], max(out[1], 1))
-    return hit
+        hit = _occupancy[device.index] = (out[0], max(out[1], 1),
+                                          max(out[2], 1))
+    return hit[0], hit[2 if energy else 1]
 
 
 # the JAX gates' VMEM budget (the ~16 MB scoped-VMEM limit of a TPU core,
@@ -375,10 +388,8 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.sweep_forces(
-        p(fields["x"]), p(fields["y"]), p(fields["z"]), p(fields["q"]),
-        p(fields["sig"]), p(fields["seps"]), p(fields["gid"]),
-        p(fields["ew"]), p(fields["count"]), p(nbr), p(sh), p(chk), p(f),
-        p(counter), cfg.n_cells, cfg.capacity, cfg.n_offsets,
+        *field_ptrs(fields), p(nbr), p(sh), p(chk), p(f), p(counter),
+        cfg.n_cells, cfg.capacity, cfg.n_offsets,
         float(cfg.cutoff * cfg.cutoff), float(alpha), float(coulomb_scale),
         cfg.excl_window, cfg.excl_words, sms * per_sm,
         ctypes.c_void_p(stream))
@@ -386,3 +397,59 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
     launches["b1_sweep"] += 1
     return f
+
+
+def pair_energy_plain(fields, cfg, shifts, alpha, coulomb_scale,
+                      excl_skip=True):
+    """The energy instantiation's plain PyTorch version: the direct-space
+    energy with the exact erfc (forces/cellpair.py::sweep), a 0-d tensor
+    in the fields' type."""
+    e, _ = cellpair.sweep(fields, cfg, shifts, alpha, coulomb_scale,
+                          with_energy=True, excl_skip=excl_skip)
+    return e
+
+
+def field_ptrs(fields):
+    """The ctypes pointers of the sorted fields, in the kernels' order."""
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    return [p(fields[k]) for k in ("x", "y", "z", "q", "sig", "seps", "gid",
+                                   "ew", "count")]
+
+
+def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True):
+    """The direct-space energy (0-d) by B1's energy instantiation: float64
+    on the card, summed in an order fixed by the data (the same bits at
+    every launch).  CPU tensors run the plain version; CUDA tensors launch
+    the kernel (float32 fields only) or raise."""
+    check_config(cfg)
+    x = fields["x"]
+    if x.device.type == "cpu":
+        return pair_energy_plain(fields, cfg, shifts, alpha, coulomb_scale,
+                                 excl_skip)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    check_fields(fields, cfg)
+    if not b1_takes(cfg):
+        raise ValueError(f"{cfg.n_cells} cells of capacity {cfg.capacity} "
+                         "overflow the kernel's int32 indices")
+    lib = load("sweep", _declare)
+    dev = x.device
+    nbr, chk = _device_tables(cfg, excl_skip, dev)
+    sh = shifts.to(device=dev, dtype=torch.float32).contiguous()
+    units = lib.sweep_units(cfg.n_cells, cfg.capacity, cfg.n_offsets)
+    part = torch.empty(units, dtype=torch.float64, device=dev)
+    e = torch.empty((), dtype=torch.float64, device=dev)
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    sms, per_sm = occupancy(dev, energy=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    err = lib.sweep_energy(
+        *field_ptrs(fields), p(nbr), p(sh), p(chk), p(part),
+        p(e), p(counter), cfg.n_cells, cfg.capacity, cfg.n_offsets,
+        float(cfg.cutoff * cfg.cutoff), float(alpha), float(coulomb_scale),
+        cfg.excl_window, cfg.excl_words, sms * per_sm,
+        ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"sweep energy launch failed: CUDA error {err}")
+    launches["b1_energy"] += 1
+    return e

@@ -21,6 +21,12 @@ holds the layout: per dimension, chunk count, lowest offset, frame
 width, and the table of (chunk, frame-local index) pairs that cover each
 cell, which the overlap-add pass reads.
 
+`pair_energy` launches the energy instantiation (one partial a home
+cell, summed in a fixed order; plain version sweep.pair_energy_plain,
+since the sum order is the only difference between B1 and B2), with
+sweep.pair_energy's signature; each launch adds one to
+sweep.launches["b2_energy"].
+
 `pair_forces` is the entry point, with sweep.pair_forces' signature.  For
 a CPU tensor it runs the plain version (`pair_forces_plain`), which sums
 the chunked way on the same plan: per-chunk frames filled offset by
@@ -39,7 +45,7 @@ import numpy as np
 import torch
 
 from ..forces import cellpair
-from . import sweep
+from . import scatter, sweep
 
 # home cells per chunk, one warp each: of the bricks of 4 to 8 cells
 # (csrc/sweep_chunked.cu's launch bound is 8 warps), the one that ran
@@ -81,11 +87,12 @@ H100 = CardLimits(regs=None, static_smem=0, max_threads=256,
 _card_limits = {}
 
 
-def attributes() -> dict:
+def attributes(energy: bool = False) -> dict:
     """B2's registers, static shared memory, most threads a CTA and
-    local bytes a thread, read from the card (sweep.kernel_attributes)."""
+    local bytes a thread (of its force or energy instantiation), read
+    from the card (sweep.kernel_attributes)."""
     return sweep.kernel_attributes(sweep.load("sweep_chunked", _declare),
-                                   "chunk_sweep_attributes")
+                                   "chunk_sweep_attributes", energy)
 
 
 def card_limits(device):
@@ -294,8 +301,8 @@ def pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
             react = -torch.stack([torch.sum(g2 * dc, dim=1) for dc in d],
                                  dim=2).reshape(nc, len(ob), C, 3)
             for p, o in enumerate(ob):
-                frames.index_add_(0, rows[:, o], react[:, p])
-    frames.index_add_(0, rows[:, 0], own)
+                scatter.index_add_(frames, rows[:, o], react[:, p])
+    scatter.index_add_(frames, rows[:, 0], own)
     cover = torch.as_tensor(plan.cover_rows, device=dev)
     f = torch.zeros((nc, C, 3), dtype=dtype, device=dev)
     for k in range(cover.shape[1]):
@@ -308,7 +315,10 @@ def _declare(lib):
     lib.chunk_sweep_forces.argtypes = [vp] * 18 + [ci] * 5 + [cf] * 3 \
         + [ci, ci, vp]
     lib.chunk_sweep_forces.restype = ci
-    lib.chunk_sweep_attributes.argtypes = [vp]
+    lib.chunk_sweep_energy.argtypes = [vp] * 15 + [ci] * 2 + [cf] * 3 \
+        + [ci, ci, vp]
+    lib.chunk_sweep_energy.restype = ci
+    lib.chunk_sweep_attributes.argtypes = [vp, ci]
     lib.chunk_sweep_attributes.restype = ci
     lib.chunk_sweep_device.argtypes = [vp]
     lib.chunk_sweep_device.restype = ci
@@ -333,6 +343,30 @@ def _device_tables(cfg, plan, excl_skip, dev):
     return hit[2]
 
 
+def _launch_plan(lib, fields, cfg, brick):
+    """Check the sorted fields and the config against the card and return
+    (plan, the plan's ints for the kernel) of a launch, or raise where
+    the kernel does not take them."""
+    sweep.check_fields(fields, cfg)
+    C = cfg.capacity
+    limits = card_limits(fields["x"].device)
+    plan = plan_for(cfg, brick, limits)
+    plan_c = (ctypes.c_int * 15)(*plan.as_ints())
+    smem = lib.chunk_sweep_smem_bytes(ctypes.cast(plan_c, ctypes.c_void_p),
+                                      C)
+    if smem + limits.static_smem > limits.smem_block \
+            or 32 * int(np.prod(plan.brick)) > limits.max_threads:
+        raise ValueError(f"brick {plan.brick} needs {smem} bytes of shared "
+                         f"memory, more than the card's "
+                         f"{limits.smem_block}, or too many threads")
+    n_frame = plan.frame_floats(C)
+    if n_frame > INT32_MAX or not sweep.b1_takes(cfg):
+        raise ValueError(f"{n_frame} frame floats or {cfg.n_cells} cells "
+                         f"of capacity {C} overflow the kernel's int32 "
+                         "indices")
+    return plan, plan_c
+
+
 def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
                 excl_skip=True, brick=None):
     """Slot forces (n_cells * C, 3) of the direct-space sum, as
@@ -346,36 +380,20 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
                                  excl_skip, brick)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    sweep.check_fields(fields, cfg)
     lib = sweep.load("sweep_chunked", _declare)
+    plan, plan_c = _launch_plan(lib, fields, cfg, brick)
     C = cfg.capacity
-    limits = card_limits(x.device)
-    plan = plan_for(cfg, brick, limits)
-    plan_c = (ctypes.c_int * 15)(*plan.as_ints())
-    plan_p = ctypes.cast(plan_c, ctypes.c_void_p)
-    smem = lib.chunk_sweep_smem_bytes(plan_p, C)
-    if smem + limits.static_smem > limits.smem_block \
-            or 32 * int(np.prod(plan.brick)) > limits.max_threads:
-        raise ValueError(f"brick {plan.brick} needs {smem} bytes of shared "
-                         f"memory, more than the card's "
-                         f"{limits.smem_block}, or too many threads")
-    n_frame = plan.frame_floats(C)
-    if n_frame > INT32_MAX or not sweep.b1_takes(cfg):
-        raise ValueError(f"{n_frame} frame floats or {cfg.n_cells} cells "
-                         f"of capacity {C} overflow the kernel's int32 "
-                         "indices")
     dev = x.device
     offs, chk, tx, ty, tz = _device_tables(cfg, plan, excl_skip, dev)
     sh = shifts.to(device=dev, dtype=torch.float32).contiguous()
-    frames = torch.empty(n_frame, dtype=torch.float32, device=dev)
+    frames = torch.empty(plan.frame_floats(C), dtype=torch.float32,
+                         device=dev)
     f = torch.empty((cfg.n_cells * C, 3), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.chunk_sweep_forces(
-        p(fields["x"]), p(fields["y"]), p(fields["z"]), p(fields["q"]),
-        p(fields["sig"]), p(fields["seps"]), p(fields["gid"]),
-        p(fields["ew"]), p(fields["count"]), p(offs), p(sh), p(chk), p(tx),
-        p(ty), p(tz), p(frames), p(f), plan_p,
+        *sweep.field_ptrs(fields), p(offs), p(sh), p(chk), p(tx), p(ty),
+        p(tz), p(frames), p(f), ctypes.cast(plan_c, ctypes.c_void_p),
         tx.shape[1], ty.shape[1], tz.shape[1], C, cfg.n_offsets,
         float(cfg.cutoff * cfg.cutoff), float(alpha), float(coulomb_scale),
         cfg.excl_window, cfg.excl_words, ctypes.c_void_p(stream))
@@ -384,3 +402,39 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
                            f"error {err}")
     sweep.launches["b2_sweep"] += 1
     return f
+
+
+def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
+                brick=None):
+    """The direct-space energy (0-d) by B2's energy instantiation, as
+    sweep.pair_energy: float64 on the card, one partial a home cell,
+    summed in a fixed order.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel (float32 fields only) or raise."""
+    sweep.check_config(cfg)
+    x = fields["x"]
+    if x.device.type == "cpu":
+        return sweep.pair_energy_plain(fields, cfg, shifts, alpha,
+                                       coulomb_scale, excl_skip)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    lib = sweep.load("sweep_chunked", _declare)
+    plan, plan_c = _launch_plan(lib, fields, cfg, brick)
+    dev = x.device
+    offs, chk, _, _, _ = _device_tables(cfg, plan, excl_skip, dev)
+    sh = shifts.to(device=dev, dtype=torch.float32).contiguous()
+    part = torch.empty(plan.total_chunks * int(np.prod(plan.brick)),
+                       dtype=torch.float64, device=dev)
+    e = torch.empty((), dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = lambda t: ctypes.c_void_p(t.data_ptr())
+    err = lib.chunk_sweep_energy(
+        *sweep.field_ptrs(fields), p(offs), p(sh), p(chk), p(part), p(e),
+        ctypes.cast(plan_c, ctypes.c_void_p), cfg.capacity, cfg.n_offsets,
+        float(cfg.cutoff * cfg.cutoff),
+        float(alpha), float(coulomb_scale), cfg.excl_window,
+        cfg.excl_words, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"chunked sweep energy launch failed: CUDA "
+                           f"error {err}")
+    sweep.launches["b2_energy"] += 1
+    return e

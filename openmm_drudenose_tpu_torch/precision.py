@@ -1,6 +1,8 @@
 """Precision policy: torch dtypes for state and for reductions.
 
   "single" : positions/velocities/forces and NH-chain/KE scalars in f32
+  "mixed"  : f32 state, f64 NH-chain and KE scalars (as the reference's
+             mixed precision keeps its chain and KE buffers in double)
   "double" : everything f64 (the ground truth the tests and the chip
              script hold single precision against)
 
@@ -24,6 +26,7 @@ class Precision:
 
 _POLICIES = {
     "single": (torch.float32, torch.float32),
+    "mixed": (torch.float32, torch.float64),
     "double": (torch.float64, torch.float64),
 }
 
@@ -33,6 +36,6 @@ def get_precision(name_or_policy) -> Precision:
         return name_or_policy
     if name_or_policy not in _POLICIES:
         raise ValueError(f"unknown precision {name_or_policy!r}; "
-                         "expected single|double")
+                         "expected single|mixed|double")
     real, accum = _POLICIES[name_or_policy]
     return Precision(name_or_policy, real, accum)

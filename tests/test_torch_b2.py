@@ -51,7 +51,8 @@ def _contexts(precision):
     tsys, _ = tbuilders.build_water_box(N_MOL, cutoff=CUTOFF)
     out = []
     for pkg, system, kw in ((dn, jsys, {"strategy": "cellpair"}),
-                            (dt, tsys, {"device": "cpu"})):
+                            (dt, tsys, {"device": "cpu",
+                                         "strategy": "cellpair"})):
         integ = pkg.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
         ctx = pkg.Context(system, integ, precision=precision, **kw)
         ctx.setPositions(pos)
@@ -232,7 +233,8 @@ def _slab():
 def test_context_routes_by_gates_to_b2(monkeypatch):
     system, pos = _slab()
     integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
-    ctx = dt.Context(system, integ, precision="single", device="cpu")
+    ctx = dt.Context(system, integ, precision="single", device="cpu",
+                     strategy="cellpair")
     ctx.setPositions(pos)
     ctx._ensure_neighbors()
     nb, cfg = ctx._nb, ctx._cp_cfg
@@ -266,7 +268,7 @@ def test_use_pallas_3_forces_b2(monkeypatch):
     for opts in ({}, {"use_pallas": 3}):
         integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
         ctx = dt.Context(system, integ, precision="single", device="cpu",
-                         nb_options=opts)
+                         strategy="cellpair", nb_options=opts)
         ctx.setPositions(pos)
         ctxs[bool(opts)] = ctx
     calls = []
@@ -297,7 +299,8 @@ def test_wrapper_refuses_unsupported_config():
     JAX sweep, which runs such a config on XLA, to 2e-5 x max|f|."""
     out = []
     for pkg, build, kw in ((dn, jbuilders, {"strategy": "cellpair"}),
-                           (dt, tbuilders, {"device": "cpu"})):
+                           (dt, tbuilders, {"device": "cpu",
+                                              "strategy": "cellpair"})):
         system, pos = build.build_water_box(N_MOL, cutoff=CUTOFF)
         nonbonded = next(f for f in system.getForces()
                          if type(f).__name__ == "NonbondedForce")

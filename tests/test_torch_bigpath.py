@@ -136,13 +136,15 @@ def _shifted_contexts():
     system, pos = tbuilders.build_water_box(216, cutoff=0.6)
     integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
     integ.setMaxDrudeDistance(0.02)
-    ctx = dt.Context(system, integ, precision="single", device="cpu")
+    ctx = dt.Context(system, integ, precision="single", device="cpu",
+                     strategy="cellpair")
     ctx.setPositions(pos + SHIFT)
     ctx.setVelocitiesToTemperature(300.0, seed=0)
     integ.step(16)
     st = ctx._state
     integ64 = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
     ctx64 = dt.Context(system, integ64, precision="double", device="cpu",
+                       strategy="cellpair",
                        nb_options={"capacity": ctx._cp_cfg.capacity})
     ctx64.setPositions((st.positions.double()
                         + st.pos_err.double()).numpy())
@@ -185,7 +187,7 @@ def test_relative_vsites_match_float64():
     for precision in ("single", "double"):
         integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
         ctxs[precision] = dt.Context(system, integ, precision=precision,
-                                     device="cpu")
+                                     device="cpu", strategy="cellpair")
     p64 = torch.as_tensor(pos + SHIFT)
     ref = apply_vsites(ctxs["double"]._spec, ctxs["double"]._static, p64)
     c32 = ctxs["single"]

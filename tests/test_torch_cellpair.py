@@ -31,7 +31,8 @@ def _contexts(precision):
     tsys, _ = tbuilders.build_water_box(N_MOL, cutoff=CUTOFF)
     out = []
     for pkg, system, kw in ((dn, jsys, {"strategy": "cellpair"}),
-                            (dt, tsys, {"device": "cpu"})):
+                            (dt, tsys, {"device": "cpu",
+                                         "strategy": "cellpair"})):
         integ = pkg.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
         ctx = pkg.Context(system, integ, precision=precision, **kw)
         ctx.setPositions(pos)
@@ -228,7 +229,8 @@ def _two_word_contexts():
     atom indices: W = 20, two mask words."""
     out = []
     for pkg, build, kw in ((dn, jbuilders, {"strategy": "cellpair"}),
-                           (dt, tbuilders, {"device": "cpu"})):
+                           (dt, tbuilders, {"device": "cpu",
+                                              "strategy": "cellpair"})):
         system, pos = build.build_water_box(N_MOL, cutoff=CUTOFF)
         nonbonded = next(f for f in system.getForces()
                          if type(f).__name__ == "NonbondedForce")

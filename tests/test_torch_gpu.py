@@ -1,8 +1,13 @@
 """Card-only checks of the PyTorch port: kernels B1 and B2 against their
 plain versions on CUDA tensors, also with exclusion masks of three words
-and at capacity 160; B2's bit-identical repeat launches; the limits read from the card and the
-routing by them; their refusals, and the Context stepping through each.  Marked `gpu`; each
-test skips (through the `cuda` fixture) where no CUDA card is present.
+and at capacity 160; B2's bit-identical repeat launches; the limits read
+from the card and the routing by them; their refusals, and the Context
+stepping through each; the kernels' energy instantiations against the
+plain energy in f64, two launches bit-identical, getState(energy=True)
+through them, an NPT Context stepping through B1, and their refusals
+(no plain fallback); the fixed-order scatter-add and a checkpoint
+replayed bit for bit.  Marked `gpu`; each test skips (through the `cuda`
+fixture) where no CUDA card is present.
 On the card (tests/conftest.py imports JAX, which the machine with the
 card lacks): python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 """
@@ -27,8 +32,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ctx(device, precision="single", nb_options=None, exception=None):
+def _ctx(device, precision="single", nb_options=None, exception=None,
+         barostat=0):
     system, pos = builders.build_water_box(216, cutoff=0.6)
+    if barostat:
+        system.addForce(dt.MonteCarloBarostat(1.01325, 300.0, barostat))
     if exception is not None:
         nonbonded = next(f for f in system.getForces()
                          if type(f).__name__ == "NonbondedForce")
@@ -36,7 +44,7 @@ def _ctx(device, precision="single", nb_options=None, exception=None):
     integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
     integ.setMaxDrudeDistance(0.02)
     ctx = dt.Context(system, integ, precision=precision, device=device,
-                     nb_options=nb_options)
+                     strategy="cellpair", nb_options=nb_options)
     ctx.setPositions(pos)
     ctx.setVelocitiesToTemperature(300.0, seed=1)
     ctx._ensure_neighbors()
@@ -169,3 +177,139 @@ def test_route_on_card_limits(cuda):
         assert sweep_chunked.b2_takes(cfg, lim)
         assert sweep.route(cfg, limits=lim)[0] == "b1"
         assert sweep.route(cfg, use_pallas=3, limits=lim)[0] == "b2"
+
+
+def test_energy_kernels_match_plain_on_card(cuda):
+    """Both energy instantiations against the plain energy in f64 (1e-3
+    kJ/mol here: the box's |E| is ~60 kJ/mol of ~1e4 kJ/mol terms, and
+    the plain f32 sum is itself ~3e-4 off), the same bits twice."""
+    ctx, _ = _ctx(cuda)
+    fields, cfg, shifts, alpha, scale = _fields(ctx)
+    f64 = {k: (v.double() if v.is_floating_point() else v)
+           for k, v in fields.items()}
+    e64 = float(sweep.pair_energy_plain(f64, cfg, shifts.double(), alpha,
+                                        scale))
+    for kernel in (sweep, sweep_chunked):
+        e1 = kernel.pair_energy(fields, cfg, shifts, alpha, scale)
+        e2 = kernel.pair_energy(fields, cfg, shifts, alpha, scale)
+        torch.cuda.synchronize()
+        assert e1.dtype == torch.float64 and torch.equal(e1, e2)
+        assert abs(float(e1) - e64) <= 1e-3
+
+
+def test_state_energy_runs_the_energy_kernel(cuda):
+    ctx, _ = _ctx(cuda)
+    before = dict(sweep.launches)
+    plain = cellpair.plain_sweeps["cuda"]
+    st = ctx.getState(energy=True)
+    torch.cuda.synchronize()
+    assert np.isfinite(st.getPotentialEnergy())
+    assert sweep.launches["b1_energy"] == before["b1_energy"] + 1
+    assert cellpair.plain_sweeps["cuda"] == plain
+
+
+def test_npt_context_steps_through_b1(cuda):
+    """50 steps with a barostat every 10: every force pass by B1, two B1
+    energy launches an attempt, no plain sweep."""
+    ctx, integ = _ctx(cuda, barostat=10)
+    ctx._ensure_forces()
+    before = dict(sweep.launches)
+    plain = cellpair.plain_sweeps["cuda"]
+    integ.step(50)
+    torch.cuda.synchronize()
+    assert sweep.launches["b1_sweep"] - before["b1_sweep"] >= 50
+    assert sweep.launches["b1_energy"] - before["b1_energy"] == 2 * 5
+    assert cellpair.plain_sweeps["cuda"] == plain
+    assert ctx._state.baro_nattempt == 5
+    st = ctx.getState(positions=True, energy=True)
+    assert np.all(np.isfinite(st.getPositions()))
+    assert np.isfinite(st.getPotentialEnergy())
+
+
+def test_sweep_energy_raises_where_the_kernel_refuses(cuda):
+    """A config the kernels do not take (not a regular grid), and float64
+    fields: the energy wrappers raise on the card and never fall back to
+    the plain sweep."""
+    import dataclasses
+    ctx, _ = _ctx(cuda)
+    fields, cfg, shifts, alpha, scale = _fields(ctx)
+    bad = dataclasses.replace(cfg, regular=False)
+    f64 = {k: (v.double() if v.is_floating_point() else v)
+           for k, v in fields.items()}
+    plain = cellpair.plain_sweeps["cuda"]
+    for kernel in (sweep, sweep_chunked):
+        with pytest.raises(ValueError):
+            kernel.pair_energy(fields, bad, shifts, alpha, scale)
+        with pytest.raises(ValueError):
+            kernel.pair_energy(f64, cfg, shifts.double(), alpha, scale)
+    ctx._nb.cfg = bad
+    with pytest.raises(ValueError):
+        ctx._nb.sweep_energy(ctx._state.positions,
+                             torch.diagonal(ctx._state.box),
+                             ctx._state.neighbors)
+    assert cellpair.plain_sweeps["cuda"] == plain
+
+
+def test_scatter_add_is_the_same_every_call(cuda):
+    """ops/scatter.py on the card: 2e6 float32 rows into 1000 targets (2000
+    collisions a target) give the same bits every call and match the
+    float64 sum to float32 rounding."""
+    from openmm_drudenose_tpu_torch.ops import scatter
+    g = torch.Generator(device="cpu").manual_seed(3)
+    idx = torch.randint(0, 1000, (2_000_000,), generator=g).to(cuda)
+    src = torch.randn(2_000_000, 3, generator=g).to(cuda)
+    runs = [scatter.index_add_(torch.zeros(1000, 3, device=cuda), idx, src)
+            for _ in range(3)]
+    ref = torch.zeros(1000, 3, dtype=torch.float64, device=cuda)
+    ref.index_add_(0, idx, src.double())
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert float(torch.max(torch.abs(runs[0].double() - ref))) < 1e-2
+
+
+@pytest.mark.parametrize("strategy", ["dense", "cellpair"])
+def test_checkpoint_replay_is_bit_exact_on_card(cuda, tmp_path, strategy):
+    """NPT on the card in PyTorch's default (not deterministic) mode: save,
+    40 steps, load, 40 steps give the same positions bit for bit, on the
+    dense strategy and on the cell-pair strategy through B2 (B1 adds its
+    reactions with atomics, so its last bits follow the warps' order)."""
+    system, pos = builders.build_water_box(216, cutoff=0.6)
+    system.addForce(dt.MonteCarloBarostat(1.01325, 300.0, 10))
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    integ.setMaxDrudeDistance(0.02)
+    ctx = dt.Context(system, integ, precision="single", device=cuda,
+                     strategy=strategy, nb_options={"use_pallas": 3})
+    ctx.setPositions(pos)
+    ctx.setVelocitiesToTemperature(300.0, seed=1)
+    assert ctx._nb.strategy == strategy
+    if strategy == "cellpair":
+        assert ctx._nb.sweep_kernel == "b2"
+    integ.step(20)
+    path = str(tmp_path / "npt.chk")
+    dt.save_checkpoint(path, ctx)
+    integ.step(40)
+    first = ctx._state.positions.clone()
+    dt.load_checkpoint(path, ctx)
+    integ.step(40)
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert torch.equal(first, ctx._state.positions)
+
+
+def test_pme_spread_is_the_same_every_call(cuda):
+    """The PME charge spread (int64 fixed point) on the card: the same bits
+    every call, and the CPU's grid to float32 rounding."""
+    from openmm_drudenose_tpu_torch.forces import pme
+    rng = np.random.default_rng(4)
+    n, box = 20000, 6.0
+    setup = pme.setup_pme(1.0, 5e-4, [box] * 3)
+    q = rng.normal(size=n)
+    pos = rng.uniform(0.0, box, (n, 3))
+    grids = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        charges = torch.as_tensor(q, dtype=torch.float32, device=dev)
+        p = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+        b = torch.full((3,), box, dtype=torch.float32, device=dev)
+        idx, wts, _ = pme._taps(setup, p, b)
+        grids.append(pme.spread(setup, charges, idx, wts).cpu())
+    assert torch.equal(grids[0], grids[1])
+    scale = float(torch.max(torch.abs(grids[2])))
+    assert float(torch.max(torch.abs(grids[0] - grids[2]))) <= 1e-5 * scale

@@ -13,9 +13,13 @@ PROBE = """
 import sys
 import openmm_drudenose_tpu_torch
 from openmm_drudenose_tpu_torch import convert
-from openmm_drudenose_tpu_torch.app import context
-from openmm_drudenose_tpu_torch.io import builders
-from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
+from openmm_drudenose_tpu_torch.app import context, serialization, simulation
+from openmm_drudenose_tpu_torch.constraints import shake
+from openmm_drudenose_tpu_torch.examples import nacl_tg
+from openmm_drudenose_tpu_torch.forces import dense
+from openmm_drudenose_tpu_torch.integrators import barostat
+from openmm_drudenose_tpu_torch.io import builders, nacl, pdbfile
+from openmm_drudenose_tpu_torch.ops import scatter, sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.tools import walk_model
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"

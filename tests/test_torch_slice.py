@@ -35,7 +35,8 @@ def _pair(precision="double"):
     vel = np.random.default_rng(9).normal(0.0, 0.3, pos.shape)
     out = []
     for pkg, system, kw in ((dn, jsys, {"strategy": "cellpair"}),
-                            (dt, tsys, {"device": "cpu"})):
+                            (dt, tsys, {"device": "cpu",
+                                         "strategy": "cellpair"})):
         integ = pkg.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
         integ.setMaxDrudeDistance(0.02)
         ctx = pkg.Context(system, integ, precision=precision, **kw)

@@ -42,7 +42,8 @@ def _contexts(precision, exception=(0, 40)):
     more exclusion, between atoms `exception`."""
     out = []
     for pkg, build, kw in ((dn, jbuilders, {"strategy": "cellpair"}),
-                           (dt, tbuilders, {"device": "cpu"})):
+                           (dt, tbuilders, {"device": "cpu",
+                                              "strategy": "cellpair"})):
         system, pos = build.build_water_box(N_MOL, cutoff=CUTOFF)
         nonbonded = next(f for f in system.getForces()
                          if type(f).__name__ == "NonbondedForce")
