@@ -20,7 +20,9 @@ seconds):
      card (cudaFuncGetAttributes), the card's limits, and the warps an SM
      holds of each
   2. kernel parity at full size: B1 against its plain version (f32, on
-     the card, max|dF| / max|F| <= 2e-5) and against the plain version in
+     the card, max|dF| / max|F| <= 2e-5), two launches bit-identical
+     (B1's reactions go through frames with one writer an entry and a
+     fixed-order gather), and against the plain version in
      f64 (the f32 floor: max|dF| / max|F| <= 1e-4 over the atoms of pairs
      both precisions put on the same side of the cutoff, rms|dF| / max|F|
      <= 5e-6 over all); B1, plain and the bound timed.  Then (a) the
@@ -36,7 +38,9 @@ seconds):
      finite and plausible (getState(energy=True) counted apart: B1's
      energy instantiation launched, no plain sweep on the card); ms/step
      and ns/day, and the stream time of each part of the force pass
-     beside the whole step
+     beside the whole step; then a checkpoint of the 100k NVT state
+     saved, 32 steps through B1, loaded, 32 steps: positions bit for bit
+     (max |dx| = 0)
   4. kernel B2 (ops/sweep_chunked.py, csrc/sweep_chunked.cu) and the
      large single-card path: B2 forced at 100k against B1 on the bench
      fields; then the system of the JAX package's 1M-atom single-device
@@ -78,8 +82,38 @@ seconds):
      latches, wall, finiteness; then a forced 0.9x
      linear shrink: the cell grid planned again, B1 (forces and energy)
      held against its plain version on the new grid
-  7. the seconds of each phase, the `kernels` JSON line (each kernel's
-     force and energy instantiations), then the result line.
+  7. the paper's ionic liquid at full width, the reaction field through
+     B1: build_ionic_liquid(14286, CutoffPeriodic, cutoff 1.2) (100,002
+     atoms, 14,286 ion pairs, 25^3 cells) with the cation, anion, COM
+     and Drude baths (make_tgnh_integrator at 400 K / 1 K, 1 fs, 0.02 nm
+     wall), single precision, the cell-pair strategy with the exclusion
+     test at every offset (a cation's C1-C2 exclusion spans ~0.65 nm,
+     about a cell); minimizeEnergy(300) (the energy must fall), 400 K
+     velocities, IL_SETTLE settling steps (the baths swing for ~0.8 ps
+     after the minimized lattice), IL_STEPS steps counted (B1's RF
+     instantiation launched,
+     its Ewald one never, no plain sweep); latches, wall, finiteness,
+     four baths with the cation, anion and Drude bath temperatures (the
+     run's mean, sampled every BLOCK steps, and the last) in bands written
+     before the first card run; the f32 force pass against f64 (the f32
+     floor); B1's RF forces and energy against their plain versions
+     (2e-5 of max|F|, 1e-6 of |E|) and f64, two launches bit-identical,
+     timed with the bound; B2's RF instantiation on the same fields
+     against its plain version and B1, and a Context routed to it
+     (nb_options use_pallas 3) stepped 16 steps counted; ms/step, ns/day
+     and the breakdown
+  8. the solvated polymer at full width, Ewald through B1 with bonds,
+     angles and torsions on the force pass: build_solvated_polymer(100,
+     30, 20000) (92,475 atoms, PME, cutoff 1.0) with the polymer and
+     water baths (300 K / 1 K), single precision, io/polymer.py's
+     complete Drude exclusions (ROADMAP.md C15); minimizeEnergy(300),
+     300 K velocities, POLY_SETTLE settling steps, POLY_STEPS steps
+     counted (B1 launched, no plain
+     sweep); the checks of phase 7 but the reaction field's, with B1's
+     Ewald forces against their plain version on its fields
+  9. the seconds of each phase, the `kernels` JSON line (each kernel's
+     force and energy instantiations, Ewald and reaction field), then the
+     result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -88,6 +122,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -117,10 +152,15 @@ OPS_PER_PAIR = 50
 # energy, erfcf (~25 operations: CUDA's rational approximation with its
 # exp) and a float64 add (~45 in all)
 OPS_PER_PAIR_ENERGY = 45
-# the force kernels' times recorded before they gained their energy
-# instantiation (NVIDIA H100 80GB HBM3, 700 W): B1 at 100k, B2 at 800k
+# the reaction field in place of the erfc: a kept pair's force costs the
+# LJ and qq (krf - 1/(2 r^3)) terms and its row and reaction adds (~33);
+# its energy, LJ and qq (1/r + krf r^2 - crf) and the float64 add (~25)
+OPS_PER_PAIR_RF = 33
+OPS_PER_PAIR_ENERGY_RF = 25
+# the force kernels' times recorded while B1 still added its reactions
+# with atomics (NVIDIA H100 80GB HBM3, 700 W): B1 at 100k, B2 at 800k
 # (C = 56); each run prints its own beside them
-RECORDED_MS = {"b1_sweep": 0.7322, "b2_sweep": 7.0916}
+RECORDED_MS = {"b1_sweep": 0.7332, "b2_sweep": 7.1033}
 # relative limits of the energy instantiations: against the plain energy
 # in f32 and in f64, of |E|
 E_PLAIN_REL = 1e-6
@@ -130,6 +170,29 @@ E_F64_REL = 1e-5
 EX_STEPS, EX_BARO, EX_REPORT, EX_REPLAY = 2000, 100, 500, 100
 EX_SAMPLE = 10
 NPT_STEPS, NPT_BARO = 400, 25
+# phase 3: the checkpoint replay through B1
+REPLAY_STEPS = 32
+# phases 7 and 8: the timed steps (in blocks of BLOCK, the rebuild
+# interval), the steps counted through B2's RF instantiation, FIRE
+# iterations, and the bath bands (the run's mean, sampled every BLOCK
+# steps; the last instantaneous values) for the user
+# groups and the Drude bath, written before the first card run of the
+# phases: the ionic liquid's baths target 400 / 400 K (cation, anion)
+# and 1 K, the polymer's 300 / 300 K (polymer, water) and 1 K
+IL_STEPS, IL_B2_STEPS, IL_MIN = 192, 16, 300
+# steps between the minimized start and the banded window: the baths
+# swing between 200 and 600 K for ~0.8 ps after the minimized lattice
+# is given 400 K velocities, then hold near 400 K (PERF.md)
+IL_SETTLE = 1024
+POLY_STEPS, POLY_MIN = 96, 300
+# the polymer's chains start overlapping one another (the builder places
+# random walks), so its bath starts hot: settle as the ionic liquid
+POLY_SETTLE = 1024
+BLOCK = 16
+IL_BANDS = {"mean": ((300.0, 500.0), (300.0, 500.0), (0.0, 10.0)),
+            "last": ((200.0, 600.0), (200.0, 600.0), (0.0, 20.0))}
+POLY_BANDS = {"mean": ((225.0, 375.0), (225.0, 375.0), (0.0, 10.0)),
+              "last": ((150.0, 450.0), (150.0, 450.0), (0.0, 20.0))}
 
 
 def log(msg):
@@ -166,6 +229,27 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def kernel_split(fn, reps=10):
+    """Device ms a call of each CUDA kernel that fn() launches, from
+    torch.profiler over `reps` calls (B1's sweep and its fixed-order
+    gather)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"(\w+_kernel)\b", e.key)
+        if e.device_time_total > 0 and m:
+            out[m.group(1)] = (out.get(m.group(1), 0.0)
+                               + e.device_time_total / reps / 1e3)
+    return out
+
+
 def pair_counts(fields, cfg, shifts):
     """(pair tests, pairs inside the cutoff) that this run's slot data
     gives the sweep: occupied-slot products over the half stencil."""
@@ -194,19 +278,23 @@ def pair_counts(fields, cfg, shifts):
     return n_tests, n_cut
 
 
-def sweep_bound(fields, cfg, shifts, energy=False):
+def sweep_bound(fields, cfg, shifts, energy=False, method="ewald"):
     """(bound ms, "operations" or "bytes", pair tests, pairs inside the
     cutoff, bytes) of the direct-space sweep on these fields: the larger
     of its FP32 operations over the card's peak and the bytes it must
     move (each field read once, the forces, or the energy, written once)
     over the memory rate.  B1 and B2 compute the same function, so both
-    are held to this one bound (one for each instantiation)."""
+    are held to this one bound (one for each instantiation and Coulomb
+    kind)."""
     n_tests, n_cut = pair_counts(fields, cfg, shifts)
     n_slots = cfg.n_cells * cfg.capacity
     n_bytes = (n_slots * 8 * 4 + cfg.n_cells * 4
                + cfg.n_cells * cfg.n_offsets * 4 + cfg.n_offsets * 16
                + (8 if energy else n_slots * 3 * 4))
-    per_pair = OPS_PER_PAIR_ENERGY if energy else OPS_PER_PAIR
+    per_pair = {("ewald", False): OPS_PER_PAIR,
+                ("ewald", True): OPS_PER_PAIR_ENERGY,
+                ("rf", False): OPS_PER_PAIR_RF,
+                ("rf", True): OPS_PER_PAIR_ENERGY_RF}[(method, energy)]
     t_ops = (OPS_PER_TEST * n_tests + per_pair * n_cut) \
         / PEAK_FP32_FLOPS * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
@@ -264,32 +352,36 @@ def counted(fn):
     return out, dict(sweep.launches), cellpair.plain_sweeps["cuda"]
 
 
-def energy_check(tag, kernel, fields, cfg, shifts, alpha, card):
-    """A kernel's energy instantiation on these fields against its plain
-    version in f32 (E_PLAIN_REL of |E|) and in f64 (E_F64_REL of |E|),
-    launched twice for the same bits, timed beside the plain version and
-    the bound.  Returns the numbers of its `kernels` entry."""
+def energy_check(tag, kernel, fields, cfg, shifts, alpha, card,
+                 coulomb=None, excl_skip=True):
+    """A kernel's energy instantiation on these fields (of the Coulomb
+    kind `coulomb`, the compiled term's keywords; Ewald by default)
+    against its plain version in f32 (E_PLAIN_REL of |E|) and in f64
+    (E_F64_REL of |E|), launched twice for the same bits, timed beside
+    the plain version and the bound.  Returns the numbers of its
+    `kernels` entry."""
     import torch
     from openmm_drudenose_tpu_torch.ops import sweep
     from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    kw = dict(coulomb or {"method": "ewald"}, excl_skip=excl_skip)
     args = (fields, cfg, shifts, alpha, ONE_4PI_EPS0)
-    e1 = kernel.pair_energy(*args)
-    e2 = kernel.pair_energy(*args)
+    e1 = kernel.pair_energy(*args, **kw)
+    e2 = kernel.pair_energy(*args, **kw)
     torch.cuda.synchronize()
     identical = bool(torch.equal(e1, e2))
     ek = float(e1)
-    ep = float(sweep.pair_energy_plain(*args))
+    ep = float(sweep.pair_energy_plain(*args, **kw))
     f64 = {k: (v.double() if v.is_floating_point() else v)
            for k, v in fields.items()}
     ep64 = float(sweep.pair_energy_plain(f64, cfg, shifts.double(), alpha,
-                                         ONE_4PI_EPS0))
+                                         ONE_4PI_EPS0, **kw))
     del f64
     torch.cuda.empty_cache()
     rel, rel64 = abs(ek - ep) / abs(ep), abs(ek - ep64) / abs(ep64)
-    ms = cuda_time_ms(lambda: kernel.pair_energy(*args), 20)
-    plain_ms = cuda_time_ms(lambda: sweep.pair_energy_plain(*args), 2)
+    ms = cuda_time_ms(lambda: kernel.pair_energy(*args, **kw), 20)
+    plain_ms = cuda_time_ms(lambda: sweep.pair_energy_plain(*args, **kw), 2)
     bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(
-        fields, cfg, shifts, energy=True)
+        fields, cfg, shifts, energy=True, method=kw["method"])
     log(f"{tag} energy {ek:.6f} kJ/mol; plain f32 {ep:.6f} (|dE|/|E| "
         f"{rel:.3e}), plain f64 {ep64:.6f} ({rel64:.3e}); two launches "
         f"bit-identical: {identical}; {ms:.4f} ms, plain {plain_ms:.3f} ms, "
@@ -306,15 +398,20 @@ def energy_check(tag, kernel, fields, cfg, shifts, alpha, card):
             "capacity": cfg.capacity}
 
 
-def f32_floor(got, ref, skip=None):
+def f32_floor(got, ref, skip=None, rms_skip=False):
     """(max, rms) of |got - ref| over max|ref|; the max leaves out the
-    rows in `skip` (cutoff flips), the rms takes every row."""
+    rows in `skip` (cutoff flips), the rms takes every row, or with
+    rms_skip those the max takes: under the reaction field, whose force
+    at the cutoff is qq 3 / ((2 eps_rf + 1) rc^2) (~19 kJ/mol/nm for two
+    ionic-liquid cores, against ~1 for Ewald), one flipped pair alone can
+    carry the rms past the floor."""
     import torch
     d = got.double() - ref.double()
     scale = float(torch.max(torch.abs(ref)))
     keep = d if skip is None else d[~skip]
+    rms_rows = keep if rms_skip else d
     return (float(torch.max(torch.abs(keep))) / scale,
-            float(torch.sqrt(torch.mean(d * d))) / scale)
+            float(torch.sqrt(torch.mean(rms_rows * rms_rows))) / scale)
 
 
 def report_limits(cfgs):
@@ -351,6 +448,16 @@ def report_limits(cfgs):
         f"{e1['static_smem']} B static shared memory, {e1['local_bytes']} B "
         f"local, {sweep.occupancy('cuda', energy=True)[1]} CTAs an SM; B2 "
         f"{e2['regs']} registers, {e2['local_bytes']} B local")
+    r1, r2 = sweep.attributes(False, "rf"), sweep_chunked.attributes(
+        False, "rf")
+    q1, q2 = sweep.attributes(True, "rf"), sweep_chunked.attributes(
+        True, "rf")
+    log(f"1 (c) reaction-field instantiations: B1 forces {r1['regs']} "
+        f"registers, {r1['local_bytes']} B local, "
+        f"{sweep.occupancy('cuda', False, 'rf')[1]} CTAs an SM; energy "
+        f"{q1['regs']} registers, {q1['local_bytes']} B local; B2 forces "
+        f"{r2['regs']} registers, {r2['local_bytes']} B local; energy "
+        f"{q2['regs']} registers, {q2['local_bytes']} B local")
     log(f"1 (c) card: {lim.smem_block} B shared memory a CTA may opt in "
         f"to, {lim.smem_sm} B an SM ({lim.smem_reserved} B reserved a "
         f"CTA), {lim.regs_sm} registers and {lim.threads_sm} threads an SM")
@@ -488,27 +595,35 @@ def check_after_steps(ctx, phase):
 
 
 def breakdown(ctx, kernel, name, ms_step, card, phase, reps=5):
-    """Stream time of each part of the force pass at the current state,
-    against the whole step."""
+    """Stream time of each part of the force pass at the current state
+    (PME where the method has it, the bonded terms where the system has
+    them), against the whole step."""
     import torch
     from openmm_drudenose_tpu_torch.constraints.vsites import apply_vsites
-    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.forces import bonded, cellpair
     from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
     nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
     box_diag = torch.diagonal(st.box)
     pos_comp = apply_vsites(ctx._spec, ctx._static, st.positions)
     fields = nb.fields(pos_comp, box_diag, st.neighbors)
+    terms = [t for t in ctx._terms if isinstance(t, bonded._Term)]
     parts = {
         "sorted_fields": lambda: nb.fields(pos_comp, box_diag, st.neighbors),
         name: lambda: kernel(
             fields, cfg, cellpair.offset_shifts(cfg, box_diag), nb.alpha,
-            ONE_4PI_EPS0),
+            ONE_4PI_EPS0, **nb.coulomb),
         "pme_recip": lambda: nb.recip(pos_comp, box_diag),
         "pair_terms": lambda: nb.extras(pos_comp, box_diag),
+        "bonded": lambda: [t.energy_forces(pos_comp, box_diag)
+                           for t in terms],
         "force_pass": lambda: ctx._forces_only(st.positions, st.box,
                                                st.neighbors, st.pos_err),
         "cell_rebuild": lambda: ctx._neighbor_fn(st.positions, st.box),
     }
+    if nb.pme is None:
+        del parts["pme_recip"]
+    if not terms:
+        del parts["bonded"]
     times = {k: cuda_time_ms(fn, reps) for k, fn in parts.items()}
     log(f"{phase} breakdown (ms of stream time): " + ", ".join(
         f"{k} {v:.3f}" for k, v in times.items())
@@ -516,12 +631,13 @@ def breakdown(ctx, kernel, name, ms_step, card, phase, reps=5):
     return times
 
 
-def force_pass_floor(ctx, ctx64):
+def force_pass_floor(ctx, ctx64, rms_skip=False):
     """The f32 context's force pass against the f64 context's at the same
-    state: (max, max over all atoms, rms, cutoff-flipped pairs, max|F|),
-    the max leaving out the atoms of pairs the two passes (each at its
-    own virtual-site positions) put on opposite sides of the cutoff, and
-    the parents of flipped virtual sites, whose forces land there."""
+    state: (max, max over all atoms, rms, cutoff-flipped pairs, max|F|,
+    rms over all atoms), the max leaving out the atoms of pairs the two
+    passes (each at its own virtual-site positions) put on opposite sides
+    of the cutoff, and the parents of flipped virtual sites, whose forces
+    land there; the rms too with rms_skip (f32_floor)."""
     import torch
     from openmm_drudenose_tpu_torch.constraints.vsites import apply_vsites
     from openmm_drudenose_tpu_torch.forces import cellpair
@@ -548,10 +664,10 @@ def force_pass_floor(ctx, ctx64):
     atom_flips[sa[slot_flips & (sa < n_atoms)]] = True
     sites = atom_flips[ctx._spec.vs_avg_idx]
     atom_flips[ctx._spec.vs_avg_p[sites].reshape(-1)] = True
-    ferr_all, _ = f32_floor(f32_forces, f64_forces)
-    ferr, frms = f32_floor(f32_forces, f64_forces, atom_flips)
+    ferr_all, frms_all = f32_floor(f32_forces, f64_forces)
+    ferr, frms = f32_floor(f32_forces, f64_forces, atom_flips, rms_skip)
     fs = float(torch.max(torch.abs(f64_forces)))
-    return ferr, ferr_all, frms, n_flip, fs
+    return ferr, ferr_all, frms, n_flip, fs, frms_all
 
 
 def phase_big(card, bench_args, bench_system):
@@ -731,8 +847,8 @@ def phase_big(card, bench_args, bench_system):
     e_entry = energy_check(f"4 B2 at {tag}", sweep_chunked, fields, cfg,
                            shifts, nb.alpha, card)
     del args, fields
-    log(f"4 at {tag}: B2 {ms:.4f} ms (recorded before the energy "
-        f"instantiation: {RECORDED_MS['b2_sweep']} ms on NVIDIA H100 80GB "
+    log(f"4 at {tag}: B2 {ms:.4f} ms (recorded before B1's fixed order: "
+        f"{RECORDED_MS['b2_sweep']} ms on NVIDIA H100 80GB "
         f"HBM3, 700 W), B1 {ms_b1:.4f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_tests} "
         f"pair tests, {n_cut} inside the cutoff, {n_bytes} bytes) on {card}")
@@ -752,7 +868,7 @@ def phase_big(card, bench_args, bench_system):
                        device="cuda")
     ctx64.setPositions((st.positions.double() + st.pos_err.double())
                        .cpu().numpy())
-    ferr, ferr_all, frms, n_flip, fs = force_pass_floor(ctx, ctx64)
+    ferr, ferr_all, frms, n_flip, fs, _ = force_pass_floor(ctx, ctx64)
     del ctx64
     torch.cuda.empty_cache()
     log(f"4 force pass f32 vs f64 at {tag}: max {ferr:.3e} ({ferr_all:.3e} "
@@ -1012,6 +1128,351 @@ def phase_npt(card, ms_step_nvt, pos, vel, cap):
     return entry
 
 
+def run_blocks(ctx, integ, n_steps, targets):
+    """n_steps steps in blocks of BLOCK (the rebuild interval), counted,
+    each block's last bath temperatures read from the integrator's
+    host-side chain state.  Returns (ms/step, ns/day, launches, plain
+    sweeps on the card, the run's mean bath temperatures)."""
+    import torch
+    from openmm_drudenose_tpu_torch.units import ns_per_day
+    nkbt = ctx._spec.nh_nkbt.double().numpy()
+    samples = []
+
+    def drive():
+        for _ in range(n_steps // BLOCK):
+            integ.step(BLOCK)
+            samples.append(ctx._state.group_ke.double().numpy() / nkbt
+                           * targets)
+
+    t = time.time()
+    _, launches, plain = counted(drive)
+    wall = time.time() - t
+    return (wall / n_steps * 1e3, ns_per_day(n_steps / wall,
+                                             integ.getStepSize()),
+            launches, plain, np.mean(samples, axis=0))
+
+
+def hold_bands(phase, names, mean, last, bands):
+    """Fail unless the user groups' and the Drude bath's temperatures lie
+    in their bands (the run's mean and the last); the COM bath is
+    printed, not held."""
+    log(f"{phase} bath temperatures ({', '.join(names)}): over the run "
+        f"{np.round(mean, 3).tolist()} K, at the end "
+        f"{np.round(last, 3).tolist()} K; bands {bands}")
+    held_baths = (0, 1, len(mean) - 1)
+    for key, temps in (("mean", mean), ("last", last)):
+        for (lo, hi), b in zip(bands[key], held_baths):
+            if not lo < temps[b] < hi:
+                fail(f"{phase} bath {names[b]} ({key}) at {temps[b]:.3f} K "
+                     f"outside ({lo}, {hi})")
+
+
+def kernel_parity(phase, tag, kernel, args, kw, ref=None):
+    """A force kernel on `args` with keywords `kw` against its plain
+    version (2e-5 of max|F|), the plain version in f64 (the f32 floor)
+    and `ref` (another kernel's forces, 2e-5), launched twice for the
+    same bits; returns (forces, max |dF| against plain, ms, plain ms)."""
+    import torch
+    fields, cfg, shifts, alpha, scale = args
+    f1 = kernel.pair_forces(*args, **kw)
+    f2 = kernel.pair_forces(*args, **kw)
+    torch.cuda.synchronize()
+    identical = bool(torch.equal(f1, f2))
+    f_p = kernel.pair_forces_plain(*args, **kw)
+    max_abs_err = float(torch.max(torch.abs(f1 - f_p)))
+    err = held(f"{phase} {tag} vs plain", f1, f_p, 2e-5)
+    del f_p
+    f64 = {k: (v.double() if v.is_floating_point() else v)
+           for k, v in fields.items()}
+    f_p64 = kernel.pair_forces_plain(f64, cfg, shifts.double(), alpha,
+                                     scale, **kw)
+    flips, n_flip = cutoff_flips(fields, f64, cfg, shifts, shifts.double())
+    err64, rms64 = f32_floor(f1, f_p64, flips, kw["method"] == "rf")
+    _, rms64_all = f32_floor(f1, f_p64)
+    del f64, f_p64
+    torch.cuda.empty_cache()
+    msg = ""
+    if ref is not None:
+        msg = f"; vs B1 {held(f'{phase} {tag} vs B1', f1, ref, 2e-5):.3e}"
+    ms = cuda_time_ms(lambda: kernel.pair_forces(*args, **kw), 20)
+    plain_ms = cuda_time_ms(lambda: kernel.pair_forces_plain(*args, **kw),
+                            2)
+    log(f"{phase} {tag} vs plain f32: max|dF|/max|F| = {err:.3e}; vs plain "
+        f"f64: max {err64:.3e} (leaving out {n_flip} cutoff-flipped "
+        f"pairs), rms {rms64:.3e} ({rms64_all:.3e} over all){msg}; two "
+        f"launches bit-identical: "
+        f"{identical}; {ms:.4f} ms, plain {plain_ms:.3f} ms")
+    if not (err64 <= 1e-4 and rms64 <= 5e-6):
+        fail(f"{phase} {tag} misses the f32 floor against f64: max "
+             f"{err64:.3e}, rms {rms64:.3e}")
+    if not identical:
+        fail(f"{phase} {tag}: two launches gave different forces")
+    return f1, max_abs_err, ms, plain_ms
+
+
+def state_checks(phase, ctx, make_ctx, energy_key, rms_skip=False):
+    """After the counted steps: latches, wall, finiteness and the
+    state's energy by `energy_key` alone (one launch, no plain sweep);
+    then the f32 force pass against f64 at the state (the f32 floor; the
+    rms without the flipped pairs' atoms with rms_skip, f32_floor).
+    Returns the bath temperatures."""
+    import torch
+    temps, e_launches, plain = counted(lambda: check_after_steps(ctx,
+                                                                 phase))
+    log(f"{phase} the state's energy: launches {e_launches}, plain sweeps "
+        f"on the card {plain}")
+    if e_launches[energy_key] != 1 or plain:
+        fail(f"{phase}: the state's energy did not come from "
+             f"{energy_key} alone")
+    st = ctx._state
+    ctx64, _ = make_ctx("double", {"capacity": ctx._cp_cfg.capacity})
+    ctx64.setPositions((st.positions.double() + st.pos_err.double())
+                       .cpu().numpy())
+    ferr, ferr_all, frms, n_flip, fs, frms_all = force_pass_floor(
+        ctx, ctx64, rms_skip)
+    del ctx64
+    torch.cuda.empty_cache()
+    log(f"{phase} force pass f32 vs f64: max {ferr:.3e} ({ferr_all:.3e} "
+        f"with the atoms of {n_flip} cutoff-flipped pairs), rms "
+        f"{frms:.3e} ({frms_all:.3e} with them) (max|F| {fs:.1f})")
+    if not (ferr <= 1e-4 and frms <= 5e-6):
+        fail(f"{phase}: the f32 force pass misses the f32 floor against "
+             "f64")
+    return temps
+
+
+def minimized(phase, ctx, iterations):
+    """minimizeEnergy(iterations) on the card, counted: the energy must
+    fall and no plain sweep may run."""
+    import torch
+    pe0 = ctx.getState(energy=True).getPotentialEnergy()
+    t = time.time()
+    _, launches, plain = counted(
+        lambda: ctx.minimizeEnergy(maxIterations=iterations))
+    t_min = time.time() - t
+    pe1 = ctx.getState(energy=True).getPotentialEnergy()
+    log(f"{phase} PE {pe0:.1f} -> {pe1:.1f} kJ/mol by minimize({iterations})"
+        f" in {t_min:.2f} s; launches {launches}, plain sweeps {plain}; "
+        f"capacity {ctx._cp_cfg.capacity}")
+    if not (np.isfinite(pe1) and pe1 < pe0) or plain:
+        fail(f"{phase}: minimization did not lower the energy on the "
+             "kernels")
+
+
+def phase_ionic_liquid(card):
+    """7. The paper's ionic liquid at full width through B1's
+    reaction-field instantiation (see the module docstring).  Returns
+    the `kernels` entries of the RF instantiations of B1 and B2."""
+    import torch
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.io import ionic_liquid
+    from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    t = time.time()
+    system, pos, cations, anions = ionic_liquid.build_ionic_liquid(
+        14286, method=dt.NonbondedForce.CutoffPeriodic, cutoff=1.2)
+    n = system.getNumParticles()
+
+    def make_ctx(precision, options):
+        integ = ionic_liquid.make_tgnh_integrator(
+            cations, anions, n, temperature=400.0, drude_temperature=1.0,
+            step_size=0.001)
+        integ.setMaxDrudeDistance(0.02)
+        # a cation's C1-C2 exclusion (~0.65 nm) spans about a cell
+        # (0.659 nm): the exclusion test runs at every offset
+        ctx = dt.Context(system, integ, precision=precision,
+                         strategy="cellpair", device="cuda",
+                         nb_options=dict(options, excl_skip=False))
+        return ctx, integ
+
+    ctx, integ = make_ctx("single", {})
+    ctx.setPositions(pos)
+    ctx._ensure_neighbors()
+    nb, cfg = ctx._nb, ctx._cp_cfg
+    box_w = system.getDefaultPeriodicBoxVectors()[0][0]
+    log(f"7 ionic liquid built and bound in {time.time() - t:.1f} s: {n} "
+        f"atoms ({len(cations) // 4} cations, {len(anions) // 3} anions), "
+        f"box {box_w:.4f} nm, "
+        f"cell grid {cfg.grid}, capacity {cfg.capacity}, {cfg.n_offsets} "
+        f"offsets, route {nb.sweep_kernel}, Coulomb {nb.coulomb}, "
+        f"{ctx._static.n_baths} baths")
+    if not (n == 100002 and nb.sweep_kernel == "b1" and nb.pme is None
+            and nb.coulomb["method"] == "rf" and ctx._static.n_baths == 4):
+        fail("7: the ionic liquid is not the 100,002-atom reaction-field "
+             "system on B1 with four baths")
+    minimized("7", ctx, IL_MIN)
+    ctx.setVelocitiesToTemperature(400.0, seed=0)
+    targets = np.array([400.0, 400.0, 400.0, 1.0])
+    t = time.time()
+    integ.step(IL_SETTLE)
+    torch.cuda.synchronize()
+    settled = ctx.getState(groups=True).getGroupTemperatures()
+    log(f"7 {IL_SETTLE} settling steps in {time.time() - t:.2f} s; bath "
+        f"temperatures {np.round(settled, 3).tolist()} K")
+    ms_step, nsd, launches, plain, mean = run_blocks(ctx, integ, IL_STEPS,
+                                                     targets)
+    log(f"7 {IL_STEPS} steps: {ms_step:.2f} ms/step, {nsd:.4f} ns/day on "
+        f"{card}; launches {launches}; plain sweeps on the card {plain}; "
+        f"capacity {ctx._cp_cfg.capacity}")
+    if launches["b1_sweep_rf"] < IL_STEPS or plain or any(
+            launches[k] for k in ("b1_sweep", "b2_sweep", "b2_sweep_rf")):
+        fail("7: the steps did not run their forces through B1's RF "
+             "instantiation alone")
+    temps = state_checks("7", ctx, make_ctx, "b1_energy_rf", rms_skip=True)
+    hold_bands("7", ["cation", "anion", "COM", "Drude"], mean, temps,
+               IL_BANDS)
+
+    nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
+    box_diag = torch.diagonal(st.box)
+    fields = nb.fields(st.positions, box_diag, st.neighbors)
+    shifts = cellpair.offset_shifts(cfg, box_diag)
+    args = (fields, cfg, shifts, nb.alpha, ONE_4PI_EPS0)
+    kw = dict(nb.coulomb, excl_skip=nb.excl_skip)
+    f_b1, err_b1, ms_b1, plain_b1 = kernel_parity("7", "B1 RF", sweep,
+                                                  args, kw)
+    _, err_b2, ms_b2, plain_b2 = kernel_parity("7", "B2 RF", sweep_chunked,
+                                               args, kw, ref=f_b1)
+    del f_b1
+    bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(
+        fields, cfg, shifts, method="rf")
+    log(f"7 RF force bound {bound_ms:.4f} ms ({bound_by}: {n_tests} pair "
+        f"tests, {n_cut} inside the cutoff, {n_bytes} bytes; "
+        f"{n / cfg.n_cells:.2f} atoms a cell of capacity {cfg.capacity}): "
+        f"B1 at "
+        f"{bound_ms / ms_b1:.1%}, B2 at {bound_ms / ms_b2:.1%} on {card}")
+    e1 = energy_check("7 B1 RF", sweep, fields, cfg, shifts, nb.alpha, card,
+                      nb.coulomb, nb.excl_skip)
+    e2 = energy_check("7 B2 RF", sweep_chunked, fields, cfg, shifts,
+                      nb.alpha, card, nb.coulomb, nb.excl_skip)
+    del fields, args
+    times = breakdown(ctx, sweep.pair_forces, "b1_sweep_rf", ms_step, card,
+                      "7", reps=3)
+
+    # a Context routed to B2 (use_pallas 3) from the same state
+    ctx2, integ2 = make_ctx("single", {"use_pallas": 3,
+                                       "capacity": cfg.capacity})
+    ctx2.setPositions((st.positions.double() + st.pos_err.double())
+                      .cpu().numpy())
+    ctx2.setVelocities(st.velocities.double().cpu().numpy())
+    ctx2._ensure_forces()
+    if ctx2._nb.sweep_kernel != "b2":
+        fail(f"7: use_pallas 3 routed to {ctx2._nb.sweep_kernel}")
+    _, b2_launches, plain = counted(lambda: integ2.step(IL_B2_STEPS))
+    _, b2_e_launches, plain_e = counted(
+        lambda: ctx2.getState(energy=True).getPotentialEnergy())
+    log(f"7 a Context routed to B2: {IL_B2_STEPS} steps, launches "
+        f"{b2_launches}, then its energy: {b2_e_launches}; plain sweeps "
+        f"{plain + plain_e}")
+    if (b2_launches["b2_sweep_rf"] < IL_B2_STEPS or b2_launches["b1_sweep_rf"]
+            or b2_e_launches["b2_energy_rf"] != 1 or plain or plain_e):
+        fail("7: the B2-routed Context did not run B2's RF instantiation")
+    del ctx2, integ2, ctx, integ
+    torch.cuda.empty_cache()
+    src1 = "openmm_drudenose_tpu_torch/csrc/sweep.cu"
+    src2 = "openmm_drudenose_tpu_torch/csrc/sweep_chunked.cu"
+    tpu1 = "openmm_drudenose_tpu/ops/pallas_sweep.py:440"
+    tpu2 = "openmm_drudenose_tpu/ops/pallas_sweep.py:851"
+    common = {"route": "cuda", "coulomb": "rf", "capacity": cfg.capacity,
+              "library_ms": None}
+    return [dict(common, name="b1_sweep_rf", instantiation="forces",
+                 source=src1, replaces=tpu1,
+                 launches=launches["b1_sweep_rf"],
+                 launches_per_step=launches["b1_sweep_rf"] / IL_STEPS,
+                 max_abs_err=err_b1, ms=ms_b1, plain_ms=plain_b1,
+                 bound_ms=bound_ms, bound_by=bound_by),
+            dict(common, name="b1_energy_rf", instantiation="energy",
+                 source=src1, replaces=tpu1, launches=1, **e1),
+            dict(common, name="b2_sweep_rf", instantiation="forces",
+                 source=src2, replaces=tpu2,
+                 launches=b2_launches["b2_sweep_rf"],
+                 launches_per_step=b2_launches["b2_sweep_rf"] / IL_B2_STEPS,
+                 max_abs_err=err_b2, ms=ms_b2, plain_ms=plain_b2,
+                 bound_ms=bound_ms, bound_by=bound_by),
+            dict(common, name="b2_energy_rf", instantiation="energy",
+                 source=src2, replaces=tpu2,
+                 launches=b2_e_launches["b2_energy_rf"], **e2)], times
+
+
+def phase_polymer(card):
+    """8. The solvated polymer at full width through B1's Ewald
+    instantiation with the bonded terms (see the module docstring)."""
+    import torch
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.io import polymer
+    from openmm_drudenose_tpu_torch.ops import sweep
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    t = time.time()
+    system, pos, poly, water = polymer.build_solvated_polymer(
+        100, 30, 20000, method=dt.NonbondedForce.PME, cutoff=1.0)
+    n = system.getNumParticles()
+
+    def make_ctx(precision, options):
+        integ = polymer.make_tgnh_integrator(poly, water, n,
+                                             temperature=300.0,
+                                             drude_temperature=1.0)
+        integ.setMaxDrudeDistance(0.02)
+        # the chain's 1-3 exclusions (~0.65 nm) span more than a cell
+        # (0.562 nm): the exclusion test runs at every offset
+        ctx = dt.Context(system, integ, precision=precision,
+                         strategy="cellpair", device="cuda",
+                         nb_options=dict(options, excl_skip=False))
+        return ctx, integ
+
+    ctx, integ = make_ctx("single", {})
+    ctx.setPositions(pos)
+    ctx._ensure_neighbors()
+    nb, cfg = ctx._nb, ctx._cp_cfg
+    forces = sorted(type(f).__name__ for f in system.getForces())
+    log(f"8 polymer built and bound in {time.time() - t:.1f} s: {n} atoms "
+        f"({len(poly)} polymer, {len(water) // 5} waters), forces {forces}, "
+        f"cell grid {cfg.grid}, capacity {cfg.capacity}, {cfg.n_offsets} "
+        f"offsets, PME grid {nb.pme.grid}, route {nb.sweep_kernel}, "
+        f"{ctx._static.n_baths} baths")
+    if not (nb.sweep_kernel == "b1" and nb.coulomb["method"] == "ewald"
+            and ctx._static.n_baths == 4 and len(poly) == 6000):
+        fail("8: the polymer is not the Ewald system on B1 with four baths")
+    minimized("8", ctx, POLY_MIN)
+    ctx.setVelocitiesToTemperature(300.0, seed=0)
+    targets = np.array([300.0, 300.0, 300.0, 1.0])
+    t = time.time()
+    integ.step(POLY_SETTLE)
+    torch.cuda.synchronize()
+    settled = ctx.getState(groups=True).getGroupTemperatures()
+    log(f"8 {POLY_SETTLE} settling steps in {time.time() - t:.2f} s; bath "
+        f"temperatures {np.round(settled, 3).tolist()} K")
+    ms_step, nsd, launches, plain, mean = run_blocks(ctx, integ, POLY_STEPS,
+                                                     targets)
+    log(f"8 {POLY_STEPS} steps: {ms_step:.2f} ms/step, {nsd:.4f} ns/day on "
+        f"{card}; launches {launches}; plain sweeps on the card {plain}; "
+        f"capacity {ctx._cp_cfg.capacity}")
+    if launches["b1_sweep"] < POLY_STEPS or plain or any(
+            launches[k] for k in ("b2_sweep", "b1_sweep_rf")):
+        fail("8: the steps did not run their forces through B1 alone")
+    temps = state_checks("8", ctx, make_ctx, "b1_energy")
+    hold_bands("8", ["polymer", "water", "COM", "Drude"], mean, temps,
+               POLY_BANDS)
+    nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
+    box_diag = torch.diagonal(st.box)
+    fields = nb.fields(st.positions, box_diag, st.neighbors)
+    shifts = cellpair.offset_shifts(cfg, box_diag)
+    args = (fields, cfg, shifts, nb.alpha, ONE_4PI_EPS0)
+    _, _, ms_b1, _ = kernel_parity("8", "B1", sweep, args,
+                                   dict(nb.coulomb, excl_skip=nb.excl_skip))
+    bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(fields, cfg,
+                                                              shifts)
+    log(f"8 B1 {ms_b1:.4f} ms against its bound {bound_ms:.4f} ms "
+        f"({bound_by}: {n_tests} pair tests, {n_cut} inside the cutoff; "
+        f"{bound_ms / ms_b1:.1%}) on {card}")
+    del fields, args
+    times = breakdown(ctx, sweep.pair_forces, "b1_sweep", ms_step, card,
+                      "8", reps=3)
+    del ctx, integ
+    torch.cuda.empty_cache()
+    return times
+
+
 def main():
     # ---- 0. device --------------------------------------------------------
     import torch
@@ -1036,7 +1497,7 @@ def main():
     import openmm_drudenose_tpu_torch as dt
     from openmm_drudenose_tpu_torch.forces import cellpair
     from openmm_drudenose_tpu_torch.io import builders
-    from openmm_drudenose_tpu_torch.ops import sweep
+    from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
     from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0, ns_per_day
     if "jax" in sys.modules or "openmm_drudenose_tpu" in sys.modules:
         fail("the port pulled in JAX or the JAX package")
@@ -1091,7 +1552,14 @@ def main():
     shifts = cellpair.offset_shifts(cfg, box_diag)
     args = (fields, cfg, shifts, nb.alpha, ONE_4PI_EPS0)
     f_k = sweep.pair_forces(*args)
+    f_k2 = sweep.pair_forces(*args)
     torch.cuda.synchronize()
+    b1_identical = bool(torch.equal(f_k, f_k2))
+    del f_k2
+    log(f"2 B1 launched twice on the same fields: bit-identical "
+        f"{b1_identical}")
+    if not b1_identical:
+        fail("two B1 launches on the same fields gave different forces")
     f_p = sweep.pair_forces_plain(*args)
     scale = float(torch.max(torch.abs(f_p)))
     err_plain = float(torch.max(torch.abs(f_k - f_p))) / scale
@@ -1117,11 +1585,14 @@ def main():
     plain_ms = cuda_time_ms(lambda: sweep.pair_forces_plain(*args), 3)
     bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(fields, cfg,
                                                               shifts)
-    log(f"2 B1 {ms:.4f} ms (recorded before the energy instantiation: "
+    log(f"2 B1 {ms:.4f} ms (recorded with atomic reactions: "
         f"{RECORDED_MS['b1_sweep']} ms on NVIDIA H100 80GB HBM3, 700 W; "
         f"{regs['b1_sweep']} registers), plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_tests} "
         f"pair tests, {n_cut} inside the cutoff, {n_bytes} bytes) on {card}")
+    split = kernel_split(lambda: sweep.pair_forces(*args))
+    log("2 B1's two kernels (torch.profiler, device ms a launch): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
     phase_seconds["2 B1 at 100k"] = phase_mark()
     check_words(ctx, system)
     check_capacity(ctx, card)
@@ -1129,7 +1600,7 @@ def main():
 
     # ---- 3. the slice --------------------------------------------------------
     ctx64, _ = make_ctx("double")
-    ferr, ferr_all, frms, n_flip, fs = force_pass_floor(ctx, ctx64)
+    ferr, ferr_all, frms, n_flip, fs, _ = force_pass_floor(ctx, ctx64)
     del ctx64
     torch.cuda.empty_cache()
     log(f"3 force pass f32 vs f64: max {ferr:.3e} ({ferr_all:.3e} with "
@@ -1166,8 +1637,22 @@ def main():
                             ctx._state.neighbors), cfg,
                   cellpair.offset_shifts(cfg, torch.diagonal(ctx._state.box)),
                   nb.alpha, ONE_4PI_EPS0)
+    # the checkpoint replay through B1 (its forces in a fixed order)
+    path = os.path.join(HERE, "build", "chip_smoke", "water100k.chk")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    dt.save_checkpoint(path, ctx)
+    integ.step(REPLAY_STEPS)
+    first = ctx._state.positions.clone()
+    dt.load_checkpoint(path, ctx)
+    _, replay_launches, _ = counted(lambda: integ.step(REPLAY_STEPS))
+    dx = float(torch.max(torch.abs(ctx._state.positions - first)))
+    log(f"3 checkpoint of the 100k NVT state, {REPLAY_STEPS} steps, loaded, "
+        f"{REPLAY_STEPS} steps through B1 (launches {replay_launches}): "
+        f"max |dx| {dx:.3e} nm")
+    if dx != 0.0 or replay_launches["b1_sweep"] < REPLAY_STEPS:
+        fail("the 100k checkpoint replay through B1 was not bit for bit")
     phase_seconds["3 the 100k slice"] = phase_mark()
-    del ctx, integ
+    del ctx, integ, first
     torch.cuda.empty_cache()
 
     # ---- 4. B2 and the large path ------------------------------------------
@@ -1184,7 +1669,21 @@ def main():
     b1_energy = phase_npt(card, ms_step, pos, vel, cap)
     phase_seconds["6 NPT at 100k"] = phase_mark()
 
-    # ---- 7. kernel summary --------------------------------------------------
+    # ---- 7. the ionic liquid, the reaction field through B1 ----------------
+    rf_entries, _ = phase_ionic_liquid(card)
+    rf_regs = {f"{k}_sweep_rf": mod.attributes(False, "rf")["regs"]
+               for k, mod in (("b1", sweep), ("b2", sweep_chunked))}
+    rf_regs.update({f"{k}_energy_rf": mod.attributes(True, "rf")["regs"]
+                    for k, mod in (("b1", sweep), ("b2", sweep_chunked))})
+    for e in rf_entries:
+        e["registers"] = rf_regs[e["name"]]
+    phase_seconds["7 the ionic liquid"] = phase_mark()
+
+    # ---- 8. the solvated polymer -------------------------------------------
+    phase_polymer(card)
+    phase_seconds["8 the polymer"] = phase_mark()
+
+    # ---- 9. kernel summary --------------------------------------------------
     log("seconds per phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_seconds.items()))
     src, tpu = ("openmm_drudenose_tpu_torch/csrc/sweep.cu",
@@ -1202,7 +1701,7 @@ def main():
         "name": "b1_energy", "instantiation": "energy", "route": "cuda",
         "source": src, "replaces": tpu, "registers": regs["b1_energy"],
         **b1_energy, "library_ms": None,
-    }, *b2_entries]
+    }, *b2_entries, *rf_entries]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

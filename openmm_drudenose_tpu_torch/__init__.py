@@ -3,9 +3,11 @@ engine, beside the JAX package it is held against.
 
 The main path: build a System (io/builders.build_water_box gives the
 SWM4-NDP benchmark water, build_nacl_water_box the reference example's
-NaCl solution), bind a DrudeTGNHIntegrator into a Context (or a
-Simulation with its reporters) and step it, with a MonteCarloBarostat
-for NPT.  The direct-space sweep of large systems and its energy run in
+NaCl solution, io/ionic_liquid.build_ionic_liquid the coarse-grained
+ionic liquid with per-ion temperature groups and io/polymer.
+build_solvated_polymer the polarizable polymer in water), bind a
+DrudeTGNHIntegrator into a Context (or a Simulation with its reporters)
+and step it, with a MonteCarloBarostat for NPT.  The direct-space sweep of large systems and its energy run in
 hand-written CUDA kernels (ops/sweep.py, ops/sweep_chunked.py, csrc/);
 everything else is plain PyTorch.  Entry points run on CUDA unless the
 caller passes device="cpu".
@@ -24,6 +26,8 @@ from .app.context import Context, State
 from .app.integrator import DrudeTGNHIntegrator
 from .app.serialization import load_checkpoint, save_checkpoint
 from .app.simulation import CheckpointReporter, Simulation, StateDataReporter
+from .forces.bonded import (HarmonicAngleForce, HarmonicBondForce,
+                            HarmonicTorsionForce, PeriodicTorsionForce)
 from .forces.cmmotion import CMMotionRemover, MonteCarloBarostat
 from .forces.drude import DrudeForce
 from .forces.nonbonded import NonbondedForce
@@ -33,6 +37,8 @@ from .units import BOLTZ, ONE_4PI_EPS0
 __all__ = [
     "System", "TwoParticleAverageSite", "ThreeParticleAverageSite",
     "DrudeForce", "NonbondedForce", "CMMotionRemover", "MonteCarloBarostat",
+    "HarmonicBondForce", "HarmonicAngleForce", "PeriodicTorsionForce",
+    "HarmonicTorsionForce",
     "DrudeTGNHIntegrator", "Context", "State", "Simulation",
     "StateDataReporter", "CheckpointReporter", "save_checkpoint",
     "load_checkpoint", "BOLTZ", "ONE_4PI_EPS0",

@@ -6,7 +6,7 @@ applyVelocityConstraints, minimizeEnergy, reinitialize, getState, step)
 as in the JAX package's app/context.py.  The in-step force pass
 (`_forces_only`, the JAX forces_only :248) adds the direct-space sweep
 forces (kernel B1 or B2 in float32 on the cell-pair strategy, the dense
-sum on the dense one), the analytic PME reciprocal forces, the
+sum on the dense one), the analytic PME reciprocal forces (Ewald/PME), the
 exception/correction/NBFIX terms and the Drude forces at the
 virtual-site-composed positions, then moves site forces onto their
 parents.  `_potential` is the energy (the kernels' energy instantiation
@@ -208,14 +208,25 @@ class Context:
         pos = apply_vsites(spec, static, positions)
         f = torch.zeros_like(pos)
         nb = self._nb
+        exact = self._exact_positions(positions, pos_err)
         if nb is not None:
-            exact = self._exact_positions(positions, pos_err)
             f = nb.sweep_forces(pos, box_diag, neighbors, exact)
-            f = f + nb.recip(pos, box_diag, exact)[1]
+            if nb.pme is not None:
+                f = f + nb.recip(pos, box_diag, exact)[1]
             f = f + nb.extras(pos, box_diag, exact)[1]
         for term in self._terms:
-            f = f + term.energy_forces(pos, box_diag, pos_err=pos_err)[1]
+            f = f + term.energy_forces(pos, box_diag,
+                                       **self._term_kw(term, pos_err,
+                                                       exact))[1]
         return spread_vsite_forces(spec, static, f)
+
+    @staticmethod
+    def _term_kw(term, pos_err, exact):
+        """The compensation a term reads: the float64 positions (`exact`)
+        for the bonded terms, pos_err for the Drude springs."""
+        if getattr(term, "takes_exact", False):
+            return {"exact": exact}
+        return {"pos_err": pos_err}
 
     def _potential(self, positions, box, neighbors, pos_err):
         """Total potential energy, a float64 0-d tensor: each part in the
@@ -228,15 +239,17 @@ class Context:
         pos = apply_vsites(self._spec, self._static, positions)
         e = torch.zeros((), dtype=torch.float64, device=pos.device)
         nb = self._nb
+        exact = self._exact_positions(positions, pos_err)
         if nb is not None:
-            exact = self._exact_positions(positions, pos_err)
             e = e + nb.sweep_energy(pos, box_diag, neighbors, exact).double()
-            e = e + nb.recip_energy(pos, box_diag, exact).double()
+            if nb.pme is not None:
+                e = e + nb.recip_energy(pos, box_diag, exact).double()
             e = e + nb.extras(pos, box_diag, exact,
                               with_forces=False)[0].double()
         for term in self._terms:
-            e = e + term.energy_forces(pos, box_diag, pos_err=pos_err,
-                                       with_forces=False)[0].double()
+            e = e + term.energy_forces(pos, box_diag, with_forces=False,
+                                       **self._term_kw(term, pos_err,
+                                                       exact))[0].double()
         return e
 
     # -- state manipulation ---------------------------------------------------

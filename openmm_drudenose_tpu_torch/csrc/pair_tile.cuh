@@ -35,6 +35,14 @@
 // half weight.  warp_sum and sum_fixed_order finish the sum in an order
 // fixed by the data, so two launches give the same bits.  The
 // force-only instantiation compiles as it did without this flag.
+//
+// The Coulomb kind is a template parameter (kCoul) of the pair function
+// and of every walk above it, as in the TPU kernel's _make_pair_g
+// (ops/pallas_sweep.py:111-135 in the JAX package): kEwald, the real
+// space erfc(alpha r) / r (the A&S 7.1.26 rational in the force, erfcf
+// in the energy), or kRF, the reaction field qq (1/r + krf r^2 - crf),
+// whose dE/dr^2 is qq (-1/(2 r^3) + krf).  `if constexpr` keeps each
+// kind's arithmetic out of the other's instantiation.
 
 #pragma once
 
@@ -57,7 +65,11 @@ struct Fields {  // cell-major slot arrays (forces/cellpair.py::sorted_fields)
 struct Params {
   float cutoff2, alpha, coulomb_scale;
   int excl_window, n_words;
+  float krf, crf;  // the reaction field's constants (kRF only)
 };
+
+// the Coulomb kinds of the pair function (the launches' `coulomb`)
+enum Coulomb : int { kEwald = 0, kRF = 1 };
 
 struct Tile {  // up to 32 neighbour slots, staged by one warp
   float4 xyzq[32];  // shifted position, charge
@@ -178,14 +190,13 @@ __device__ __forceinline__ bool beyond(const Box& a, const Box& b,
 // The force on the lane's atom h from slot j of tile t, by the pair rules
 // above, or zero where the pair is not kept (`valid` false: no such slot).
 // With kEnergy, the pair's energy into *pe instead (zero where not kept)
-// and no force.
-template <bool kSelf, bool kEnergy = false>
+// and no force.  kCoul: the Coulomb kind.
+template <int kCoul, bool kSelf, bool kEnergy = false>
 __device__ __forceinline__ void pair_force(const Home& h, const Tile& t,
                                            int j, bool valid, int j0,
                                            bool chk, const Params& p,
                                            float& px, float& py, float& pz,
                                            float* pe = nullptr) {
-  const float two_over_sqrt_pi = 1.1283791670955126f;
   const int W = p.excl_window;
   px = py = pz = 0.f;
   if constexpr (kEnergy) *pe = 0.f;
@@ -215,22 +226,32 @@ __device__ __forceinline__ void pair_force(const Home& h, const Tile& t,
   const float s2 = sg * sg * inv_r2;
   const float x6 = s2 * s2 * s2;
   if constexpr (kEnergy) {
-    *pe = 4.f * ep * x6 * (x6 - 1.f) +
-          qq * erfcf(p.alpha * r2s * inv_r) * inv_r;
+    float e_c;
+    if constexpr (kCoul == kEwald)
+      e_c = qq * erfcf(p.alpha * r2s * inv_r) * inv_r;
+    else
+      e_c = qq * (inv_r + p.krf * r2s - p.crf);
+    *pe = 4.f * ep * x6 * (x6 - 1.f) + e_c;
     return;
   }
   const float g_lj = -4.f * ep * (6.f * x6 * x6 - 3.f * x6) * inv_r2;
-  const float ar = p.alpha * r2s * inv_r;
-  const float tt = __fdividef(1.f, 1.f + 0.3275911f * ar);
-  const float expm = __expf(-ar * ar);
-  const float erfc_ar =
-      tt * (0.254829592f +
-            tt * (-0.284496736f +
-                  tt * (1.421413741f +
-                        tt * (-1.453152027f + tt * 1.061405429f)))) *
-      expm;
-  const float g_c = -0.5f * qq * inv_r2 *
-                    (erfc_ar * inv_r + two_over_sqrt_pi * p.alpha * expm);
+  float g_c;
+  if constexpr (kCoul == kEwald) {
+    const float two_over_sqrt_pi = 1.1283791670955126f;
+    const float ar = p.alpha * r2s * inv_r;
+    const float tt = __fdividef(1.f, 1.f + 0.3275911f * ar);
+    const float expm = __expf(-ar * ar);
+    const float erfc_ar =
+        tt * (0.254829592f +
+              tt * (-0.284496736f +
+                    tt * (1.421413741f +
+                          tt * (-1.453152027f + tt * 1.061405429f)))) *
+        expm;
+    g_c = -0.5f * qq * inv_r2 *
+          (erfc_ar * inv_r + two_over_sqrt_pi * p.alpha * expm);
+  } else {
+    g_c = qq * (-0.5f * inv_r2 * inv_r + p.krf);
+  }
   const float g2 = -2.f * (g_lj + g_c);
   px = g2 * dx;
   py = g2 * dy;
@@ -241,6 +262,7 @@ __device__ __forceinline__ void pair_force(const Home& h, const Tile& t,
 // the staged tile (nb slots, tile slot j being cell slot j0 + j).  Adds
 // the row forces to (fx, fy, fz) and leaves in (rx, ry, rz) of lane l the
 // sum of the reactions on tile slot l (zero for l >= nb).
+template <int kCoul>
 __device__ __forceinline__ void walk(const Home& h, const Tile& t, int na,
                                      int nb, int j0, bool chk,
                                      const Params& p, int lane, float& fx,
@@ -252,7 +274,7 @@ __device__ __forceinline__ void walk(const Home& h, const Tile& t, int na,
   int j = lane;
   for (int k = 0; k < m; ++k) {
     float px, py, pz;
-    pair_force<false>(h, t, j, j < nb, j0, chk, p, px, py, pz);
+    pair_force<kCoul, false>(h, t, j, j < nb, j0, chk, p, px, py, pz);
     fx += px;
     fy += py;
     fz += pz;
@@ -271,7 +293,7 @@ __device__ __forceinline__ void walk(const Home& h, const Tile& t, int na,
 // and lane k takes its three sums into (rx, ry, rz).  With kEnergy
 // (and no kReact), only the lane's pair energies, added to *esum in step
 // order (at half weight in the self cell, which meets each pair twice).
-template <bool kSelf, bool kReact, bool kEnergy = false>
+template <int kCoul, bool kSelf, bool kReact, bool kEnergy = false>
 __device__ __forceinline__ void walk_bcast(const Home& h, const Tile& t,
                                            int nb, int j0, bool chk,
                                            const Params& p, int lane,
@@ -284,11 +306,12 @@ __device__ __forceinline__ void walk_bcast(const Home& h, const Tile& t,
     float px, py, pz;
     if constexpr (kEnergy) {
       float e;
-      pair_force<kSelf, true>(h, t, k, true, j0, chk, p, px, py, pz, &e);
+      pair_force<kCoul, kSelf, true>(h, t, k, true, j0, chk, p, px, py, pz,
+                                     &e);
       *esum += kSelf ? 0.5 * (double)e : (double)e;
       continue;
     }
-    pair_force<kSelf>(h, t, k, true, j0, chk, p, px, py, pz);
+    pair_force<kCoul, kSelf>(h, t, k, true, j0, chk, p, px, py, pz);
     fx += px;
     fy += py;
     fz += pz;
@@ -330,6 +353,7 @@ __device__ __forceinline__ void walk_bcast(const Home& h, const Tile& t,
 // atoms are loaded here, not held across calls, which keeps one atom's
 // registers live at a time.  Adds the row forces to (fx, fy, fz) and
 // leaves the reaction on tile slot l in (rx, ry, rz) of lane l.
+template <int kCoul>
 __device__ __forceinline__ void tile_pair(
     bool self, const Fields& fd, const Params& p, int abase, int a0, int na,
     const Tile& th, const Tile& t, int nbase, int nb, int j0, float tx,
@@ -340,8 +364,8 @@ __device__ __forceinline__ void tile_pair(
   if (bcast && nb > na) {
     const Home hb = load_home(fd, p, nbase, lane, lane < nb, tx, ty, tz);
     float gx = 0.f, gy = 0.f, gz = 0.f, sx, sy, sz;
-    walk_bcast<false, true>(hb, th, na, a0, chk, p, lane, gx, gy, gz, sx,
-                            sy, sz, part);
+    walk_bcast<kCoul, false, true>(hb, th, na, a0, chk, p, lane, gx, gy, gz,
+                                   sx, sy, sz, part);
     fx += sx;
     fy += sy;
     fz += sz;
@@ -352,19 +376,20 @@ __device__ __forceinline__ void tile_pair(
   }
   const Home h = load_home(fd, p, abase, a0 + lane, lane < na);
   if (self) {
-    walk_bcast<true, false>(h, t, nb, j0, chk, p, lane, fx, fy, fz, rx, ry,
-                            rz, part);
+    walk_bcast<kCoul, true, false>(h, t, nb, j0, chk, p, lane, fx, fy, fz, rx,
+                                   ry, rz, part);
   } else if (bcast) {
-    walk_bcast<false, true>(h, t, nb, j0, chk, p, lane, fx, fy, fz, rx, ry,
-                            rz, part);
+    walk_bcast<kCoul, false, true>(h, t, nb, j0, chk, p, lane, fx, fy, fz, rx,
+                                   ry, rz, part);
   } else {
-    walk(h, t, na, nb, j0, chk, p, lane, fx, fy, fz, rx, ry, rz);
+    walk<kCoul>(h, t, na, nb, j0, chk, p, lane, fx, fy, fz, rx, ry, rz);
   }
 }
 
 // The energy of one home part (na atoms from cell slot `abase` + a0)
 // against one staged tile t (nb slots, tile slot j being cell slot
 // j0 + j), added to the lane's *esum by the broadcast walk.
+template <int kCoul>
 __device__ __forceinline__ void tile_energy(bool self, const Fields& fd,
                                             const Params& p, int abase,
                                             int a0, int na, const Tile& t,
@@ -374,11 +399,11 @@ __device__ __forceinline__ void tile_energy(bool self, const Fields& fd,
   const Home h = load_home(fd, p, abase, a0 + lane, lane < na);
   float fx = 0.f, fy = 0.f, fz = 0.f, rx, ry, rz;
   if (self)
-    walk_bcast<true, false, true>(h, t, nb, j0, chk, p, lane, fx, fy, fz,
-                                  rx, ry, rz, part, &esum);
+    walk_bcast<kCoul, true, false, true>(h, t, nb, j0, chk, p, lane, fx, fy,
+                                         fz, rx, ry, rz, part, &esum);
   else
-    walk_bcast<false, false, true>(h, t, nb, j0, chk, p, lane, fx, fy, fz,
-                                   rx, ry, rz, part, &esum);
+    walk_bcast<kCoul, false, false, true>(h, t, nb, j0, chk, p, lane, fx, fy,
+                                          fz, rx, ry, rz, part, &esum);
 }
 
 // The sum of the warp's 32 values in a fixed tree order, on lane 0.

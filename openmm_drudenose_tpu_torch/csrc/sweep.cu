@@ -3,8 +3,9 @@
 // package (forces only), with an energy instantiation of its own.
 //
 // Physics: LJ with Lorentz sigma and Berthelot sqrt(eps) product, plus
-// Ewald real-space Coulomb with the Abramowitz & Stegun 7.1.26 erfc (the
-// same polynomial as the TPU kernel, so the two agree term for term).
+// either Ewald real-space Coulomb with the Abramowitz & Stegun 7.1.26
+// erfc (the same polynomial as the TPU kernel, so the two agree term for
+// term) or the reaction field qq (1/r + krf r^2 - crf) (CutoffPeriodic).
 // Pairs: the home cell against itself (a != b, row forces only) and the
 // half stencil of neighbour cells, each pair's reaction credited to the
 // neighbour slot (Newton's third law).  Cutoff test, r^2 clamp 1e-6, an
@@ -28,23 +29,33 @@
 //    shuffle reduction per neighbour slot; a remainder part or tile past
 //    32 slots takes the broadcast walk over it, with partial sums in a
 //    column of shared memory a lane.
-//  * Each (neighbour slot, unit, offset) reaction goes to device memory
-//    with one atomicAdd a component, skipped where it is zero (pairs
-//    beyond the cutoff); each home slot's row force once a unit.
+//  * Every sum runs in an order fixed by the data, so two launches on the
+//    same inputs give the same bits (the checkpoint replay of a run
+//    routed here depends on it).  No atomics add forces: each (home cell,
+//    part, stencil offset) writes its reactions on the neighbour's slots
+//    into a frame entry of its own (rframe), one writer an entry, and
+//    each work unit writes its home part's row forces into an entry of
+//    its own (hframe).  A second kernel (gather_kernel) gives each slot
+//    its force: its cell's home entries in group order, then the
+//    reactions of every cell whose half stencil reaches it, in part and
+//    offset order (the reverse neighbour map rnbr).  The frames cost
+//    device-memory traffic (at 100k atoms, 15^3 cells, C = 48: ~1e8
+//    bytes written and read again against the sweep's few MB of
+//    fields), which the sweep's stores overlap with its pair arithmetic.
 //
 // Any cell capacity (tiles of 32 on both sides) and any number of
 // exclusion words (kRegWords of them in registers, the rest read from
-// device memory).  The atomics make the last bits depend on the order in
-// which warps finish; kernel B2 (sweep_chunked.cu) is the deterministic
-// sweep.
+// device memory).  The Coulomb kind is a template parameter (Ewald real
+// space or the reaction field, as the TPU kernel's method argument), so
+// each kind compiles to its own instantiation.
 //
 // The energy instantiation (sweep_energy) is the same unit loop with the
-// energy walk of pair_tile.cuh: the exact erfc (erfcf), no forces; each
-// unit's energy, summed in double in a fixed order, goes to a partial of
-// its own, and one CTA sums the partials in index order.  The JAX
-// package computes this energy outside Pallas (its XLA sweep); here it
-// is a kernel so that the barostat and getState(energy=True) read it
-// without the plain sweep.  Its energy is the same bits at every launch.
+// energy walk of pair_tile.cuh: the exact erfc (erfcf) or the reaction
+// field, no forces; each unit's energy, summed in double in a fixed
+// order, goes to a partial of its own, and one CTA sums the partials in
+// index order.  The JAX package computes this energy outside Pallas (its
+// XLA sweep); here it is a kernel so that the barostat and
+// getState(energy=True) read it without the plain sweep.
 //
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 
@@ -67,13 +78,19 @@ constexpr int kOffsetsPerUnit = 8;  // stencil offsets a work unit
 // A work unit is (home cell, 32-slot part, group of kOffsetsPerUnit
 // offsets); warps take units in order from the counter *next_unit until
 // none is left, so the card stays busy to the end (a unit whose part is
-// empty is skipped at once).  With kEnergy the unit's energy goes to
-// e_part[unit] (left zero for an empty part) and no force is written.
-template <bool kEnergy>
+// empty is skipped at once).  The force instantiation writes the
+// reactions of offset o >= 1 on neighbour slot b into
+// rframe[entry(cell, part, o)][component][b] for every slot b of the
+// neighbour (zeros where the tile lies beyond the cutoff), and the unit's
+// row forces into hframe[(cell, part, group)][component][lane].  With
+// kEnergy the unit's energy goes to e_part[unit] (left zero for an empty
+// part) and no force is written.
+template <bool kEnergy, int kCoul>
 __global__ void __launch_bounds__(kWarps * 32)
     sweep_kernel(Fields fd, const int* __restrict__ nbr,
                  const float* __restrict__ shift,
-                 const int* __restrict__ check_excl, float* __restrict__ f,
+                 const int* __restrict__ check_excl,
+                 float* __restrict__ rframe, float* __restrict__ hframe,
                  double* __restrict__ e_part, int* __restrict__ next_unit,
                  int n_cells, int cap, int parts, int n_off, int n_groups,
                  Params p) {
@@ -106,23 +123,35 @@ __global__ void __launch_bounds__(kWarps * 32)
       const float tx = shift[3 * o], ty = shift[3 * o + 1],
                   tz = shift[3 * o + 2];
       const bool chk = check_excl[o] != 0 && p.excl_window > 0;
+      // this (cell, part, o)'s frame entry: (3, cap) floats
+      float* fo = (kEnergy || o == 0)
+                      ? nullptr
+                      : rframe + ((size_t)cp * (n_off - 1) + (o - 1)) * 3 *
+                                     (size_t)cap;
       for (int b0 = 0; b0 < nb; b0 += 32) {
         const int nb_t = min(nb - b0, 32);
         const pair_tile::Box nbox =
             pair_tile::stage(t, fd, bc * cap + b0, nb_t, tx, ty, tz, lane);
-        if (o != 0 && pair_tile::beyond(home, nbox, p.cutoff2)) continue;
+        if (o != 0 && pair_tile::beyond(home, nbox, p.cutoff2)) {
+          if (!kEnergy && lane < nb_t) {
+            fo[b0 + lane] = 0.f;
+            fo[cap + b0 + lane] = 0.f;
+            fo[2 * cap + b0 + lane] = 0.f;
+          }
+          continue;
+        }
         if constexpr (kEnergy) {
-          pair_tile::tile_energy(o == 0, fd, p, cell * cap, a0, na, t, nb_t,
-                                 b0, chk, lane, part, es);
+          pair_tile::tile_energy<kCoul>(o == 0, fd, p, cell * cap, a0, na,
+                                        t, nb_t, b0, chk, lane, part, es);
         } else {
-          pair_tile::tile_pair(o == 0, fd, p, cell * cap, a0, na, th, t,
-                               bc * cap + b0, nb_t, b0, tx, ty, tz, chk,
-                               lane, part, fx, fy, fz, rx, ry, rz);
+          pair_tile::tile_pair<kCoul>(o == 0, fd, p, cell * cap, a0, na, th,
+                                      t, bc * cap + b0, nb_t, b0, tx, ty, tz,
+                                      chk, lane, part, fx, fy, fz, rx, ry,
+                                      rz);
           if (o != 0 && lane < nb_t) {
-            float* fb = f + 3 * (bc * cap + b0 + lane);
-            if (rx != 0.f) atomicAdd(fb, rx);
-            if (ry != 0.f) atomicAdd(fb + 1, ry);
-            if (rz != 0.f) atomicAdd(fb + 2, rz);
+            fo[b0 + lane] = rx;
+            fo[cap + b0 + lane] = ry;
+            fo[2 * cap + b0 + lane] = rz;
           }
         }
         __syncwarp();  // the tile is restaged next
@@ -132,36 +161,83 @@ __global__ void __launch_bounds__(kWarps * 32)
       es = pair_tile::warp_sum(es);
       if (lane == 0) e_part[unit] = es;
     } else if (lane < na) {
-      float* fa = f + 3 * (cell * cap + a0 + lane);
-      atomicAdd(fa, fx);
-      atomicAdd(fa + 1, fy);
-      atomicAdd(fa + 2, fz);
+      float* fh = hframe + (size_t)unit * 96;
+      fh[lane] = fx;
+      fh[32 + lane] = fy;
+      fh[64 + lane] = fz;
     }
   }
 }
 
-// The launch shared by both instantiations: f (forces) or e_part and
-// e_out (energy) are the outputs; the other pointers may be null.
-template <bool kEnergy>
-int launch(const void* x, const void* y, const void* z, const void* q,
-           const void* sig, const void* seps, const void* gid,
-           const void* ew, const void* count, const void* nbr,
-           const void* shift, const void* check_excl, void* f, void* e_part,
-           void* e_out, void* next_unit, int n_cells, int cap, int n_off,
-           float cutoff2, float alpha, float coulomb_scale, int excl_window,
-           int n_words, int max_ctas, void* stream) {
+// Each slot's force from the frames, in an order fixed by the data: its
+// cell's home entries (one a group of offsets) in group order, then the
+// reactions written by the cells rnbr[cell, o] (whose offset-o neighbour
+// is this cell), part by part and, within a part, in offset order.
+// Entries of an empty home part were never written and are not read.
+// Slots past the cell's count get zero.  Each reaction costs a chain of
+// three dependent loads (rnbr, count, the entry); the offset loop is
+// unrolled so that the chains of several offsets are in flight at once
+// (one at a time, the gather took 0.11 ms at 100k atoms on an NVIDIA H100
+// 80GB HBM3 at 700 W).
+__global__ void gather_kernel(const float* __restrict__ rframe,
+                              const float* __restrict__ hframe,
+                              const int* __restrict__ count,
+                              const int* __restrict__ rnbr, int n_cells,
+                              int cap, int parts, int n_off, int n_groups,
+                              float* __restrict__ f) {
+  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= (long long)n_cells * cap) return;
+  const int cell = (int)(s / cap), a = (int)(s - (long long)cell * cap);
+  float fx = 0.f, fy = 0.f, fz = 0.f;
+  if (a < count[cell]) {
+    const float* fh = hframe +
+                      ((size_t)(cell * parts + (a >> 5)) * n_groups) * 96 +
+                      (a & 31);
+    for (int g = 0; g < n_groups; ++g) {
+      fx += fh[96 * g];
+      fy += fh[96 * g + 32];
+      fz += fh[96 * g + 64];
+    }
+    const int* rn = rnbr + (size_t)cell * n_off;
+    const size_t entry = 3 * (size_t)cap;
+    for (int pt = 0; pt < parts; ++pt) {
+#pragma unroll 8
+      for (int o = 1; o < n_off; ++o) {
+        const int hc = rn[o];
+        if (count[hc] > 32 * pt) {
+          const float* fr =
+              rframe +
+              ((size_t)(hc * parts + pt) * (n_off - 1) + (o - 1)) * entry +
+              a;
+          fx += fr[0];
+          fy += fr[cap];
+          fz += fr[2 * cap];
+        }
+      }
+    }
+  }
+  f[3 * s] = fx;
+  f[3 * s + 1] = fy;
+  f[3 * s + 2] = fz;
+}
+
+// The launch shared by both instantiations: rframe, hframe, rnbr and f
+// (forces) or e_part and e_out (energy) are the outputs' and their work
+// space; the others may be null.
+template <bool kEnergy, int kCoul>
+int launch(const Fields& fd, const void* nbr, const void* rnbr,
+           const void* shift, const void* check_excl, void* rframe,
+           void* hframe, void* f, void* e_part, void* e_out, void* next_unit,
+           int n_cells, int cap, int n_off, const Params& p, int max_ctas,
+           void* stream) {
   const long long parts = (cap + 31) / 32;
   const long long n_groups = (n_off + kOffsetsPerUnit - 1) / kOffsetsPerUnit;
   const long long units = (long long)n_cells * parts * n_groups;
-  if (cap < 1 || n_cells < 1 || n_off < 1 || n_words < 1 || max_ctas < 1 ||
-      3LL * n_cells * cap > INT32_MAX ||
-      (long long)n_cells * cap * n_words > INT32_MAX ||
+  if (cap < 1 || n_cells < 1 || n_off < 1 || p.n_words < 1 ||
+      max_ctas < 1 || 3LL * n_cells * cap > INT32_MAX ||
+      (long long)n_cells * cap * p.n_words > INT32_MAX ||
       (long long)n_cells * n_off > INT32_MAX || units > INT32_MAX)
     return (int)cudaErrorInvalidValue;
-  Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
-            (const float*)q,   (const float*)sig,  (const float*)seps,
-            (const int*)gid,   (const int*)ew,     (const int*)count};
-  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words};
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(next_unit, 0, sizeof(int), s);
   if (err == cudaSuccess && kEnergy)
@@ -170,15 +246,52 @@ int launch(const void* x, const void* y, const void* z, const void* q,
   // as many CTAs as the card holds at once (they loop over the units)
   const int blocks = (int)std::min<long long>(
       (units + kWarps - 1) / kWarps, (long long)max_ctas);
-  sweep_kernel<kEnergy><<<blocks, kWarps * 32, 0, s>>>(
+  sweep_kernel<kEnergy, kCoul><<<blocks, kWarps * 32, 0, s>>>(
       fd, (const int*)nbr, (const float*)shift, (const int*)check_excl,
-      (float*)f, (double*)e_part, (int*)next_unit, n_cells, cap, (int)parts,
-      n_off, (int)n_groups, p);
+      (float*)rframe, (float*)hframe, (double*)e_part, (int*)next_unit,
+      n_cells, cap, (int)parts, n_off, (int)n_groups, p);
   err = cudaGetLastError();
-  if (err != cudaSuccess || !kEnergy) return (int)err;
-  pair_tile::sum_fixed_order<<<1, pair_tile::kSumThreads, 0, s>>>(
-      (const double*)e_part, (int)units, (double*)e_out);
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (kEnergy) {
+    pair_tile::sum_fixed_order<<<1, pair_tile::kSumThreads, 0, s>>>(
+        (const double*)e_part, (int)units, (double*)e_out);
+  } else {
+    const long long n_slots = (long long)n_cells * cap;
+    gather_kernel<<<(int)((n_slots + 255) / 256), 256, 0, s>>>(
+        (const float*)rframe, (const float*)hframe, fd.count,
+        (const int*)rnbr, n_cells, cap, (int)parts, n_off, (int)n_groups,
+        (float*)f);
+  }
   return (int)cudaGetLastError();
+}
+
+// The instantiation of the Coulomb kind `coulomb` (pair_tile::Coulomb).
+template <bool kEnergy>
+int launch_kind(int coulomb, const Fields& fd, const void* nbr,
+                const void* rnbr, const void* shift, const void* check_excl,
+                void* rframe, void* hframe, void* f, void* e_part,
+                void* e_out, void* next_unit, int n_cells, int cap,
+                int n_off, const Params& p, int max_ctas, void* stream) {
+  if (coulomb == pair_tile::kEwald)
+    return launch<kEnergy, pair_tile::kEwald>(
+        fd, nbr, rnbr, shift, check_excl, rframe, hframe, f, e_part, e_out,
+        next_unit, n_cells, cap, n_off, p, max_ctas, stream);
+  if (coulomb == pair_tile::kRF)
+    return launch<kEnergy, pair_tile::kRF>(
+        fd, nbr, rnbr, shift, check_excl, rframe, hframe, f, e_part, e_out,
+        next_unit, n_cells, cap, n_off, p, max_ctas, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The kernel function of (energy, coulomb), or null.
+const void* kernel_of(int energy, int coulomb) {
+  if (coulomb == pair_tile::kEwald)
+    return energy ? (const void*)sweep_kernel<true, pair_tile::kEwald>
+                  : (const void*)sweep_kernel<false, pair_tile::kEwald>;
+  if (coulomb == pair_tile::kRF)
+    return energy ? (const void*)sweep_kernel<true, pair_tile::kRF>
+                  : (const void*)sweep_kernel<false, pair_tile::kRF>;
+  return nullptr;
 }
 
 }  // namespace
@@ -186,7 +299,7 @@ int launch(const void* x, const void* y, const void* z, const void* q,
 // Warps a CTA.
 extern "C" int sweep_warps_per_cta() { return kWarps; }
 
-// Work units (and energy partials) of a launch.
+// Work units (energy partials, home-row frame entries) of a launch.
 extern "C" int sweep_units(int n_cells, int cap, int n_off) {
   return n_cells * ((cap + 31) / 32) *
          ((n_off + kOffsetsPerUnit - 1) / kOffsetsPerUnit);
@@ -194,11 +307,13 @@ extern "C" int sweep_units(int n_cells, int cap, int n_off) {
 
 // out[0..3]: registers a thread, static shared memory, the most threads
 // a CTA may have and local (spill) memory a thread, as compiled for the
-// card, of the force (energy = 0) or the energy instantiation.
-extern "C" int sweep_attributes(int* out, int energy) {
+// card, of the force (energy = 0) or the energy instantiation of the
+// Coulomb kind `coulomb`.
+extern "C" int sweep_attributes(int* out, int energy, int coulomb) {
+  const void* k = kernel_of(energy, coulomb);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  cudaError_t err = energy ? cudaFuncGetAttributes(&a, sweep_kernel<true>)
-                           : cudaFuncGetAttributes(&a, sweep_kernel<false>);
+  cudaError_t err = cudaFuncGetAttributes(&a, k);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
@@ -207,40 +322,49 @@ extern "C" int sweep_attributes(int* out, int energy) {
   return 0;
 }
 
-// out[0..2]: the current card's SMs and the CTAs an SM holds at once of
-// the force and of the energy instantiation; the caller reads them once
-// and passes SMs x CTAs to sweep_forces / sweep_energy as max_ctas.
-extern "C" int sweep_occupancy(int* out) {
+// out[0..1]: the current card's SMs and the CTAs an SM holds at once of
+// the (energy, coulomb) instantiation; the caller reads them once and
+// passes SMs x CTAs to sweep_forces / sweep_energy as max_ctas.
+extern "C" int sweep_occupancy(int* out, int energy, int coulomb) {
+  const void* k = kernel_of(energy, coulomb);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount,
                                  dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[1], sweep_kernel<false>, kWarps * 32, 0);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &out[2], sweep_kernel<true>, kWarps * 32, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], k,
+                                                        kWarps * 32, 0);
   return (int)err;
 }
 
-// f: (n_slots, 3), zeroed by the caller; ew: (n_slots, n_words);
-// next_unit: one int of work space on the card (set to 0 here);
-// max_ctas: the CTAs the card holds at once (sweep_occupancy).
+// f: (n_slots, 3), every entry written; ew: (n_slots, n_words); rnbr:
+// (n_cells, n_off), the cell whose offset-o neighbour is the row's cell;
+// rframe: n_cells * parts * (n_off - 1) * 3 * cap floats and hframe:
+// sweep_units() * 96 floats of work space (written before they are
+// read); next_unit: one int of work space on the card (set to 0 here);
+// coulomb: pair_tile::Coulomb (krf and crf read for the reaction field
+// only); max_ctas: the CTAs the card holds at once (sweep_occupancy).
 extern "C" int sweep_forces(const void* x, const void* y, const void* z,
                             const void* q, const void* sig, const void* seps,
                             const void* gid, const void* ew,
                             const void* count, const void* nbr,
-                            const void* shift, const void* check_excl,
-                            void* f, void* next_unit, int n_cells, int cap,
-                            int n_off, float cutoff2, float alpha,
-                            float coulomb_scale, int excl_window,
-                            int n_words, int max_ctas, void* stream) {
-  return launch<false>(x, y, z, q, sig, seps, gid, ew, count, nbr, shift,
-                       check_excl, f, nullptr, nullptr, next_unit, n_cells,
-                       cap, n_off, cutoff2, alpha, coulomb_scale,
-                       excl_window, n_words, max_ctas, stream);
+                            const void* rnbr, const void* shift,
+                            const void* check_excl, void* rframe,
+                            void* hframe, void* f, void* next_unit,
+                            int n_cells, int cap, int n_off, float cutoff2,
+                            float alpha, float coulomb_scale,
+                            int excl_window, int n_words, int coulomb,
+                            float krf, float crf, int max_ctas,
+                            void* stream) {
+  Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
+            (const float*)q,   (const float*)sig,  (const float*)seps,
+            (const int*)gid,   (const int*)ew,     (const int*)count};
+  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words, krf, crf};
+  return launch_kind<false>(coulomb, fd, nbr, rnbr, shift, check_excl,
+                            rframe, hframe, f, nullptr, nullptr, next_unit,
+                            n_cells, cap, n_off, p, max_ctas, stream);
 }
 
 // The direct-space energy into e_out (one double on the card):
@@ -255,10 +379,15 @@ extern "C" int sweep_energy(const void* x, const void* y, const void* z,
                             void* e_part, void* e_out, void* next_unit,
                             int n_cells, int cap, int n_off, float cutoff2,
                             float alpha, float coulomb_scale,
-                            int excl_window, int n_words, int max_ctas,
+                            int excl_window, int n_words, int coulomb,
+                            float krf, float crf, int max_ctas,
                             void* stream) {
-  return launch<true>(x, y, z, q, sig, seps, gid, ew, count, nbr, shift,
-                      check_excl, nullptr, e_part, e_out, next_unit,
-                      n_cells, cap, n_off, cutoff2, alpha, coulomb_scale,
-                      excl_window, n_words, max_ctas, stream);
+  Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
+            (const float*)q,   (const float*)sig,  (const float*)seps,
+            (const int*)gid,   (const int*)ew,     (const int*)count};
+  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words, krf, crf};
+  return launch_kind<true>(coulomb, fd, nbr, nullptr, shift, check_excl,
+                           nullptr, nullptr, nullptr, e_part, e_out,
+                           next_unit, n_cells, cap, n_off, p, max_ctas,
+                           stream);
 }

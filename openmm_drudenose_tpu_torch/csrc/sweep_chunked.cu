@@ -8,7 +8,8 @@
 // It computes what kernel B1 (sweep.cu) computes, pair for pair, with the
 // same warp-tile pair loop (pair_tile.cuh): LJ with Lorentz sigma and
 // Berthelot sqrt(eps) product plus Ewald real-space Coulomb with the
-// Abramowitz & Stegun 7.1.26 erfc, the home cell against itself (row
+// Abramowitz & Stegun 7.1.26 erfc or the reaction field (the Coulomb
+// kind is a template parameter), the home cell against itself (row
 // forces only) and the half stencil with Newton reactions, the cutoff
 // test on an unfused r^2 in the plain version's order, r^2 clamp 1e-6,
 // and an exclusion bitmask of any number of words tested only at offsets
@@ -88,7 +89,8 @@ constexpr int kMaxWarps = 8;
 // With kEnergy: no frames and no barriers; each warp adds its home
 // cell's pair energies (the energy walk of pair_tile.cuh) and writes
 // their sum to e_part[chunk * home cells + h], zero for an empty cell.
-template <bool kEnergy>
+// kCoul: the Coulomb kind (pair_tile::Coulomb).
+template <bool kEnergy, int kCoul>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     chunk_sweep_kernel(Fields fd, const int* __restrict__ offsets,
                        const float* __restrict__ shift,
@@ -158,12 +160,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
               pair_tile::stage(t, fd, bc * cap + b0, nb_t, tx, ty, tz, lane);
           if (o != 0 && pair_tile::beyond(home, nbox, p.cutoff2)) continue;
           if constexpr (kEnergy) {
-            pair_tile::tile_energy(o == 0, fd, p, cell * cap, a0, na_t, t,
-                                   nb_t, b0, chk, lane, part, es);
+            pair_tile::tile_energy<kCoul>(o == 0, fd, p, cell * cap, a0,
+                                          na_t, t, nb_t, b0, chk, lane, part,
+                                          es);
           } else {
-            pair_tile::tile_pair(o == 0, fd, p, cell * cap, a0, na_t, th, t,
-                                 bc * cap + b0, nb_t, b0, tx, ty, tz, chk,
-                                 lane, part, fx, fy, fz, rx, ry, rz);
+            pair_tile::tile_pair<kCoul>(o == 0, fd, p, cell * cap, a0, na_t,
+                                        th, t, bc * cap + b0, nb_t, b0, tx,
+                                        ty, tz, chk, lane, part, fx, fy, fz,
+                                        rx, ry, rz);
             if (o != 0 && lane < nb_t) {
               float* e = fo + b0 + lane;
               if (rx != 0.f) e[0] += rx;
@@ -241,17 +245,28 @@ Plan make_plan(const int* v) {
   return p;
 }
 
+// The kernel function of (energy, coulomb), or null.
+const void* kernel_of(int energy, int coulomb) {
+  if (coulomb == pair_tile::kEwald)
+    return energy ? (const void*)chunk_sweep_kernel<true, pair_tile::kEwald>
+                  : (const void*)chunk_sweep_kernel<false, pair_tile::kEwald>;
+  if (coulomb == pair_tile::kRF)
+    return energy ? (const void*)chunk_sweep_kernel<true, pair_tile::kRF>
+                  : (const void*)chunk_sweep_kernel<false, pair_tile::kRF>;
+  return nullptr;
+}
 
 }  // namespace
 
 // out[0..3]: registers a thread, static shared memory, the most threads
 // a CTA may have and local (spill) memory a thread, as compiled for the
-// card, of the force (energy = 0) or the energy instantiation.
-extern "C" int chunk_sweep_attributes(int* out, int energy) {
+// card, of the force (energy = 0) or the energy instantiation of the
+// Coulomb kind `coulomb`.
+extern "C" int chunk_sweep_attributes(int* out, int energy, int coulomb) {
+  const void* k = kernel_of(energy, coulomb);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  cudaError_t err =
-      energy ? cudaFuncGetAttributes(&a, chunk_sweep_kernel<true>)
-             : cudaFuncGetAttributes(&a, chunk_sweep_kernel<false>);
+  cudaError_t err = cudaFuncGetAttributes(&a, k);
   if (err != cudaSuccess) return (int)err;
   out[0] = a.numRegs;
   out[1] = (int)a.sharedSizeBytes;
@@ -289,7 +304,7 @@ extern "C" int chunk_sweep_smem_bytes(const int* plan, int cap) {
 }
 
 // The checks and the sweep launch shared by both instantiations.
-template <bool kEnergy>
+template <bool kEnergy, int kCoul>
 int launch_sweep(const Fields& fd, const void* offsets, const void* shift,
                  const void* check_excl, void* frames, void* e_part,
                  const int* plan, int cap, int n_off, const Params& p,
@@ -307,13 +322,30 @@ int launch_sweep(const Fields& fd, const void* offsets, const void* shift,
     return (int)cudaErrorInvalidValue;
   const int smem = chunk_sweep_smem_bytes(plan, cap);
   cudaError_t err = cudaFuncSetAttribute(
-      chunk_sweep_kernel<kEnergy>,
+      chunk_sweep_kernel<kEnergy, kCoul>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  chunk_sweep_kernel<kEnergy><<<(int)n_chunks, nh * 32, smem, s>>>(
+  chunk_sweep_kernel<kEnergy, kCoul><<<(int)n_chunks, nh * 32, smem, s>>>(
       fd, (const int*)offsets, (const float*)shift, (const int*)check_excl,
       (float*)frames, (double*)e_part, pl, cap, n_off, p);
   return (int)cudaGetLastError();
+}
+
+// launch_sweep of the Coulomb kind `coulomb` (pair_tile::Coulomb).
+template <bool kEnergy>
+int launch_kind(int coulomb, const Fields& fd, const void* offsets,
+                const void* shift, const void* check_excl, void* frames,
+                void* e_part, const int* plan, int cap, int n_off,
+                const Params& p, cudaStream_t s) {
+  if (coulomb == pair_tile::kEwald)
+    return launch_sweep<kEnergy, pair_tile::kEwald>(
+        fd, offsets, shift, check_excl, frames, e_part, plan, cap, n_off, p,
+        s);
+  if (coulomb == pair_tile::kRF)
+    return launch_sweep<kEnergy, pair_tile::kRF>(
+        fd, offsets, shift, check_excl, frames, e_part, plan, cap, n_off, p,
+        s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // plan: the 15 ints of Plan, on the host.  frames: n_chunks * nf * 3 * cap
@@ -326,14 +358,15 @@ extern "C" int chunk_sweep_forces(
     const void* check_excl, const void* tab_x, const void* tab_y,
     const void* tab_z, void* frames, void* f, const int* plan, int lx,
     int ly, int lz, int cap, int n_off, float cutoff2, float alpha,
-    float coulomb_scale, int excl_window, int n_words, void* stream) {
+    float coulomb_scale, int excl_window, int n_words, int coulomb,
+    float krf, float crf, void* stream) {
   Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
             (const float*)q,   (const float*)sig,  (const float*)seps,
             (const int*)gid,   (const int*)ew,     (const int*)count};
-  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words};
+  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words, krf, crf};
   cudaStream_t s = (cudaStream_t)stream;
-  int err = launch_sweep<false>(fd, offsets, shift, check_excl, frames,
-                                nullptr, plan, cap, n_off, p, s);
+  int err = launch_kind<false>(coulomb, fd, offsets, shift, check_excl,
+                               frames, nullptr, plan, cap, n_off, p, s);
   if (err != 0) return err;
   const Plan pl = make_plan(plan);
   const long long n_slots = (long long)pl.gx * pl.gy * pl.gz * cap;
@@ -353,14 +386,15 @@ extern "C" int chunk_sweep_energy(
     const void* count, const void* offsets, const void* shift,
     const void* check_excl, void* e_part, void* e_out, const int* plan,
     int cap, int n_off, float cutoff2, float alpha, float coulomb_scale,
-    int excl_window, int n_words, void* stream) {
+    int excl_window, int n_words, int coulomb, float krf, float crf,
+    void* stream) {
   Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
             (const float*)q,   (const float*)sig,  (const float*)seps,
             (const int*)gid,   (const int*)ew,     (const int*)count};
-  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words};
+  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words, krf, crf};
   cudaStream_t s = (cudaStream_t)stream;
-  int err = launch_sweep<true>(fd, offsets, shift, check_excl, nullptr,
-                               e_part, plan, cap, n_off, p, s);
+  int err = launch_kind<true>(coulomb, fd, offsets, shift, check_excl,
+                              nullptr, e_part, plan, cap, n_off, p, s);
   if (err != 0) return err;
   const Plan pl = make_plan(plan);
   const int n_part = pl.nbx * pl.nby * pl.nbz * pl.bx * pl.by * pl.bz;

@@ -11,9 +11,10 @@ kept in 31-bit words.
 
 The same plan and physics as the JAX package's forces/cellpair.py
 (make_config :148, build_cellsort :432, _sorted_arrays :880,
-_sweep_regular :667), for orthorhombic boxes.  `pair_tiles` is the plain
-pair sum and `sweep` the energy+force sum over it; ops/sweep.py and
-ops/sweep_chunked.py hold the hand-written force-only kernels.
+_sweep_regular :667, make_pair_eg :606), for orthorhombic boxes.
+`pair_tiles` is the plain pair sum and `sweep` the energy+force sum over
+it, with Ewald real-space or reaction-field Coulomb (`make_pair_eg`);
+ops/sweep.py and ops/sweep_chunked.py hold the hand-written kernels.
 """
 
 from __future__ import annotations
@@ -272,20 +273,34 @@ def erfc_approx(x):
     return poly * torch.exp(-x * x)
 
 
-def ewald_pair_eg(alpha: float, erfc_fn):
-    """LJ (Lorentz sigma, Berthelot sqrt-eps product) + Ewald real-space
-    Coulomb: f(qq, sig, eps, r2, inv_r, inv_r2) -> (e, dE/dr^2)."""
+def make_pair_eg(method: str, alpha: float = 0.0, krf: float = 0.0,
+                 crf: float = 0.0, erfc_fn=None):
+    """The JAX package's make_pair_eg (forces/cellpair.py:606-660 there)
+    without the switch and the exclusion flag: f(qq, sig, eps, r2, inv_r,
+    inv_r2) -> (e, dE/dr^2) of LJ plus one Coulomb kind: "ewald"
+    (erfc(alpha r) / r, erfc_fn defaulting to the exact erfc), "rf" (the
+    reaction field qq (1/r + krf r^2 - crf)) or "none" (plain qq / r)."""
+    if method not in ("ewald", "rf", "none"):
+        raise ValueError(f"unknown Coulomb kind {method!r}")
+    erfc = erfc_fn or torch.special.erfc
     two_over_sqrt_pi = 2.0 / math.sqrt(math.pi)
 
     def f(qq, sig, eps, r2, inv_r, inv_r2):
         x6 = (sig * sig * inv_r2) ** 3
         e_lj = 4.0 * eps * x6 * (x6 - 1.0)
         g_lj = -4.0 * eps * (6.0 * x6 * x6 - 3.0 * x6) * inv_r2
-        ar = alpha * r2 * inv_r
-        erfc_ar = erfc_fn(ar)
-        e_c = qq * erfc_ar * inv_r
-        g_c = -0.5 * qq * inv_r2 * (erfc_ar * inv_r + two_over_sqrt_pi
-                                    * alpha * torch.exp(-ar * ar))
+        if method == "ewald":
+            ar = alpha * r2 * inv_r
+            erfc_ar = erfc(ar)
+            e_c = qq * erfc_ar * inv_r
+            g_c = -0.5 * qq * inv_r2 * (erfc_ar * inv_r + two_over_sqrt_pi
+                                        * alpha * torch.exp(-ar * ar))
+        elif method == "rf":
+            e_c = qq * (inv_r + krf * r2 - crf)
+            g_c = qq * (-0.5 * inv_r2 * inv_r + krf)
+        else:
+            e_c = qq * inv_r
+            g_c = -0.5 * qq * inv_r2 * inv_r
         return e_lj + e_c, g_lj + g_c
 
     return f
@@ -304,7 +319,8 @@ TILE_ELEMS = 1 << 19
 
 def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
                coulomb_scale: float, with_energy: bool = True,
-               excl_skip: bool = False, erfc_fn=None):
+               excl_skip: bool = False, erfc_fn=None, method: str = "ewald",
+               krf: float = 0.0, crf: float = 0.0):
     """The half-stencil pair sum, one chunk of offsets at a time.
 
     Yields (ob, b, g2, d, e) per chunk: the offset indices `ob` (the self
@@ -315,8 +331,9 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
     pair's force on the home slot is g2 * d, its reaction on the
     neighbour slot -g2 * d.  excl_skip drops the exclusion test at offsets
     with any |o| >= 2, as the kernels do (sound while the cell sort's
-    excl-span latch stays clear).  erfc_fn defaults to the exact erfc;
-    the kernels' plain versions pass erfc_approx."""
+    excl-span latch stays clear).  method, krf, crf: the Coulomb kind
+    (make_pair_eg).  erfc_fn defaults to the exact erfc; the kernels'
+    plain versions pass erfc_approx."""
     nc, C = cfg.n_cells, cfg.capacity
     x, y, z = (fields[k].reshape(nc, C) for k in "xyz")
     dtype = x.dtype
@@ -330,7 +347,7 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
     ew = fields["ew"].reshape(nc, C, -1).to(torch.int64)
     W = cfg.excl_window
     cutoff2 = cfg.cutoff * cfg.cutoff
-    pair_eg = ewald_pair_eg(alpha, erfc_fn or torch.special.erfc)
+    pair_eg = make_pair_eg(method, alpha, krf, crf, erfc_fn)
     nbr = torch.as_tensor(cfg.nbr_map, device=dev)
     qa = coulomb_scale * q
     far = np.max(np.abs(cfg.offsets), axis=1) >= 2
@@ -389,7 +406,8 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
 
 def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
           coulomb_scale: float, with_energy: bool = True,
-          excl_skip: bool = False, erfc_fn=None):
+          excl_skip: bool = False, erfc_fn=None, method: str = "ewald",
+          krf: float = 0.0, crf: float = 0.0):
     """Plain direct-space sum over the half stencil (pair_tiles), each
     reaction added straight onto its neighbour slot.
 
@@ -401,7 +419,7 @@ def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
     energy = torch.zeros((), dtype=dtype, device=dev)
     for ob, b, g2, d, e in pair_tiles(fields, cfg, shifts, alpha,
                                       coulomb_scale, with_energy,
-                                      excl_skip, erfc_fn):
+                                      excl_skip, erfc_fn, method, krf, crf):
         if e is not None:
             energy = energy + e
         fa = [torch.sum(g2 * dc, dim=2) for dc in d]

@@ -10,9 +10,12 @@ energy is half the sum.  Exclusions are a static (N, N) mask.  The same
 here, in plain PyTorch: a sum that the JAX package leaves to XLA has no
 TPU kernel to port.
 
-The pair function is the cell-pair sweep's (LJ + Ewald real space), with
-the A&S erfc in float32 and the exact erfc in float64, as the JAX
-package's make_pair_eg chooses by type.  Float32 displacements are
+The pair function is the cell-pair sweep's (cellpair.make_pair_eg: LJ +
+Ewald real space, with the A&S erfc in float32 and the exact erfc in
+float64, as the JAX package's make_pair_eg chooses by type; or the
+reaction field; or plain Coulomb), with the JAX dense sweep's two flags:
+`periodic` (minimum image) and `use_cutoff` (the cutoff test), false for
+NoCutoff and CutoffNonPeriodic as there.  Float32 displacements are
 formed in float64 from the compensated positions (`exact`) where given,
 and rounded once (forces/cellpair.py::sorted_fields does the same).
 """
@@ -28,14 +31,16 @@ BLOCK_ELEMS = 1 << 21
 
 
 def pair_energy_forces(params, positions, box_diag, pair_mask, cutoff,
-                       alpha, coulomb_scale, with_energy=True, exact=None):
+                       alpha, coulomb_scale, with_energy=True, exact=None,
+                       periodic=True, use_cutoff=True, method="ewald",
+                       krf=0.0, crf=0.0):
     """(energy, forces (N, 3)) of the direct-space sum over all ordered
     pairs not masked out; energy None without with_energy."""
     n = positions.shape[0]
     dtype = positions.dtype
     erfc = (cellpair.erfc_approx if dtype == torch.float32
             else torch.special.erfc)
-    pair_eg = cellpair.ewald_pair_eg(alpha, erfc)
+    pair_eg = cellpair.make_pair_eg(method, alpha, krf, crf, erfc)
     q = params["charge"]
     sig = params["sigma"]
     seps = torch.sqrt(params["eps"])
@@ -52,10 +57,12 @@ def pair_energy_forces(params, positions, box_diag, pair_mask, cutoff,
         d = []
         for c in range(3):
             dc = src[sl, c][:, None] - src[:, c][None, :]
-            dc = dc - box[c] * torch.round(dc / box[c])
+            if periodic:
+                dc = dc - box[c] * torch.round(dc / box[c])
             d.append(dc.to(dtype))
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        valid = pair_mask[sl] & (r2 < cutoff2)
+        valid = pair_mask[sl] & (r2 < cutoff2) if use_cutoff \
+            else pair_mask[sl]
         r2s = torch.where(valid, torch.clamp(r2, min=1e-6),
                           torch.ones_like(r2))
         inv_r = torch.rsqrt(r2s)

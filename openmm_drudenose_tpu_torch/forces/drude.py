@@ -138,8 +138,6 @@ class DrudeForce:
 class DrudeTerm:
     """Compiled DrudeForce: energy_forces(positions, box_diag, pos_err)."""
 
-    wants_pos_err = True
-
     def __init__(self, drude, parent, k3):
         self.drude = drude
         self.parent = parent

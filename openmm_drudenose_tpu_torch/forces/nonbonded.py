@@ -1,23 +1,32 @@
 """NonbondedForce: Lennard-Jones + Coulomb with exclusions and exceptions.
 
 The builder half mirrors OpenMM's API (as the JAX package's
-forces/nonbonded.py does).  `compile` takes Ewald/PME on one of the JAX
-package's two fast strategies, chosen by its "auto" rule
-(`choose_strategy`): the dense all-pairs sum (forces/dense.py) for
-n <= 4096 atoms, else the cell-pair sweep.  The compiled term splits the
-work as the JAX force-only step does (forces/nonbonded.py:823-898 there):
+forces/nonbonded.py does).  `compile` takes every method but switched LJ
+on one of the JAX package's two fast strategies, chosen by its "auto"
+rule (`choose_strategy`): the dense all-pairs sum (forces/dense.py) for
+n <= 4096 atoms or a non-periodic method, else the cell-pair sweep.  The
+Coulomb kinds are the JAX package's (forces/nonbonded.py:202-210,
+:384-389 there): Ewald/PME (erfc real space plus the PME reciprocal
+sum), CutoffPeriodic and CutoffNonPeriodic (the reaction field,
+krf = (eps_rf - 1) / ((2 eps_rf + 1) rc^3), crf = 3 eps_rf / ((2 eps_rf
++ 1) rc), no PME and no exclusion correction) and NoCutoff (plain
+Coulomb over every pair, no minimum image).  The compiled term splits
+the work as the JAX force-only step does (forces/nonbonded.py:823-898
+there):
 
   sweep_forces : direct-space forces; on the cell-pair strategy in
                  float32 a hand-written kernel, B1 (ops/sweep.py) or the
                  chunked B2 (ops/sweep_chunked.py) as the JAX gates route
-                 the config (ops/sweep.py::route), the plain sweep
-                 otherwise; the dense sum on the dense strategy
+                 the config (ops/sweep.py::route), in its Ewald or
+                 reaction-field instantiation, the plain sweep otherwise;
+                 the dense sum on the dense strategy
   sweep_energy : the direct-space energy, by the same kernel's energy
                  instantiation in float32 on the cell-pair strategy
-  recip        : PME reciprocal energy and analytic forces (forces/pme.py)
-  extras       : exceptions, reciprocal exclusion corrections, NBFIX
-                 overrides, the Ewald self term and the dispersion tail
-                 (forces/pairterms.py)
+  recip        : PME reciprocal energy and analytic forces (forces/pme.py;
+                 Ewald/PME only: `pme` is None otherwise)
+  extras       : exceptions, reciprocal exclusion corrections (Ewald/PME),
+                 NBFIX overrides, the Ewald self term and the dispersion
+                 tail (periodic cutoff methods) (forces/pairterms.py)
 
 Exceptions are excluded from the main pair sum and added back as explicit
 pair terms (plain Coulomb chargeProd/r + LJ, no cutoff), as in OpenMM.
@@ -166,15 +175,19 @@ class NonbondedForce:
                              "every particle")
         if strategy == "auto":
             strategy = choose_strategy(n, self._method)
-        if self._method not in (self.Ewald, self.PME):
-            raise NotImplementedError(
-                "the PyTorch port runs Ewald/PME only")
-        if self._use_switching and self._switching_distance >= 0:
+        if self._method not in (self.NoCutoff, self.CutoffNonPeriodic,
+                                self.CutoffPeriodic, self.Ewald, self.PME):
+            raise ValueError(f"unknown nonbonded method {self._method}")
+        if (self._use_switching and self._switching_distance >= 0
+                and self._method != self.NoCutoff):
             raise NotImplementedError("switched LJ is not ported yet")
         opts = dict(nb_options or {})
         if strategy == "dense":
             return DenseTerm(self, system, dtype, device)
         if strategy == "cellpair":
+            if not self.usesPeriodicBoundaryConditions():
+                raise ValueError("the cell-pair strategy takes periodic "
+                                 "methods (CutoffPeriodic, Ewald, PME)")
             return CellPairTerm(self, system, dtype, device, opts)
         raise ValueError(f"unknown strategy {strategy!r}; the port has "
                          "'auto', 'dense' and 'cellpair'")
@@ -230,10 +243,11 @@ def dispersion_coefficient(sigma, eps, cutoff):
 
 
 class NonbondedTerm:
-    """Compiled NonbondedForce (Ewald/PME): what both strategies share,
-    the PME reciprocal sum and the pair-list extras.  `cell_grid` rounds
-    the PME grid up to the cell grid, as the JAX package plans it for the
-    cell-pair strategy."""
+    """Compiled NonbondedForce: what both strategies share, the Coulomb
+    kind (`coulomb`: the keyword arguments of the pair sums), the PME
+    reciprocal sum (Ewald/PME) and the pair-list extras.  `cell_grid`
+    rounds the PME grid up to the cell grid, as the JAX package plans it
+    for the cell-pair strategy."""
 
     cfg = None
 
@@ -252,25 +266,46 @@ class NonbondedTerm:
         box0 = np.diagonal(np.array(system.getDefaultPeriodicBoxVectors(),
                                     np.float64)).copy()
         cutoff = force._cutoff
+        method = force._method
+        ewald = method in (force.Ewald, force.PME)
+        self.periodic = force.usesPeriodicBoundaryConditions()
+        self.use_cutoff = method != force.NoCutoff
         self.n_atoms = n
         self.dtype = dtype
         self.device = device
         self.cutoff = cutoff
         self._exc = (exc_i, exc_j)
         t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=device)
-        alpha0, gx, gy, gz = force._pme_params
-        self.pme = pme_mod.setup_pme(
-            cutoff=cutoff, tol=force._ewald_tol, box_diag=box0,
-            alpha=alpha0 or None, grid=(gx, gy, gz) if gx > 0 else None,
-            cell_grid=cell_grid)
-        self.alpha = self.pme.alpha
         self.params = {"charge": t(charge), "sigma": t(sigma), "eps": t(eps)}
-        # bounds every PME grid value (pme.spread's fixed-point sum)
-        self.charge_bound = float(np.sum(np.abs(charge)))
-        self.pme_self = float(-self.alpha / np.sqrt(np.pi) * ONE_4PI_EPS0
-                              * np.sum(charge ** 2))
+        self.pme = None
+        self.alpha = 0.0
+        self.pme_self = 0.0
+        if ewald:
+            alpha0, gx, gy, gz = force._pme_params
+            self.pme = pme_mod.setup_pme(
+                cutoff=cutoff, tol=force._ewald_tol, box_diag=box0,
+                alpha=alpha0 or None, grid=(gx, gy, gz) if gx > 0 else None,
+                cell_grid=cell_grid)
+            self.alpha = self.pme.alpha
+            # bounds every PME grid value (pme.spread's fixed-point sum)
+            self.charge_bound = float(np.sum(np.abs(charge)))
+            self.pme_self = float(-self.alpha / np.sqrt(np.pi)
+                                  * ONE_4PI_EPS0 * np.sum(charge ** 2))
+            self.coulomb = {"method": "ewald"}
+        elif self.use_cutoff:
+            # the reaction field (forces/nonbonded.py:207-210 there)
+            eps_rf = force._rf_dielectric
+            self.coulomb = {
+                "method": "rf",
+                "krf": (1.0 / cutoff ** 3) * (eps_rf - 1.0)
+                / (2.0 * eps_rf + 1.0),
+                "crf": (1.0 / cutoff) * (3.0 * eps_rf)
+                / (2.0 * eps_rf + 1.0)}
+        else:
+            self.coulomb = {"method": "none"}
         self.disp = (dispersion_coefficient(sigma, eps, cutoff)
-                     if force._use_dispersion_correction else None)
+                     if force._use_dispersion_correction and self.periodic
+                     else None)
 
         self.pair_terms = []
         act = (exc_qq != 0.0) | (exc_eps != 0.0)
@@ -278,8 +313,8 @@ class NonbondedTerm:
             self.pair_terms.append(pairterms.make_pair_list_term(
                 exc_i[act], exc_j[act], pairterms.exception_eg(
                     t(ONE_4PI_EPS0 * exc_qq[act]), t(exc_sigma[act]),
-                    t(exc_eps[act])), device))
-        if len(ex):
+                    t(exc_eps[act])), device, self.periodic))
+        if len(ex) and ewald:
             self.pair_terms.append(pairterms.make_pair_list_term(
                 exc_i, exc_j, pairterms.ewald_correction_eg(
                     t(ONE_4PI_EPS0 * charge[exc_i] * charge[exc_j]),
@@ -291,10 +326,12 @@ class NonbondedTerm:
                     oi, oj, pairterms.lj_override_eg(
                         t(sig_o), t(eps_o),
                         t(0.5 * (sigma[oi] + sigma[oj])),
-                        t(np.sqrt(eps[oi] * eps[oj])), cutoff), device))
+                        t(np.sqrt(eps[oi] * eps[oj])),
+                        cutoff if self.use_cutoff else math.inf), device,
+                    self.periodic))
 
     def recip(self, positions, box_diag, exact=None):
-        """(energy, forces) of the PME reciprocal sum."""
+        """(energy, forces) of the PME reciprocal sum (Ewald/PME only)."""
         return pme_mod.recip_energy_forces(self.pme, self.params["charge"],
                                            positions, box_diag, exact,
                                            self.charge_bound)
@@ -307,7 +344,7 @@ class NonbondedTerm:
     def extras(self, positions, box_diag, exact=None, with_forces=True):
         """(energy, forces; None without with_forces): exceptions,
         exclusion corrections, NBFIX overrides, self term, dispersion
-        tail."""
+        tail (each where the method has it)."""
         e = positions.new_zeros(()) + self.pme_self
         f = torch.zeros_like(positions) if with_forces else None
         for term in self.pair_terms:
@@ -340,7 +377,9 @@ class DenseTerm(NonbondedTerm):
     def _sweep(self, positions, box_diag, exact, with_energy):
         return dense.pair_energy_forces(
             self.params, positions, box_diag, self.pair_mask, self.cutoff,
-            self.alpha, ONE_4PI_EPS0, with_energy=with_energy, exact=exact)
+            self.alpha, ONE_4PI_EPS0, with_energy=with_energy, exact=exact,
+            periodic=self.periodic, use_cutoff=self.use_cutoff,
+            **self.coulomb)
 
     def sweep_forces(self, positions, box_diag, neighbors=None, exact=None):
         return self._sweep(positions, box_diag, exact, False)[1]
@@ -350,8 +389,9 @@ class DenseTerm(NonbondedTerm):
 
 
 class CellPairTerm(NonbondedTerm):
-    """The cell-pair strategy: sorted fields, the sweep kernels B1/B2 in
-    float32 (their plain versions on the CPU), the plain sweep in
+    """The cell-pair strategy (periodic methods): sorted fields, the sweep
+    kernels B1/B2 in float32 in the instantiation of the method's Coulomb
+    kind (their plain versions on the CPU), the plain sweep in
     float64."""
 
     strategy = "cellpair"
@@ -404,10 +444,12 @@ class CellPairTerm(NonbondedTerm):
         if self.use_kernel:
             f = self._kernel().pair_forces(fields, self.cfg, shifts,
                                            self.alpha, ONE_4PI_EPS0,
-                                           excl_skip=self.excl_skip)
+                                           excl_skip=self.excl_skip,
+                                           **self.coulomb)
         else:
             _, f = cellpair.sweep(fields, self.cfg, shifts, self.alpha,
-                                  ONE_4PI_EPS0, with_energy=False)
+                                  ONE_4PI_EPS0, with_energy=False,
+                                  **self.coulomb)
         return f[cellsort.inv_slot]
 
     def sweep_energy(self, positions, box_diag, cellsort, exact=None):
@@ -419,7 +461,8 @@ class CellPairTerm(NonbondedTerm):
         if self.use_kernel:
             return self._kernel().pair_energy(fields, self.cfg, shifts,
                                               self.alpha, ONE_4PI_EPS0,
-                                              excl_skip=self.excl_skip)
+                                              excl_skip=self.excl_skip,
+                                              **self.coulomb)
         e, _ = cellpair.sweep(fields, self.cfg, shifts, self.alpha,
-                              ONE_4PI_EPS0, with_energy=True)
+                              ONE_4PI_EPS0, with_energy=True, **self.coulomb)
         return e

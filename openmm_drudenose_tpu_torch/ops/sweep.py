@@ -2,15 +2,19 @@
 CUDA for Hopper (csrc/sweep.cu, with the warp-tile pair loop of
 csrc/pair_tile.cuh), with its plain PyTorch version beside it; and the
 kernel's energy instantiation (`pair_energy`, plain version
-`pair_energy_plain`: the direct-space energy with the exact erfc, summed
-in double in an order fixed by the data).
+`pair_energy_plain`: the direct-space energy with the exact erfc or the
+reaction field, summed in double in an order fixed by the data).
 
 Replaces the JAX package's TPU kernel ops/pallas_sweep.py::
 pair_forces_pallas (pallas_call at :440).  It computes the same function
-(forces only; LJ + Ewald real space with the A&S erfc; self cell plus the
-half stencil with reactions; exclusion bitmask, any number of words,
-skipped at offsets with any |o| >= 2), not the TPU layout: no doubled
-layers, lane padding or one-hot reaction sums.  Any cell capacity.
+(forces only; LJ + Ewald real space with the A&S erfc, or the reaction
+field, the TPU kernel's `method` "ewald" or "rf" (_make_pair_g :111-135);
+self cell plus the half stencil with reactions; exclusion bitmask, any
+number of words, skipped at offsets with any |o| >= 2), not the TPU
+layout: no doubled layers, lane padding or one-hot reaction sums.  Any
+cell capacity.  Its forces are the same bits at every launch: the
+reactions go through frames with one writer an entry and a fixed-order
+gather (csrc/sweep.cu), not atomics.
 
 `pair_forces` is the entry point.  For a CPU tensor it runs the plain
 version (`pair_forces_plain`); for a CUDA tensor it launches the kernel or
@@ -49,9 +53,35 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # launches of each kernel, counted where it is launched and nowhere else
-# (the force and the energy instantiations apart)
-launches = {"b1_sweep": 0, "b1_energy": 0, "b2_sweep": 0, "b2_energy": 0}
+# (the force and the energy instantiations apart, each Coulomb kind apart:
+# "_rf" for the reaction field)
+launches = {"b1_sweep": 0, "b1_energy": 0, "b2_sweep": 0, "b2_energy": 0,
+            "b1_sweep_rf": 0, "b1_energy_rf": 0, "b2_sweep_rf": 0,
+            "b2_energy_rf": 0}
 INT32_MAX = 2 ** 31 - 1
+
+# the kernels' Coulomb kinds (csrc/pair_tile.cuh::Coulomb)
+COULOMB = {"ewald": 0, "rf": 1}
+
+
+def coulomb_kind(method: str, alpha: float, krf: float, crf: float) -> int:
+    """The kernels' code of a Coulomb kind, raising on one they do not
+    take: "ewald" with alpha > 0, or "rf" with finite krf and crf."""
+    if method not in COULOMB:
+        raise ValueError(f"the sweep kernels take the Coulomb kinds "
+                         f"{sorted(COULOMB)}, not {method!r}")
+    if method == "ewald" and not (np.isfinite(alpha) and alpha > 0):
+        raise ValueError(f"Ewald needs alpha > 0, got {alpha}")
+    if method == "rf" and not (np.isfinite(krf) and np.isfinite(crf)):
+        raise ValueError(f"the reaction field needs finite krf and crf, "
+                         f"got {krf}, {crf}")
+    return COULOMB[method]
+
+
+def launch_key(kernel: str, energy: bool, method: str) -> str:
+    """The `launches` key of a kernel's instantiation."""
+    return (f"{kernel}_{'energy' if energy else 'sweep'}"
+            + ("_rf" if method == "rf" else ""))
 
 _libs = {}
 build_log = ""
@@ -129,62 +159,65 @@ def load(name: str, declare):
 
 def _declare(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sweep_forces.argtypes = [vp] * 14 + [ci, ci, ci, cf, cf, cf, ci, ci,
-                                             ci, vp]
+    lib.sweep_forces.argtypes = [vp] * 17 + [ci, ci, ci, cf, cf, cf, ci, ci,
+                                             ci, cf, cf, ci, vp]
     lib.sweep_forces.restype = ci
     lib.sweep_energy.argtypes = [vp] * 15 + [ci, ci, ci, cf, cf, cf, ci, ci,
-                                             ci, vp]
+                                             ci, cf, cf, ci, vp]
     lib.sweep_energy.restype = ci
-    lib.sweep_attributes.argtypes = [vp, ci]
+    lib.sweep_attributes.argtypes = [vp, ci, ci]
     lib.sweep_attributes.restype = ci
-    lib.sweep_occupancy.argtypes = [vp]
+    lib.sweep_occupancy.argtypes = [vp, ci, ci]
     lib.sweep_occupancy.restype = ci
     lib.sweep_units.argtypes = [ci, ci, ci]
     lib.sweep_units.restype = ci
     lib.sweep_warps_per_cta.restype = ci
 
 
-def kernel_attributes(lib, fn: str, energy: bool = False) -> dict:
+def kernel_attributes(lib, fn: str, energy: bool = False,
+                      method: str = "ewald") -> dict:
     """Registers a thread, static shared memory, the most threads a CTA
     may have and local (spill) bytes a thread of a kernel's force (or
-    energy) instantiation, read from the card with cudaFuncGetAttributes
-    by the library's function `fn`."""
+    energy) instantiation of one Coulomb kind, read from the card with
+    cudaFuncGetAttributes by the library's function `fn`."""
     out = (ctypes.c_int * 4)()
-    err = getattr(lib, fn)(ctypes.cast(out, ctypes.c_void_p), int(energy))
+    err = getattr(lib, fn)(ctypes.cast(out, ctypes.c_void_p), int(energy),
+                           COULOMB[method])
     if err != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {err}")
     return {"regs": out[0], "static_smem": out[1], "max_threads": out[2],
             "local_bytes": out[3]}
 
 
-def attributes(energy: bool = False) -> dict:
+def attributes(energy: bool = False, method: str = "ewald") -> dict:
     """B1's kernel_attributes."""
     return kernel_attributes(load("sweep", _declare), "sweep_attributes",
-                             energy)
+                             energy, method)
 
 
 _occupancy = {}
 
 
-def occupancy(device, energy: bool = False) -> tuple:
-    """(SMs, CTAs of B1's force or energy instantiation resident an SM)
-    of a card, read once from it
+def occupancy(device, energy: bool = False, method: str = "ewald") -> tuple:
+    """(SMs, CTAs of B1's force or energy instantiation of a Coulomb kind
+    resident an SM) of a card, read once from it
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); B1 launches as many
     CTAs as the card holds at once."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    hit = _occupancy.get(device.index)
+    key = (device.index, bool(energy), method)
+    hit = _occupancy.get(key)
     if hit is None:
         lib = load("sweep", _declare)
-        out = (ctypes.c_int * 3)()
+        out = (ctypes.c_int * 2)()
         with torch.cuda.device(device):
-            err = lib.sweep_occupancy(ctypes.cast(out, ctypes.c_void_p))
+            err = lib.sweep_occupancy(ctypes.cast(out, ctypes.c_void_p),
+                                      int(energy), COULOMB[method])
         if err != 0:
             raise RuntimeError(f"sweep_occupancy failed: CUDA error {err}")
-        hit = _occupancy[device.index] = (out[0], max(out[1], 1),
-                                          max(out[2], 1))
-    return hit[0], hit[2 if energy else 1]
+        hit = _occupancy[key] = (out[0], max(out[1], 1))
+    return hit
 
 
 # the JAX gates' VMEM budget (the ~16 MB scoped-VMEM limit of a TPU core,
@@ -254,7 +287,8 @@ def choose_chunk(cfg, force: bool = False):
 def b1_takes(cfg) -> bool:
     """Whether kernel B1 takes the config: any capacity and any number of
     exclusion words; its slot, word, neighbour-map and work-unit indices
-    in int32 (csrc/sweep.cu::sweep_forces refuses the rest)."""
+    in int32 (csrc/sweep.cu::sweep_forces refuses the rest; its frames
+    are indexed in 64 bits)."""
     n_slots = cfg.n_cells * cfg.capacity
     units = cfg.n_cells * -(-cfg.capacity // 32) * -(-cfg.n_offsets // 8)
     return (3 * n_slots <= INT32_MAX
@@ -305,18 +339,29 @@ def check_excl_flags(cfg, excl_skip: bool) -> np.ndarray:
 _tables = {}
 
 
+def reverse_neighbors(cfg) -> np.ndarray:
+    """(n_cells, n_off): the cell whose neighbour at offset o is the row's
+    cell (cell - o, wrapped), as the fixed-order gather reads it."""
+    g = np.asarray(cfg.grid)
+    c = np.arange(cfg.n_cells)
+    c3 = np.stack([c // (g[1] * g[2]), (c // g[2]) % g[1], c % g[2]], 1)
+    h3 = (c3[:, None, :] - np.asarray(cfg.offsets)[None, :, :]) % g
+    return (h3[..., 0] * g[1] + h3[..., 1]) * g[2] + h3[..., 2]
+
+
 def _device_tables(cfg, excl_skip, dev):
-    """Neighbour map and exclusion-test flags on the device, cached per
-    config (the config is held so its id stays valid)."""
+    """Neighbour map, reverse neighbour map and exclusion-test flags on
+    the device, cached per config (the config is held so its id stays
+    valid)."""
     key = (id(cfg), bool(excl_skip), str(dev))
     hit = _tables.get(key)
     if hit is None:
-        nbr = torch.as_tensor(cfg.nbr_map, dtype=torch.int32,
-                              device=dev).contiguous()
-        chk = torch.as_tensor(check_excl_flags(cfg, excl_skip),
-                              device=dev).contiguous()
-        hit = _tables[key] = (cfg, nbr, chk)
-    return hit[1], hit[2]
+        i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                        device=dev)
+        hit = _tables[key] = (cfg, i32(cfg.nbr_map),
+                              i32(reverse_neighbors(cfg)),
+                              i32(check_excl_flags(cfg, excl_skip)))
+    return hit[1:]
 
 
 def check_config(cfg):
@@ -350,62 +395,80 @@ def check_fields(fields, cfg):
 
 
 def pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
-                      excl_skip=True):
+                      excl_skip=True, method="ewald", krf=0.0, crf=0.0):
     """The plain PyTorch version: slot forces (n_cells * C, 3)."""
     _, f = cellpair.sweep(fields, cfg, shifts, alpha, coulomb_scale,
                           with_energy=False, excl_skip=excl_skip,
-                          erfc_fn=cellpair.erfc_approx)
+                          erfc_fn=cellpair.erfc_approx, method=method,
+                          krf=krf, crf=crf)
     return f
 
 
-def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
-                excl_skip=True):
-    """Slot forces (n_cells * C, 3) of the direct-space sum.
-
-    fields: cellpair.sorted_fields output; shifts: (n_off, 3) per-offset
-    image shift.  CPU tensors run the plain version; CUDA tensors launch
-    the kernel (float32 only) or raise."""
-    check_config(cfg)
+def _card_args(fields, cfg):
+    """Check a launch on the card (config, fields, int32 indices); the
+    fields' device."""
     x = fields["x"]
-    if x.device.type == "cpu":
-        return pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
-                                 excl_skip)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     check_fields(fields, cfg)
     if not b1_takes(cfg):
         raise ValueError(f"{cfg.n_cells} cells of capacity {cfg.capacity} "
                          "overflow the kernel's int32 indices")
+    return x.device
+
+
+def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
+                excl_skip=True, method="ewald", krf=0.0, crf=0.0):
+    """Slot forces (n_cells * C, 3) of the direct-space sum, the same bits
+    at every launch.
+
+    fields: cellpair.sorted_fields output; shifts: (n_off, 3) per-offset
+    image shift; method: the Coulomb kind, "ewald" (alpha) or "rf" (krf,
+    crf).  CPU tensors run the plain version; CUDA tensors launch the
+    kernel (float32 only) or raise."""
+    check_config(cfg)
+    kind = coulomb_kind(method, alpha, krf, crf)
+    if fields["x"].device.type == "cpu":
+        return pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
+                                 excl_skip, method, krf, crf)
+    dev = _card_args(fields, cfg)
     lib = load("sweep", _declare)
-    dev = x.device
-    nbr, chk = _device_tables(cfg, excl_skip, dev)
+    nbr, rnbr, chk = _device_tables(cfg, excl_skip, dev)
     sh = shifts.to(device=dev, dtype=torch.float32).contiguous()
-    f = torch.zeros((cfg.n_cells * cfg.capacity, 3), dtype=torch.float32,
-                    device=dev)
+    nc, C, n_off = cfg.n_cells, cfg.capacity, cfg.n_offsets
+    f = torch.empty((nc * C, 3), dtype=torch.float32, device=dev)
+    # the frames: reactions a (cell, part, offset >= 1), home rows a work
+    # unit; every entry the gather reads is written by the sweep first
+    parts = -(-C // 32)
+    rframe = torch.empty(max(nc * parts * (n_off - 1) * 3 * C, 1),
+                         dtype=torch.float32, device=dev)
+    hframe = torch.empty(lib.sweep_units(nc, C, n_off) * 96,
+                         dtype=torch.float32, device=dev)
     # the work-unit counter of the launch (sweep_forces sets it to 0)
     counter = torch.empty(1, dtype=torch.int32, device=dev)
-    sms, per_sm = occupancy(dev)
+    sms, per_sm = occupancy(dev, False, method)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.sweep_forces(
-        *field_ptrs(fields), p(nbr), p(sh), p(chk), p(f), p(counter),
-        cfg.n_cells, cfg.capacity, cfg.n_offsets,
+        *field_ptrs(fields), p(nbr), p(rnbr), p(sh), p(chk), p(rframe),
+        p(hframe), p(f), p(counter), nc, C, n_off,
         float(cfg.cutoff * cfg.cutoff), float(alpha), float(coulomb_scale),
-        cfg.excl_window, cfg.excl_words, sms * per_sm,
-        ctypes.c_void_p(stream))
+        cfg.excl_window, cfg.excl_words, kind, float(krf), float(crf),
+        sms * per_sm, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
-    launches["b1_sweep"] += 1
+    launches[launch_key("b1", False, method)] += 1
     return f
 
 
 def pair_energy_plain(fields, cfg, shifts, alpha, coulomb_scale,
-                      excl_skip=True):
+                      excl_skip=True, method="ewald", krf=0.0, crf=0.0):
     """The energy instantiation's plain PyTorch version: the direct-space
-    energy with the exact erfc (forces/cellpair.py::sweep), a 0-d tensor
-    in the fields' type."""
+    energy with the exact erfc or the reaction field (forces/cellpair.py::
+    sweep), a 0-d tensor in the fields' type."""
     e, _ = cellpair.sweep(fields, cfg, shifts, alpha, coulomb_scale,
-                          with_energy=True, excl_skip=excl_skip)
+                          with_energy=True, excl_skip=excl_skip,
+                          method=method, krf=krf, crf=crf)
     return e
 
 
@@ -416,40 +479,35 @@ def field_ptrs(fields):
                                    "ew", "count")]
 
 
-def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True):
+def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
+                method="ewald", krf=0.0, crf=0.0):
     """The direct-space energy (0-d) by B1's energy instantiation: float64
     on the card, summed in an order fixed by the data (the same bits at
     every launch).  CPU tensors run the plain version; CUDA tensors launch
     the kernel (float32 fields only) or raise."""
     check_config(cfg)
-    x = fields["x"]
-    if x.device.type == "cpu":
+    kind = coulomb_kind(method, alpha, krf, crf)
+    if fields["x"].device.type == "cpu":
         return pair_energy_plain(fields, cfg, shifts, alpha, coulomb_scale,
-                                 excl_skip)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    check_fields(fields, cfg)
-    if not b1_takes(cfg):
-        raise ValueError(f"{cfg.n_cells} cells of capacity {cfg.capacity} "
-                         "overflow the kernel's int32 indices")
+                                 excl_skip, method, krf, crf)
+    dev = _card_args(fields, cfg)
     lib = load("sweep", _declare)
-    dev = x.device
-    nbr, chk = _device_tables(cfg, excl_skip, dev)
+    nbr, _, chk = _device_tables(cfg, excl_skip, dev)
     sh = shifts.to(device=dev, dtype=torch.float32).contiguous()
     units = lib.sweep_units(cfg.n_cells, cfg.capacity, cfg.n_offsets)
     part = torch.empty(units, dtype=torch.float64, device=dev)
     e = torch.empty((), dtype=torch.float64, device=dev)
     counter = torch.empty(1, dtype=torch.int32, device=dev)
-    sms, per_sm = occupancy(dev, energy=True)
+    sms, per_sm = occupancy(dev, True, method)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.sweep_energy(
         *field_ptrs(fields), p(nbr), p(sh), p(chk), p(part),
         p(e), p(counter), cfg.n_cells, cfg.capacity, cfg.n_offsets,
         float(cfg.cutoff * cfg.cutoff), float(alpha), float(coulomb_scale),
-        cfg.excl_window, cfg.excl_words, sms * per_sm,
-        ctypes.c_void_p(stream))
+        cfg.excl_window, cfg.excl_words, kind, float(krf), float(crf),
+        sms * per_sm, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sweep energy launch failed: CUDA error {err}")
-    launches["b1_energy"] += 1
+    launches[launch_key("b1", True, method)] += 1
     return e

@@ -6,7 +6,8 @@ version beside it.
 Replaces the JAX package's TPU kernel ops/pallas_sweep.py::
 pair_forces_pallas_chunked (pallas_call at :851).  It computes the same
 function as kernel B1 (ops/sweep.py): forces only, LJ + Ewald real space
-with the A&S erfc, self cell plus the half stencil with reactions.  Like
+with the A&S erfc or the reaction field (the `method` argument), self
+cell plus the half stencil with reactions.  Like
 the TPU kernel, each chunk of home cells writes its reactions into a
 frame of its own, and a second pass overlap-adds the frames in a fixed
 order, so no chunk scatters into another's output and the result does
@@ -87,12 +88,12 @@ H100 = CardLimits(regs=None, static_smem=0, max_threads=256,
 _card_limits = {}
 
 
-def attributes(energy: bool = False) -> dict:
+def attributes(energy: bool = False, method: str = "ewald") -> dict:
     """B2's registers, static shared memory, most threads a CTA and
-    local bytes a thread (of its force or energy instantiation), read
-    from the card (sweep.kernel_attributes)."""
+    local bytes a thread (of its force or energy instantiation of a
+    Coulomb kind), read from the card (sweep.kernel_attributes)."""
     return sweep.kernel_attributes(sweep.load("sweep_chunked", _declare),
-                                   "chunk_sweep_attributes", energy)
+                                   "chunk_sweep_attributes", energy, method)
 
 
 def card_limits(device):
@@ -281,7 +282,8 @@ def plan_for(cfg, brick=None, limits=None) -> ChunkPlan:
 
 
 def pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
-                      excl_skip=True, brick=None):
+                      excl_skip=True, brick=None, method="ewald", krf=0.0,
+                      crf=0.0):
     """The plain PyTorch version: slot forces (n_cells * C, 3), summed
     through per-chunk frames and the fixed-order overlap-add of the
     kernel's plan."""
@@ -295,7 +297,8 @@ def pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
     own = torch.zeros((nc, C, 3), dtype=dtype, device=dev)
     for ob, b, g2, d, _ in cellpair.pair_tiles(
             fields, cfg, shifts, alpha, coulomb_scale, with_energy=False,
-            excl_skip=excl_skip, erfc_fn=cellpair.erfc_approx):
+            excl_skip=excl_skip, erfc_fn=cellpair.erfc_approx,
+            method=method, krf=krf, crf=crf):
         own += torch.stack([torch.sum(g2 * dc, dim=2) for dc in d], dim=2)
         if ob != [0]:
             react = -torch.stack([torch.sum(g2 * dc, dim=1) for dc in d],
@@ -313,12 +316,12 @@ def pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
 def _declare(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.chunk_sweep_forces.argtypes = [vp] * 18 + [ci] * 5 + [cf] * 3 \
-        + [ci, ci, vp]
+        + [ci, ci, ci, cf, cf, vp]
     lib.chunk_sweep_forces.restype = ci
     lib.chunk_sweep_energy.argtypes = [vp] * 15 + [ci] * 2 + [cf] * 3 \
-        + [ci, ci, vp]
+        + [ci, ci, ci, cf, cf, vp]
     lib.chunk_sweep_energy.restype = ci
-    lib.chunk_sweep_attributes.argtypes = [vp, ci]
+    lib.chunk_sweep_attributes.argtypes = [vp, ci, ci]
     lib.chunk_sweep_attributes.restype = ci
     lib.chunk_sweep_device.argtypes = [vp]
     lib.chunk_sweep_device.restype = ci
@@ -368,16 +371,18 @@ def _launch_plan(lib, fields, cfg, brick):
 
 
 def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
-                excl_skip=True, brick=None):
+                excl_skip=True, brick=None, method="ewald", krf=0.0,
+                crf=0.0):
     """Slot forces (n_cells * C, 3) of the direct-space sum, as
     sweep.pair_forces; brick None takes choose_brick from the card's
     limits.  CPU tensors run the plain version; CUDA tensors launch the
     kernel (float32 only) or raise."""
     sweep.check_config(cfg)
+    kind = sweep.coulomb_kind(method, alpha, krf, crf)
     x = fields["x"]
     if x.device.type == "cpu":
         return pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
-                                 excl_skip, brick)
+                                 excl_skip, brick, method, krf, crf)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     lib = sweep.load("sweep_chunked", _declare)
@@ -396,25 +401,28 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
         p(tz), p(frames), p(f), ctypes.cast(plan_c, ctypes.c_void_p),
         tx.shape[1], ty.shape[1], tz.shape[1], C, cfg.n_offsets,
         float(cfg.cutoff * cfg.cutoff), float(alpha), float(coulomb_scale),
-        cfg.excl_window, cfg.excl_words, ctypes.c_void_p(stream))
+        cfg.excl_window, cfg.excl_words, kind, float(krf), float(crf),
+        ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"chunked sweep kernel launch failed: CUDA "
                            f"error {err}")
-    sweep.launches["b2_sweep"] += 1
+    sweep.launches[sweep.launch_key("b2", False, method)] += 1
     return f
 
 
 def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
-                brick=None):
+                brick=None, method="ewald", krf=0.0, crf=0.0):
     """The direct-space energy (0-d) by B2's energy instantiation, as
     sweep.pair_energy: float64 on the card, one partial a home cell,
     summed in a fixed order.  CPU tensors run the plain version; CUDA
     tensors launch the kernel (float32 fields only) or raise."""
     sweep.check_config(cfg)
+    kind = sweep.coulomb_kind(method, alpha, krf, crf)
     x = fields["x"]
     if x.device.type == "cpu":
         return sweep.pair_energy_plain(fields, cfg, shifts, alpha,
-                                       coulomb_scale, excl_skip)
+                                       coulomb_scale, excl_skip, method, krf,
+                                       crf)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     lib = sweep.load("sweep_chunked", _declare)
@@ -432,9 +440,10 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
         ctypes.cast(plan_c, ctypes.c_void_p), cfg.capacity, cfg.n_offsets,
         float(cfg.cutoff * cfg.cutoff),
         float(alpha), float(coulomb_scale), cfg.excl_window,
-        cfg.excl_words, ctypes.c_void_p(stream))
+        cfg.excl_words, kind, float(krf), float(crf),
+        ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"chunked sweep energy launch failed: CUDA "
                            f"error {err}")
-    sweep.launches["b2_energy"] += 1
+    sweep.launches[sweep.launch_key("b2", True, method)] += 1
     return e

@@ -184,7 +184,8 @@ def _split_attempt(ctx):
                                                           exact),
         "  pair-list extras": lambda: nb.extras(pos, box_diag, exact),
         "  other force terms": lambda: [
-            term.energy_forces(pos, box_diag, pos_err=st.pos_err)
+            term.energy_forces(pos, box_diag,
+                               **ctx._term_kw(term, st.pos_err, exact))
             for term in ctx._terms],
         "force pass (on acceptance)": lambda: ctx._forces_only(
             new_pos, new_box, st.neighbors, st.pos_err),

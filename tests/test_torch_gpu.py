@@ -6,8 +6,12 @@ stepping through each; the kernels' energy instantiations against the
 plain energy in f64, two launches bit-identical, getState(energy=True)
 through them, an NPT Context stepping through B1, and their refusals
 (no plain fallback); the fixed-order scatter-add and a checkpoint
-replayed bit for bit.  Marked `gpu`; each test skips (through the `cuda`
-fixture) where no CUDA card is present.
+replayed bit for bit (dense, through B2 and through B1); B1's
+bit-identical repeat launches; the reaction-field instantiations of both
+kernels against their plain versions and a CutoffPeriodic Context
+stepping through them; the bonded terms on the card against the CPU in
+f64.  Marked `gpu`; each test skips (through the `cuda` fixture) where
+no CUDA card is present.
 On the card (tests/conftest.py imports JAX, which the machine with the
 card lacks): python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 """
@@ -266,23 +270,26 @@ def test_scatter_add_is_the_same_every_call(cuda):
     assert float(torch.max(torch.abs(runs[0].double() - ref))) < 1e-2
 
 
-@pytest.mark.parametrize("strategy", ["dense", "cellpair"])
-def test_checkpoint_replay_is_bit_exact_on_card(cuda, tmp_path, strategy):
+@pytest.mark.parametrize("strategy,use_pallas",
+                         [("dense", 3), ("cellpair", 3), ("cellpair", None)],
+                         ids=["dense", "cellpair", "cellpair-b1"])
+def test_checkpoint_replay_is_bit_exact_on_card(cuda, tmp_path, strategy,
+                                                use_pallas):
     """NPT on the card in PyTorch's default (not deterministic) mode: save,
     40 steps, load, 40 steps give the same positions bit for bit, on the
-    dense strategy and on the cell-pair strategy through B2 (B1 adds its
-    reactions with atomics, so its last bits follow the warps' order)."""
+    dense strategy and on the cell-pair strategy through B2 and through
+    B1 (whose reactions go through frames with one writer an entry)."""
     system, pos = builders.build_water_box(216, cutoff=0.6)
     system.addForce(dt.MonteCarloBarostat(1.01325, 300.0, 10))
     integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
     integ.setMaxDrudeDistance(0.02)
     ctx = dt.Context(system, integ, precision="single", device=cuda,
-                     strategy=strategy, nb_options={"use_pallas": 3})
+                     strategy=strategy, nb_options={"use_pallas": use_pallas})
     ctx.setPositions(pos)
     ctx.setVelocitiesToTemperature(300.0, seed=1)
     assert ctx._nb.strategy == strategy
     if strategy == "cellpair":
-        assert ctx._nb.sweep_kernel == "b2"
+        assert ctx._nb.sweep_kernel == ("b2" if use_pallas == 3 else "b1")
     integ.step(20)
     path = str(tmp_path / "npt.chk")
     dt.save_checkpoint(path, ctx)
@@ -313,3 +320,108 @@ def test_pme_spread_is_the_same_every_call(cuda):
     assert torch.equal(grids[0], grids[1])
     scale = float(torch.max(torch.abs(grids[2])))
     assert float(torch.max(torch.abs(grids[0] - grids[2]))) <= 1e-5 * scale
+
+
+def test_b1_launches_are_bit_identical(cuda):
+    ctx, _ = _ctx(cuda)
+    args = _fields(ctx)
+    first = sweep.pair_forces(*args)
+    for _ in range(3):
+        assert torch.equal(sweep.pair_forces(*args), first)
+
+
+def _rf_ctx(device, nb_options=None):
+    """The 216-water box under CutoffPeriodic (the reaction field) on the
+    cell-pair strategy."""
+    system, pos = builders.build_water_box(
+        216, cutoff=0.6, method=dt.NonbondedForce.CutoffPeriodic)
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    integ.setMaxDrudeDistance(0.02)
+    ctx = dt.Context(system, integ, precision="single", device=device,
+                     strategy="cellpair", nb_options=nb_options)
+    ctx.setPositions(pos)
+    ctx.setVelocitiesToTemperature(300.0, seed=1)
+    ctx._ensure_neighbors()
+    return ctx, integ
+
+
+def test_rf_kernels_match_plain_on_card(cuda):
+    """B1's and B2's reaction-field instantiations against their plain
+    versions: forces 2e-5 of max|F|, energy against the plain energy in
+    f64 to 2e-2 kJ/mol (|E| is ~225 kJ/mol here, of ~8e4 pairs inside
+    the cutoff whose reaction-field energies, qq (1/r + krf r^2 - crf)
+    with |qq| up to ~400 kJ nm/mol, each round by ~1e-4 kJ/mol in
+    float32), each the same bits twice."""
+    ctx, _ = _rf_ctx(cuda)
+    nb = ctx._nb
+    assert nb.coulomb["method"] == "rf" and nb.pme is None
+    fields, cfg, shifts, alpha, scale = _fields(ctx)
+    kw = nb.coulomb
+    f_p = sweep.pair_forces_plain(fields, cfg, shifts, alpha, scale, **kw)
+    f64 = {k: (v.double() if v.is_floating_point() else v)
+           for k, v in fields.items()}
+    e64 = float(sweep.pair_energy_plain(f64, cfg, shifts.double(), alpha,
+                                        scale, **kw))
+    fmax = float(torch.max(torch.abs(f_p)))
+    before = dict(sweep.launches)
+    for kernel in (sweep, sweep_chunked):
+        f1 = kernel.pair_forces(fields, cfg, shifts, alpha, scale, **kw)
+        f2 = kernel.pair_forces(fields, cfg, shifts, alpha, scale, **kw)
+        e1 = kernel.pair_energy(fields, cfg, shifts, alpha, scale, **kw)
+        e2 = kernel.pair_energy(fields, cfg, shifts, alpha, scale, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(f1, f2) and torch.equal(e1, e2)
+        assert float(torch.max(torch.abs(f1 - f_p))) <= 2e-5 * fmax
+        assert abs(float(e1) - e64) <= 2e-2
+    for k in ("b1_sweep_rf", "b2_sweep_rf", "b1_energy_rf", "b2_energy_rf"):
+        assert sweep.launches[k] - before[k] == 2
+    for k in ("b1_sweep", "b2_sweep", "b1_energy", "b2_energy"):
+        assert sweep.launches[k] == before[k]
+
+
+@pytest.mark.parametrize("use_pallas", [None, 3], ids=["b1", "b2"])
+def test_rf_context_steps_through_the_rf_kernels(cuda, use_pallas):
+    """A CutoffPeriodic Context steps through the routed kernel's
+    reaction-field instantiation, reads its energy there, and never runs
+    the plain sweep on the card."""
+    ctx, integ = _rf_ctx(cuda, {"use_pallas": use_pallas})
+    name = "b2" if use_pallas == 3 else "b1"
+    assert ctx._nb.sweep_kernel == name
+    before = dict(sweep.launches)
+    plain = cellpair.plain_sweeps["cuda"]
+    integ.step(20)
+    st = ctx.getState(positions=True, energy=True)
+    torch.cuda.synchronize()
+    assert sweep.launches[f"{name}_sweep_rf"] - before[f"{name}_sweep_rf"] \
+        >= 20
+    assert sweep.launches[f"{name}_energy_rf"] \
+        == before[f"{name}_energy_rf"] + 1
+    assert cellpair.plain_sweeps["cuda"] == plain
+    assert np.all(np.isfinite(st.getPositions()))
+    assert np.isfinite(st.getPotentialEnergy())
+
+
+def test_bonded_terms_on_card_match_cpu(cuda):
+    """The four bonded forces on the card in f64 against the CPU: energy
+    1e-12 relative, forces 1e-10 of max|F| (the same arithmetic, other
+    sum orders)."""
+    rng = np.random.default_rng(21)
+    n = 60
+    pos = rng.normal(size=(n, 3))
+    forces = [dt.HarmonicBondForce(), dt.HarmonicAngleForce(),
+              dt.PeriodicTorsionForce(), dt.HarmonicTorsionForce()]
+    for _ in range(40):
+        i, j, k, l = (int(v) for v in rng.choice(n, 4, replace=False))
+        forces[0].addBond(i, j, 0.2, 1e4)
+        forces[1].addAngle(i, j, k, 1.9, 300.0)
+        forces[2].addTorsion(i, j, k, l, 3, 0.3, 2.0)
+        forces[3].addTorsion(i, j, k, l, 0.5, 20.0)
+    for f in forces:
+        out = []
+        for dev in ("cpu", cuda):
+            term = f.compile(None, torch.float64, dev)
+            e, fo = term.energy_forces(torch.as_tensor(pos, device=dev))
+            out.append((float(e), fo.cpu().numpy()))
+        (e_ref, f_ref), (e, fc) = out
+        assert abs(e - e_ref) <= 1e-12 * abs(e_ref)
+        assert np.abs(fc - f_ref).max() <= 1e-10 * np.abs(f_ref).max()

@@ -16,9 +16,10 @@ from openmm_drudenose_tpu_torch import convert
 from openmm_drudenose_tpu_torch.app import context, serialization, simulation
 from openmm_drudenose_tpu_torch.constraints import shake
 from openmm_drudenose_tpu_torch.examples import nacl_tg
-from openmm_drudenose_tpu_torch.forces import dense
+from openmm_drudenose_tpu_torch.forces import bonded, dense
 from openmm_drudenose_tpu_torch.integrators import barostat
-from openmm_drudenose_tpu_torch.io import builders, nacl, pdbfile
+from openmm_drudenose_tpu_torch.io import (builders, ionic_liquid, nacl,
+                                           pdbfile, polymer)
 from openmm_drudenose_tpu_torch.ops import scatter, sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.tools import walk_model
 bad = sorted(m for m in sys.modules
