@@ -111,9 +111,26 @@ seconds):
      counted (B1 launched, no plain
      sweep); the checks of phase 7 but the reaction field's, with B1's
      Ewald forces against their plain version on its fields
-  9. the seconds of each phase, the `kernels` JSON line (each kernel's
-     force and energy instantiations, Ewald and reaction field), then the
-     result line.
+  9. triclinic boxes through B1 and B2: the JAX package's sheared 100k
+     box (scripts/check_triclinic_tpu.py: build_water_box(20000, PME,
+     cutoff 1.0) with rows a = (L, 0, 0), b = (0.2 L, L, 0), c = (0.1 L,
+     0.15 L, L), L = 8.4346 nm; 15^3 cells of fractional space, window 2,
+     63 offsets, C = 48), the integrator of phase 3, single precision,
+     from build_water_box's lattice: minimizeEnergy(300), 300 K velocities,
+     TRI_SETTLE settling steps, a restart from the settled positions
+     (reinitialize: a fresh chain; 300 K velocities) and TRI_SETTLE
+     settling steps more (each stage's latches printed), TRI_STEPS steps
+     counted
+     (B1 launched, no plain sweep); the checks of phase 8 with the bath
+     bands of phase 3 on the run's mean; B1 and B2 on its fields against
+     their plain versions, f64 and each other, bit-identical, timed with
+     the bound; B2's energy held; a Context routed to B2 stepped
+     TRI_B2_STEPS steps; then NPT (MonteCarloBarostat(1.01325, 300,
+     TRI_BARO), TRI_NPT_STEPS steps) with the checks of phase 6, the
+     forced 0.9x shrink planning a triclinic grid again
+ 10. the seconds of each phase, the `kernels` JSON line (each kernel's
+     force and energy instantiations, Ewald and reaction field, and the
+     triclinic runs), then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -193,6 +210,22 @@ IL_BANDS = {"mean": ((300.0, 500.0), (300.0, 500.0), (0.0, 10.0)),
             "last": ((200.0, 600.0), (200.0, 600.0), (0.0, 20.0))}
 POLY_BANDS = {"mean": ((225.0, 375.0), (225.0, 375.0), (0.0, 10.0)),
               "last": ((150.0, 450.0), (150.0, 450.0), (0.0, 20.0))}
+# phase 9: the JAX package's sheared 100k box (scripts/
+# check_triclinic_tpu.py): b = (0.2 L, L, 0), c = (0.1 L, 0.15 L, L);
+# FIRE iterations, settling, timed, B2-routed and NPT steps; the bath
+# bands, written before the phase's first card run: the run's mean in
+# phase 3's bands, the last in phase 5's.  The minimized lattice
+# releases ~28 kJ/mol a molecule, and the single Nose-Hoover chain then
+# rings between ~90 and ~840 K with a period of ~0.85 ps, decaying by
+# ~0.6 a half period (PERF.md): the phase settles TRI_SETTLE steps, then
+# starts again from the settled positions with a fresh chain and 300 K
+# velocities (as a user starts production from equilibrated
+# coordinates), and settles TRI_SETTLE steps more
+TRI_SHEAR = (0.2, 0.1, 0.15)
+TRI_MOL, TRI_MIN, TRI_SETTLE, TRI_STEPS = 20000, 300, 512, 96
+TRI_B2_STEPS, TRI_NPT_STEPS, TRI_BARO = 16, 100, 25
+TRI_BANDS = {"mean": ((250.0, 350.0), (150.0, 450.0), (0.0, 10.0)),
+             "last": ((200.0, 420.0), (150.0, 450.0), (0.0, 10.0))}
 
 
 def log(msg):
@@ -559,14 +592,21 @@ def check_capacity(ctx, card, C=160):
 
 
 def check_after_steps(ctx, phase):
-    """Fail unless no latch is set, the hard wall held and positions,
-    energies and bath temperatures are finite; returns the bath
-    temperatures."""
+    """Fail unless no latch is set (nor a drift warned in an earlier
+    chunk), the hard wall held and positions, energies and bath
+    temperatures are finite; returns the bath temperatures."""
     import numpy as np
     import torch
     nbl = ctx._state.neighbors
+    if nbl is None:
+        # the grid was planned again after the last chunk (a volume move
+        # left the stencil short), its latches read there; sort afresh
+        log(f"{phase} the cell grid was planned again after the last "
+            f"chunk: {ctx._cp_cfg.grid}")
+        ctx._ensure_neighbors()
+        nbl = ctx._state.neighbors
     latches = {"overflow": bool(nbl.overflow),
-               "drift": bool(nbl.drift_exceeded),
+               "drift": bool(nbl.drift_exceeded) or ctx._drift_warned,
                "excl_span": bool(nbl.excl_span_exceeded)
                if nbl.excl_span_exceeded is not None else False,
                "hardwall_runaway": ctx.hardwallRunaway}
@@ -603,18 +643,18 @@ def breakdown(ctx, kernel, name, ms_step, card, phase, reps=5):
     from openmm_drudenose_tpu_torch.forces import bonded, cellpair
     from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
     nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
-    box_diag = torch.diagonal(st.box)
+    box_t = ctx._box_arg(st.box)
     pos_comp = apply_vsites(ctx._spec, ctx._static, st.positions)
-    fields = nb.fields(pos_comp, box_diag, st.neighbors)
+    fields = nb.fields(pos_comp, box_t, st.neighbors)
     terms = [t for t in ctx._terms if isinstance(t, bonded._Term)]
     parts = {
-        "sorted_fields": lambda: nb.fields(pos_comp, box_diag, st.neighbors),
+        "sorted_fields": lambda: nb.fields(pos_comp, box_t, st.neighbors),
         name: lambda: kernel(
-            fields, cfg, cellpair.offset_shifts(cfg, box_diag), nb.alpha,
+            fields, cfg, cellpair.offset_shifts(cfg, box_t), nb.alpha,
             ONE_4PI_EPS0, **nb.coulomb),
-        "pme_recip": lambda: nb.recip(pos_comp, box_diag),
-        "pair_terms": lambda: nb.extras(pos_comp, box_diag),
-        "bonded": lambda: [t.energy_forces(pos_comp, box_diag)
+        "pme_recip": lambda: nb.recip(pos_comp, box_t),
+        "pair_terms": lambda: nb.extras(pos_comp, box_t),
+        "bonded": lambda: [t.energy_forces(pos_comp, box_t)
                            for t in terms],
         "force_pass": lambda: ctx._forces_only(st.positions, st.box,
                                                st.neighbors, st.pos_err),
@@ -646,13 +686,13 @@ def force_pass_floor(ctx, ctx64, rms_skip=False):
     f32_forces = ctx._state.forces
     f64_forces = ctx64._state.forces
     nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
-    box_diag = torch.diagonal(st.box)
-    shifts = cellpair.offset_shifts(cfg, box_diag)
+    box_t = ctx._box_arg(st.box)
+    shifts = cellpair.offset_shifts(cfg, box_t)
     # the f32 pass takes its distances from the compensated positions
     fa = nb.fields(apply_vsites(ctx._spec, ctx._static, st.positions),
-                   box_diag, st.neighbors,
+                   box_t, st.neighbors,
                    ctx._exact_positions(st.positions, st.pos_err))
-    box64 = torch.diagonal(ctx64._state.box)
+    box64 = ctx64._box_arg(ctx64._state.box)
     fb = nb.fields(apply_vsites(ctx64._spec, ctx64._static,
                                 ctx64._state.positions), box64, st.neighbors)
     # each pass with its own box's offset shifts
@@ -1025,13 +1065,8 @@ def phase_npt(card, ms_step_nvt, pos, vel, cap):
     energy held and timed; NPT_STEPS steps counted; the state checked;
     then a forced 0.9x linear shrink: the grid planned again and B1 held
     against its plain version on it.  Returns B1's energy entry."""
-    import torch
     import openmm_drudenose_tpu_torch as dt
-    from openmm_drudenose_tpu_torch.forces import cellpair
-    from openmm_drudenose_tpu_torch.integrators import barostat
     from openmm_drudenose_tpu_torch.io import builders
-    from openmm_drudenose_tpu_torch.ops import sweep
-    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
     system, _ = builders.build_water_box(pos.shape[0] // 5)
     system.addForce(dt.MonteCarloBarostat(1.01325, 300.0, NPT_BARO))
     integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
@@ -1040,16 +1075,31 @@ def phase_npt(card, ms_step_nvt, pos, vel, cap):
                      nb_options={"capacity": cap}, device="cuda")
     ctx.setPositions(pos)
     ctx.setVelocities(vel)
+    return npt_checks("6", "100k", ctx, integ, card, ms_step_nvt, NPT_STEPS,
+                      NPT_BARO)
+
+
+def npt_checks(phase, tag, ctx, integ, card, ms_step_nvt, n_steps, freq):
+    """A Context with a MonteCarloBarostat of frequency `freq`: B1's
+    energy held and timed; n_steps steps counted (two B1 energy launches
+    an attempt, no plain sweep); the state checked; then a forced 0.9x
+    linear shrink: the grid planned again and B1 held against its plain
+    version on it.  Returns B1's energy entry."""
+    import torch
+    from openmm_drudenose_tpu_torch.forces import boxutils, cellpair
+    from openmm_drudenose_tpu_torch.integrators import barostat
+    from openmm_drudenose_tpu_torch.ops import sweep
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
     ctx._ensure_forces()
     nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
     if nb.sweep_kernel != "b1":
-        fail(f"the 100k NPT config routes to {nb.sweep_kernel}, not B1")
-    box_diag = torch.diagonal(st.box)
-    entry = energy_check("6 B1 at 100k", sweep,
-                         nb.fields(st.positions, box_diag, st.neighbors),
-                         cfg, cellpair.offset_shifts(cfg, box_diag),
+        fail(f"the {tag} NPT config routes to {nb.sweep_kernel}, not B1")
+    box_t = ctx._box_arg(st.box)
+    entry = energy_check(f"{phase} B1 at {tag}", sweep,
+                         nb.fields(st.positions, box_t, st.neighbors),
+                         cfg, cellpair.offset_shifts(cfg, box_t),
                          nb.alpha, card)
-    vol0 = float(torch.prod(torch.diagonal(st.box).double()))
+    vol0 = float(boxutils.volume(st.box.double()))
     # the host time spent inside the attempts (their two host reads wait
     # for the work queued before them): the barostat's cost without the
     # host's drift between phases
@@ -1064,38 +1114,41 @@ def phase_npt(card, ms_step_nvt, pos, vel, cap):
         return out
 
     barostat.maybe_attempt_mc_move = timed_attempt
+    grid_start = cfg.grid
     t = time.time()
     try:
-        _, launches, plain = counted(lambda: integ.step(NPT_STEPS))
+        _, launches, plain = counted(lambda: integ.step(n_steps))
     finally:
         barostat.maybe_attempt_mc_move = attempt
     wall = time.time() - t
-    ms_step = wall / NPT_STEPS * 1e3
-    attempts = len(range(0, NPT_STEPS, NPT_BARO))
+    ms_step = wall / n_steps * 1e3
+    attempts = len(range(0, n_steps, freq))
     st = ctx._state
-    vol1 = float(torch.prod(torch.diagonal(st.box).double()))
+    vol1 = float(boxutils.volume(st.box.double()))
     if len(inside) != attempts:
         fail(f"{len(inside)} attempts timed, {attempts} expected")
-    log(f"6 {NPT_STEPS} NPT steps in {wall:.2f} s: {ms_step:.2f} ms/step "
-        f"against {ms_step_nvt:.2f} without the barostat in phase 3 "
+    log(f"{phase} {n_steps} NPT steps in {wall:.2f} s: {ms_step:.2f} "
+        f"ms/step against {ms_step_nvt:.2f} without the barostat "
         f"({ms_step - ms_step_nvt:+.2f}) on {card}; {attempts} attempts, "
         f"{np.mean(inside) * 1e3:.2f} ms each inside the attempt (min "
         f"{np.min(inside) * 1e3:.2f}, max {np.max(inside) * 1e3:.2f}): "
-        f"{np.sum(inside) * 1e3 / NPT_STEPS:.3f} ms/step; "
-        f"launches {launches}; plain sweeps on the card {plain}; volume "
+        f"{np.sum(inside) * 1e3 / n_steps:.3f} ms/step; "
+        f"launches {launches}; plain sweeps on the card {plain}; cell grid "
+        f"{grid_start} -> {ctx._cp_cfg.grid} over the run; volume "
         f"{vol0:.3f} -> {vol1:.3f} nm^3, move size {st.baro_scale:.4f} "
         f"nm^3, {st.baro_naccept} of {st.baro_nattempt} accepted since the "
         f"last adaptation")
     if launches["b1_energy"] != 2 * attempts or plain:
         fail(f"expected {2 * attempts} B1 energy launches and no plain "
              "sweep in the NPT steps")
-    if launches["b1_sweep"] < NPT_STEPS or launches["b2_sweep"]:
+    if launches["b1_sweep"] < n_steps or launches["b2_sweep"]:
         fail("the NPT steps did not run their forces through B1")
-    _, check_launches, plain = counted(lambda: check_after_steps(ctx, "6"))
+    _, check_launches, plain = counted(lambda: check_after_steps(ctx,
+                                                                 phase))
     if check_launches["b1_energy"] != 1 or plain:
         fail(f"the state's energy: {check_launches}, {plain} plain sweeps")
     entry["launches"] = launches["b1_energy"]
-    entry["launches_per_step"] = launches["b1_energy"] / NPT_STEPS
+    entry["launches_per_step"] = launches["b1_energy"] / n_steps
 
     # a forced 0.9x linear shrink past the stencil
     grid0 = cfg.grid
@@ -1107,19 +1160,19 @@ def phase_npt(card, ms_step_nvt, pos, vel, cap):
     nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
     if cfg.grid == grid0:
         fail("the shrunk box kept its cell grid")
-    box_diag = torch.diagonal(st.box)
-    fields = nb.fields(st.positions, box_diag, st.neighbors)
-    shifts = cellpair.offset_shifts(cfg, box_diag)
+    box_t = ctx._box_arg(st.box)
+    fields = nb.fields(st.positions, box_t, st.neighbors)
+    shifts = cellpair.offset_shifts(cfg, box_t)
     args = (fields, cfg, shifts, nb.alpha, ONE_4PI_EPS0)
     f_k = sweep.pair_forces(*args)
     e_k = float(sweep.pair_energy(*args))
     torch.cuda.synchronize()
     f_p = sweep.pair_forces_plain(*args)
     e_p = float(sweep.pair_energy_plain(*args))
-    err = held("6 B1 forces on the replanned grid", f_k, f_p, 2e-5)
+    err = held(f"{phase} B1 forces on the replanned grid", f_k, f_p, 2e-5)
     rel = abs(e_k - e_p) / abs(e_p)
-    box_w = float(box_diag[0])
-    log(f"6 0.9x shrink: box {box_w:.4f} nm, cell grid {grid0} -> "
+    box_w = float(st.box[0, 0])
+    log(f"{phase} 0.9x shrink: box {box_w:.4f} nm, cell grid {grid0} -> "
         f"{cfg.grid}, capacity {cfg.capacity}, {cfg.n_offsets} offsets, PME "
         f"grid {nb.pme.grid}, route {nb.sweep_kernel}; B1 vs plain there: "
         f"forces {err:.3e} of max|F|, energy {rel:.3e} of |E|")
@@ -1473,6 +1526,170 @@ def phase_polymer(card):
     return times
 
 
+def phase_triclinic(card):
+    """9. The JAX package's sheared 100k SWM4-NDP box through the port
+    (see the module docstring).  Returns the `kernels` entries of the
+    triclinic runs of B1 (forces; energy, from the NPT run) and B2
+    (forces and energy)."""
+    import torch
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.forces import boxutils, cellpair
+    from openmm_drudenose_tpu_torch.io import builders
+    from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    t = time.time()
+    system, pos = builders.build_water_box(
+        TRI_MOL, method=dt.NonbondedForce.PME, cutoff=1.0)
+    L = float(system.getDefaultPeriodicBoxVectors()[0][0])
+    bx, cx, cy = TRI_SHEAR
+    system.setDefaultPeriodicBoxVectors((L, 0, 0), (bx * L, L, 0),
+                                        (cx * L, cy * L, L))
+    n = system.getNumParticles()
+
+    def make_ctx(precision, options, sys_=system):
+        integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+        integ.setMaxDrudeDistance(0.02)
+        ctx = dt.Context(sys_, integ, precision=precision, device="cuda",
+                         nb_options=options)
+        return ctx, integ
+
+    ctx, integ = make_ctx("single", {})
+    ctx.setPositions(pos)
+    ctx._ensure_neighbors()
+    nb, cfg = ctx._nb, ctx._cp_cfg
+    box = np.array(system.getDefaultPeriodicBoxVectors())
+    widths = boxutils.plane_widths(torch.as_tensor(box)).numpy()
+    log(f"9 sheared box built and bound in {time.time() - t:.1f} s: {n} "
+        f"atoms, box rows {np.round(box, 5).tolist()} nm (volume "
+        f"{np.linalg.det(box):.4f} nm^3, plane widths "
+        f"{np.round(widths, 5).tolist()}), triclinic plan {cfg.triclinic}: "
+        f"cell grid {cfg.grid}, window {cfg.window}, capacity "
+        f"{cfg.capacity}, {cfg.n_offsets} offsets (trimmed {cfg.trimmed}), "
+        f"PME grid {nb.pme.grid}, route {nb.sweep_kernel}")
+    if not (n == 100000 and ctx._triclinic and cfg.triclinic
+            and nb.sweep_kernel == "b1" and cfg.n_offsets == 63):
+        fail("9: the sheared box is not the 100k triclinic plan on B1")
+    minimized("9", ctx, TRI_MIN)
+    ctx.setVelocitiesToTemperature(300.0, seed=0)
+    targets = np.array([300.0, 300.0, 1.0])
+    for stage in ("from the minimized lattice", "after the restart"):
+        t = time.time()
+        integ.step(TRI_SETTLE)
+        torch.cuda.synchronize()
+        nbl = ctx._state.neighbors
+        settled = ctx.getState(groups=True).getGroupTemperatures()
+        pe = ctx.getState(energy=True).getPotentialEnergy()
+        log(f"9 {TRI_SETTLE} settling steps {stage} in "
+            f"{time.time() - t:.2f} s; bath temperatures "
+            f"{np.round(settled, 3).tolist()} K, PE {pe:.1f} kJ/mol; "
+            f"drift latch {bool(nbl.drift_exceeded)}, overflow "
+            f"{bool(nbl.overflow)}")
+        if stage.startswith("from"):
+            # a fresh chain (and a fresh sort) at the settled positions
+            st = ctx._state
+            settled_pos = (st.positions.double() + st.pos_err.double())
+            ctx.reinitialize(preserveState=False)
+            ctx.setPositions(settled_pos.cpu().numpy())
+            ctx.setVelocitiesToTemperature(300.0, seed=1)
+    ms_step, nsd, launches, plain, mean = run_blocks(ctx, integ, TRI_STEPS,
+                                                     targets)
+    log(f"9 {TRI_STEPS} steps: {ms_step:.2f} ms/step, {nsd:.4f} ns/day on "
+        f"{card}; launches {launches}; plain sweeps on the card {plain}; "
+        f"capacity {ctx._cp_cfg.capacity}")
+    if launches["b1_sweep"] < TRI_STEPS or plain or any(
+            launches[k] for k in ("b2_sweep", "b1_sweep_rf")):
+        fail("9: the steps did not run their forces through B1 alone")
+    temps = state_checks("9", ctx, make_ctx, "b1_energy")
+    hold_bands("9", ["water", "COM", "Drude"], mean, temps, TRI_BANDS)
+
+    nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
+    box_t = ctx._box_arg(st.box)
+    fields = nb.fields(st.positions, box_t, st.neighbors)
+    shifts = cellpair.offset_shifts(cfg, box_t)
+    args = (fields, cfg, shifts, nb.alpha, ONE_4PI_EPS0)
+    kw = dict(nb.coulomb, excl_skip=nb.excl_skip)
+    f_b1, err_b1, ms_b1, plain_b1 = kernel_parity("9", "B1", sweep, args,
+                                                  kw)
+    _, err_b2, ms_b2, plain_b2 = kernel_parity("9", "B2", sweep_chunked,
+                                               args, kw, ref=f_b1)
+    del f_b1
+    bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(fields, cfg,
+                                                              shifts)
+    log(f"9 force bound {bound_ms:.4f} ms ({bound_by}: {n_tests} pair "
+        f"tests, {n_cut} inside the cutoff, {n_bytes} bytes): B1 "
+        f"{ms_b1:.4f} ms at {bound_ms / ms_b1:.1%}, B2 {ms_b2:.4f} ms at "
+        f"{bound_ms / ms_b2:.1%} on {card}")
+    e2 = energy_check("9 B2", sweep_chunked, fields, cfg, shifts, nb.alpha,
+                      card, nb.coulomb, nb.excl_skip)
+    del fields, args
+    breakdown(ctx, sweep.pair_forces, "b1_sweep", ms_step, card, "9",
+              reps=3)
+
+    # a Context routed to B2 (use_pallas 3) from the same state
+    exact = (st.positions.double() + st.pos_err.double()).cpu().numpy()
+    vel = st.velocities.double().cpu().numpy()
+    ctx2, integ2 = make_ctx("single", {"use_pallas": 3,
+                                       "capacity": cfg.capacity})
+    ctx2.setPositions(exact)
+    ctx2.setVelocities(vel)
+    ctx2._ensure_forces()
+    if ctx2._nb.sweep_kernel != "b2" or not ctx2._cp_cfg.triclinic:
+        fail(f"9: use_pallas 3 routed to {ctx2._nb.sweep_kernel}")
+    _, b2_launches, plain = counted(lambda: integ2.step(TRI_B2_STEPS))
+    _, b2_e_launches, plain_e = counted(
+        lambda: ctx2.getState(energy=True).getPotentialEnergy())
+    log(f"9 a Context routed to B2: {TRI_B2_STEPS} steps, launches "
+        f"{b2_launches}, then its energy: {b2_e_launches}; plain sweeps "
+        f"{plain + plain_e}")
+    if (b2_launches["b2_sweep"] < TRI_B2_STEPS or b2_launches["b1_sweep"]
+            or b2_e_launches["b2_energy"] != 1 or plain or plain_e):
+        fail("9: the B2-routed Context did not run B2")
+    del ctx2, integ2, ctx, integ
+    torch.cuda.empty_cache()
+
+    # NPT from the same state: a system of its own with the barostat
+    sys_npt, _ = builders.build_water_box(
+        TRI_MOL, method=dt.NonbondedForce.PME, cutoff=1.0)
+    sys_npt.setDefaultPeriodicBoxVectors(*box)
+    sys_npt.addForce(dt.MonteCarloBarostat(1.01325, 300.0, TRI_BARO))
+    ctx3, integ3 = make_ctx("single", {"capacity": cfg.capacity}, sys_npt)
+    ctx3.setPositions(exact)
+    ctx3.setVelocities(vel)
+    grid0 = cfg.grid
+    e_npt = npt_checks("9", "the sheared 100k box", ctx3, integ3, card,
+                       ms_step, TRI_NPT_STEPS, TRI_BARO)
+    cfg3 = ctx3._cp_cfg
+    if not (cfg3.triclinic and cfg3.grid != grid0
+            and boxutils.is_triclinic(ctx3._state.box)):
+        fail("9: the shrink did not replan a triclinic grid")
+    del ctx3, integ3
+    torch.cuda.empty_cache()
+
+    src1 = "openmm_drudenose_tpu_torch/csrc/sweep.cu"
+    src2 = "openmm_drudenose_tpu_torch/csrc/sweep_chunked.cu"
+    tpu1 = "openmm_drudenose_tpu/ops/pallas_sweep.py:440"
+    tpu2 = "openmm_drudenose_tpu/ops/pallas_sweep.py:851"
+    common = {"route": "cuda", "coulomb": "ewald", "geometry": "triclinic",
+              "capacity": cfg.capacity, "library_ms": None}
+    e_npt.pop("capacity", None)
+    return [dict(common, name="b1_sweep_triclinic", instantiation="forces",
+                 source=src1, replaces=tpu1, launches=launches["b1_sweep"],
+                 launches_per_step=launches["b1_sweep"] / TRI_STEPS,
+                 max_abs_err=err_b1, ms=ms_b1, plain_ms=plain_b1,
+                 bound_ms=bound_ms, bound_by=bound_by),
+            dict(common, name="b1_energy_triclinic", instantiation="energy",
+                 source=src1, replaces=tpu1, **e_npt),
+            dict(common, name="b2_sweep_triclinic", instantiation="forces",
+                 source=src2, replaces=tpu2,
+                 launches=b2_launches["b2_sweep"],
+                 launches_per_step=b2_launches["b2_sweep"] / TRI_B2_STEPS,
+                 max_abs_err=err_b2, ms=ms_b2, plain_ms=plain_b2,
+                 bound_ms=bound_ms, bound_by=bound_by),
+            dict(common, name="b2_energy_triclinic", instantiation="energy",
+                 source=src2, replaces=tpu2,
+                 launches=b2_e_launches["b2_energy"], **e2)]
+
+
 def main():
     # ---- 0. device --------------------------------------------------------
     import torch
@@ -1683,7 +1900,13 @@ def main():
     phase_polymer(card)
     phase_seconds["8 the polymer"] = phase_mark()
 
-    # ---- 9. kernel summary --------------------------------------------------
+    # ---- 9. the sheared 100k box: triclinic through B1 and B2 ---------------
+    tri_entries = phase_triclinic(card)
+    for e in tri_entries:
+        e["registers"] = regs[e["name"].replace("_triclinic", "")]
+    phase_seconds["9 the sheared box"] = phase_mark()
+
+    # ---- 10. kernel summary -------------------------------------------------
     log("seconds per phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_seconds.items()))
     src, tpu = ("openmm_drudenose_tpu_torch/csrc/sweep.cu",
@@ -1701,7 +1924,7 @@ def main():
         "name": "b1_energy", "instantiation": "energy", "route": "cuda",
         "source": src, "replaces": tpu, "registers": regs["b1_energy"],
         **b1_energy, "library_ms": None,
-    }, *b2_entries, *rf_entries]
+    }, *b2_entries, *rf_entries, *tri_entries]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

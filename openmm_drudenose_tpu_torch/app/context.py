@@ -20,6 +20,12 @@ MonteCarloBarostat moves the volume inside the steps
 of the cutoff, the cell grid and the PME grid are planned again at the
 current box (:438-447 there).
 
+Boxes are orthorhombic or triclinic in OpenMM's reduced form
+(forces/boxutils.py).  The state holds the (3, 3) box; the terms take
+its diagonal for an orthorhombic system (every sum as before, bit for
+bit) and the whole matrix for a triclinic one (`_box_arg`, the JAX
+package's mi_box).
+
 Entry points run on CUDA unless the caller passes device="cpu"; a Context
 without a device on a machine without CUDA raises.
 """
@@ -38,6 +44,7 @@ from ..constraints.vsites import (apply_vsites, apply_vsites_relative,
                                   spread_vsite_forces)
 from ..core import spec as spec_mod
 from ..core.state import zeros_state
+from ..forces import boxutils
 from ..integrators import barostat, tgnh
 from ..units import BOLTZ
 
@@ -175,6 +182,7 @@ class Context:
                                   if self._cp_cfg is not None else None)
         self._plan_box = np.array(self._system.getDefaultPeriodicBoxVectors(),
                                   np.float64)
+        self._triclinic = boxutils.is_triclinic(self._plan_box)
         self._stepper = tgnh.Stepper(
             self._static, self._forces_only,
             self._mc_move if self._static.baro_freq else None)
@@ -201,21 +209,26 @@ class Context:
         return apply_vsites_relative(self._spec, self._static,
                                      positions.double() + pos_err.double())
 
+    def _box_arg(self, box):
+        """The box the terms take: the (3, 3) matrix when the system is
+        triclinic, else its diagonal (boxutils.mi_box)."""
+        return boxutils.mi_box(box, self._triclinic)
+
     def _forces_only(self, positions, box, neighbors, pos_err):
         """Total force on the particles (no energy)."""
         spec, static = self._spec, self._static
-        box_diag = torch.diagonal(box)
+        box_t = self._box_arg(box)
         pos = apply_vsites(spec, static, positions)
         f = torch.zeros_like(pos)
         nb = self._nb
         exact = self._exact_positions(positions, pos_err)
         if nb is not None:
-            f = nb.sweep_forces(pos, box_diag, neighbors, exact)
+            f = nb.sweep_forces(pos, box_t, neighbors, exact)
             if nb.pme is not None:
-                f = f + nb.recip(pos, box_diag, exact)[1]
-            f = f + nb.extras(pos, box_diag, exact)[1]
+                f = f + nb.recip(pos, box_t, exact)[1]
+            f = f + nb.extras(pos, box_t, exact)[1]
         for term in self._terms:
-            f = f + term.energy_forces(pos, box_diag,
+            f = f + term.energy_forces(pos, box_t,
                                        **self._term_kw(term, pos_err,
                                                        exact))[1]
         return spread_vsite_forces(spec, static, f)
@@ -235,19 +248,19 @@ class Context:
         there) and the parts summed in float64, so that the barostat's
         Metropolis test sees no float32 rounding of |E| (~1e6 kJ/mol at
         100k atoms, where a float32 ulp is 0.06-0.12 kJ/mol)."""
-        box_diag = torch.diagonal(box)
+        box_t = self._box_arg(box)
         pos = apply_vsites(self._spec, self._static, positions)
         e = torch.zeros((), dtype=torch.float64, device=pos.device)
         nb = self._nb
         exact = self._exact_positions(positions, pos_err)
         if nb is not None:
-            e = e + nb.sweep_energy(pos, box_diag, neighbors, exact).double()
+            e = e + nb.sweep_energy(pos, box_t, neighbors, exact).double()
             if nb.pme is not None:
-                e = e + nb.recip_energy(pos, box_diag, exact).double()
-            e = e + nb.extras(pos, box_diag, exact,
+                e = e + nb.recip_energy(pos, box_t, exact).double()
+            e = e + nb.extras(pos, box_t, exact,
                               with_forces=False)[0].double()
         for term in self._terms:
-            e = e + term.energy_forces(pos, box_diag, with_forces=False,
+            e = e + term.energy_forces(pos, box_t, with_forces=False,
                                        **self._term_kw(term, pos_err,
                                                        exact))[0].double()
         return e
@@ -309,7 +322,8 @@ class Context:
         return cut
 
     def _validate_box_widths(self, box, origin: str) -> None:
-        """Raise where the cutoff exceeds half the smallest box width:
+        """Raise where the cutoff exceeds half the smallest box width
+        (the diagonal of a reduced box: its perpendicular widths):
         minimum imaging would miss images."""
         cut = self._periodic_cutoff()
         if not cut:
@@ -323,10 +337,16 @@ class Context:
                 "box)")
 
     def setPeriodicBoxVectors(self, a, b, c) -> None:
-        box = np.array([a, b, c], np.float64)
-        if np.any(box[~np.eye(3, dtype=bool)] != 0.0):
-            raise ValueError("the PyTorch port takes orthorhombic boxes "
-                             "only")
+        """The box, reduced as OpenMM does.  An orthorhombic Context does
+        not take a triclinic box (its terms minimum-image against the
+        diagonal: the JAX package's app/context.py:357-372)."""
+        box = boxutils.reduce_box([a, b, c])
+        if boxutils.is_triclinic(box) and not self._triclinic:
+            raise ValueError(
+                "cannot switch an orthorhombic context to a triclinic "
+                "box: the compiled strategy minimum-images against the "
+                "diagonal — build the Context with the triclinic box "
+                "instead")
         self._validate_box_widths(box, "setPeriodicBoxVectors")
         self._state = self._state.replace(
             box=torch.as_tensor(box, dtype=self._prec.real,
@@ -379,8 +399,8 @@ class Context:
         if self._cp_cfg is None or self._state.neighbors is not None:
             return
         for _ in range(8):
-            box_diag = torch.diagonal(self._state.box)
-            nbl = self._nb.cellsort(self._state.positions, box_diag)
+            nbl = self._nb.cellsort(self._state.positions,
+                                    self._box_arg(self._state.box))
             if (nbl.excl_span_exceeded is not None
                     and bool(nbl.excl_span_exceeded)):
                 # an excluded pair already spans >= 2 cells at setup: the
@@ -418,10 +438,10 @@ class Context:
         cfg = self._cp_cfg
         if positions is None:
             positions = self._state.positions
-        pos = positions.double().cpu().numpy()
-        box = np.diagonal(self._state.box.double().cpu().numpy())
+        frac = boxutils.frac_coords(
+            positions.double().cpu(),
+            self._box_arg(self._state.box.double().cpu())).numpy()
         grid = np.asarray(cfg.grid)
-        frac = pos / box
         frac = frac - np.floor(frac)
         cell = np.minimum((frac * grid).astype(np.int64), grid - 1)
         flat = (cell[:, 0] * grid[1] + cell[:, 1]) * grid[2] + cell[:, 2]
@@ -431,7 +451,7 @@ class Context:
         self._build_potential()
 
     def _neighbor_fn(self, positions, box):
-        return self._nb.cellsort(positions, torch.diagonal(box))
+        return self._nb.cellsort(positions, self._box_arg(box))
 
     def _ensure_forces(self) -> None:
         if not self._forces_valid:
@@ -672,7 +692,7 @@ class Context:
         """A fresh cell sort at `positions`, the capacity grown until no
         cell overflows."""
         for _ in range(8):
-            nbl = self._nb.cellsort(positions, torch.diagonal(box))
+            nbl = self._nb.cellsort(positions, self._box_arg(box))
             if not bool(nbl.overflow):
                 return nbl
             self._grow_pair_capacity(positions)
@@ -716,7 +736,8 @@ class Context:
                  **kwargs) -> State:
         """OpenMM's keyword spellings (getPositions=True, ...) are taken
         too.  enforcePeriodicBox wraps whole molecules: each residue moves
-        by the box image of its geometric centre."""
+        by the box image of its geometric centre (the image of its
+        fractional coordinates in a triclinic box)."""
         positions = positions or kwargs.get("getPositions", False)
         velocities = velocities or kwargs.get("getVelocities", False)
         forces = forces or kwargs.get("getForces", False)
@@ -735,7 +756,14 @@ class Context:
                 centers = np.stack([
                     np.bincount(resid, weights=pos[:, c], minlength=n_res)
                     for c in range(3)], axis=1) / counts[:, None]
-                pos = pos - np.floor(centers / box_d)[resid] * box_d
+                if self._triclinic:
+                    box_t = torch.as_tensor(kw["box"])
+                    shift = torch.floor(boxutils.frac_coords(
+                        torch.as_tensor(centers), box_t))
+                    pos = pos - boxutils.rows_combo(shift, box_t).numpy()[
+                        resid]
+                else:
+                    pos = pos - np.floor(centers / box_d)[resid] * box_d
             kw["positions"] = pos
         if velocities:
             kw["velocities"] = st.velocities.double().cpu().numpy()

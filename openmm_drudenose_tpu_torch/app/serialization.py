@@ -3,17 +3,15 @@
 package's app/serialization.py).
 
 The file holds every SimState tensor (positions, velocities, forces,
-box, the compensation, the Nose-Hoover chain, the latches), the step and
-time, the barostat's move size, counters and generator state, and the
-cell sort with the plan it belongs to (the box the grid was planned at
-and the nonbonded options, such as a grown capacity).  Loading it into a
-Context of the same System continues the saved trajectory bit for bit:
-the same sort, the same sums (on the card every scatter-add sums in a
-fixed order: ops/scatter.py), the same random draws.  The one exception
-is a cell-pair run routed to kernel B1, which adds its reactions with
-atomics: its last bits follow the order in which warps finish, and
-nb_options={"use_pallas": 3} routes to B2, which has no atomics.  The
-format is the port's own (it does not read the JAX package's
+the (3, 3) box, triclinic or not, the compensation, the Nose-Hoover
+chain, the latches), the step and time, the barostat's move size,
+counters and generator state, and the cell sort with the plan it belongs
+to (the (3, 3) box the grid was planned at and the nonbonded options,
+such as a grown capacity).  Loading it into a Context of the same System
+continues the saved trajectory bit for bit: the same sort, the same sums
+(on the card every scatter-add sums in a fixed order, ops/scatter.py,
+and both sweep kernels sum in a fixed order), the same random draws.
+The format is the port's own (it does not read the JAX package's
 checkpoints).  numpy arrays only, no pickled objects.
 """
 

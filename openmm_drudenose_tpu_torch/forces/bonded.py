@@ -51,7 +51,7 @@ def _index(a, device):
 
 
 class _Term:
-    """A compiled bonded force: energy_forces(positions, box_diag=None,
+    """A compiled bonded force: energy_forces(positions, box=None,
     pos_err=None, with_forces=True, exact=None) -> (energy, forces (N,
     3); None without with_forces), in the positions' type.  `exact`
     (float64 positions) replaces the positions where given; the box and
@@ -63,7 +63,7 @@ class _Term:
         self.idx = idx          # per-term atom index tensors
         self.params = params    # per-term parameter tensors
 
-    def energy_forces(self, positions, box_diag=None, pos_err=None,
+    def energy_forces(self, positions, box=None, pos_err=None,
                       with_forces=True, exact=None):
         src = positions if exact is None else exact
         e, grads = self._eval([src[i] for i in self.idx], with_forces)

@@ -11,7 +11,13 @@ kept in 31-bit words.
 
 The same plan and physics as the JAX package's forces/cellpair.py
 (make_config :148, build_cellsort :432, _sorted_arrays :880,
-_sweep_regular :667, make_pair_eg :606), for orthorhombic boxes.
+_sweep_regular :667, make_pair_eg :606), for orthorhombic boxes and
+triclinic ones in reduced form (forces/boxutils.py): there the cells are
+cells of fractional space, the grid and the stencil are planned in the
+plane-width metric (the max-gap trim), atoms are binned by their
+fractional coordinates, the box frame is pos - image @ box, the centres
+are ((c3 + 0.5) / g) @ box and offset o's shift is (o / g) @ box, so the
+identity a_loc - (b_loc + shift) and the kernels are unchanged.
 `pair_tiles` is the plain pair sum and `sweep` the energy+force sum over
 it, with Ewald real-space or reaction-field Coulomb (`make_pair_eg`);
 ops/sweep.py and ops/sweep_chunked.py hold the hand-written kernels.
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from ..ops import scatter
+from . import boxutils
 
 
 @dataclasses.dataclass
@@ -34,7 +41,7 @@ class CellSort:
     inv_slot: torch.Tensor       # (N,) slot of each atom
     overflow: torch.Tensor       # () bool, latched across rebuilds
     ref_positions: torch.Tensor  # (N, 3) at the rebuild
-    image: torch.Tensor          # (N, 3) floor(pos / box) at the rebuild
+    image: torch.Tensor          # (N, 3) floor(fractional pos) at the rebuild
     stencil_invalid: torch.Tensor
     drift_exceeded: torch.Tensor
     # an excluded pair was binned >= 2 cells apart: the kernel's skip of
@@ -58,6 +65,7 @@ class CellPairConfig:
     regular: bool
     window: tuple
     trimmed: tuple = ()
+    triclinic: bool = False
 
     @property
     def r_list(self) -> float:
@@ -83,13 +91,22 @@ def _neighbor_offsets(grid, window) -> np.ndarray:
                      for c in per_dim(grid[2], window[2])], np.int64)
 
 
-def make_config(cutoff: float, box_diag, n_atoms: int, exc_i, exc_j,
+def make_config(cutoff: float, box, n_atoms: int, exc_i, exc_j,
                 skin: float = 0.1, rebuild_interval: int = 16,
                 cells_per_cutoff: int = 2, density_margin: float = 1.35,
                 capacity: int | None = None) -> CellPairConfig:
-    """Plan the cell grid, capacity and half stencil for an orthorhombic
-    box.  The port needs a regular grid (>= 2w+1 cells per dimension)."""
-    widths = np.asarray(box_diag, np.float64)
+    """Plan the cell grid, capacity and half stencil for a box given as
+    its (3,) diagonal (orthorhombic) or its (3, 3) reduced matrix
+    (triclinic: planned in the plane-width metric).  The port needs a
+    regular grid (>= 2w+1 cells per dimension)."""
+    box_in = np.asarray(box, np.float64)
+    triclinic = box_in.ndim == 2
+    if triclinic:
+        widths = boxutils.plane_widths(torch.as_tensor(box_in)).numpy()
+        volume = float(np.prod(np.diagonal(box_in)))
+    else:
+        widths = box_in
+        volume = float(np.prod(box_in))
     r_list = cutoff + skin
     target = r_list / cells_per_cutoff
     grid = tuple(max(int(np.floor(L / target)), 1) for L in widths)
@@ -97,21 +114,26 @@ def make_config(cutoff: float, box_diag, n_atoms: int, exc_i, exc_j,
     window = tuple(int(np.ceil(r_list / cell_size[d])) for d in range(3))
     n_cells = int(np.prod(grid))
     if capacity is None:
-        density = n_atoms / float(np.prod(widths))
-        cap = int(np.ceil(density * float(np.prod(widths)) / n_cells
+        density = n_atoms / volume
+        cap = int(np.ceil(density * volume / n_cells
                           * density_margin)) + 2
         capacity = max(int(np.ceil(cap / 8)) * 8, 8)
     regular = all(g >= 2 * w + 1 for g, w in zip(grid, window))
     if not regular:
         raise ValueError(
-            f"the cell-pair sweep needs >= 2w+1 cells per dimension; got "
-            f"grid {grid}, window {window} (box too small for the cutoff)")
+            f"the cell-pair sweep needs a regular grid (>= 2w+1 cells per "
+            f"dimension); got grid {grid}, window {window} (box too small "
+            "for the cutoff; use strategy='dense')")
     offsets = _neighbor_offsets(grid, window)
     sel = [o for o in offsets.tolist() if (o[0], o[1], o[2]) > (0, 0, 0)]
     offsets = np.array([[0, 0, 0]] + sel, np.int64)
-    # drop offsets whose closest cell-to-cell approach exceeds r_list
+    # drop offsets whose closest cell-to-cell approach exceeds r_list;
+    # triclinic plane gaps are not orthogonal components, so their bound
+    # is the largest of them, not the norm
     gap = np.maximum(np.abs(offsets) - 1, 0) * cell_size[None, :]
-    drop = np.sqrt(np.sum(gap * gap, axis=1)) > r_list
+    reach = (np.max(gap, axis=1) if triclinic
+             else np.sqrt(np.sum(gap * gap, axis=1)))
+    drop = reach > r_list
     trimmed = ()
     if np.any(drop):
         trimmed = tuple(map(tuple, np.maximum(
@@ -130,7 +152,7 @@ def make_config(cutoff: float, box_diag, n_atoms: int, exc_i, exc_j,
         capacity=int(capacity), offsets=offsets, nbr_map=nbr,
         rebuild_interval=int(rebuild_interval), excl_window=W,
         excl_words=max((2 * W + 1 + 30) // 31, 1), half_stencil=True,
-        regular=True, window=window, trimmed=trimmed)
+        regular=True, window=window, trimmed=trimmed, triclinic=triclinic)
 
 
 def build_exclusion_words(n_atoms: int, exc_i, exc_j, W: int,
@@ -145,10 +167,13 @@ def build_exclusion_words(n_atoms: int, exc_i, exc_j, W: int,
     return words.astype(np.int32)
 
 
-def build_cellsort(positions, box_diag, cfg: CellPairConfig,
+def build_cellsort(positions, box, cfg: CellPairConfig,
                    excl_ij=None) -> CellSort:
-    """Bin atoms into cells and fill the slot tables.  `excl_ij` (the
-    excluded pairs as index tensors) switches on the excl-span latch."""
+    """Bin atoms into cells and fill the slot tables.  `box`: the (3,)
+    diagonal, or the (3, 3) matrix of a triclinic config (binned by
+    fractional coordinates formed in float64, the stencil latch in
+    plane widths).  `excl_ij` (the excluded pairs as index tensors)
+    switches on the excl-span latch."""
     n = positions.shape[0]
     dev = positions.device
     dtype = positions.dtype
@@ -159,19 +184,26 @@ def build_cellsort(positions, box_diag, cfg: CellPairConfig,
 
     # the static stencil covers r_list only while window * width / grid
     # >= r_list (a shrinking box could break it)
+    widths = boxutils.plane_widths(box)
     wcell = torch.as_tensor(cfg.window, dtype=dtype, device=dev) \
-        * box_diag / gridf
+        * widths / gridf
     stencil_invalid = torch.any(wcell < cfg.r_list)
     if cfg.trimmed:
         gap = torch.as_tensor(cfg.trimmed, dtype=dtype, device=dev) \
-            * (box_diag / gridf)
-        stencil_invalid = stencil_invalid | torch.any(
-            torch.sqrt(torch.sum(gap * gap, dim=1)) <= cfg.r_list)
+            * (widths / gridf)
+        reach = (torch.amax(gap, dim=1) if cfg.triclinic
+                 else torch.sqrt(torch.sum(gap * gap, dim=1)))
+        stencil_invalid = stencil_invalid | torch.any(reach <= cfg.r_list)
 
-    image = torch.floor(positions / box_diag)
-    frac = positions / box_diag - image
-    cell3 = torch.minimum(torch.clamp((frac * gridf).to(torch.int64), min=0),
-                          grid - 1)
+    if cfg.triclinic:
+        fr = boxutils.frac_coords(positions.double(), box.double())
+        image = torch.floor(fr)
+        frac = fr - image
+    else:
+        image = torch.floor(positions / box)
+        frac = positions / box - image
+    cell3 = torch.minimum(torch.clamp((frac * gridf.to(frac.dtype)).to(
+        torch.int64), min=0), grid - 1)
     flat = (cell3[:, 0] * cfg.grid[1] + cell3[:, 1]) * cfg.grid[2] \
         + cell3[:, 2]
 
@@ -202,7 +234,7 @@ def build_cellsort(positions, box_diag, cfg: CellPairConfig,
                     excl_span_exceeded=excl_span)
 
 
-def sorted_fields(params, positions, box_diag, cellsort: CellSort,
+def sorted_fields(params, positions, box, cellsort: CellSort,
                   cfg: CellPairConfig, exact=None) -> dict:
     """Per-slot fields in cell-major order, each (n_cells * C,): cell-local
     coordinates x/y/z (box-frame position minus cell centre), charge q,
@@ -224,15 +256,20 @@ def sorted_fields(params, positions, box_diag, cellsort: CellSort,
     safe = torch.where(pad, torch.zeros_like(sa), sa)
     dtype = positions.dtype
     dev = positions.device
-    box64 = box_diag.double()
+    box64 = box.double()
     pos = (positions.double() if exact is None else exact) \
-        - cellsort.image.double() * box64
-    h = box64 / torch.as_tensor(cfg.grid, dtype=torch.float64, device=dev)
+        - boxutils.rows_combo(cellsort.image.double(), box64)
     cell = torch.arange(cfg.n_cells, device=dev)
     c3 = torch.stack([cell // (cfg.grid[1] * cfg.grid[2]),
                       (cell // cfg.grid[2]) % cfg.grid[1],
                       cell % cfg.grid[2]], dim=1).double() + 0.5
-    centers = (c3 * h).repeat_interleave(cfg.capacity, dim=0)   # (S, 3)
+    if cfg.triclinic:
+        centers = boxutils.rows_combo(c3 * _grid_inv(cfg, dev), box64)
+    else:
+        h = box64 / torch.as_tensor(cfg.grid, dtype=torch.float64,
+                                    device=dev)
+        centers = c3 * h
+    centers = centers.repeat_interleave(cfg.capacity, dim=0)    # (S, 3)
     out = {}
     for c, name in enumerate("xyz"):
         v = torch.where(pad, torch.full_like(pos[safe, c], 1e6 * (1 + c)),
@@ -254,14 +291,25 @@ def sorted_fields(params, positions, box_diag, cellsort: CellSort,
     return out
 
 
-def offset_shifts(cfg: CellPairConfig, box_diag) -> torch.Tensor:
-    """(n_off, 3) per-offset image shift o * h (h = box / grid), formed in
-    float64 and rounded once."""
-    box64 = box_diag.double()
+def _grid_inv(cfg: CellPairConfig, dev) -> torch.Tensor:
+    """1 / grid per dimension, float64 (the JAX package's g_inv)."""
+    return torch.as_tensor(1.0 / np.asarray(cfg.grid, np.float64),
+                           device=dev)
+
+
+def offset_shifts(cfg: CellPairConfig, box) -> torch.Tensor:
+    """(n_off, 3) per-offset image shift, o * h (h = box / grid) for a
+    diagonal and (o / g) @ box for a triclinic matrix, formed in float64
+    and rounded once."""
+    box64 = box.double()
+    offs = torch.as_tensor(cfg.offsets, dtype=torch.float64,
+                           device=box.device)
+    if cfg.triclinic:
+        return boxutils.rows_combo(offs * _grid_inv(cfg, box.device),
+                                   box64).to(box.dtype)
     h = box64 / torch.as_tensor(cfg.grid, dtype=torch.float64,
-                                device=box_diag.device)
-    return (torch.as_tensor(cfg.offsets, dtype=torch.float64,
-                            device=box_diag.device) * h).to(box_diag.dtype)
+                                device=box.device)
+    return (offs * h).to(box.dtype)
 
 
 def erfc_approx(x):

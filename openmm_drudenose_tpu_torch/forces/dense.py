@@ -14,23 +14,26 @@ The pair function is the cell-pair sweep's (cellpair.make_pair_eg: LJ +
 Ewald real space, with the A&S erfc in float32 and the exact erfc in
 float64, as the JAX package's make_pair_eg chooses by type; or the
 reaction field; or plain Coulomb), with the JAX dense sweep's two flags:
-`periodic` (minimum image) and `use_cutoff` (the cutoff test), false for
-NoCutoff and CutoffNonPeriodic as there.  Float32 displacements are
-formed in float64 from the compensated positions (`exact`) where given,
-and rounded once (forces/cellpair.py::sorted_fields does the same).
+`periodic` (minimum image: per component for a (3,) diagonal box, the
+sequential c -> b -> a rounding of forces/boxutils.py for a (3, 3)
+triclinic one, as forces/dense.py:87 there) and `use_cutoff` (the
+cutoff test), false for NoCutoff and CutoffNonPeriodic as there.
+Float32 displacements are formed in float64 from the compensated
+positions (`exact`) where given, and rounded once
+(forces/cellpair.py::sorted_fields does the same).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import cellpair
+from . import boxutils, cellpair
 
 # elements of one (rows, N) block: bounds each temporary
 BLOCK_ELEMS = 1 << 21
 
 
-def pair_energy_forces(params, positions, box_diag, pair_mask, cutoff,
+def pair_energy_forces(params, positions, box, pair_mask, cutoff,
                        alpha, coulomb_scale, with_energy=True, exact=None,
                        periodic=True, use_cutoff=True, method="ewald",
                        krf=0.0, crf=0.0):
@@ -46,7 +49,8 @@ def pair_energy_forces(params, positions, box_diag, pair_mask, cutoff,
     seps = torch.sqrt(params["eps"])
     qa = coulomb_scale * q
     src = positions if exact is None else exact
-    box = box_diag.to(src.dtype)
+    box = box.to(src.dtype)
+    triclinic = box.dim() == 2
     cutoff2 = cutoff * cutoff
     rows = max(1, min(n, BLOCK_ELEMS // max(n, 1)))
     energy = positions.new_zeros(()) if with_energy else None
@@ -57,9 +61,12 @@ def pair_energy_forces(params, positions, box_diag, pair_mask, cutoff,
         d = []
         for c in range(3):
             dc = src[sl, c][:, None] - src[:, c][None, :]
-            if periodic:
+            if periodic and not triclinic:
                 dc = dc - box[c] * torch.round(dc / box[c])
-            d.append(dc.to(dtype))
+            d.append(dc)
+        if periodic and triclinic:
+            d = boxutils.min_image(torch.stack(d, dim=-1), box).unbind(-1)
+        d = [dc.to(dtype) for dc in d]
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
         valid = pair_mask[sl] & (r2 < cutoff2) if use_cutoff \
             else pair_mask[sl]

@@ -25,6 +25,7 @@ import torch
 
 from ..ops import scatter
 from ..units import ONE_4PI_EPS0
+from .boxutils import min_image
 
 
 class DrudeForce:
@@ -136,7 +137,9 @@ class DrudeForce:
 
 
 class DrudeTerm:
-    """Compiled DrudeForce: energy_forces(positions, box_diag, pos_err)."""
+    """Compiled DrudeForce: energy_forces(positions, box, pos_err); `box`
+    is the (3,) diagonal or the (3, 3) triclinic matrix
+    (boxutils.mi_box)."""
 
     def __init__(self, drude, parent, k3):
         self.drude = drude
@@ -145,7 +148,7 @@ class DrudeTerm:
         self.screened = None
         self.nbthole = None
 
-    def energy_forces(self, positions, box_diag=None, pos_err=None,
+    def energy_forces(self, positions, box=None, pos_err=None,
                       with_forces=True):
         """(energy, forces (N, 3); None without with_forces)."""
         delta = positions[self.drude] - positions[self.parent]
@@ -161,7 +164,7 @@ class DrudeTerm:
                     self.screened, positions, False)[0]
             if self.nbthole is not None:
                 energy = energy + nbthole_energy_forces(
-                    self.nbthole, positions, box_diag, False)[0]
+                    self.nbthole, positions, box, False)[0]
             return energy, None
         fd = -self.k3[:, None] * delta
         forces = torch.zeros_like(positions)
@@ -172,8 +175,7 @@ class DrudeTerm:
             energy = energy + e_s
             forces = forces + f_s
         if self.nbthole is not None:
-            e_t, f_t = nbthole_energy_forces(self.nbthole, positions,
-                                             box_diag)
+            e_t, f_t = nbthole_energy_forces(self.nbthole, positions, box)
             energy = energy + e_t
             forces = forces + f_t
         return energy, forces
@@ -203,7 +205,7 @@ def screened_energy_forces(screened, positions, with_forces=True):
     return energy, forces
 
 
-def nbthole_energy_forces(nbthole, positions, box_diag, with_forces=True):
+def nbthole_energy_forces(nbthole, positions, box, with_forces=True):
     """NBTHOLE deficit -s qq (1 + u/2) exp(-u) / r over the 4 core/shell
     cross pairs, minimum-imaged, and its analytic forces:
     dE/dr = s qq exp(-u) (scale (1 + u) / (2 r) + (1 + u/2) / r^2)."""
@@ -213,7 +215,7 @@ def nbthole_energy_forces(nbthole, positions, box_diag, with_forces=True):
     for ia, ib, sign in ((d1, d2, 1.0), (d1, c2, -1.0), (c1, d2, -1.0),
                          (c1, c2, 1.0)):
         delta = positions[ia] - positions[ib]
-        delta = delta - box_diag * torch.round(delta / box_diag)
+        delta = min_image(delta, box)
         r = torch.sqrt(torch.sum(delta * delta, dim=-1))
         u = scale * r
         expu = torch.exp(-u)

@@ -28,6 +28,13 @@ there):
                  NBFIX overrides, the Ewald self term and the dispersion
                  tail (periodic cutoff methods) (forces/pairterms.py)
 
+A triclinic periodic box (reduced form, forces/boxutils.py) runs on both
+strategies, as in the JAX package (forces/nonbonded.py:168-195 there):
+the cutoff is held to half the smallest perpendicular width, the
+cell-pair plan takes the full (3, 3) box, and the PME grid keeps OpenMM's
+choice (it is not rounded to the cell grid); every term then takes the
+(3, 3) box where the Context passes it (boxutils.mi_box).
+
 Exceptions are excluded from the main pair sum and added back as explicit
 pair terms (plain Coulomb chargeProd/r + LJ, no cutoff), as in OpenMM.
 NBFIX overrides (addLJPairOverride) replace the combined LJ of their
@@ -44,7 +51,7 @@ import torch
 
 from ..ops import sweep, sweep_chunked
 from ..units import ONE_4PI_EPS0
-from . import cellpair, dense, pairterms, pme as pme_mod
+from . import boxutils, cellpair, dense, pairterms, pme as pme_mod
 
 # the JAX package's "auto" rule: at most this many atoms go to the dense
 # strategy (forces/nonbonded.py:188-190 there)
@@ -182,6 +189,15 @@ class NonbondedForce:
                 and self._method != self.NoCutoff):
             raise NotImplementedError("switched LJ is not ported yet")
         opts = dict(nb_options or {})
+        if self.triclinic(system):
+            box = np.array(system.getDefaultPeriodicBoxVectors(), np.float64)
+            w_min = float(np.min(np.diagonal(box)))
+            if self._cutoff > w_min / 2:
+                raise ValueError(
+                    f"cutoff {self._cutoff} exceeds half the smallest "
+                    f"perpendicular width {w_min} of the triclinic box — "
+                    "the sequential minimum-image reduction would miss "
+                    "images")
         if strategy == "dense":
             return DenseTerm(self, system, dtype, device)
         if strategy == "cellpair":
@@ -191,6 +207,13 @@ class NonbondedForce:
             return CellPairTerm(self, system, dtype, device, opts)
         raise ValueError(f"unknown strategy {strategy!r}; the port has "
                          "'auto', 'dense' and 'cellpair'")
+
+    def triclinic(self, system) -> bool:
+        """Whether the force runs in a triclinic box: a periodic cutoff
+        method and off-diagonal box entries."""
+        return (self._method in (self.CutoffPeriodic, self.Ewald, self.PME)
+                and boxutils.is_triclinic(
+                    system.getDefaultPeriodicBoxVectors()))
 
 
 def choose_strategy(n_atoms: int, method: int) -> str:
@@ -285,7 +308,7 @@ class NonbondedTerm:
             self.pme = pme_mod.setup_pme(
                 cutoff=cutoff, tol=force._ewald_tol, box_diag=box0,
                 alpha=alpha0 or None, grid=(gx, gy, gz) if gx > 0 else None,
-                cell_grid=cell_grid)
+                cell_grid=None if force.triclinic(system) else cell_grid)
             self.alpha = self.pme.alpha
             # bounds every PME grid value (pme.spread's fixed-point sum)
             self.charge_bound = float(np.sum(np.abs(charge)))
@@ -330,30 +353,32 @@ class NonbondedTerm:
                         cutoff if self.use_cutoff else math.inf), device,
                     self.periodic))
 
-    def recip(self, positions, box_diag, exact=None):
-        """(energy, forces) of the PME reciprocal sum (Ewald/PME only)."""
+    def recip(self, positions, box, exact=None):
+        """(energy, forces) of the PME reciprocal sum (Ewald/PME only).
+        `box` here and below: the (3,) diagonal or the (3, 3) triclinic
+        matrix (boxutils.mi_box)."""
         return pme_mod.recip_energy_forces(self.pme, self.params["charge"],
-                                           positions, box_diag, exact,
+                                           positions, box, exact,
                                            self.charge_bound)
 
-    def recip_energy(self, positions, box_diag, exact=None):
+    def recip_energy(self, positions, box, exact=None):
         return pme_mod.reciprocal_energy(self.pme, self.params["charge"],
-                                         positions, box_diag, exact,
+                                         positions, box, exact,
                                          self.charge_bound)
 
-    def extras(self, positions, box_diag, exact=None, with_forces=True):
+    def extras(self, positions, box, exact=None, with_forces=True):
         """(energy, forces; None without with_forces): exceptions,
         exclusion corrections, NBFIX overrides, self term, dispersion
         tail (each where the method has it)."""
         e = positions.new_zeros(()) + self.pme_self
         f = torch.zeros_like(positions) if with_forces else None
         for term in self.pair_terms:
-            et, ft = term(positions, box_diag, exact, with_forces)
+            et, ft = term(positions, box, exact, with_forces)
             e = e + et
             if with_forces:
                 f = f + ft
         if self.disp is not None:
-            e = e + self.disp / (box_diag[0] * box_diag[1] * box_diag[2])
+            e = e + self.disp / boxutils.volume(box)
         return e, f
 
 
@@ -374,18 +399,18 @@ class DenseTerm(NonbondedTerm):
         mask[exc_j, exc_i] = False
         self.pair_mask = torch.as_tensor(mask, device=device)
 
-    def _sweep(self, positions, box_diag, exact, with_energy):
+    def _sweep(self, positions, box, exact, with_energy):
         return dense.pair_energy_forces(
-            self.params, positions, box_diag, self.pair_mask, self.cutoff,
+            self.params, positions, box, self.pair_mask, self.cutoff,
             self.alpha, ONE_4PI_EPS0, with_energy=with_energy, exact=exact,
             periodic=self.periodic, use_cutoff=self.use_cutoff,
             **self.coulomb)
 
-    def sweep_forces(self, positions, box_diag, neighbors=None, exact=None):
-        return self._sweep(positions, box_diag, exact, False)[1]
+    def sweep_forces(self, positions, box, neighbors=None, exact=None):
+        return self._sweep(positions, box, exact, False)[1]
 
-    def sweep_energy(self, positions, box_diag, neighbors=None, exact=None):
-        return self._sweep(positions, box_diag, exact, True)[0]
+    def sweep_energy(self, positions, box, neighbors=None, exact=None):
+        return self._sweep(positions, box, exact, True)[0]
 
 
 class CellPairTerm(NonbondedTerm):
@@ -400,8 +425,9 @@ class CellPairTerm(NonbondedTerm):
         n = len(force._particles)
         exc_i = np.array([e[0] for e in force._exceptions], np.int64)
         exc_j = np.array([e[1] for e in force._exceptions], np.int64)
-        box0 = np.diagonal(np.array(system.getDefaultPeriodicBoxVectors(),
-                                    np.float64)).copy()
+        box0 = np.array(system.getDefaultPeriodicBoxVectors(), np.float64)
+        if not force.triclinic(system):
+            box0 = np.diagonal(box0).copy()
         self.cfg = cellpair.make_config(force._cutoff, box0, n, exc_i, exc_j,
                                         capacity=opts.get("capacity"))
         super().__init__(force, system, dtype, device,
@@ -426,21 +452,21 @@ class CellPairTerm(NonbondedTerm):
                          torch.as_tensor(exc_j, device=device))
                         if self.excl_skip else None)
 
-    def cellsort(self, positions, box_diag):
-        return cellpair.build_cellsort(positions, box_diag, self.cfg,
+    def cellsort(self, positions, box):
+        return cellpair.build_cellsort(positions, box, self.cfg,
                                        excl_ij=self.excl_ij)
 
-    def fields(self, positions, box_diag, cellsort, exact=None):
-        return cellpair.sorted_fields(self.params, positions, box_diag,
+    def fields(self, positions, box, cellsort, exact=None):
+        return cellpair.sorted_fields(self.params, positions, box,
                                       cellsort, self.cfg, exact)
 
     def _kernel(self):
         return sweep_chunked if self.sweep_kernel == "b2" else sweep
 
-    def sweep_forces(self, positions, box_diag, cellsort, exact=None):
+    def sweep_forces(self, positions, box, cellsort, exact=None):
         """Direct-space forces (N, 3), atom order."""
-        fields = self.fields(positions, box_diag, cellsort, exact)
-        shifts = cellpair.offset_shifts(self.cfg, box_diag)
+        fields = self.fields(positions, box, cellsort, exact)
+        shifts = cellpair.offset_shifts(self.cfg, box)
         if self.use_kernel:
             f = self._kernel().pair_forces(fields, self.cfg, shifts,
                                            self.alpha, ONE_4PI_EPS0,
@@ -452,12 +478,12 @@ class CellPairTerm(NonbondedTerm):
                                   **self.coulomb)
         return f[cellsort.inv_slot]
 
-    def sweep_energy(self, positions, box_diag, cellsort, exact=None):
+    def sweep_energy(self, positions, box, cellsort, exact=None):
         """Direct-space energy (exact erfc): in float32 the energy
         instantiation of the kernel that `route` chose (float64 on the
         card; its plain version on the CPU), else the plain sweep."""
-        fields = self.fields(positions, box_diag, cellsort, exact)
-        shifts = cellpair.offset_shifts(self.cfg, box_diag)
+        fields = self.fields(positions, box, cellsort, exact)
+        shifts = cellpair.offset_shifts(self.cfg, box)
         if self.use_kernel:
             return self._kernel().pair_energy(fields, self.cfg, shifts,
                                               self.alpha, ONE_4PI_EPS0,

@@ -18,29 +18,26 @@ import numpy as np
 import torch
 
 from ..ops import scatter
-
-
-def min_image(delta, box_diag):
-    """Orthorhombic minimum image of (P, 3) displacements."""
-    return delta - box_diag * torch.round(delta / box_diag)
+from .boxutils import min_image
 
 
 def make_pair_list_term(i_idx, j_idx, eg_fn, device, periodic: bool = True):
-    """term(positions, box_diag, exact=None, with_forces=True) -> (energy,
-    forces (N, 3), None without with_forces); `exact` (float64 positions)
-    gives the displacements, rounded once."""
+    """term(positions, box, exact=None, with_forces=True) -> (energy,
+    forces (N, 3), None without with_forces); `box` is the (3,) diagonal
+    or the (3, 3) triclinic matrix (boxutils.mi_box); `exact` (float64
+    positions) gives the displacements, rounded once."""
     ii = torch.as_tensor(np.asarray(i_idx, np.int64), device=device)
     jj = torch.as_tensor(np.asarray(j_idx, np.int64), device=device)
 
-    def term(positions, box_diag, exact=None, with_forces=True):
+    def term(positions, box, exact=None, with_forces=True):
         if exact is None:
             delta = positions[ii] - positions[jj]
             if periodic:
-                delta = min_image(delta, box_diag)
+                delta = min_image(delta, box)
         else:
             delta = exact[ii] - exact[jj]
             if periodic:
-                delta = min_image(delta, box_diag.double())
+                delta = min_image(delta, box.double())
             delta = delta.to(positions.dtype)
         r2 = torch.sum(delta * delta, dim=-1)
         r2s = torch.clamp(r2, min=1e-10)

@@ -9,7 +9,12 @@ with Phi = dE/dQ from one irfftn.  B-spline derivatives are analytic
 Cox-de Boor |x| kinks, which f32 rounding can land exactly on.
 
 Parameter choice and energy follow the JAX package's forces/pme.py
-(setup_pme :191, grid_energy :844, recip_forces :159).
+(setup_pme :191, grid_energy :844, recip_forces :159).  A `box` is the
+(3,) diagonal or the (3, 3) reduced triclinic matrix
+(forces/boxutils.py): the taps read fractional coordinates, the
+reciprocal vectors are m* = m1 a* + m2 b* + m3 c* from the inverse box
+(pme.py:859-870 there), the volume is the determinant, and the forces
+go back through the inverse box, F_k = -q sum_d K_d inv[k, d] dE/du_d.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from ..ops import scatter
 from ..units import ONE_4PI_EPS0
+from . import boxutils
 
 PME_ORDER = 5
 
@@ -114,7 +120,7 @@ def setup_pme(cutoff: float, tol: float, box_diag, alpha=None, grid=None,
                     bm2z=bspline_moduli(PME_ORDER, g[2]))
 
 
-def _eterm(setup: PmeSetup, box_diag, dtype, device):
+def _eterm(setup: PmeSetup, box, dtype, device):
     """exp(-pi^2 m^2 / alpha^2) / m^2 * |b(m)|^2 on the rfft half grid
     (zero at m = 0), without the conjugate-pair doubling."""
     K1, K2, K3 = setup.grid
@@ -123,9 +129,17 @@ def _eterm(setup: PmeSetup, box_diag, dtype, device):
     m1 = torch.fft.fftfreq(K1, d=1.0 / K1, **kw)
     m2 = torch.fft.fftfreq(K2, d=1.0 / K2, **kw)
     m3 = torch.arange(K3h, **kw)
-    mx = m1[:, None, None] / box_diag[0]
-    my = m2[None, :, None] / box_diag[1]
-    mz = m3[None, None, :] / box_diag[2]
+    if box.dim() == 2:
+        # m* = m1 a* + m2 b* + m3 c*, a*_j = column j of the inverse
+        ib = boxutils.inv_box(box).to(dtype)
+        f1, f2, f3 = m1[:, None, None], m2[None, :, None], m3[None, None, :]
+        mx = f1 * ib[0, 0] + f2 * ib[0, 1] + f3 * ib[0, 2]
+        my = f1 * ib[1, 0] + f2 * ib[1, 1] + f3 * ib[1, 2]
+        mz = f1 * ib[2, 0] + f2 * ib[2, 1] + f3 * ib[2, 2]
+    else:
+        mx = m1[:, None, None] / box[0]
+        my = m2[None, :, None] / box[1]
+        mz = m3[None, None, :] / box[2]
     m_sq = mx * mx + my * my + mz * mz
     bm2 = (torch.as_tensor(setup.bm2x, **kw)[:, None, None]
            * torch.as_tensor(setup.bm2y, **kw)[None, :, None]
@@ -136,7 +150,7 @@ def _eterm(setup: PmeSetup, box_diag, dtype, device):
                        / m_sq_safe * bm2, torch.zeros_like(m_sq))
 
 
-def _taps(setup: PmeSetup, positions, box_diag, exact=None, derivs=True):
+def _taps(setup: PmeSetup, positions, box, exact=None, derivs=True):
     """Per-atom tap indices (N, order), weights and (with derivs) their
     derivatives per dimension.  With `exact` (float64 positions) the grid
     coordinates are formed in float64 and only the in-cell fractions
@@ -144,7 +158,7 @@ def _taps(setup: PmeSetup, positions, box_diag, exact=None, derivs=True):
     src = positions if exact is None else exact
     K = torch.as_tensor(setup.grid, dtype=src.dtype,
                         device=positions.device)
-    frac = src / box_diag.to(src.dtype)
+    frac = boxutils.frac_coords(src, box.to(src.dtype))
     u = (frac - torch.floor(frac)) * K
     ti = torch.floor(u)
     w = (u - ti).to(positions.dtype)
@@ -183,46 +197,46 @@ def spread(setup: PmeSetup, charges, idx, wts, charge_bound=None):
         K1, K2, K3)
 
 
-def _grid_energy(setup: PmeSetup, F, eterm, box_diag):
+def _grid_energy(setup: PmeSetup, F, eterm, box):
     """Reciprocal energy of the charge grid's spectrum F (rfftn)."""
     K3 = setup.grid[2]
     S2 = F.real ** 2 + F.imag ** 2
     k3 = torch.arange(K3 // 2 + 1, device=F.device)
     double = ((k3 >= 1) & (k3 <= (K3 - 1) // 2)).to(eterm.dtype) + 1.0
-    volume = box_diag[0] * box_diag[1] * box_diag[2]
+    volume = boxutils.volume(box)
     c = ONE_4PI_EPS0 / (2.0 * math.pi * volume)
     return c * torch.sum(eterm * double[None, None, :] * S2), c
 
 
-def grid_energy_and_potential(setup: PmeSetup, Q, box_diag):
+def grid_energy_and_potential(setup: PmeSetup, Q, box):
     """(energy, Phi = dE/dQ) of a charge grid: one rfftn, one irfftn."""
     K1, K2, K3 = setup.grid
-    eterm = _eterm(setup, box_diag, Q.dtype, Q.device)
+    eterm = _eterm(setup, box, Q.dtype, Q.device)
     F = torch.fft.rfftn(Q)
-    energy, c = _grid_energy(setup, F, eterm, box_diag)
+    energy, c = _grid_energy(setup, F, eterm, box)
     phi = (2.0 * c * (K1 * K2 * K3)) * torch.fft.irfftn(
         eterm * F, s=(K1, K2, K3))
     return energy, phi
 
 
-def reciprocal_energy(setup: PmeSetup, charges, positions, box_diag,
+def reciprocal_energy(setup: PmeSetup, charges, positions, box,
                       exact=None, charge_bound=None):
     """The reciprocal energy alone: one rfftn, no potential grid."""
-    idx, wts, _ = _taps(setup, positions, box_diag, exact, derivs=False)
+    idx, wts, _ = _taps(setup, positions, box, exact, derivs=False)
     Q = spread(setup, charges, idx, wts, charge_bound)
-    eterm = _eterm(setup, box_diag, Q.dtype, Q.device)
-    return _grid_energy(setup, torch.fft.rfftn(Q), eterm, box_diag)[0]
+    eterm = _eterm(setup, box, Q.dtype, Q.device)
+    return _grid_energy(setup, torch.fft.rfftn(Q), eterm, box)[0]
 
 
-def recip_energy_forces(setup: PmeSetup, charges, positions, box_diag,
+def recip_energy_forces(setup: PmeSetup, charges, positions, box,
                         exact=None, charge_bound=None):
     """(energy, forces (N, 3)) of the reciprocal sum, forces analytic;
     `exact` as in _taps."""
     K1, K2, K3 = setup.grid
     n = positions.shape[0]
-    idx, wts, dwts = _taps(setup, positions, box_diag, exact)
+    idx, wts, dwts = _taps(setup, positions, box, exact)
     Q = spread(setup, charges, idx, wts, charge_bound)
-    energy, phi = grid_energy_and_potential(setup, Q, box_diag)
+    energy, phi = grid_energy_and_potential(setup, Q, box)
     phi = phi.reshape(-1)
     yz = (idx[1][:, :, None] * K3 + idx[2][:, None, :]).reshape(n, -1)
     w_yz = (wts[1][:, :, None] * wts[2][:, None, :]).reshape(n, -1)
@@ -235,7 +249,17 @@ def recip_energy_forces(setup: PmeSetup, charges, positions, box_diag,
         gx = gx + dwts[0][:, t] * torch.sum(w_yz * ph, dim=1)
         gy = gy + wts[0][:, t] * torch.sum(dy_z * ph, dim=1)
         gz = gz + wts[0][:, t] * torch.sum(y_dz * ph, dim=1)
-    scale = torch.as_tensor(setup.grid, dtype=positions.dtype,
-                            device=positions.device) / box_diag
+    K = torch.as_tensor(setup.grid, dtype=positions.dtype,
+                        device=positions.device)
+    if box.dim() == 2:
+        # dE/dr_k = sum_d K_d inv[k, d] dE/du_d (inv lower triangular)
+        ib = boxutils.inv_box(box.to(positions.dtype))
+        ux, uy, uz = K[0] * gx, K[1] * gy, K[2] * gz
+        grad = torch.stack([ux * ib[0, 0],
+                            ux * ib[1, 0] + uy * ib[1, 1],
+                            ux * ib[2, 0] + uy * ib[2, 1] + uz * ib[2, 2]],
+                           dim=1)
+        return energy, -charges[:, None] * grad
+    scale = K / box
     forces = -charges[:, None] * torch.stack([gx, gy, gz], dim=1) * scale
     return energy, forces

@@ -22,6 +22,7 @@ import math
 import torch
 
 from ..constraints.vsites import apply_vsites
+from ..forces import boxutils
 from ..ops import scatter
 
 
@@ -34,7 +35,8 @@ def residue_sum(spec, static, x):
 
 def scale_molecules(spec, static, positions, box, ls: float):
     """(positions, box) with every molecule's centre of mass scaled by
-    `ls` and the box by `ls`; virtual sites re-placed."""
+    `ls` and the whole (3, 3) box by `ls` (a reduced triclinic box stays
+    reduced); virtual sites re-placed."""
     mom = residue_sum(spec, static, spec.mass[:, None] * positions)
     com = mom * spec.res_inv_mass[:, None]
     new_pos = positions + (ls - 1.0) * com[spec.resid]
@@ -60,8 +62,7 @@ def maybe_attempt_mc_move(spec, static, state, energy_fn, forces_fn,
         draws = torch.rand(2, generator=state.baro_gen,
                            dtype=torch.float64).tolist()
     u_dv, u_acc = (float(u) for u in draws)
-    box_h = torch.diagonal(state.box).double().cpu()
-    vol = float(box_h[0] * box_h[1] * box_h[2])
+    vol = float(boxutils.volume(state.box.double().cpu()))
     scale = state.baro_scale if state.baro_scale > 0 else 0.01 * vol
     dv = scale * (2.0 * u_dv - 1.0)
     new_vol = vol + dv

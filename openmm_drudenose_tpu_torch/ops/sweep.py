@@ -12,7 +12,10 @@ field, the TPU kernel's `method` "ewald" or "rf" (_make_pair_g :111-135);
 self cell plus the half stencil with reactions; exclusion bitmask, any
 number of words, skipped at offsets with any |o| >= 2), not the TPU
 layout: no doubled layers, lane padding or one-hot reaction sums.  Any
-cell capacity.  Its forces are the same bits at every launch: the
+cell capacity.  Orthorhombic and triclinic cells alike: the geometry
+reaches the kernel only as the per-offset shift table and the cell-local
+fields (forces/cellpair.py), as it reaches the TPU kernel through
+_centers_and_hvec (:83-108).  Its forces are the same bits at every launch: the
 reactions go through frames with one writer an entry and a fixed-order
 gather (csrc/sweep.cu), not atomics.
 

@@ -220,7 +220,8 @@ def resident_ctas(brick, capacity: int, limits=None) -> int:
 
 def make_plan(cfg, brick) -> ChunkPlan:
     """The chunk layout of `cfg` with home bricks of `brick` cells (cut
-    to the grid)."""
+    to the grid).  Pure index space (the grid, the brick, the offsets),
+    so one plan serves orthorhombic and triclinic cells."""
     grid = tuple(int(g) for g in cfg.grid)
     brick = tuple(min(int(b), g) for b, g in zip(brick, grid))
     offs = np.asarray(cfg.offsets, np.int64)

@@ -3,12 +3,15 @@
 OpenMM-shaped host-side builders (addParticle, addConstraint,
 setVirtualSite, setDefaultPeriodicBoxVectors, addForce), as in the JAX
 package's system.py.  core/spec.build_spec compiles a System and an
-integrator into tensors.  The port takes orthorhombic boxes only.
+integrator into tensors.  Periodic boxes are orthorhombic or triclinic
+in OpenMM's reduced form (forces/boxutils.py).
 """
 
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
+
+from .forces.boxutils import reduce_box
 
 
 class VirtualSite:
@@ -94,12 +97,12 @@ class System:
         del self._forces[index]
 
     def setDefaultPeriodicBoxVectors(self, a, b, c) -> None:
-        box = tuple(tuple(float(v) for v in row) for row in (a, b, c))
-        if any(box[i][j] != 0.0 for i in range(3) for j in range(3)
-               if i != j):
-            raise ValueError("the PyTorch port takes orthorhombic boxes "
-                             "only")
-        self._box = box
+        """Orthorhombic boxes, and triclinic cells in OpenMM's convention
+        (a along x, b in the xy plane), reduced to the form |bx| <= ax/2,
+        |cx| <= ax/2, |cy| <= by/2 as OpenMM does (the JAX package's
+        system.py:143-152)."""
+        box = reduce_box([a, b, c])
+        self._box = tuple(tuple(float(v) for v in row) for row in box)
 
     def getDefaultPeriodicBoxVectors(self):
         return self._box

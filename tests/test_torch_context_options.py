@@ -2,12 +2,13 @@
 JAX package on the CPU: precision="mixed" (float32 state, float64 chain
 and KE) for 20 steps; hardwall_strict=True raising on a runaway;
 applyConstraints (Jacobi SHAKE from the current directions) and
-applyVelocityConstraints (1e-10); setPeriodicBoxVectors and its
-minimum-image check; reinitialize(preserveState=True); and getState's
-enforcePeriodicBox and OpenMM keyword spellings.  The JAX package's
-float32 precisions fail under jax_enable_x64 (which its tests set)
-wherever a NonbondedForce is present, so the mixed-precision parity runs
-on polarizable waters without one (ROADMAP.md, Queue C)."""
+applyVelocityConstraints (1e-10); setPeriodicBoxVectors (its
+minimum-image check, the orthorhombic-to-triclinic refusal, a triclinic
+change reduced and its energy); reinitialize(preserveState=True); and
+getState's enforcePeriodicBox and OpenMM keyword spellings.  The JAX
+package's float32 precisions fail under jax_enable_x64 (which its tests
+set) wherever a NonbondedForce is present, so the mixed-precision parity
+runs on polarizable waters without one (ROADMAP.md, Queue C)."""
 
 import numpy as np
 import pytest
@@ -147,18 +148,49 @@ def test_apply_constraints_match_jax():
 
 
 def test_set_periodic_box_vectors():
-    ((_, _), (tctx, _)), _ = _pair("double")
+    """An orthorhombic Context: a box too small for the cutoff and a
+    triclinic box are refused, both with the JAX package's messages; a
+    larger orthorhombic box is taken.  A triclinic Context takes another
+    triclinic box, reduced as the JAX package reduces it, with the same
+    energy there."""
+    ((jctx, _), (tctx, _)), _ = _pair("double")
     box = tctx.getState().getPeriodicBoxVectors()
     w = box[0, 0]
-    with pytest.raises(ValueError, match="half the smallest"):
-        tctx.setPeriodicBoxVectors((0.9, 0, 0), (0, w, 0), (0, 0, w))
-    with pytest.raises(ValueError, match="orthorhombic"):
-        tctx.setPeriodicBoxVectors((w, 0, 0), (0.1, w, 0), (0, 0, w))
+    for ctx in (jctx, tctx):
+        with pytest.raises(ValueError, match="half the smallest"):
+            ctx.setPeriodicBoxVectors((0.9, 0, 0), (0, w, 0), (0, 0, w))
+        with pytest.raises(ValueError, match="orthorhombic context to a "
+                                             "triclinic box"):
+            ctx.setPeriodicBoxVectors((w, 0, 0), (0.1, w, 0), (0, 0, w))
     tctx.setPeriodicBoxVectors((1.1 * w, 0, 0), (0, w, 0), (0, 0, w))
     np.testing.assert_allclose(
         np.diagonal(tctx.getState().getPeriodicBoxVectors()),
         [1.1 * w, w, w])
     assert np.isfinite(tctx.getState(energy=True).getPotentialEnergy())
+
+    out = []
+    for pkg, b, kw in ((dn, jbuilders, {}), (dt, tbuilders,
+                                            {"device": "cpu"})):
+        system, pos = b.build_water_box(64, cutoff=0.5)
+        system.setDefaultPeriodicBoxVectors(
+            (w, 0, 0), (0.2 * w, w, 0), (0.1 * w, 0.15 * w, w))
+        integ = pkg.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+        ctx = pkg.Context(system, integ, precision="double", **kw)
+        ctx.setPositions(pos)
+        # an unreduced cell of another shear: reduced on the way in
+        ctx.setPeriodicBoxVectors((1.05 * w, 0, 0), (0.8 * w, w, 0),
+                                  (-0.6 * w, 0.7 * w, 1.02 * w))
+        out.append(ctx.getState(energy=True))
+    js, ts = out
+    want = np.array([[1.05 * w, 0, 0], [-0.25 * w, w, 0],
+                     [-0.35 * w, -0.3 * w, 1.02 * w]])
+    np.testing.assert_allclose(ts.getPeriodicBoxVectors(), want, rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(ts.getPeriodicBoxVectors(),
+                               np.asarray(js.getPeriodicBoxVectors()),
+                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(ts.getPotentialEnergy(),
+                               js.getPotentialEnergy(), rtol=1e-10)
 
 
 def test_reinitialize_preserves_state():

@@ -10,7 +10,11 @@ replayed bit for bit (dense, through B2 and through B1); B1's
 bit-identical repeat launches; the reaction-field instantiations of both
 kernels against their plain versions and a CutoffPeriodic Context
 stepping through them; the bonded terms on the card against the CPU in
-f64.  Marked `gpu`; each test skips (through the `cuda` fixture) where
+f64.  The kernel-against-plain, energy, bit-identity, reaction-field
+and checkpoint tests run in a triclinic box too (the 216-water box
+sheared as the JAX package's scripts/check_triclinic_tpu.py shears its
+100k box), where the same kernels read the triclinic shift table.
+Marked `gpu`; each test skips (through the `cuda` fixture) where
 no CUDA card is present.
 On the card (tests/conftest.py imports JAX, which the machine with the
 card lacks): python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
@@ -28,6 +32,17 @@ from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
 
 pytestmark = pytest.mark.gpu
 
+GEOMETRIES = pytest.mark.parametrize("triclinic", [False, True],
+                                     ids=["orthorhombic", "triclinic"])
+
+
+def _shear(system):
+    """Shear the box as scripts/check_triclinic_tpu.py shears its own:
+    b = (0.2 L, L, 0), c = (0.1 L, 0.15 L, L)."""
+    L = system.getDefaultPeriodicBoxVectors()[0][0]
+    system.setDefaultPeriodicBoxVectors((L, 0, 0), (0.2 * L, L, 0),
+                                        (0.1 * L, 0.15 * L, L))
+
 
 @pytest.fixture
 def cuda():
@@ -37,8 +52,10 @@ def cuda():
 
 
 def _ctx(device, precision="single", nb_options=None, exception=None,
-         barostat=0):
+         barostat=0, triclinic=False):
     system, pos = builders.build_water_box(216, cutoff=0.6)
+    if triclinic:
+        _shear(system)
     if barostat:
         system.addForce(dt.MonteCarloBarostat(1.01325, 300.0, barostat))
     if exception is not None:
@@ -52,18 +69,20 @@ def _ctx(device, precision="single", nb_options=None, exception=None,
     ctx.setPositions(pos)
     ctx.setVelocitiesToTemperature(300.0, seed=1)
     ctx._ensure_neighbors()
+    assert ctx._triclinic == triclinic
     return ctx, integ
 
 
 def _fields(ctx):
     st, nb = ctx._state, ctx._nb
-    box = torch.diagonal(st.box)
+    box = ctx._box_arg(st.box)
     return (nb.fields(st.positions, box, st.neighbors), nb.cfg,
             cellpair.offset_shifts(nb.cfg, box), nb.alpha, ONE_4PI_EPS0)
 
 
-def test_kernel_matches_plain_on_card(cuda):
-    ctx, _ = _ctx(cuda)
+@GEOMETRIES
+def test_kernel_matches_plain_on_card(cuda, triclinic):
+    ctx, _ = _ctx(cuda, triclinic=triclinic)
     args = _fields(ctx)
     f_k = sweep.pair_forces(*args)
     torch.cuda.synchronize()
@@ -81,8 +100,9 @@ def test_kernel_refuses_float64(cuda):
         sweep.pair_forces(f64, cfg, shifts.double(), alpha, scale)
 
 
-def test_context_steps_through_kernel(cuda):
-    ctx, integ = _ctx(cuda)
+@GEOMETRIES
+def test_context_steps_through_kernel(cuda, triclinic):
+    ctx, integ = _ctx(cuda, triclinic=triclinic)
     before = sweep.launches["b1_sweep"]
     integ.step(20)
     torch.cuda.synchronize()
@@ -92,8 +112,9 @@ def test_context_steps_through_kernel(cuda):
     assert np.isfinite(st.getPotentialEnergy())
 
 
-def test_b2_matches_plain_on_card(cuda):
-    ctx, _ = _ctx(cuda)
+@GEOMETRIES
+def test_b2_matches_plain_on_card(cuda, triclinic):
+    ctx, _ = _ctx(cuda, triclinic=triclinic)
     args = _fields(ctx)
     f_k = sweep_chunked.pair_forces(*args)
     torch.cuda.synchronize()
@@ -104,8 +125,9 @@ def test_b2_matches_plain_on_card(cuda):
     assert float(torch.max(torch.abs(f_k - f_b1))) <= 2e-5 * scale
 
 
-def test_b2_launches_are_bit_identical(cuda):
-    ctx, _ = _ctx(cuda)
+@GEOMETRIES
+def test_b2_launches_are_bit_identical(cuda, triclinic):
+    ctx, _ = _ctx(cuda, triclinic=triclinic)
     args = _fields(ctx)
     first = sweep_chunked.pair_forces(*args)
     for _ in range(3):
@@ -121,8 +143,10 @@ def test_b2_refuses_float64(cuda):
         sweep_chunked.pair_forces(f64, cfg, shifts.double(), alpha, scale)
 
 
-def test_context_steps_through_b2(cuda):
-    ctx, integ = _ctx(cuda, nb_options={"use_pallas": 3})
+@GEOMETRIES
+def test_context_steps_through_b2(cuda, triclinic):
+    ctx, integ = _ctx(cuda, nb_options={"use_pallas": 3},
+                      triclinic=triclinic)
     assert ctx._nb.sweep_kernel == "b2"
     before = dict(sweep.launches)
     integ.step(20)
@@ -183,11 +207,12 @@ def test_route_on_card_limits(cuda):
         assert sweep.route(cfg, use_pallas=3, limits=lim)[0] == "b2"
 
 
-def test_energy_kernels_match_plain_on_card(cuda):
+@GEOMETRIES
+def test_energy_kernels_match_plain_on_card(cuda, triclinic):
     """Both energy instantiations against the plain energy in f64 (1e-3
     kJ/mol here: the box's |E| is ~60 kJ/mol of ~1e4 kJ/mol terms, and
     the plain f32 sum is itself ~3e-4 off), the same bits twice."""
-    ctx, _ = _ctx(cuda)
+    ctx, _ = _ctx(cuda, triclinic=triclinic)
     fields, cfg, shifts, alpha, scale = _fields(ctx)
     f64 = {k: (v.double() if v.is_floating_point() else v)
            for k, v in fields.items()}
@@ -270,16 +295,23 @@ def test_scatter_add_is_the_same_every_call(cuda):
     assert float(torch.max(torch.abs(runs[0].double() - ref))) < 1e-2
 
 
-@pytest.mark.parametrize("strategy,use_pallas",
-                         [("dense", 3), ("cellpair", 3), ("cellpair", None)],
-                         ids=["dense", "cellpair", "cellpair-b1"])
+@pytest.mark.parametrize(
+    "strategy,use_pallas,triclinic",
+    [("dense", 3, False), ("cellpair", 3, False), ("cellpair", None, False),
+     ("dense", 3, True), ("cellpair", 3, True), ("cellpair", None, True)],
+    ids=["dense", "cellpair", "cellpair-b1", "dense-triclinic",
+         "cellpair-triclinic", "cellpair-b1-triclinic"])
 def test_checkpoint_replay_is_bit_exact_on_card(cuda, tmp_path, strategy,
-                                                use_pallas):
+                                                use_pallas, triclinic):
     """NPT on the card in PyTorch's default (not deterministic) mode: save,
     40 steps, load, 40 steps give the same positions bit for bit, on the
     dense strategy and on the cell-pair strategy through B2 and through
-    B1 (whose reactions go through frames with one writer an entry)."""
+    B1 (whose reactions go through frames with one writer an entry), in
+    an orthorhombic and a triclinic box (whose (3, 3) box comes back
+    too)."""
     system, pos = builders.build_water_box(216, cutoff=0.6)
+    if triclinic:
+        _shear(system)
     system.addForce(dt.MonteCarloBarostat(1.01325, 300.0, 10))
     integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
     integ.setMaxDrudeDistance(0.02)
@@ -295,10 +327,13 @@ def test_checkpoint_replay_is_bit_exact_on_card(cuda, tmp_path, strategy,
     dt.save_checkpoint(path, ctx)
     integ.step(40)
     first = ctx._state.positions.clone()
+    first_box = ctx._state.box.clone()
     dt.load_checkpoint(path, ctx)
     integ.step(40)
     assert not torch.are_deterministic_algorithms_enabled()
     assert torch.equal(first, ctx._state.positions)
+    assert torch.equal(first_box, ctx._state.box)
+    assert ctx._triclinic == triclinic
 
 
 def test_pme_spread_is_the_same_every_call(cuda):
@@ -322,19 +357,22 @@ def test_pme_spread_is_the_same_every_call(cuda):
     assert float(torch.max(torch.abs(grids[0] - grids[2]))) <= 1e-5 * scale
 
 
-def test_b1_launches_are_bit_identical(cuda):
-    ctx, _ = _ctx(cuda)
+@GEOMETRIES
+def test_b1_launches_are_bit_identical(cuda, triclinic):
+    ctx, _ = _ctx(cuda, triclinic=triclinic)
     args = _fields(ctx)
     first = sweep.pair_forces(*args)
     for _ in range(3):
         assert torch.equal(sweep.pair_forces(*args), first)
 
 
-def _rf_ctx(device, nb_options=None):
+def _rf_ctx(device, nb_options=None, triclinic=False):
     """The 216-water box under CutoffPeriodic (the reaction field) on the
     cell-pair strategy."""
     system, pos = builders.build_water_box(
         216, cutoff=0.6, method=dt.NonbondedForce.CutoffPeriodic)
+    if triclinic:
+        _shear(system)
     integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
     integ.setMaxDrudeDistance(0.02)
     ctx = dt.Context(system, integ, precision="single", device=device,
@@ -345,14 +383,15 @@ def _rf_ctx(device, nb_options=None):
     return ctx, integ
 
 
-def test_rf_kernels_match_plain_on_card(cuda):
+@GEOMETRIES
+def test_rf_kernels_match_plain_on_card(cuda, triclinic):
     """B1's and B2's reaction-field instantiations against their plain
     versions: forces 2e-5 of max|F|, energy against the plain energy in
     f64 to 2e-2 kJ/mol (|E| is ~225 kJ/mol here, of ~8e4 pairs inside
     the cutoff whose reaction-field energies, qq (1/r + krf r^2 - crf)
     with |qq| up to ~400 kJ nm/mol, each round by ~1e-4 kJ/mol in
     float32), each the same bits twice."""
-    ctx, _ = _rf_ctx(cuda)
+    ctx, _ = _rf_ctx(cuda, triclinic=triclinic)
     nb = ctx._nb
     assert nb.coulomb["method"] == "rf" and nb.pme is None
     fields, cfg, shifts, alpha, scale = _fields(ctx)

@@ -16,7 +16,7 @@ from openmm_drudenose_tpu_torch import convert
 from openmm_drudenose_tpu_torch.app import context, serialization, simulation
 from openmm_drudenose_tpu_torch.constraints import shake
 from openmm_drudenose_tpu_torch.examples import nacl_tg
-from openmm_drudenose_tpu_torch.forces import bonded, dense
+from openmm_drudenose_tpu_torch.forces import bonded, boxutils, dense
 from openmm_drudenose_tpu_torch.integrators import barostat
 from openmm_drudenose_tpu_torch.io import (builders, ionic_liquid, nacl,
                                            pdbfile, polymer)
