@@ -128,9 +128,30 @@ seconds):
      TRI_B2_STEPS steps; then NPT (MonteCarloBarostat(1.01325, 300,
      TRI_BARO), TRI_NPT_STEPS steps) with the checks of phase 6, the
      forced 0.9x shrink planning a triclinic grid again
- 10. the seconds of each phase, the `kernels` JSON line (each kernel's
-     force and energy instantiations, Ewald and reaction field, and the
-     triclinic runs), then the result line.
+ 10. the flattened replica ensemble through the replica-band path of B1:
+     the JAX package's scripts/bench_replicas.py --flat at full width, 64
+     replicas of build_water_box(800) (4,000 atoms each) in the auto
+     layout (7, 10) of 70 internal replicas (280,000 atoms; a (35, 5, 50)
+     grid of 5^3 replica grids, C = 48, 63 offsets, PME 25^3 a replica,
+     batched), the integrator of phase 3, single precision; the template
+     settles FLAT_TPL_SETTLE steps on the dense strategy from the
+     lattice, then FLAT_TPL_SETTLE more after a restart with a fresh
+     chain, the ensemble takes fresh 300 K velocities, FLAT_SETTLE
+     settling steps, then FLAT_REPEATS x FLAT_STEPS timed steps counted
+     (B1's band instantiation launched, nothing else, no plain sweep):
+     ms/step, ns/day a replica and over the 64; latches, the wall, finite
+     per-replica temperatures, the water bath's mean over the replicas
+     in the bands written before the first card run; B1 and B2 on its
+     fields against their plain versions, f64 and each other,
+     bit-identical, timed with the bound, both energies held; every atom
+     of replica 0 moved, the other replicas' forces out of both kernels
+     unchanged bit for bit; the breakdown; the f32 force pass against
+     f64, and replicas at band edges (FLAT_EDGE_REPLICAS) against
+     single-replica f64 Contexts of the template on the cell-pair
+     strategy; a Context routed to B2 stepped FLAT_B2_STEPS steps
+ 11. the seconds of each phase, the `kernels` JSON line (each kernel's
+     force and energy instantiations, Ewald and reaction field, the
+     triclinic runs and the replica bands), then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -226,6 +247,27 @@ TRI_MOL, TRI_MIN, TRI_SETTLE, TRI_STEPS = 20000, 300, 512, 96
 TRI_B2_STEPS, TRI_NPT_STEPS, TRI_BARO = 16, 100, 25
 TRI_BANDS = {"mean": ((250.0, 350.0), (150.0, 450.0), (0.0, 10.0)),
              "last": ((200.0, 420.0), (150.0, 450.0), (0.0, 10.0))}
+# phase 10: the JAX package's scripts/bench_replicas.py --flat: 64
+# replicas of build_water_box(800) (4,000 atoms), the template settled
+# FLAT_TPL_SETTLE steps on the dense strategy as the script does, then
+# (the lattice start rings the single NH chain: the ensemble's window
+# read a water bath of 363 K after 500 template steps alone, 290 K with
+# a restart; one replica on the card, PERF.md) restarted with a fresh
+# chain and 300 K velocities for FLAT_TPL_SETTLE steps more; the
+# ensemble FLAT_SETTLE settling steps, then FLAT_REPEATS x FLAT_STEPS
+# timed; the steps of a
+# Context routed to B2; the replicas held against single-replica f64
+# Contexts (two at the edges of the x bands, two of the z bands); the
+# bath bands over the 64 replicas, written before the phase's first card
+# run: the water bath's mean over the replicas and the samples (one at
+# the end of each timed run) in phase 3's bands, each replica's last
+# water temperature in phase 5's wider band
+FLAT_MOL, FLAT_REPLICAS, FLAT_LAYOUT = 800, 64, (7, 10)
+FLAT_TPL_SETTLE, FLAT_SETTLE, FLAT_STEPS, FLAT_REPEATS = 500, 128, 128, 3
+FLAT_B2_STEPS = 16
+FLAT_EDGE_REPLICAS = (0, 9, 10, 69)
+FLAT_BANDS = {"mean": ((250.0, 350.0), (150.0, 450.0), (0.0, 10.0)),
+              "replica": (150.0, 450.0)}
 
 
 def log(msg):
@@ -671,13 +713,14 @@ def breakdown(ctx, kernel, name, ms_step, card, phase, reps=5):
     return times
 
 
-def force_pass_floor(ctx, ctx64, rms_skip=False):
+def force_pass_floor(ctx, ctx64, rms_skip=False, flips_out=None):
     """The f32 context's force pass against the f64 context's at the same
     state: (max, max over all atoms, rms, cutoff-flipped pairs, max|F|,
     rms over all atoms), the max leaving out the atoms of pairs the two
     passes (each at its own virtual-site positions) put on opposite sides
     of the cutoff, and the parents of flipped virtual sites, whose forces
-    land there; the rms too with rms_skip (f32_floor)."""
+    land there; the rms too with rms_skip (f32_floor).  `flips_out`, a
+    list, receives the mask of those atoms."""
     import torch
     from openmm_drudenose_tpu_torch.constraints.vsites import apply_vsites
     from openmm_drudenose_tpu_torch.forces import cellpair
@@ -707,6 +750,8 @@ def force_pass_floor(ctx, ctx64, rms_skip=False):
     ferr_all, frms_all = f32_floor(f32_forces, f64_forces)
     ferr, frms = f32_floor(f32_forces, f64_forces, atom_flips, rms_skip)
     fs = float(torch.max(torch.abs(f64_forces)))
+    if flips_out is not None:
+        flips_out.append(atom_flips)
     return ferr, ferr_all, frms, n_flip, fs, frms_all
 
 
@@ -1690,6 +1735,315 @@ def phase_triclinic(card):
                  launches=b2_e_launches["b2_energy"], **e2)]
 
 
+def phase_flat(card):
+    """10. The flattened replica ensemble at the full width of the JAX
+    package's scripts/bench_replicas.py --flat, through the replica-band
+    path of B1 (see the module docstring).  Returns the `kernels`
+    entries of the band instantiations of B1 and B2."""
+    import torch
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.io import builders
+    from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
+    from openmm_drudenose_tpu_torch.parallel import flatrep
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0, ns_per_day
+    t = time.time()
+    system, pos = builders.build_water_box(FLAT_MOL)
+    n0 = system.getNumParticles()
+
+    def integrator():
+        integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+        integ.setMaxDrudeDistance(0.02)
+        return integ
+
+    integ = integrator()
+    tpl = dt.Context(system, integ, precision="single", device="cuda")
+    if tpl._nb.strategy != "dense":
+        fail(f"10: the 4k template took the {tpl._nb.strategy} strategy")
+    tpl.setPositions(pos)
+    tpl.setVelocitiesToTemperature(300.0, seed=0)
+    for stage in ("from the lattice", "after the restart"):
+        integ.step(FLAT_TPL_SETTLE)
+        torch.cuda.synchronize()
+        settled = tpl.getState(groups=True).getGroupTemperatures()
+        log(f"10 template ({n0} atoms, dense strategy): "
+            f"{FLAT_TPL_SETTLE} settling steps {stage}, "
+            f"{time.time() - t:.2f} s so far; bath temperatures "
+            f"{np.round(settled, 3).tolist()} K")
+        if stage.startswith("from"):
+            # a fresh chain at the settled positions
+            settled_pos = (tpl._state.positions.double()
+                           + tpl._state.pos_err.double()).cpu().numpy()
+            tpl.reinitialize(preserveState=False)
+            tpl.setPositions(settled_pos)
+            tpl.setVelocitiesToTemperature(300.0, seed=1)
+
+    t = time.time()
+    ens = dt.FlatReplicaEnsemble(tpl, FLAT_REPLICAS, seed=7)
+    ctx = ens.context
+    ctx._ensure_neighbors()
+    nb, cfg = ctx._nb, ctx._cp_cfg
+    n_atoms = ctx._static.n_atoms
+    log(f"10 ensemble built in {time.time() - t:.1f} s: {FLAT_REPLICAS} "
+        f"replicas, layout {ens.layout} ({ens.n_replicas_padded} internal, "
+        f"{n_atoms} atoms), cell grid {cfg.grid} of replica grids "
+        f"{cfg.phys_grid}, capacity {cfg.capacity}, {cfg.n_offsets} "
+        f"offsets, PME grid {nb.pme.grid} x {nb.n_replicas} (the JAX "
+        f"pencil gate {nb.pme_pencil_gate}), route {nb.sweep_kernel}")
+    rx, rz = FLAT_LAYOUT
+    if not (ens.layout == FLAT_LAYOUT and n_atoms == rx * rz * n0
+            and cfg.grid == (5 * rx, 5, 5 * rz) and nb.sweep_kernel == "b1"
+            and nb.pme.grid == (25, 25, 25) and cfg.n_offsets == 63):
+        fail(f"10: the ensemble is not the {FLAT_LAYOUT} layout of "
+             f"{rx * rz * n0} atoms on B1 with 25^3 PME grids")
+    ens.setVelocitiesToTemperature(300.0, seed=3)
+    t = time.time()
+    ens.step(FLAT_SETTLE)
+    torch.cuda.synchronize()
+    log(f"10 {FLAT_SETTLE} settling steps in {time.time() - t:.2f} s; "
+        f"capacity {ctx._cp_cfg.capacity}")
+
+    nkbt = ctx._spec.nh_nkbt.double().numpy()
+    targets = np.array([300.0, 300.0, 1.0])
+    samples, walls = [], []
+
+    def drive():
+        for _ in range(FLAT_REPEATS):
+            t0 = time.time()
+            ens.step(FLAT_STEPS)
+            torch.cuda.synchronize()
+            walls.append(time.time() - t0)
+            samples.append((ctx._state.group_ke.double().numpy() / nkbt
+                            * targets)[:FLAT_REPLICAS])
+
+    _, launches, plain = counted(drive)
+    best = min(walls)
+    ms_step = best / FLAT_STEPS * 1e3
+    nsd = ns_per_day(FLAT_STEPS / best, integ.getStepSize())
+    log(f"10 {FLAT_REPEATS} x {FLAT_STEPS} steps: "
+        + ", ".join(f"{w / FLAT_STEPS * 1e3:.2f}" for w in walls)
+        + f" ms/step (best {ms_step:.2f}); per replica {nsd:.4f} ns/day, "
+        f"aggregate over {FLAT_REPLICAS} replicas {nsd * FLAT_REPLICAS:.3f}"
+        f" ns/day on {card}; launches {launches}; plain sweeps on the card "
+        f"{plain}; capacity {ctx._cp_cfg.capacity}")
+    n_total = FLAT_REPEATS * FLAT_STEPS
+    if launches["b1_sweep_bands"] < n_total or plain or any(
+            v for k, v in launches.items()
+            if k.startswith("b2") or not k.endswith("_bands")):
+        fail("10: the steps did not run their forces through B1's band "
+             "path alone")
+
+    # latches, the wall, finite per-replica temperatures and the bands
+    nbl = ctx._state.neighbors
+    latches = {"overflow": bool(nbl.overflow),
+               "drift": bool(nbl.drift_exceeded) or ctx._drift_warned,
+               "excl_span": bool(nbl.excl_span_exceeded)
+               if nbl.excl_span_exceeded is not None else False,
+               "hardwall_runaway": ctx.hardwallRunaway}
+    spec = ctx._spec
+    p = ctx._state.positions.double() + ctx._state.pos_err.double()
+    drude = torch.nonzero(spec.is_pair & ~spec.is_parent)[:, 0]
+    dmax = float(torch.max(torch.linalg.norm(
+        p[drude] - p[spec.partner[drude]], dim=1)))
+    temps, e_launches, plain_e = counted(ens.group_temperatures)
+    ke = ens.kinetic_energies()
+    mean = np.mean(np.concatenate(samples), axis=0)
+    log(f"10 latches {latches}; max core-Drude distance {dmax:.6f} nm; "
+        f"the state's energy: launches {e_launches}, plain sweeps "
+        f"{plain_e}; water bath over the {FLAT_REPLICAS} replicas at the "
+        f"end: min {temps[:, 0].min():.3f}, mean {temps[:, 0].mean():.3f}, "
+        f"max {temps[:, 0].max():.3f} K; bath means (water, COM, Drude) "
+        f"over the replicas and the {FLAT_REPEATS} samples "
+        f"{np.round(mean, 3).tolist()} K; bands {FLAT_BANDS}")
+    if any(latches.values()):
+        fail(f"10: a latch is set: {latches}")
+    if dmax > 0.02 * 1.00001:
+        fail(f"10: hard wall broken: {dmax}")
+    if not (np.all(np.isfinite(temps)) and np.all(np.isfinite(ke))
+            and temps.shape == (FLAT_REPLICAS, 3)):
+        fail("10: non-finite or misshapen per-replica temperatures")
+    if e_launches["b1_energy_bands"] != 1 or plain_e:
+        fail("10: the state's energy did not come from B1's band energy "
+             "alone")
+    for b, name in ((0, "water"), (2, "Drude")):
+        lo, hi = FLAT_BANDS["mean"][b]
+        if not lo < mean[b] < hi:
+            fail(f"10: the {name} bath's mean {mean[b]:.3f} K outside "
+                 f"({lo}, {hi})")
+    lo, hi = FLAT_BANDS["replica"]
+    if not np.all((temps[:, 0] > lo) & (temps[:, 0] < hi)):
+        fail(f"10: a replica's water bath outside ({lo}, {hi})")
+
+    # the kernels on the ensemble's fields: B1 and B2 against their plain
+    # versions, f64 and each other, bit-identical; their energies (the
+    # terms and the plan as the steps left them: a capacity grown there
+    # recompiled both)
+    st = ctx._state
+    nb, cfg = ctx._nb, ctx._cp_cfg
+    box_diag = torch.diagonal(st.box)
+    fields = nb.fields(st.positions, box_diag, st.neighbors)
+    shifts = cellpair.offset_shifts(cfg, box_diag)
+    args = (fields, cfg, shifts, nb.alpha, ONE_4PI_EPS0)
+    kw = dict(nb.coulomb, excl_skip=nb.excl_skip)
+    f_b1, err_b1, ms_b1, plain_b1 = kernel_parity("10", "B1 bands", sweep,
+                                                  args, kw)
+    _, err_b2, ms_b2, plain_b2 = kernel_parity(
+        "10", "B2 bands", sweep_chunked, args, kw, ref=f_b1)
+    del f_b1
+    bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(fields, cfg,
+                                                              shifts)
+    plan = sweep_chunked.plan_for(cfg,
+                                  limits=sweep_chunked.card_limits("cuda"))
+    log(f"10 force bound {bound_ms:.4f} ms ({bound_by}: {n_tests} pair "
+        f"tests, {n_cut} inside the cutoff, {n_bytes} bytes): B1 "
+        f"{ms_b1:.4f} ms at {bound_ms / ms_b1:.1%}, B2 {ms_b2:.4f} ms at "
+        f"{bound_ms / ms_b2:.1%} (brick {plan.brick}, {plan.per_band} "
+        f"chunks a band, {plan.total_chunks} chunks) on {card}")
+    split = kernel_split(lambda: sweep.pair_forces(*args, **kw))
+    log("10 B1's two kernels (torch.profiler, device ms a launch): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
+    e1 = energy_check("10 B1 bands", sweep, fields, cfg, shifts, nb.alpha,
+                      card, nb.coulomb, nb.excl_skip)
+    e2 = energy_check("10 B2 bands", sweep_chunked, fields, cfg, shifts,
+                      nb.alpha, card, nb.coulomb, nb.excl_skip)
+
+    # replica isolation on the card: every atom of replica 0 moved; the
+    # forces of replicas 1..69 out of both kernels the same bits (both
+    # sorts made afresh at the positions they sort)
+    nbl1 = nb.cellsort(st.positions, box_diag)
+    fields1 = nb.fields(st.positions, box_diag, nbl1)
+    args1 = (fields1, cfg, shifts, nb.alpha, ONE_4PI_EPS0)
+    moved = st.positions.clone()
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    moved[:n0] = torch.remainder(
+        moved[:n0] + 0.01 * torch.randn((n0, 3), generator=gen).to(
+            moved.device, moved.dtype), box_diag)
+    nbl2 = nb.cellsort(moved, box_diag)
+    fields2 = nb.fields(moved, box_diag, nbl2)
+    args2 = (fields2, cfg, shifts, nb.alpha, ONE_4PI_EPS0)
+    iso = []
+    for name, kernel in (("B1", sweep), ("B2", sweep_chunked)):
+        fa = kernel.pair_forces(*args1, **kw)[nbl1.inv_slot]
+        fb = kernel.pair_forces(*args2, **kw)[nbl2.inv_slot]
+        torch.cuda.synchronize()
+        changed = float(torch.max(torch.abs(fa[:n0] - fb[:n0])))
+        same = bool(torch.equal(fa[n0:], fb[n0:]))
+        iso.append(f"{name}: replica 0 changed by up to {changed:.3e}, "
+                   f"replicas 1..{rx * rz - 1} bit for bit {same}")
+        if not (same and changed > 0):
+            fail(f"10: {name} let replica 0's move reach another replica")
+    log("10 replica isolation (replica 0's atoms moved by 0.01 nm rms; the "
+        f"sort overflowed: {bool(nbl2.overflow)}): " + "; ".join(iso))
+    del fields, args, fields1, args1, nbl1, fields2, args2, nbl2, moved, \
+        fa, fb
+    times = breakdown(ctx, sweep.pair_forces, "b1_sweep_bands", ms_step,
+                      card, "10", reps=3)
+
+    # the f32 force pass against f64 (phase 3's floor), and the band-edge
+    # replicas against single-replica f64 Contexts of the template on the
+    # cell-pair strategy
+    ctx64 = dt.Context(ctx._system, flatrep._clone_integrator(
+        integ, ens.n_replicas_padded), precision="double",
+        strategy="cellpair", nb_options=dict(ctx._nb_options),
+        device="cuda", ensemble_r=ens.n_replicas_padded)
+    exact = (st.positions.double() + st.pos_err.double())
+    ctx64.setPositions(exact.cpu().numpy())
+    flips = []
+    ferr, ferr_all, frms, n_flip, fs, _ = force_pass_floor(ctx, ctx64,
+                                                           flips_out=flips)
+    log(f"10 force pass f32 vs f64: max {ferr:.3e} ({ferr_all:.3e} with "
+        f"the atoms of {n_flip} cutoff-flipped pairs), rms {frms:.3e} "
+        f"(max|F| {fs:.1f})")
+    if not (ferr <= 1e-4 and frms <= 5e-6):
+        fail("10: the f32 force pass misses the f32 floor against f64")
+    f32_forces = ctx._state.forces.double()
+    f64_forces = ctx64._state.forces
+    skip = flips[0]
+    del ctx64
+    torch.cuda.empty_cache()
+    edge = []
+    for r in FLAT_EDGE_REPLICAS:
+        rows = slice(r * n0, (r + 1) * n0)
+        one = dt.Context(system, integrator(), precision="double",
+                         strategy="cellpair", device="cuda")
+        one.setPositions(exact[rows].cpu().numpy())
+        one._ensure_forces()
+        ref = one._state.forces
+        scale = float(torch.max(torch.abs(ref)))
+        keep = ~skip[rows]
+        err32 = float(torch.max(torch.abs(
+            f32_forces[rows] - ref)[keep])) / scale
+        err32_all = float(torch.max(torch.abs(f32_forces[rows] - ref))) \
+            / scale
+        err64 = float(torch.max(torch.abs(f64_forces[rows] - ref))) / scale
+        edge.append(f"replica {r}: f32 flat {err32:.3e} ({err32_all:.3e} "
+                    f"with flipped pairs' atoms), f64 flat {err64:.3e}")
+        if not (err32 <= 1e-4 and err64 <= 1e-8):
+            fail(f"10: replica {r} differs from its single-replica Context")
+        del one
+    log("10 against single-replica f64 Contexts of the template "
+        "(max |dF| / max|F|): " + "; ".join(edge))
+    del f32_forces, f64_forces, skip
+
+    # a Context of the same ensemble routed to B2 (use_pallas 3), from
+    # the same state
+    integ2 = flatrep._clone_integrator(integ, ens.n_replicas_padded)
+    ctx2 = dt.Context(ctx._system, integ2, precision="single",
+                      strategy="cellpair",
+                      nb_options=dict(ctx._nb_options, use_pallas=3,
+                                      capacity=cfg.capacity),
+                      device="cuda", ensemble_r=ens.n_replicas_padded)
+    ctx2.setPositions(exact.cpu().numpy())
+    ctx2.setVelocities(st.velocities.double().cpu().numpy())
+    ctx2._ensure_forces()
+    if ctx2._nb.sweep_kernel != "b2" or ctx2._cp_cfg.grid != cfg.grid:
+        fail(f"10: use_pallas 3 routed to {ctx2._nb.sweep_kernel}")
+    _, b2_launches, plain = counted(lambda: integ2.step(FLAT_B2_STEPS))
+    _, b2_e_launches, plain_e = counted(
+        lambda: ctx2.getState(energy=True).getPotentialEnergy())
+    log(f"10 a Context routed to B2: {FLAT_B2_STEPS} steps, launches "
+        f"{b2_launches}, then its energy: {b2_e_launches}; plain sweeps "
+        f"{plain + plain_e}")
+    if (b2_launches["b2_sweep_bands"] < FLAT_B2_STEPS
+            or b2_launches["b1_sweep_bands"]
+            or b2_e_launches["b2_energy_bands"] != 1 or plain or plain_e):
+        fail("10: the B2-routed Context did not run B2's band path")
+    pe = ens.total_potential_energy()
+    log(f"10 the {FLAT_REPLICAS} replicas' potential energies through the "
+        f"template: sum {pe:.3f} kJ/mol; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not np.isfinite(pe):
+        fail("10: non-finite replica energies")
+    del integ2, ctx2, ens, ctx, tpl
+    torch.cuda.empty_cache()
+
+    src1 = "openmm_drudenose_tpu_torch/csrc/sweep.cu"
+    src2 = "openmm_drudenose_tpu_torch/csrc/sweep_chunked.cu"
+    tpu1 = "openmm_drudenose_tpu/ops/pallas_sweep.py:440"
+    tpu2 = "openmm_drudenose_tpu/ops/pallas_sweep.py:851"
+    common = {"route": "cuda", "coulomb": "ewald", "geometry": "bands",
+              "capacity": cfg.capacity, "library_ms": None}
+    return [dict(common, name="b1_sweep_bands", instantiation="forces",
+                 source=src1, replaces=tpu1,
+                 launches=launches["b1_sweep_bands"],
+                 launches_per_step=launches["b1_sweep_bands"] / n_total,
+                 max_abs_err=err_b1, ms=ms_b1, plain_ms=plain_b1,
+                 bound_ms=bound_ms, bound_by=bound_by),
+            dict(common, name="b1_energy_bands", instantiation="energy",
+                 source=src1, replaces=tpu1,
+                 launches=e_launches["b1_energy_bands"], **e1),
+            dict(common, name="b2_sweep_bands", instantiation="forces",
+                 source=src2, replaces=tpu2,
+                 launches=b2_launches["b2_sweep_bands"],
+                 launches_per_step=(b2_launches["b2_sweep_bands"]
+                                    / FLAT_B2_STEPS),
+                 max_abs_err=err_b2, ms=ms_b2, plain_ms=plain_b2,
+                 bound_ms=bound_ms, bound_by=bound_by),
+            dict(common, name="b2_energy_bands", instantiation="energy",
+                 source=src2, replaces=tpu2,
+                 launches=b2_e_launches["b2_energy_bands"], **e2)], times
+
+
 def main():
     # ---- 0. device --------------------------------------------------------
     import torch
@@ -1906,7 +2260,13 @@ def main():
         e["registers"] = regs[e["name"].replace("_triclinic", "")]
     phase_seconds["9 the sheared box"] = phase_mark()
 
-    # ---- 10. kernel summary -------------------------------------------------
+    # ---- 10. the flattened replica ensemble: replica bands through B1 ----
+    flat_entries, _ = phase_flat(card)
+    for e in flat_entries:
+        e["registers"] = regs[e["name"].replace("_bands", "")]
+    phase_seconds["10 the flat ensemble"] = phase_mark()
+
+    # ---- 11. kernel summary -------------------------------------------------
     log("seconds per phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_seconds.items()))
     src, tpu = ("openmm_drudenose_tpu_torch/csrc/sweep.cu",
@@ -1924,7 +2284,7 @@ def main():
         "name": "b1_energy", "instantiation": "energy", "route": "cuda",
         "source": src, "replaces": tpu, "registers": regs["b1_energy"],
         **b1_energy, "library_ms": None,
-    }, *b2_entries, *rf_entries, *tri_entries]
+    }, *b2_entries, *rf_entries, *tri_entries, *flat_entries]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

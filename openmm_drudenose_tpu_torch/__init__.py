@@ -7,7 +7,9 @@ NaCl solution, io/ionic_liquid.build_ionic_liquid the coarse-grained
 ionic liquid with per-ion temperature groups and io/polymer.
 build_solvated_polymer the polarizable polymer in water), bind a
 DrudeTGNHIntegrator into a Context (or a Simulation with its reporters)
-and step it, with a MonteCarloBarostat for NPT.  The direct-space sweep of large systems and its energy run in
+and step it, with a MonteCarloBarostat for NPT; FlatReplicaEnsemble
+(parallel/flatrep.py) runs many replicas of a small box as one system
+in NVT.  The direct-space sweep of large systems and its energy run in
 hand-written CUDA kernels (ops/sweep.py, ops/sweep_chunked.py, csrc/);
 everything else is plain PyTorch.  Entry points run on CUDA unless the
 caller passes device="cpu".
@@ -31,6 +33,7 @@ from .forces.bonded import (HarmonicAngleForce, HarmonicBondForce,
 from .forces.cmmotion import CMMotionRemover, MonteCarloBarostat
 from .forces.drude import DrudeForce
 from .forces.nonbonded import NonbondedForce
+from .parallel.flatrep import FlatReplicaEnsemble
 from .system import System, ThreeParticleAverageSite, TwoParticleAverageSite
 from .units import BOLTZ, ONE_4PI_EPS0
 
@@ -41,5 +44,5 @@ __all__ = [
     "HarmonicTorsionForce",
     "DrudeTGNHIntegrator", "Context", "State", "Simulation",
     "StateDataReporter", "CheckpointReporter", "save_checkpoint",
-    "load_checkpoint", "BOLTZ", "ONE_4PI_EPS0",
+    "load_checkpoint", "FlatReplicaEnsemble", "BOLTZ", "ONE_4PI_EPS0",
 ]

@@ -26,6 +26,13 @@ its diagonal for an orthorhombic system (every sum as before, bit for
 bit) and the whole matrix for a triclinic one (`_box_arg`, the JAX
 package's mi_box).
 
+A flattened replica ensemble (ensemble_r = R > 1, built by
+parallel/flatrep.py with nb_options={"ensemble": [R, rx, rz]}; the JAX
+package's app/context.py:80-116) holds R replica-major copies of one
+replica's system in one box: (R, G+2) baths, per-replica KE sums and
+group temperatures, capacity growth binned in the replicas' frame.  Its
+NPT (the JAX package's per-replica box scale) is not ported.
+
 Entry points run on CUDA unless the caller passes device="cpu"; a Context
 without a device on a machine without CUDA raises.
 """
@@ -109,7 +116,8 @@ class Context:
     def __init__(self, system, integrator, precision="single",
                  strategy: str = "auto", seed: int = 0,
                  hardwall_strict: bool = False,
-                 nb_options: dict | None = None, device=None):
+                 nb_options: dict | None = None, device=None,
+                 ensemble_r: int = 1):
         """strategy: the nonbonded pair sum, "dense", "cellpair" or
         "auto" (the JAX package's rule, forces/nonbonded.py::
         choose_strategy).  seed: the barostat's generator.
@@ -119,7 +127,10 @@ class Context:
         nb_options: {"capacity": C} pins the cell capacity (the bench
         pins the one its snapshot was measured with); {"use_pallas": 3}
         sends the float32 sweep to the chunked kernel B2 whatever the
-        gates say (the JAX option of that name)."""
+        gates say (the JAX option of that name).  ensemble_r: the
+        replicas of a flattened ensemble (parallel/flatrep.py, which
+        also passes nb_options {"ensemble": [R, rx, rz]}); NPT is not
+        ported for them and raises."""
         # full-float32 products wherever a matmul could reach r^2 or
         # forces (TF32 keeps ~3 decimal digits)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -135,6 +146,15 @@ class Context:
         self._drift_warned = False
         self._prec = precision_mod.get_precision(precision)
         self._nb_options = dict(nb_options or {})
+        self._ensemble_r = int(ensemble_r)
+        if self._ensemble_r > 1 and any(
+                type(f).__name__ == "MonteCarloBarostat"
+                for f in system.getForces()):
+            raise ValueError(
+                "flat NPT (a flattened replica ensemble with a "
+                "MonteCarloBarostat) is not yet ported: the JAX package "
+                "runs it with a per-replica box scale that the sweep "
+                "kernels do not take (ROADMAP.md)")
         self._state = None
         self._init_spec_and_state()
 
@@ -143,7 +163,8 @@ class Context:
         velocities and thermostat state unset)."""
         r, a = self._prec.real, self._prec.accum
         self._spec, self._static, init_edd = spec_mod.build_spec(
-            self._system, self._integrator, r, a, self._device)
+            self._system, self._integrator, r, a, self._device,
+            ensemble_r=self._ensemble_r)
         self._ke_valid = False
         self._state = None
         self._build_potential()
@@ -151,7 +172,7 @@ class Context:
                        np.float64)
         st = zeros_state(self._static.n_atoms, self._static.n_baths,
                          self._static.n_chains, box, r, a, self._device,
-                         seed=self._seed)
+                         seed=self._seed, ensemble_r=self._ensemble_r)
         self._state = st.replace(eta_dot_dot=torch.as_tensor(init_edd,
                                                              dtype=a))
         self._forces_valid = False
@@ -434,17 +455,22 @@ class Context:
     def _grow_pair_capacity(self, positions=None) -> None:
         """Grow the cell capacity from the occupancy measured at
         `positions` (the state's by default) and recompile (capacity + 8
-        at least, so a retry always progresses)."""
+        at least, so a retry always progresses).  A flattened ensemble
+        bins in the replicas' frame: an extended cell is a (replica,
+        cell of its grid)."""
         cfg = self._cp_cfg
         if positions is None:
             positions = self._state.positions
         frac = boxutils.frac_coords(
             positions.double().cpu(),
             self._box_arg(self._state.box.double().cpu())).numpy()
-        grid = np.asarray(cfg.grid)
+        grid = np.asarray(cfg.phys_grid)
         frac = frac - np.floor(frac)
         cell = np.minimum((frac * grid).astype(np.int64), grid - 1)
         flat = (cell[:, 0] * grid[1] + cell[:, 1]) * grid[2] + cell[:, 2]
+        if cfg.n_replicas > 1:
+            rep = np.arange(len(flat)) // (len(flat) // cfg.n_replicas)
+            flat = rep * int(np.prod(grid)) + flat
         occ_max = int(np.bincount(flat, minlength=cfg.n_cells).max())
         new_cap = max(-(-int(occ_max * 1.1 + 2) // 8) * 8, cfg.capacity + 8)
         self._nb_options["capacity"] = min(new_cap, self._static.n_atoms)
@@ -719,15 +745,16 @@ class Context:
         v = st.velocities.double().cpu().numpy()
         ke = 0.5 * float(np.sum(m * np.sum(v * v, axis=-1)))
         pe = float(st.potential_energy)
+        # the chain arrays of a flattened ensemble carry a leading (R,)
         eta = st.eta.double().numpy()
-        eta_dot = st.eta_dot.double().numpy()[:, :-1]
+        eta_dot = st.eta_dot.double().numpy()[..., :-1]
         q = spec.nh_eta_mass.double().numpy()
         nkbt = spec.nh_nkbt.double().numpy()
         kbt_chain = spec.nh_kbt_chain.double().numpy()
         chain = 0.5 * np.sum(q * eta_dot ** 2)
-        chain += float(np.sum(nkbt * eta[:, 0]))
-        if eta.shape[1] > 1:
-            chain += float(np.sum(kbt_chain[:, None] * eta[:, 1:]))
+        chain += float(np.sum(nkbt * eta[..., 0]))
+        if eta.shape[-1] > 1:
+            chain += float(np.sum(kbt_chain[:, None] * eta[..., 1:]))
         return ke + pe + float(chain)
 
     def getState(self, positions: bool = False, velocities: bool = False,
@@ -775,7 +802,8 @@ class Context:
             self._ensure_pe()
             kw["potential_energy"] = float(self._state.potential_energy)
             if self._ke_valid:
-                ke = float(self._state.ke_sum)
+                # a flattened ensemble caches per-replica sums (R,)
+                ke = float(np.sum(self._state.ke_sum.double().numpy()))
             else:
                 m = self._spec.mass.double().cpu().numpy()
                 v = self._state.velocities.double().cpu().numpy()
@@ -783,12 +811,13 @@ class Context:
             kw["kinetic_energy"] = ke
         if groups:
             # group_ke holds 2*KE per bath: T_g = T_target * 2KE_g / NkbT_g
+            # ((R, G+2) per replica in a flattened ensemble)
             two_ke = self._state.group_ke.double().numpy()
             nkbt = self._spec.nh_nkbt.double().numpy()
             temps = np.where(nkbt > 0, two_ke / np.where(nkbt > 0, nkbt,
                                                          1.0), 0.0)
             targets = np.full_like(temps, self._integrator.getTemperature())
-            targets[-1] = self._integrator.getDrudeTemperature()
+            targets[..., -1] = self._integrator.getDrudeTemperature()
             kw["group_temperatures"] = temps * targets
         return State(**kw)
 

@@ -15,8 +15,15 @@ does and as the reference plugin's initialize() does
   - the MonteCarloBarostat's frequency, pressure and kT
 
 Per-atom tables go to the simulation device; the NH chain constants stay
-on the host, where the chain is integrated.  The TPU layout tables of the
-JAX package (lane shifts, gather tables) have no counterpart here.
+on the host, where the chain is integrated.
+
+A flattened replica ensemble (ensemble_r = R > 1, parallel/flatrep.py:
+R identical replicas, replica-major) keeps one replica's bath constants:
+the extended system's DOF, reduced masses and Drude DOF divided by R,
+with a CM removed per replica; its baths are (R, G+2).
+
+The TPU layout tables of the JAX package (lane shifts, gather tables)
+have no counterpart here.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ class StaticSpec:
     n_vsites_avg: int
     cm_freq: int                # 0 = no CMMotionRemover
     baro_freq: int = 0          # 0 = no MonteCarloBarostat
+    ensemble_r: int = 1         # replicas of a flattened ensemble
 
     @property
     def n_baths(self) -> int:
@@ -124,8 +132,12 @@ def partition_constraints(system, masses):
     return settle, other
 
 
-def build_spec(system, integrator, real_dtype, accum_dtype, device):
-    """Returns (SystemSpec, StaticSpec, initial eta_dot_dot (numpy))."""
+def build_spec(system, integrator, real_dtype, accum_dtype, device,
+               ensemble_r: int = 1):
+    """Returns (SystemSpec, StaticSpec, initial eta_dot_dot (numpy));
+    with ensemble_r = R > 1 (the JAX package's build_spec :196-305, :541)
+    the bath constants are one replica's and the initial eta_dot_dot is
+    (R, G+2, M)."""
     from ..forces.cmmotion import CMMotionRemover, MonteCarloBarostat
     from ..system import ThreeParticleAverageSite, TwoParticleAverageSite
 
@@ -193,11 +205,22 @@ def build_spec(system, integrator, real_dtype, accum_dtype, device):
         if isinstance(f, CMMotionRemover):
             cm_freq = f.getFrequency()
             if use_com:
-                dof[G] -= 3
+                # a flattened ensemble removes each replica's own CM
+                dof[G] -= 3 * ensemble_r
         elif isinstance(f, MonteCarloBarostat):
             baro_freq = f.getFrequency()
             baro_pressure = f.getDefaultPressure() * BAR_TO_KJ_PER_MOL_NM3
             baro_kt = BOLTZ * f.getDefaultTemperature()
+
+    if ensemble_r > 1:
+        if n % ensemble_r or n_res % ensemble_r or n_pairs % ensemble_r:
+            raise SpecError("flattened ensemble: atom/residue/pair counts "
+                            "must be divisible by the replica count")
+        # identical replicas: the extended accounting is R x one
+        # replica's (the CM's -3 applied per replica above)
+        dof = dof / ensemble_r
+        red_mass = red_mass / ensemble_r
+        drude_dof = drude_dof // ensemble_r
 
     # ---- NH chain constants (CudaDrudeTGNHKernels.cpp:214-235) --------
     M = integrator.getNumNHChains()
@@ -267,7 +290,7 @@ def build_spec(system, integrator, real_dtype, accum_dtype, device):
         has_pairs=n_pairs > 0,
         has_hardwall=integrator.getMaxDrudeDistance() > 0,
         n_settle=len(settle), n_vsites_avg=len(avg_idx), cm_freq=cm_freq,
-        baro_freq=baro_freq)
+        baro_freq=baro_freq, ensemble_r=int(ensemble_r))
 
     r, a = real_dtype, accum_dtype
     dev = lambda x, dt=None: torch.as_tensor(x, dtype=dt, device=device)
@@ -288,4 +311,7 @@ def build_spec(system, integrator, real_dtype, accum_dtype, device):
         vs_avg_p=dev(np.array(avg_p, np.int64).reshape(-1, 3)),
         vs_avg_w=dev(np.array(avg_w, np.float64).reshape(-1, 3), r),
         baro_pressure=float(baro_pressure), baro_kt=float(baro_kt))
+    if ensemble_r > 1:
+        init_edd = np.broadcast_to(init_edd,
+                                   (ensemble_r,) + init_edd.shape).copy()
     return spec, static, init_edd

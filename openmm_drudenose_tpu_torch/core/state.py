@@ -24,6 +24,8 @@ class SimState:
     forces: torch.Tensor          # (N, 3) kJ/mol/nm, from the last pass
     potential_energy: torch.Tensor  # () kJ/mol, from the last energy pass
     box: torch.Tensor             # (3, 3) nm, rows are box vectors
+    # the chain arrays, ke_sum and group_ke carry a leading replica axis
+    # (R,) in a flattened replica ensemble (the JAX core/state.py:57-60)
     eta: torch.Tensor             # (G+2, M) host
     eta_dot: torch.Tensor         # (G+2, M+1) host; last column stays 0
     eta_dot_dot: torch.Tensor     # (G+2, M) host
@@ -51,20 +53,22 @@ class SimState:
 
 
 def zeros_state(n_atoms: int, n_baths: int, n_chains: int, box, real_dtype,
-                accum_dtype, device, seed: int = 0) -> SimState:
+                accum_dtype, device, seed: int = 0,
+                ensemble_r: int = 1) -> SimState:
     kw = dict(dtype=real_dtype, device=device)
     host = dict(dtype=accum_dtype, device="cpu")
+    lead = (ensemble_r,) if ensemble_r > 1 else ()
     return SimState(
         positions=torch.zeros((n_atoms, 3), **kw),
         velocities=torch.zeros((n_atoms, 3), **kw),
         forces=torch.zeros((n_atoms, 3), **kw),
         potential_energy=torch.zeros((), dtype=accum_dtype, device=device),
         box=torch.as_tensor(box, **kw),
-        eta=torch.zeros((n_baths, n_chains), **host),
-        eta_dot=torch.zeros((n_baths, n_chains + 1), **host),
-        eta_dot_dot=torch.zeros((n_baths, n_chains), **host),
-        ke_sum=torch.zeros((), **host),
-        group_ke=torch.zeros((n_baths,), **host),
+        eta=torch.zeros(lead + (n_baths, n_chains), **host),
+        eta_dot=torch.zeros(lead + (n_baths, n_chains + 1), **host),
+        eta_dot_dot=torch.zeros(lead + (n_baths, n_chains), **host),
+        ke_sum=torch.zeros(lead, **host),
+        group_ke=torch.zeros(lead + (n_baths,), **host),
         hardwall_runaway=torch.zeros((), dtype=torch.bool, device=device),
         baro_gen=torch.Generator(device="cpu").manual_seed(int(seed)),
     )

@@ -53,6 +53,16 @@
 // Any capacity whose row buffers fit a CTA's shared memory (4429 slots
 // at that brick); ops/sweep.py::route raises past it.
 //
+// Replica bands (the TPU kernel's pz / px wrap, pallas_sweep.py:610-611):
+// a grid of embedded replicas is cut into bands of one replica's period
+// along each dimension, and the stencil wraps modulo the period inside
+// the band (band * p + wrap(local + o, p)), so replicas never read each
+// other's cells.  Each band has chunks of its own (ceil(period / brick),
+// the last cut short: its home cells past the band edge idle), so no
+// chunk straddles a band edge and each frame cell is one cell of one
+// band.  Without bands the period is the grid and the chunks are the
+// grid's.
+//
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -69,9 +79,11 @@ using pair_tile::Tile;
 struct Plan {
   int gx, gy, gz;     // cell grid
   int bx, by, bz;     // home cells per chunk in each dimension
-  int nbx, nby, nbz;  // chunks per dimension
+  int nbx, nby, nbz;  // chunks per dimension (bands x chunks a band)
   int lox, loy, loz;  // lowest stencil offset per dimension
   int fx, fy, fz;     // frame cells per dimension: brick + stencil span
+  int px, py, pz;     // one replica's cells per dimension (the wrap period)
+  int kx, ky, kz;     // chunks per band per dimension
 };
 
 // v + o wrapped into [0, g), for |o| < g
@@ -109,16 +121,19 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 
   const int chunk = blockIdx.x;
   float* fr = kEnergy ? nullptr : frames + (size_t)chunk * nf * fstride;
-  const int x0 = (chunk / (pl.nby * pl.nbz)) * pl.bx;
-  const int y0 = ((chunk / pl.nbz) % pl.nby) * pl.by;
-  const int z0 = (chunk % pl.nbz) * pl.bz;
+  const int chx = chunk / (pl.nby * pl.nbz), chy = (chunk / pl.nbz) % pl.nby,
+            chz = chunk % pl.nbz;
   const int h = threadIdx.x >> 5;                // brick-local home cell
   const int lane = threadIdx.x & 31;
   const int hx = h / (pl.by * pl.bz), hy = (h / pl.bz) % pl.by,
             hz = h % pl.bz;
-  const int cx = x0 + hx, cy = y0 + hy, cz = z0 + hz;
-  const bool home_ok = cx < pl.gx && cy < pl.gy && cz < pl.gz;
-  const int cell = (cx * pl.gy + cy) * pl.gz + cz;
+  // the home cell: its band's first cell and its index in the band
+  const int bax = (chx / pl.kx) * pl.px, bay = (chy / pl.ky) * pl.py,
+            baz = (chz / pl.kz) * pl.pz;
+  const int lx = (chx % pl.kx) * pl.bx + hx, ly = (chy % pl.ky) * pl.by + hy,
+            lz = (chz % pl.kz) * pl.bz + hz;
+  const bool home_ok = lx < pl.px && ly < pl.py && lz < pl.pz;
+  const int cell = ((bax + lx) * pl.gy + bay + ly) * pl.gz + baz + lz;
   const int na = home_ok ? fd.count[cell] : 0;   // warp-uniform
   Tile& t = tiles[2 * h];       // the neighbour tile
   Tile& th = tiles[2 * h + 1];  // the home part
@@ -141,8 +156,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       const float tx = shift[3 * o], ty = shift[3 * o + 1],
                   tz = shift[3 * o + 2];
       const bool chk = check_excl[o] != 0 && p.excl_window > 0;
-      const int bc = (wrap(cx + ox, pl.gx) * pl.gy + wrap(cy + oy, pl.gy)) *
-                         pl.gz + wrap(cz + oz, pl.gz);
+      const int bc = ((bax + wrap(lx + ox, pl.px)) * pl.gy + bay +
+                      wrap(ly + oy, pl.py)) * pl.gz + baz +
+                     wrap(lz + oz, pl.pz);
       const int nb = fd.count[bc];
       // this home cell's neighbour at o in the frame
       float* fo = kEnergy ? nullptr
@@ -242,6 +258,8 @@ Plan make_plan(const int* v) {
   p.nbx = v[6]; p.nby = v[7]; p.nbz = v[8];
   p.lox = v[9]; p.loy = v[10]; p.loz = v[11];
   p.fx = v[12]; p.fy = v[13]; p.fz = v[14];
+  p.px = v[15]; p.py = v[16]; p.pz = v[17];
+  p.kx = v[18]; p.ky = v[19]; p.kz = v[20];
   return p;
 }
 
@@ -315,6 +333,10 @@ int launch_sweep(const Fields& fd, const void* offsets, const void* shift,
   const long long n_slots = (long long)pl.gx * pl.gy * pl.gz * cap;
   const long long nf = (long long)pl.fx * pl.fy * pl.fz;
   if (cap < 1 || n_off < 1 || p.n_words < 1 || n_chunks < 1 ||
+      pl.px < 1 || pl.py < 1 || pl.pz < 1 || pl.gx % pl.px ||
+      pl.gy % pl.py || pl.gz % pl.pz ||
+      pl.nbx != pl.gx / pl.px * pl.kx || pl.nby != pl.gy / pl.py * pl.ky ||
+      pl.nbz != pl.gz / pl.pz * pl.kz ||
       nh > kMaxWarps || 3 * n_slots > INT32_MAX ||
       n_slots * p.n_words > INT32_MAX ||
       n_chunks * nf * 3 * cap > INT32_MAX ||
@@ -348,7 +370,7 @@ int launch_kind(int coulomb, const Fields& fd, const void* offsets,
   return (int)cudaErrorInvalidValue;
 }
 
-// plan: the 15 ints of Plan, on the host.  frames: n_chunks * nf * 3 * cap
+// plan: the 21 ints of Plan, on the host.  frames: n_chunks * nf * 3 * cap
 // floats of work space (zeroed and filled by the sweep); f: (n_slots, 3);
 // ew: (n_slots, n_words).
 extern "C" int chunk_sweep_forces(

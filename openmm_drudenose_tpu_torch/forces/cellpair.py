@@ -18,6 +18,15 @@ plane-width metric (the max-gap trim), atoms are binned by their
 fractional coordinates, the box frame is pos - image @ box, the centres
 are ((c3 + 0.5) / g) @ box and offset o's shift is (o / g) @ box, so the
 identity a_loc - (b_loc + shift) and the kernels are unchanged.
+
+A flattened replica ensemble (parallel/flatrep.py; the JAX package's
+make_ensemble_config :250) embeds R = rx * rz copies of one replica's
+grid (px, py, pz) in one extended grid (rx px, py, rz pz): replica
+r = bx rz + bz owns the x band bx and the z band bz.  Its atoms are
+binned in the replicas' shared box frame and shifted into its bands, the
+stencil wraps modulo the periods inside each band (`neighbor_map`), and
+the centres and shifts are one replica's, so replicas never read each
+other and the kernels see one grid.
 `pair_tiles` is the plain pair sum and `sweep` the energy+force sum over
 it, with Ewald real-space or reaction-field Coulomb (`make_pair_eg`);
 ops/sweep.py and ops/sweep_chunked.py hold the hand-written kernels.
@@ -66,6 +75,11 @@ class CellPairConfig:
     window: tuple
     trimmed: tuple = ()
     triclinic: bool = False
+    # a flattened replica ensemble: the replica count and one replica's
+    # x and z periods (0: no embedding along that axis)
+    n_replicas: int = 1
+    x_period: int = 0
+    z_period: int = 0
 
     @property
     def r_list(self) -> float:
@@ -79,6 +93,20 @@ class CellPairConfig:
     def n_offsets(self) -> int:
         return len(self.offsets)
 
+    @property
+    def phys_grid(self) -> tuple:
+        """One replica's grid: the periods of an embedded ensemble, the
+        grid otherwise."""
+        return (self.x_period or self.grid[0], self.grid[1],
+                self.z_period or self.grid[2])
+
+    @property
+    def bands(self) -> tuple:
+        """(rx, rz): the replica bands along x and z ((1, 1) without
+        embedding)."""
+        px, _, pz = self.phys_grid
+        return self.grid[0] // px, self.grid[2] // pz
+
 
 def _neighbor_offsets(grid, window) -> np.ndarray:
     def per_dim(n, w):
@@ -89,6 +117,63 @@ def _neighbor_offsets(grid, window) -> np.ndarray:
                      for a in per_dim(grid[0], window[0])
                      for b in per_dim(grid[1], window[1])
                      for c in per_dim(grid[2], window[2])], np.int64)
+
+
+def cell_coords(grid) -> np.ndarray:
+    """(n_cells, 3) index of every cell of `grid` (x-major)."""
+    c = np.arange(int(np.prod(grid)))
+    return np.stack([c // (grid[1] * grid[2]), (c // grid[2]) % grid[1],
+                     c % grid[2]], axis=1)
+
+
+def neighbor_map(grid, periods, offsets, sign: int = 1) -> np.ndarray:
+    """(n_cells, n_off): the cell at offset sign * o of every cell, the
+    offset wrapped modulo each dimension's period inside the band that
+    holds the cell (period = grid: one band, the plain periodic wrap);
+    sign -1 gives the reverse map (the cell whose neighbour at o is the
+    row's cell)."""
+    g, p = np.asarray(grid), np.asarray(periods)
+    c3 = cell_coords(grid)
+    band, loc = c3 // p, c3 % p
+    nb3 = band[:, None, :] * p + (loc[:, None, :] + sign
+                                  * np.asarray(offsets)[None, :, :]) % p
+    return (nb3[..., 0] * g[1] + nb3[..., 1]) * g[2] + nb3[..., 2]
+
+
+def _stencil(grid, window, cell_size, r_list, triclinic):
+    """The half stencil of a regular grid, self offset first, with the
+    offsets whose closest cell-to-cell approach exceeds r_list dropped:
+    (offsets, the dropped offsets' gap counts).  Triclinic plane gaps
+    are not orthogonal components, so their bound is the largest of
+    them, not the norm."""
+    offsets = _neighbor_offsets(grid, window)
+    sel = [o for o in offsets.tolist() if (o[0], o[1], o[2]) > (0, 0, 0)]
+    offsets = np.array([[0, 0, 0]] + sel, np.int64)
+    gap = np.maximum(np.abs(offsets) - 1, 0) * cell_size[None, :]
+    reach = (np.max(gap, axis=1) if triclinic
+             else np.sqrt(np.sum(gap * gap, axis=1)))
+    drop = reach > r_list
+    trimmed = ()
+    if np.any(drop):
+        trimmed = tuple(map(tuple, np.maximum(
+            np.abs(offsets[drop]) - 1, 0).tolist()))
+        offsets = offsets[~drop]
+    return offsets, trimmed
+
+
+def _exclusion_window(exc_i, exc_j) -> tuple:
+    """(W, words): the largest index difference of the excluded pairs and
+    the 31-bit words of a (2W + 1)-bit mask."""
+    exc_i = np.asarray(exc_i, np.int64)
+    exc_j = np.asarray(exc_j, np.int64)
+    W = int(np.abs(exc_i - exc_j).max()) if len(exc_i) else 0
+    return W, max((2 * W + 1 + 30) // 31, 1)
+
+
+def _auto_capacity(per_cell: float) -> int:
+    """The capacity of cells holding `per_cell` atoms with the density
+    margin: 2 more, rounded up to a multiple of 8."""
+    return max(int(np.ceil((int(np.ceil(per_cell)) + 2) / 8)) * 8, 8)
 
 
 def make_config(cutoff: float, box, n_atoms: int, exc_i, exc_j,
@@ -112,47 +197,85 @@ def make_config(cutoff: float, box, n_atoms: int, exc_i, exc_j,
     grid = tuple(max(int(np.floor(L / target)), 1) for L in widths)
     cell_size = widths / np.array(grid)
     window = tuple(int(np.ceil(r_list / cell_size[d])) for d in range(3))
-    n_cells = int(np.prod(grid))
     if capacity is None:
         density = n_atoms / volume
-        cap = int(np.ceil(density * volume / n_cells
-                          * density_margin)) + 2
-        capacity = max(int(np.ceil(cap / 8)) * 8, 8)
+        capacity = _auto_capacity(density * volume / int(np.prod(grid))
+                                  * density_margin)
     regular = all(g >= 2 * w + 1 for g, w in zip(grid, window))
     if not regular:
         raise ValueError(
             f"the cell-pair sweep needs a regular grid (>= 2w+1 cells per "
             f"dimension); got grid {grid}, window {window} (box too small "
             "for the cutoff; use strategy='dense')")
-    offsets = _neighbor_offsets(grid, window)
-    sel = [o for o in offsets.tolist() if (o[0], o[1], o[2]) > (0, 0, 0)]
-    offsets = np.array([[0, 0, 0]] + sel, np.int64)
-    # drop offsets whose closest cell-to-cell approach exceeds r_list;
-    # triclinic plane gaps are not orthogonal components, so their bound
-    # is the largest of them, not the norm
-    gap = np.maximum(np.abs(offsets) - 1, 0) * cell_size[None, :]
-    reach = (np.max(gap, axis=1) if triclinic
-             else np.sqrt(np.sum(gap * gap, axis=1)))
-    drop = reach > r_list
-    trimmed = ()
-    if np.any(drop):
-        trimmed = tuple(map(tuple, np.maximum(
-            np.abs(offsets[drop]) - 1, 0).tolist()))
-        offsets = offsets[~drop]
-    cz = np.arange(n_cells)
-    c3 = np.stack([cz // (grid[1] * grid[2]), (cz // grid[2]) % grid[1],
-                   cz % grid[2]], axis=1)
-    nb3 = (c3[:, None, :] + offsets[None, :, :]) % np.array(grid)
-    nbr = (nb3[..., 0] * grid[1] + nb3[..., 1]) * grid[2] + nb3[..., 2]
-    exc_i = np.asarray(exc_i, np.int64)
-    exc_j = np.asarray(exc_j, np.int64)
-    W = int(np.abs(exc_i - exc_j).max()) if len(exc_i) else 0
+    offsets, trimmed = _stencil(grid, window, cell_size, r_list, triclinic)
+    W, n_words = _exclusion_window(exc_i, exc_j)
     return CellPairConfig(
         cutoff=float(cutoff), skin=float(skin), grid=grid,
-        capacity=int(capacity), offsets=offsets, nbr_map=nbr,
+        capacity=int(capacity), offsets=offsets,
+        nbr_map=neighbor_map(grid, grid, offsets),
         rebuild_interval=int(rebuild_interval), excl_window=W,
-        excl_words=max((2 * W + 1 + 30) // 31, 1), half_stencil=True,
-        regular=True, window=window, trimmed=trimmed, triclinic=triclinic)
+        excl_words=n_words, half_stencil=True, regular=True, window=window,
+        trimmed=trimmed, triclinic=triclinic)
+
+
+def make_ensemble_config(cutoff: float, box0, n0: int, n_replicas: int,
+                         exc_i, exc_j, rx: int, rz: int, skin: float = 0.1,
+                         rebuild_interval: int = 16,
+                         cells_per_cutoff: int = 2,
+                         density_margin: float = 1.35,
+                         capacity: int | None = None) -> CellPairConfig:
+    """The plan of a flattened replica ensemble (the JAX package's
+    make_ensemble_config, forces/cellpair.py:250 there): rx * rz
+    replicas of an n0-atom system in one orthorhombic box `box0` (its
+    (3,) diagonal), replica-major, embedded in the grid (rx px, py,
+    rz pz) of one replica's grid (px, py, pz); the stencil is one
+    replica's and wraps inside each replica's bands.  exc_i / exc_j: the
+    template replica's excluded pairs."""
+    if rx * rz != n_replicas:
+        raise ValueError(f"rx*rz = {rx}*{rz} != n_replicas = {n_replicas}")
+    box0 = np.asarray(box0, np.float64)
+    if box0.shape != (3,):
+        raise ValueError("flattened replica ensembles require an "
+                         "orthorhombic replica box")
+    r_list = cutoff + skin
+    target = r_list / cells_per_cutoff
+    pgrid = tuple(max(int(np.floor(L / target)), 1) for L in box0)
+    cell_size = box0 / np.array(pgrid)
+    window = tuple(int(np.ceil(r_list / cell_size[d])) for d in range(3))
+    if not all(g >= 2 * w + 1 for g, w in zip(pgrid, window)):
+        raise ValueError(
+            f"flattened ensembles need a regular per-replica grid "
+            f"(>= 2w+1 cells per dim); got grid {pgrid}, window {window} — "
+            f"the replica box is too small for the cutoff")
+    if capacity is None:
+        density = n0 / float(np.prod(box0))
+        capacity = _auto_capacity(density * np.prod(cell_size)
+                                  * density_margin)
+    offsets, trimmed = _stencil(pgrid, window, cell_size, r_list, False)
+    grid = (rx * pgrid[0], pgrid[1], rz * pgrid[2])
+    W, n_words = _exclusion_window(exc_i, exc_j)
+    return CellPairConfig(
+        cutoff=float(cutoff), skin=float(skin), grid=grid,
+        capacity=int(capacity), offsets=offsets,
+        nbr_map=neighbor_map(grid, pgrid, offsets),
+        rebuild_interval=int(rebuild_interval), excl_window=W,
+        excl_words=n_words, half_stencil=True, regular=True, window=window,
+        trimmed=trimmed, n_replicas=int(n_replicas), x_period=pgrid[0],
+        z_period=pgrid[2])
+
+
+def rep_of_cell(cfg: CellPairConfig) -> np.ndarray:
+    """(n_cells,) the replica that owns each cell (all 0 without
+    embedding): r = bx * rz + bz."""
+    px, _, pz = cfg.phys_grid
+    c3 = cell_coords(cfg.grid)
+    return (c3[:, 0] // px) * cfg.bands[1] + c3[:, 2] // pz
+
+
+def local_c3(cfg: CellPairConfig) -> np.ndarray:
+    """(n_cells, 3) each cell's index in its replica's own grid (the JAX
+    package's _local_c3)."""
+    return cell_coords(cfg.grid) % np.asarray(cfg.phys_grid)
 
 
 def build_exclusion_words(n_atoms: int, exc_i, exc_j, W: int,
@@ -173,14 +296,16 @@ def build_cellsort(positions, box, cfg: CellPairConfig,
     diagonal, or the (3, 3) matrix of a triclinic config (binned by
     fractional coordinates formed in float64, the stencil latch in
     plane widths).  `excl_ij` (the excluded pairs as index tensors)
-    switches on the excl-span latch."""
+    switches on the excl-span latch.  An embedded ensemble bins every
+    atom in the replicas' shared box frame on one replica's grid and
+    shifts it into the bands of its replica (atom // n0)."""
     n = positions.shape[0]
     dev = positions.device
     dtype = positions.dtype
-    grid = torch.as_tensor(cfg.grid, dtype=torch.int64, device=dev)
+    grid = torch.as_tensor(cfg.phys_grid, dtype=torch.int64, device=dev)
     C = cfg.capacity
     n_cells = cfg.n_cells
-    gridf = torch.as_tensor(cfg.grid, dtype=dtype, device=dev)
+    gridf = torch.as_tensor(cfg.phys_grid, dtype=dtype, device=dev)
 
     # the static stencil covers r_list only while window * width / grid
     # >= r_list (a shrinking box could break it)
@@ -204,8 +329,17 @@ def build_cellsort(positions, box, cfg: CellPairConfig,
         frac = positions / box - image
     cell3 = torch.minimum(torch.clamp((frac * gridf.to(frac.dtype)).to(
         torch.int64), min=0), grid - 1)
-    flat = (cell3[:, 0] * cfg.grid[1] + cell3[:, 1]) * cfg.grid[2] \
-        + cell3[:, 2]
+    if cfg.n_replicas > 1:
+        px, _, pz = cfg.phys_grid
+        rep = torch.arange(n, device=dev) // (n // cfg.n_replicas)
+        band = torch.stack([rep // cfg.bands[1] * px,
+                            torch.zeros_like(rep),
+                            rep % cfg.bands[1] * pz], dim=1)
+        flat3 = cell3 + band
+    else:
+        flat3 = cell3
+    flat = (flat3[:, 0] * cfg.grid[1] + flat3[:, 1]) * cfg.grid[2] \
+        + flat3[:, 2]
 
     excl_span = None
     if excl_ij is not None and len(excl_ij[0]):
@@ -259,14 +393,12 @@ def sorted_fields(params, positions, box, cellsort: CellSort,
     box64 = box.double()
     pos = (positions.double() if exact is None else exact) \
         - boxutils.rows_combo(cellsort.image.double(), box64)
-    cell = torch.arange(cfg.n_cells, device=dev)
-    c3 = torch.stack([cell // (cfg.grid[1] * cfg.grid[2]),
-                      (cell // cfg.grid[2]) % cfg.grid[1],
-                      cell % cfg.grid[2]], dim=1).double() + 0.5
+    c3 = torch.as_tensor(local_c3(cfg), dtype=torch.float64,
+                         device=dev) + 0.5
     if cfg.triclinic:
         centers = boxutils.rows_combo(c3 * _grid_inv(cfg, dev), box64)
     else:
-        h = box64 / torch.as_tensor(cfg.grid, dtype=torch.float64,
+        h = box64 / torch.as_tensor(cfg.phys_grid, dtype=torch.float64,
                                     device=dev)
         centers = c3 * h
     centers = centers.repeat_interleave(cfg.capacity, dim=0)    # (S, 3)
@@ -292,22 +424,23 @@ def sorted_fields(params, positions, box, cellsort: CellSort,
 
 
 def _grid_inv(cfg: CellPairConfig, dev) -> torch.Tensor:
-    """1 / grid per dimension, float64 (the JAX package's g_inv)."""
-    return torch.as_tensor(1.0 / np.asarray(cfg.grid, np.float64),
+    """1 / grid per dimension (one replica's), float64 (the JAX
+    package's g_inv)."""
+    return torch.as_tensor(1.0 / np.asarray(cfg.phys_grid, np.float64),
                            device=dev)
 
 
 def offset_shifts(cfg: CellPairConfig, box) -> torch.Tensor:
-    """(n_off, 3) per-offset image shift, o * h (h = box / grid) for a
-    diagonal and (o / g) @ box for a triclinic matrix, formed in float64
-    and rounded once."""
+    """(n_off, 3) per-offset image shift, o * h (h = box / grid, one
+    replica's grid) for a diagonal and (o / g) @ box for a triclinic
+    matrix, formed in float64 and rounded once."""
     box64 = box.double()
     offs = torch.as_tensor(cfg.offsets, dtype=torch.float64,
                            device=box.device)
     if cfg.triclinic:
         return boxutils.rows_combo(offs * _grid_inv(cfg, box.device),
                                    box64).to(box.dtype)
-    h = box64 / torch.as_tensor(cfg.grid, dtype=torch.float64,
+    h = box64 / torch.as_tensor(cfg.phys_grid, dtype=torch.float64,
                                 device=box.device)
     return (offs * h).to(box.dtype)
 

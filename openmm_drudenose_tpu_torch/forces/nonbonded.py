@@ -39,6 +39,17 @@ Exceptions are excluded from the main pair sum and added back as explicit
 pair terms (plain Coulomb chargeProd/r + LJ, no cutoff), as in OpenMM.
 NBFIX overrides (addLJPairOverride) replace the combined LJ of their
 pairs inside the cutoff by a correction term over those pairs.
+
+nb_options={"ensemble": (R, rx, rz)} compiles a flattened replica
+ensemble (parallel/flatrep.py; the JAX package's branch at
+forces/nonbonded.py:499-560): the System holds R replica-major copies of
+one replica in one orthorhombic box; the cell-pair plan embeds them in
+rx x rz replica bands (cellpair.make_ensemble_config), the dispersion
+constant is divided by R (replicas do not interact), the PME grid is
+planned on one replica's cell grid and the reciprocal sum runs for the R
+replicas in one batched pass (pme.recip_energy_forces, n_replicas); the
+exception and exclusion-correction terms are the replicas' copies
+through the same pair terms.
 """
 
 from __future__ import annotations
@@ -199,6 +210,10 @@ class NonbondedForce:
                     "the sequential minimum-image reduction would miss "
                     "images")
         if strategy == "dense":
+            if opts.get("ensemble"):
+                raise ValueError("a flattened replica ensemble runs on the "
+                                 "cell-pair strategy (its replicas share "
+                                 "one box)")
             return DenseTerm(self, system, dtype, device)
         if strategy == "cellpair":
             if not self.usesPeriodicBoundaryConditions():
@@ -273,6 +288,7 @@ class NonbondedTerm:
     for the cell-pair strategy."""
 
     cfg = None
+    n_replicas = 1
 
     def __init__(self, force, system, dtype, device, cell_grid=None):
         p = force._particles
@@ -310,8 +326,15 @@ class NonbondedTerm:
                 alpha=alpha0 or None, grid=(gx, gy, gz) if gx > 0 else None,
                 cell_grid=None if force.triclinic(system) else cell_grid)
             self.alpha = self.pme.alpha
-            # bounds every PME grid value (pme.spread's fixed-point sum)
-            self.charge_bound = float(np.sum(np.abs(charge)))
+            # the JAX package's pencil locality gate (the windows cover
+            # at most a quarter of the (x, y) grid plane), recorded; the
+            # port's spread is the generic one whatever it says
+            self.pme_pencil_gate = pme_mod.pencil_gate(self.pme.grid,
+                                                       cell_grid)
+            # bounds every PME grid value (pme.spread's fixed-point sum):
+            # one replica's charges in a flattened ensemble
+            R = self.n_replicas
+            self.charge_bound = float(np.sum(np.abs(charge[:n // R])))
             self.pme_self = float(-self.alpha / np.sqrt(np.pi)
                                   * ONE_4PI_EPS0 * np.sum(charge ** 2))
             self.coulomb = {"method": "ewald"}
@@ -329,6 +352,10 @@ class NonbondedTerm:
         self.disp = (dispersion_coefficient(sigma, eps, cutoff)
                      if force._use_dispersion_correction and self.periodic
                      else None)
+        if self.disp is not None and self.n_replicas > 1:
+            # the coefficient counts (R n0)^2 pairs; replicas do not
+            # interact: R n0^2 (the JAX package's disp / ens_r)
+            self.disp = self.disp / self.n_replicas
 
         self.pair_terms = []
         act = (exc_qq != 0.0) | (exc_eps != 0.0)
@@ -354,17 +381,20 @@ class NonbondedTerm:
                     self.periodic))
 
     def recip(self, positions, box, exact=None):
-        """(energy, forces) of the PME reciprocal sum (Ewald/PME only).
-        `box` here and below: the (3,) diagonal or the (3, 3) triclinic
-        matrix (boxutils.mi_box)."""
-        return pme_mod.recip_energy_forces(self.pme, self.params["charge"],
-                                           positions, box, exact,
-                                           self.charge_bound)
+        """(energy, forces) of the PME reciprocal sum (Ewald/PME only;
+        the replicas' sums in one batched pass in a flattened
+        ensemble).  `box` here and below: the (3,) diagonal or the
+        (3, 3) triclinic matrix (boxutils.mi_box)."""
+        e, f = pme_mod.recip_energy_forces(
+            self.pme, self.params["charge"], positions, box, exact,
+            self.charge_bound, self.n_replicas)
+        return (e if self.n_replicas == 1 else torch.sum(e)), f
 
     def recip_energy(self, positions, box, exact=None):
         return pme_mod.reciprocal_energy(self.pme, self.params["charge"],
                                          positions, box, exact,
-                                         self.charge_bound)
+                                         self.charge_bound,
+                                         self.n_replicas)
 
     def extras(self, positions, box, exact=None, with_forces=True):
         """(energy, forces; None without with_forces): exceptions,
@@ -426,12 +456,28 @@ class CellPairTerm(NonbondedTerm):
         exc_i = np.array([e[0] for e in force._exceptions], np.int64)
         exc_j = np.array([e[1] for e in force._exceptions], np.int64)
         box0 = np.array(system.getDefaultPeriodicBoxVectors(), np.float64)
-        if not force.triclinic(system):
+        triclinic = force.triclinic(system)
+        if not triclinic:
             box0 = np.diagonal(box0).copy()
-        self.cfg = cellpair.make_config(force._cutoff, box0, n, exc_i, exc_j,
-                                        capacity=opts.get("capacity"))
+        ens = opts.get("ensemble")
+        if ens:
+            R, rx, rz = (int(v) for v in ens)
+            if triclinic:
+                raise ValueError("flattened replica ensembles require an "
+                                 "orthorhombic replica box")
+            if n % R:
+                raise ValueError("ensemble atom count not divisible by the "
+                                 "replica count")
+            self.n_replicas = R
+            self.cfg = cellpair.make_ensemble_config(
+                force._cutoff, box0, n // R, R, exc_i, exc_j, rx=rx, rz=rz,
+                capacity=opts.get("capacity"))
+        else:
+            self.cfg = cellpair.make_config(force._cutoff, box0, n, exc_i,
+                                            exc_j,
+                                            capacity=opts.get("capacity"))
         super().__init__(force, system, dtype, device,
-                         cell_grid=self.cfg.grid)
+                         cell_grid=self.cfg.phys_grid)
         self.params["excl_words"] = torch.as_tensor(
             cellpair.build_exclusion_words(n, exc_i, exc_j,
                                            self.cfg.excl_window,

@@ -15,6 +15,14 @@ Parameter choice and energy follow the JAX package's forces/pme.py
 reciprocal vectors are m* = m1 a* + m2 b* + m3 c* from the inverse box
 (pme.py:859-870 there), the volume is the determinant, and the forces
 go back through the inverse box, F_k = -q sum_d K_d inv[k, d] dE/du_d.
+
+A flattened replica ensemble (`n_replicas` = R > 1: R replicas of n0
+atoms, replica-major, overlapping in one box) takes R reciprocal sums in
+one pass, in place of the JAX package's jax.vmap of its generic sum
+(forces/nonbonded.py:653-690 there): one int64 fixed-point spread into
+an (R K1 K2 K3) grid, each atom's taps offset by its replica's K1 K2 K3,
+one batched rfftn / irfftn over the last three axes, and batched tap
+gathers.  Each replica's grid is bounded by its own sum |q|.
 """
 
 from __future__ import annotations
@@ -75,6 +83,28 @@ def bspline_moduli(order: int, K: int) -> np.ndarray:
     for i in np.nonzero(bad)[0]:
         bm2[i] = 0.5 * (bm2[(i - 1) % K] + bm2[(i + 1) % K])
     return bm2
+
+
+def pencil_gate(grid, cell_grid, order: int = PME_ORDER) -> bool:
+    """The JAX package's decision for its packed pencil spread
+    (forces/pme.py::_pencil_plan there, and the locality gate of
+    forces/nonbonded.py:531-557): the grid divides into the cell grid in
+    x and y and each pencil's (x, y) window, ppc + 2 order points wide
+    rounded up to a multiple of ppc, covers at most a quarter of the
+    (x, y) grid plane.  The port records it and always takes the generic
+    spread (the packed one carries fault C3 of ROADMAP.md)."""
+    if cell_grid is None:
+        return False
+    lw = []
+    for K, g in zip(grid[:2], cell_grid[:2]):
+        if K % g:
+            return False
+        ppc = K // g
+        w = -(-(ppc + 2 * order) // ppc) * ppc
+        if w >= K:
+            return False
+        lw.append(w)
+    return lw[0] * lw[1] * 4 <= grid[0] * grid[1]
 
 
 def _M(n, x):
@@ -172,21 +202,43 @@ def _taps(setup: PmeSetup, positions, box, exact=None, derivs=True):
     return idx, wts, dwts
 
 
-def spread(setup: PmeSetup, charges, idx, wts, charge_bound=None):
-    """B-spline charge grid (K1, K2, K3), one x tap at a time to bound the
-    (N, order^2) temporaries, summed in int64 fixed point
-    (ops/scatter.py): the same bits on the card whatever order its
-    atomics take.  Every grid value is bounded by sum |q| (the taps'
-    weights are >= 0 and sum to 1); `charge_bound` passes it in, else it
+def _grid_shape(setup: PmeSetup, n_replicas: int) -> tuple:
+    """(K1, K2, K3), or (R, K1, K2, K3) for R replicas."""
+    return tuple(setup.grid) if n_replicas == 1 \
+        else (n_replicas,) + tuple(setup.grid)
+
+
+def _yz_index(setup: PmeSetup, idx, n: int, n_replicas: int):
+    """(N, order^2) flat (y, z) tap indices, offset by each atom's
+    replica's grid (replica-major atoms) where n_replicas > 1."""
+    K1, K2, K3 = setup.grid
+    yz = (idx[1][:, :, None] * K3 + idx[2][:, None, :]).reshape(n, -1)
+    if n_replicas > 1:
+        rep = torch.arange(n, device=yz.device) // (n // n_replicas)
+        yz = yz + (rep * (K1 * K2 * K3))[:, None]
+    return yz
+
+
+def spread(setup: PmeSetup, charges, idx, wts, charge_bound=None,
+           n_replicas: int = 1):
+    """B-spline charge grid (K1, K2, K3) ((R, K1, K2, K3) for R
+    replicas), one x tap at a time to bound the (N, order^2)
+    temporaries, summed in int64 fixed point (ops/scatter.py): the same
+    bits on the card whatever order its atomics take.  Every grid value
+    is bounded by sum |q| (the taps' weights are >= 0 and sum to 1; one
+    replica's sum for R replicas); `charge_bound` passes it in, else it
     is read from `charges` (one host read)."""
     K1, K2, K3 = setup.grid
     n = charges.shape[0]
     if charge_bound is None:
-        charge_bound = float(torch.sum(torch.abs(charges)))
+        q = torch.abs(charges)
+        charge_bound = float(torch.sum(q) if n_replicas == 1 else
+                             torch.max(torch.sum(q.reshape(n_replicas, -1),
+                                                 dim=1)))
     shift = scatter.fixed_point_shift(charge_bound)
-    acc = torch.zeros(K1 * K2 * K3, dtype=torch.int64,
+    acc = torch.zeros(n_replicas * K1 * K2 * K3, dtype=torch.int64,
                       device=charges.device)
-    yz = (idx[1][:, :, None] * K3 + idx[2][:, None, :]).reshape(n, -1)
+    yz = _yz_index(setup, idx, n, n_replicas)
     wyz = (wts[1][:, :, None] * wts[2][:, None, :]).reshape(n, -1)
     for t in range(PME_ORDER):
         flat = idx[0][:, t:t + 1] * (K2 * K3) + yz
@@ -194,51 +246,63 @@ def spread(setup: PmeSetup, charges, idx, wts, charge_bound=None):
         scatter.fixed_point_add_(acc, flat.reshape(-1), val.reshape(-1),
                                  shift)
     return scatter.from_fixed_point(acc, shift, charges.dtype).reshape(
-        K1, K2, K3)
+        _grid_shape(setup, n_replicas))
+
+
+_FFT_DIMS = (-3, -2, -1)
 
 
 def _grid_energy(setup: PmeSetup, F, eterm, box):
-    """Reciprocal energy of the charge grid's spectrum F (rfftn)."""
+    """Reciprocal energy of the charge grid's spectrum F (rfftn): a 0-d
+    tensor, or (R,) per-replica energies of a batch of R grids."""
     K3 = setup.grid[2]
     S2 = F.real ** 2 + F.imag ** 2
     k3 = torch.arange(K3 // 2 + 1, device=F.device)
     double = ((k3 >= 1) & (k3 <= (K3 - 1) // 2)).to(eterm.dtype) + 1.0
     volume = boxutils.volume(box)
     c = ONE_4PI_EPS0 / (2.0 * math.pi * volume)
-    return c * torch.sum(eterm * double[None, None, :] * S2), c
+    w = eterm * double[None, None, :]
+    if F.dim() == 3:
+        return c * torch.sum(w * S2), c
+    return c * torch.sum(w * S2, dim=_FFT_DIMS), c
 
 
 def grid_energy_and_potential(setup: PmeSetup, Q, box):
-    """(energy, Phi = dE/dQ) of a charge grid: one rfftn, one irfftn."""
+    """(energy, Phi = dE/dQ) of a charge grid (or a batch of grids along
+    a leading axis): one rfftn, one irfftn."""
     K1, K2, K3 = setup.grid
     eterm = _eterm(setup, box, Q.dtype, Q.device)
-    F = torch.fft.rfftn(Q)
+    F = torch.fft.rfftn(Q, dim=_FFT_DIMS)
     energy, c = _grid_energy(setup, F, eterm, box)
     phi = (2.0 * c * (K1 * K2 * K3)) * torch.fft.irfftn(
-        eterm * F, s=(K1, K2, K3))
+        eterm * F, s=(K1, K2, K3), dim=_FFT_DIMS)
     return energy, phi
 
 
 def reciprocal_energy(setup: PmeSetup, charges, positions, box,
-                      exact=None, charge_bound=None):
-    """The reciprocal energy alone: one rfftn, no potential grid."""
+                      exact=None, charge_bound=None, n_replicas: int = 1):
+    """The reciprocal energy alone: one rfftn, no potential grid (the
+    sum of the R replicas' energies for n_replicas = R)."""
     idx, wts, _ = _taps(setup, positions, box, exact, derivs=False)
-    Q = spread(setup, charges, idx, wts, charge_bound)
+    Q = spread(setup, charges, idx, wts, charge_bound, n_replicas)
     eterm = _eterm(setup, box, Q.dtype, Q.device)
-    return _grid_energy(setup, torch.fft.rfftn(Q), eterm, box)[0]
+    e = _grid_energy(setup, torch.fft.rfftn(Q, dim=_FFT_DIMS), eterm,
+                     box)[0]
+    return e if n_replicas == 1 else torch.sum(e)
 
 
 def recip_energy_forces(setup: PmeSetup, charges, positions, box,
-                        exact=None, charge_bound=None):
+                        exact=None, charge_bound=None, n_replicas: int = 1):
     """(energy, forces (N, 3)) of the reciprocal sum, forces analytic;
-    `exact` as in _taps."""
+    `exact` as in _taps.  For n_replicas = R the R replicas' sums in one
+    batched pass: (per-replica energies (R,), forces)."""
     K1, K2, K3 = setup.grid
     n = positions.shape[0]
     idx, wts, dwts = _taps(setup, positions, box, exact)
-    Q = spread(setup, charges, idx, wts, charge_bound)
+    Q = spread(setup, charges, idx, wts, charge_bound, n_replicas)
     energy, phi = grid_energy_and_potential(setup, Q, box)
     phi = phi.reshape(-1)
-    yz = (idx[1][:, :, None] * K3 + idx[2][:, None, :]).reshape(n, -1)
+    yz = _yz_index(setup, idx, n, n_replicas)
     w_yz = (wts[1][:, :, None] * wts[2][:, None, :]).reshape(n, -1)
     dy_z = (dwts[1][:, :, None] * wts[2][:, None, :]).reshape(n, -1)
     y_dz = (wts[1][:, :, None] * dwts[2][:, None, :]).reshape(n, -1)

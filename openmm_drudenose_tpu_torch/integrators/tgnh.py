@@ -13,6 +13,12 @@ in the accumulation dtype, as the reference's host loop does
 (CudaDrudeTGNHKernels.cpp:558-642) — one small device-to-host read per
 measured KE.  Drude pairs move in centre-of-mass/relative coordinates
 (drudeTGNH.cu:249-365), each pair member computing its own row.
+
+A flattened replica ensemble (static.ensemble_r = R > 1, replica-major
+atoms, replica = index // n0) has (R, G+2) baths: every KE and CM
+reduction is per replica (the JAX integrators/tgnh.py:148-160, :305-320,
+:557, :841), and the host chain runs on all R x (G+2) baths at once with
+one device-to-host read a step, not one a replica.
 """
 
 from __future__ import annotations
@@ -45,17 +51,36 @@ def com_and_norm_velocities(spec, static, v):
     return com_vel, v - com_vel[spec.resid]
 
 
+def _rsum(static, x):
+    """The sum of a per-atom (or per-residue) vector: a 0-d tensor, or
+    (R,) per-replica sums in a flattened ensemble (replica-major)."""
+    E = static.ensemble_r
+    if E == 1:
+        return torch.sum(x)
+    return torch.sum(x.reshape(E, -1), dim=1)
+
+
+def _per_replica_atoms(static, x):
+    """(R, ...) per-replica values repeated for each replica's atoms:
+    (N, ...)."""
+    E = static.ensemble_r
+    n0 = static.n_atoms // E
+    return x[:, None].expand((E, n0) + x.shape[1:]).reshape(
+        (E * n0,) + x.shape[1:])
+
+
 def group_kinetic_energies(spec, static, v, accum_dtype):
     """Per-bath 2*KE, (G+2,) on the device (drudeTGNH.cu:138-200):
     slots 0..G-1 molecular-internal DOF per group, G the COM bath, G+1 the
-    Drude relative bath.  Also returns the COM and relative velocities."""
+    Drude relative bath; (R, G+2) in a flattened ensemble.  Also returns
+    the COM and relative velocities."""
     G = static.n_temp_groups
     com_vel, norm_vel = com_and_norm_velocities(spec, static, v)
     cv = com_vel.to(accum_dtype)
     nv = norm_vel.to(accum_dtype)
     mass = spec.mass.to(accum_dtype)
-    ke_com = torch.sum(spec.res_mass.to(accum_dtype)
-                       * torch.sum(cv * cv, dim=1))
+    ke_com = _rsum(static, spec.res_mass.to(accum_dtype)
+                   * torch.sum(cv * cv, dim=1))
     ke_atom = mass * torch.sum(nv * nv, dim=1)
     if static.has_pairs:
         m_j = mass[spec.partner]
@@ -68,18 +93,19 @@ def group_kinetic_energies(spec, static, v, accum_dtype):
         ke_cm = 0.5 * mtot * torch.sum(cm * cm, dim=1)
         ke_rel = 0.5 * mu * torch.sum(rel * rel, dim=1)
         directed = torch.where(spec.is_pair, ke_cm, ke_atom)
-        ke_drude = torch.sum(torch.where(spec.is_pair, ke_rel,
-                                         torch.zeros_like(ke_rel)))
+        ke_drude = _rsum(static, torch.where(spec.is_pair, ke_rel,
+                                             torch.zeros_like(ke_rel)))
     else:
         directed = ke_atom
-        ke_drude = torch.zeros((), dtype=accum_dtype, device=v.device)
+        ke_drude = torch.zeros_like(ke_com)
     if G == 1:
-        groups = [torch.sum(directed)]
+        groups = [_rsum(static, directed)]
     else:
-        groups = [torch.sum(torch.where(spec.tg == g, directed,
-                                        torch.zeros_like(directed)))
+        groups = [_rsum(static, torch.where(spec.tg == g, directed,
+                                            torch.zeros_like(directed)))
                   for g in range(G)]
-    return torch.stack(groups + [ke_com, ke_drude]), com_vel, norm_vel
+    return (torch.stack(groups + [ke_com, ke_drude], dim=-1), com_vel,
+            norm_vel)
 
 
 def _host_array(x, dtype=None):
@@ -90,7 +116,9 @@ def _host_array(x, dtype=None):
 
 def propagate_nh_chain(spec, static, ke, eta, eta_dot, eta_dot_dot, dt,
                        return_final_ke: bool = False):
-    """Half-step NH chain update of all G+2 baths at once, on the host.
+    """Half-step NH chain update of all G+2 baths at once, on the host
+    ((R, G+2) baths of a flattened ensemble too: the chain arrays carry
+    the leading replica axis, the constants broadcast).
 
     The reference's propagateNHChain (CudaDrudeTGNHKernels.cpp:558-642):
     numDrudeSteps symmetric Trotter substeps with exp(-dtc/8) damping and
@@ -115,33 +143,33 @@ def propagate_nh_chain(spec, static, ke, eta, eta_dot, eta_dot_dot, dt,
     inv_eta_mass = np.where(eta_mass > 0, a(1) / np.where(
         eta_mass > 0, eta_mass, a(1)), a(0))
 
-    eta_dot_dot[:, 0] = np.where(mass0_pos, (ke - nkbt) * inv_eta_mass0,
-                                 eta_dot_dot[:, 0])
+    eta_dot_dot[..., 0] = np.where(mass0_pos, (ke - nkbt) * inv_eta_mass0,
+                                   eta_dot_dot[..., 0])
     vscale = np.ones_like(ke)
     for _ in range(static.drude_steps):
         for i in reversed(range(M)):
-            expfac = np.exp(-dtc8 * eta_dot[:, i + 1])
-            new = (eta_dot[:, i] * expfac + eta_dot_dot[:, i] * dtc4) \
+            expfac = np.exp(-dtc8 * eta_dot[..., i + 1])
+            new = (eta_dot[..., i] * expfac + eta_dot_dot[..., i] * dtc4) \
                 * expfac
-            eta_dot[:, i] = np.where(link[:, i], new, eta_dot[:, i])
-        damp = np.exp(-dtc2 * eta_dot[:, 0])
+            eta_dot[..., i] = np.where(link[:, i], new, eta_dot[..., i])
+        damp = np.exp(-dtc2 * eta_dot[..., 0])
         vscale = vscale * damp
         ke = ke * damp * damp
-        eta = eta + np.where(link, dtc2[:, None] * eta_dot[:, :M], a(0))
+        eta = eta + np.where(link, dtc2[:, None] * eta_dot[..., :M], a(0))
         edd0 = np.where(mass0_pos, (ke - nkbt) * inv_eta_mass0,
-                        eta_dot_dot[:, 0])
-        eta_dot_dot[:, 0] = edd0
-        expfac0 = np.exp(-dtc8 * eta_dot[:, 1])
-        eta_dot[:, 0] = (eta_dot[:, 0] * expfac0 + edd0 * dtc4) * expfac0
+                        eta_dot_dot[..., 0])
+        eta_dot_dot[..., 0] = edd0
+        expfac0 = np.exp(-dtc8 * eta_dot[..., 1])
+        eta_dot[..., 0] = (eta_dot[..., 0] * expfac0 + edd0 * dtc4) * expfac0
         for i in range(1, M):
-            expfac = np.exp(-dtc8 * eta_dot[:, i + 1])
-            d = eta_dot[:, i] * expfac
-            eddi = (eta_mass[:, i - 1] * eta_dot[:, i - 1] ** 2
+            expfac = np.exp(-dtc8 * eta_dot[..., i + 1])
+            d = eta_dot[..., i] * expfac
+            eddi = (eta_mass[:, i - 1] * eta_dot[..., i - 1] ** 2
                     - kbt_chain) * inv_eta_mass[:, i]
             d = (d + eddi * dtc4) * expfac
-            eta_dot[:, i] = np.where(link[:, i], d, eta_dot[:, i])
-            eta_dot_dot[:, i] = np.where(link[:, i], eddi,
-                                         eta_dot_dot[:, i])
+            eta_dot[..., i] = np.where(link[:, i], d, eta_dot[..., i])
+            eta_dot_dot[..., i] = np.where(link[:, i], eddi,
+                                           eta_dot_dot[..., i])
     out = (vscale, eta, eta_dot, eta_dot_dot)
     return out + (ke,) if return_final_ke else out
 
@@ -152,9 +180,19 @@ def apply_vscale(spec, static, v, com_vel, norm_vel, vscale):
     into pair COM (group scale) and relative (Drude scale)."""
     G = static.n_temp_groups
     vs = vscale.to(v.dtype)
-    vs_atom = vs[0] if G == 1 else vs[spec.tg][:, None]
-    vs_com = vs[G]
-    vs_drude = vs[G + 1]
+    if static.ensemble_r > 1:
+        # (R, G+2) per-replica scales, each column repeated over its
+        # replica's atoms; the group resolved by masked selects
+        def col(c):
+            return _per_replica_atoms(static, vs[:, c])[:, None]
+        vs_atom = col(0)
+        for g in range(1, G):
+            vs_atom = torch.where((spec.tg == g)[:, None], col(g), vs_atom)
+        vs_com, vs_drude = col(G), col(G + 1)
+    else:
+        vs_atom = vs[0] if G == 1 else vs[spec.tg][:, None]
+        vs_com = vs[G]
+        vs_drude = vs[G + 1]
     vel_com_part = v - norm_vel
     new_v = vs_atom * norm_vel + vs_com * vel_com_part
     if static.has_pairs:
@@ -297,18 +335,27 @@ class Stepper:
         state = state.replace(
             eta=torch.from_numpy(eta), eta_dot=torch.from_numpy(ed),
             eta_dot_dot=torch.from_numpy(edd),
-            ke_sum=torch.as_tensor(0.5 * np.sum(ke_h)),
+            ke_sum=torch.as_tensor(0.5 * np.sum(ke_h, axis=-1)),
             group_ke=torch.from_numpy(ke_h))
         return state, new_v
 
     def update_context_state(self, spec, state):
         """CM motion removal every cm_freq steps, then the barostat
         (DrudeTGNHIntegrator.cpp:186-189)."""
-        cm = self.static.cm_freq
+        static = self.static
+        cm = static.cm_freq
         if cm > 0 and state.step % cm == 0:
             v = state.velocities
-            mom = torch.sum(spec.mass[:, None] * v, dim=0)
-            v_cm = mom / torch.sum(spec.mass)
+            E = static.ensemble_r
+            if E > 1:
+                # each replica's own CM (replica-major)
+                mv = (spec.mass[:, None] * v).reshape(E, -1, 3)
+                mom = torch.sum(mv, dim=1)
+                total = torch.sum(spec.mass.reshape(E, -1), dim=1)
+                v_cm = _per_replica_atoms(static, mom / total[:, None])
+            else:
+                mom = torch.sum(spec.mass[:, None] * v, dim=0)
+                v_cm = mom / torch.sum(spec.mass)
             state = state.replace(velocities=torch.where(
                 (spec.inv_mass > 0)[:, None], v - v_cm, v))
         if self.barostat_fn is not None:
@@ -369,12 +416,25 @@ class Stepper:
         v = state.velocities
         ke, com_vel, norm_vel = group_kinetic_energies(spec, static, v,
                                                        accum)
+        E = static.ensemble_r
         cm_on = static.cm_freq > 0
         if cm_on:
-            mom = torch.sum((spec.mass[:, None] * v).to(accum), dim=0)
-            total_mass = torch.sum(spec.mass).to(accum)
-            host = torch.cat([ke, mom, total_mass[None]]).cpu().numpy()
-            ke_h, mom_h, tm_h = host[:G + 2], host[G + 2:G + 5], host[G + 5]
+            # one host read of the KE and the CM momenta (per replica in
+            # a flattened ensemble: (R, 3) momenta, (R,) masses)
+            mv = (spec.mass[:, None] * v).to(accum)
+            if E > 1:
+                mom = torch.sum(mv.reshape(E, -1, 3), dim=1)
+                total_mass = torch.sum(spec.mass.reshape(E, -1),
+                                       dim=1).to(accum)
+            else:
+                mom = torch.sum(mv, dim=0)
+                total_mass = torch.sum(spec.mass).to(accum)
+            host = torch.cat([ke.reshape(-1), mom.reshape(-1),
+                              total_mass.reshape(-1)]).cpu().numpy()
+            nk = ke.numel()
+            ke_h = host[:nk].reshape(ke.shape)
+            mom_h = host[nk:nk + 3 * E].reshape(mom.shape)
+            tm_h = host[nk + 3 * E:].reshape(total_mass.shape)
         else:
             ke_h = ke.cpu().numpy()
         vs_a, eta, ed, edd, ke_a = propagate_nh_chain(
@@ -383,9 +443,11 @@ class Stepper:
         a = ke_a.dtype.type
         if cm_on:
             m01 = a(state.step % static.cm_freq == 0)
-            v_cm = mom_h / tm_h
-            v_cm_s = vs_a[G] * v_cm
-            ke_a[G] = ke_a[G] - m01 * tm_h * np.sum(v_cm_s * v_cm_s)
+            v_cm = mom_h / tm_h[..., None] if E > 1 else mom_h / tm_h
+            v_cm_s = vs_a[..., G, None] * v_cm if E > 1 \
+                else vs_a[G] * v_cm
+            ke_a[..., G] = ke_a[..., G] - m01 * tm_h * np.sum(
+                v_cm_s * v_cm_s, axis=-1)
         if self.barostat_fn is not None:
             # between the two NH halves, where the JAX fused body moves
             # the volume (it reads no velocity)
@@ -395,13 +457,17 @@ class Stepper:
         state = state.replace(
             eta=torch.from_numpy(eta), eta_dot=torch.from_numpy(ed),
             eta_dot_dot=torch.from_numpy(edd),
-            ke_sum=torch.as_tensor(0.5 * np.sum(ke_a)),
+            ke_sum=torch.as_tensor(0.5 * np.sum(ke_a, axis=-1)),
             group_ke=torch.from_numpy(ke_a))
         new_v = apply_vscale(spec, static, v, com_vel, norm_vel,
                              torch.as_tensor(vs_a * vs_b, device=v.device))
         if cm_on:
-            sub = torch.as_tensor((m01 * vs_b[G] * vs_a[G]) * v_cm,
-                                  device=v.device).to(new_v.dtype)
+            sub = torch.as_tensor(
+                (m01 * vs_b[..., G] * vs_a[..., G])[..., None] * v_cm
+                if E > 1 else (m01 * vs_b[G] * vs_a[G]) * v_cm,
+                device=v.device).to(new_v.dtype)
+            if E > 1:
+                sub = _per_replica_atoms(static, sub)
             new_v = torch.where((spec.inv_mass > 0)[:, None], new_v - sub,
                                 new_v)
         state, v = self.core(spec, state, new_v)

@@ -15,7 +15,13 @@ layout: no doubled layers, lane padding or one-hot reaction sums.  Any
 cell capacity.  Orthorhombic and triclinic cells alike: the geometry
 reaches the kernel only as the per-offset shift table and the cell-local
 fields (forces/cellpair.py), as it reaches the TPU kernel through
-_centers_and_hvec (:83-108).  Its forces are the same bits at every launch: the
+_centers_and_hvec (:83-108).  Replica bands too (the TPU kernel's
+cfg.x_period / cfg.z_period path, :53-57 and :184-224, the layer index
+lay_idx wrapped inside each x band): the kernel reads an explicit
+neighbour map and its reverse, both wrapped inside each replica's bands
+(forces/cellpair.py::neighbor_map), and the fields' centres and the
+shifts are one replica's, so its body is the same for a banded grid.
+Its forces are the same bits at every launch: the
 reactions go through frames with one writer an entry and a fixed-order
 gather (csrc/sweep.cu), not atomics.
 
@@ -57,10 +63,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches of each kernel, counted where it is launched and nowhere else
 # (the force and the energy instantiations apart, each Coulomb kind apart:
-# "_rf" for the reaction field)
-launches = {"b1_sweep": 0, "b1_energy": 0, "b2_sweep": 0, "b2_energy": 0,
-            "b1_sweep_rf": 0, "b1_energy_rf": 0, "b2_sweep_rf": 0,
-            "b2_energy_rf": 0}
+# "_rf" for the reaction field; launches on a grid of replica bands
+# apart: "_bands")
+launches = {f"{k}_{i}{c}{b}": 0 for k in ("b1", "b2")
+            for i in ("sweep", "energy") for c in ("", "_rf")
+            for b in ("", "_bands")}
 INT32_MAX = 2 ** 31 - 1
 
 # the kernels' Coulomb kinds (csrc/pair_tile.cuh::Coulomb)
@@ -81,10 +88,12 @@ def coulomb_kind(method: str, alpha: float, krf: float, crf: float) -> int:
     return COULOMB[method]
 
 
-def launch_key(kernel: str, energy: bool, method: str) -> str:
-    """The `launches` key of a kernel's instantiation."""
+def launch_key(kernel: str, energy: bool, method: str, cfg=None) -> str:
+    """The `launches` key of a kernel's instantiation (on `cfg`'s grid:
+    "_bands" where it embeds replica bands)."""
     return (f"{kernel}_{'energy' if energy else 'sweep'}"
-            + ("_rf" if method == "rf" else ""))
+            + ("_rf" if method == "rf" else "")
+            + ("_bands" if cfg is not None and cfg.n_replicas > 1 else ""))
 
 _libs = {}
 build_log = ""
@@ -230,10 +239,11 @@ _TPU_VMEM_BUDGET = 12 * 1024 * 1024
 
 def _kernel_takes(cfg) -> bool:
     """The conditions both JAX gates start from: a regular half-stencil
-    grid and a full stencil along x.  The JAX gates also ask for one
-    exclusion word; the port's kernels take any number."""
+    grid and a full stencil along x inside one replica's x band
+    (pallas_sweep.py:57, :72).  The JAX gates also ask for one exclusion
+    word; the port's kernels take any number."""
     return (cfg.regular and cfg.half_stencil
-            and cfg.grid[0] >= 2 * cfg.window[0] + 1)
+            and cfg.phys_grid[0] >= 2 * cfg.window[0] + 1)
 
 
 def supports(cfg) -> bool:
@@ -344,12 +354,9 @@ _tables = {}
 
 def reverse_neighbors(cfg) -> np.ndarray:
     """(n_cells, n_off): the cell whose neighbour at offset o is the row's
-    cell (cell - o, wrapped), as the fixed-order gather reads it."""
-    g = np.asarray(cfg.grid)
-    c = np.arange(cfg.n_cells)
-    c3 = np.stack([c // (g[1] * g[2]), (c // g[2]) % g[1], c % g[2]], 1)
-    h3 = (c3[:, None, :] - np.asarray(cfg.offsets)[None, :, :]) % g
-    return (h3[..., 0] * g[1] + h3[..., 1]) * g[2] + h3[..., 2]
+    cell (cell - o, wrapped inside the cell's replica bands), as the
+    fixed-order gather reads it."""
+    return cellpair.neighbor_map(cfg.grid, cfg.phys_grid, cfg.offsets, -1)
 
 
 def _device_tables(cfg, excl_skip, dev):
@@ -460,7 +467,7 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
         sms * per_sm, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
-    launches[launch_key("b1", False, method)] += 1
+    launches[launch_key("b1", False, method, cfg)] += 1
     return f
 
 
@@ -512,5 +519,5 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
         sms * per_sm, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sweep energy launch failed: CUDA error {err}")
-    launches[launch_key("b1", True, method)] += 1
+    launches[launch_key("b1", True, method, cfg)] += 1
     return e

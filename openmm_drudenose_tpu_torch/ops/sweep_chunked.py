@@ -22,6 +22,17 @@ holds the layout: per dimension, chunk count, lowest offset, frame
 width, and the table of (chunk, frame-local index) pairs that cover each
 cell, which the overlap-add pass reads.
 
+Replica bands (the TPU kernel's pz and px, pallas_sweep.py:610-611):
+on a grid of embedded replicas (forces/cellpair.py::
+make_ensemble_config) the stencil wraps modulo one replica's period
+inside each band.  Chunks never straddle a band edge: each band is cut
+into its own ceil(period / brick) chunks, the last one cut short where
+the brick does not divide the period (its home cells past the band edge
+have no warp's work), so every frame cell of a chunk is one cell of one
+band and the cover tables wrap modulo the period inside that band.  A
+grid without bands is one band per dimension (period = grid), the plan
+it always had.
+
 `pair_energy` launches the energy instantiation (one partial a home
 cell, summed in a fixed order; plain version sweep.pair_energy_plain,
 since the sum order is the only difference between B1 and B2), with
@@ -122,13 +133,16 @@ def card_limits(device):
 class ChunkPlan:
     grid: tuple          # cells per dimension
     brick: tuple         # home cells per chunk per dimension
-    n_chunks: tuple      # chunks per dimension, ceil(grid / brick)
+    n_chunks: tuple      # chunks per dimension: bands x per_band
     lo: tuple            # lowest stencil offset per dimension
     frame: tuple         # frame cells per dimension: brick + stencil span
     tables: tuple        # per dimension (grid_d, width_d, 2) int32:
     #                      (chunk, frame-local index) pairs covering each
     #                      cell, ascending, padded with -1
     offsets: tuple       # the stencil offsets, self first
+    periods: tuple       # one replica's cells per dimension (the wrap)
+    per_band: tuple      # chunks per band per dimension,
+    #                      ceil(period / brick)
 
     @property
     def n_frame_cells(self) -> int:
@@ -143,19 +157,20 @@ class ChunkPlan:
         return self.total_chunks * self.n_frame_cells * 3 * capacity
 
     def as_ints(self) -> list:
+        """The kernel's Plan (csrc/sweep_chunked.cu), 21 ints."""
         return [*self.grid, *self.brick, *self.n_chunks, *self.lo,
-                *self.frame]
+                *self.frame, *self.periods, *self.per_band]
 
     @functools.cached_property
     def frame_rows(self) -> np.ndarray:
         """(n_cells, n_off): the frame row (chunk * frame cells + frame
         cell) that receives the reactions on cell c's neighbour at offset
         o; at the self offset, c's own row in its chunk's frame."""
-        g = np.array(self.grid)
-        c = np.arange(int(np.prod(g)))
-        c3 = np.stack([c // (g[1] * g[2]), (c // g[2]) % g[1], c % g[2]], 1)
-        chunk3 = c3 // np.array(self.brick)
-        home3 = c3 % np.array(self.brick)
+        c3 = cellpair.cell_coords(self.grid)
+        p = np.array(self.periods)
+        band, loc3 = c3 // p, c3 % p
+        chunk3 = band * np.array(self.per_band) + loc3 // np.array(self.brick)
+        home3 = loc3 % np.array(self.brick)
         nb = self.n_chunks
         chunk = (chunk3[:, 0] * nb[1] + chunk3[:, 1]) * nb[2] + chunk3[:, 2]
         loc = (home3[:, None, :] + np.array(self.offsets)[None, :, :]
@@ -220,21 +235,27 @@ def resident_ctas(brick, capacity: int, limits=None) -> int:
 
 def make_plan(cfg, brick) -> ChunkPlan:
     """The chunk layout of `cfg` with home bricks of `brick` cells (cut
-    to the grid).  Pure index space (the grid, the brick, the offsets),
-    so one plan serves orthorhombic and triclinic cells."""
+    to one replica's period).  Pure index space (the grid, the periods,
+    the brick, the offsets), so one plan serves orthorhombic and
+    triclinic cells; each replica band has chunks of its own."""
     grid = tuple(int(g) for g in cfg.grid)
-    brick = tuple(min(int(b), g) for b, g in zip(brick, grid))
+    periods = tuple(int(p) for p in cfg.phys_grid)
+    brick = tuple(min(int(b), p) for b, p in zip(brick, periods))
     offs = np.asarray(cfg.offsets, np.int64)
     lo = tuple(int(v) for v in offs.min(axis=0))
     hi = tuple(int(v) for v in offs.max(axis=0))
     frame = tuple(b + h - l for b, h, l in zip(brick, hi, lo))
-    n_chunks = tuple(-(-g // b) for g, b in zip(grid, brick))
+    per_band = tuple(-(-p // b) for p, b in zip(periods, brick))
+    n_chunks = tuple(g // p * k for g, p, k in zip(grid, periods, per_band))
     tables = []
-    for g, b, n, l0, f in zip(grid, brick, n_chunks, lo, frame):
+    for g, p, b, k, l0, f in zip(grid, periods, brick, per_band, lo,
+                                 frame):
         cover = [[] for _ in range(g)]
-        for chunk in range(n):
+        for chunk in range(g // p * k):
+            band, kk = divmod(chunk, k)
             for loc in range(f):
-                cover[(chunk * b + l0 + loc) % g].append((chunk, loc))
+                cover[band * p + (kk * b + l0 + loc) % p].append(
+                    (chunk, loc))
         width = max(len(c) for c in cover)
         tab = np.full((g, width, 2), -1, np.int32)
         for c, pairs in enumerate(cover):
@@ -242,14 +263,15 @@ def make_plan(cfg, brick) -> ChunkPlan:
         tables.append(tab)
     return ChunkPlan(grid=grid, brick=brick, n_chunks=n_chunks, lo=lo,
                      frame=frame, tables=tuple(tables),
-                     offsets=tuple(map(tuple, offs.tolist())))
+                     offsets=tuple(map(tuple, offs.tolist())),
+                     periods=periods, per_band=per_band)
 
 
 def choose_brick(cfg, limits=None):
-    """BRICK cut to the grid, or None where its CTA does not launch under
-    `limits` (the card's, or the H100's published figures without
-    registers)."""
-    brick = tuple(min(b, g) for b, g in zip(BRICK, cfg.grid))
+    """BRICK cut to one replica's period (the grid without bands), or
+    None where its CTA does not launch under `limits` (the card's, or
+    the H100's published figures without registers)."""
+    brick = tuple(min(b, g) for b, g in zip(BRICK, cfg.phys_grid))
     return brick if resident_ctas(brick, cfg.capacity, limits) > 0 else None
 
 
@@ -355,7 +377,7 @@ def _launch_plan(lib, fields, cfg, brick):
     C = cfg.capacity
     limits = card_limits(fields["x"].device)
     plan = plan_for(cfg, brick, limits)
-    plan_c = (ctypes.c_int * 15)(*plan.as_ints())
+    plan_c = (ctypes.c_int * 21)(*plan.as_ints())
     smem = lib.chunk_sweep_smem_bytes(ctypes.cast(plan_c, ctypes.c_void_p),
                                       C)
     if smem + limits.static_smem > limits.smem_block \
@@ -407,7 +429,7 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
     if err != 0:
         raise RuntimeError(f"chunked sweep kernel launch failed: CUDA "
                            f"error {err}")
-    sweep.launches[sweep.launch_key("b2", False, method)] += 1
+    sweep.launches[sweep.launch_key("b2", False, method, cfg)] += 1
     return f
 
 
@@ -446,5 +468,5 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
     if err != 0:
         raise RuntimeError(f"chunked sweep energy launch failed: CUDA "
                            f"error {err}")
-    sweep.launches[sweep.launch_key("b2", True, method)] += 1
+    sweep.launches[sweep.launch_key("b2", True, method, cfg)] += 1
     return e

@@ -13,7 +13,11 @@ stepping through them; the bonded terms on the card against the CPU in
 f64.  The kernel-against-plain, energy, bit-identity, reaction-field
 and checkpoint tests run in a triclinic box too (the 216-water box
 sheared as the JAX package's scripts/check_triclinic_tpu.py shears its
-100k box), where the same kernels read the triclinic shift table.
+100k box), where the same kernels read the triclinic shift table.  The
+replica-band path: both kernels against their plain versions on a
+flattened ensemble's banded grid, bit-identical launches, replicas
+isolated bit for bit, a flat-ensemble Context stepping through each, and
+a checkpoint of a flat-ensemble run replayed bit for bit.
 Marked `gpu`; each test skips (through the `cuda` fixture) where
 no CUDA card is present.
 On the card (tests/conftest.py imports JAX, which the machine with the
@@ -464,3 +468,102 @@ def test_bonded_terms_on_card_match_cpu(cuda):
         (e_ref, f_ref), (e, fc) = out
         assert abs(e - e_ref) <= 1e-12 * abs(e_ref)
         assert np.abs(fc - f_ref).max() <= 1e-10 * np.abs(f_ref).max()
+
+
+# -- the replica-band path (a flattened replica ensemble) ---------------------
+
+KERNELS = pytest.mark.parametrize("version", ["b1", "b2"])
+
+
+def _flat(device, nb_options=None):
+    """Four replicas of the 216-water box (the template on the dense
+    strategy) in a 2 x 2 layout: a (10, 5, 10) grid of 5^3 replica
+    grids."""
+    system, pos = builders.build_water_box(216, cutoff=0.6)
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    integ.setMaxDrudeDistance(0.02)
+    tpl = dt.Context(system, integ, precision="single", device=device)
+    tpl.setPositions(pos)
+    ens = dt.FlatReplicaEnsemble(tpl, 4, rx=2, rz=2, nb_options=nb_options)
+    ens.setVelocitiesToTemperature(300.0, seed=1)
+    ens.context._ensure_neighbors()
+    cfg = ens.context._cp_cfg
+    assert cfg.grid == (10, 5, 10) and cfg.phys_grid == (5, 5, 5)
+    return ens
+
+
+@KERNELS
+def test_band_kernels_match_plain_on_card(cuda, version):
+    ens = _flat(cuda)
+    kernel = sweep if version == "b1" else sweep_chunked
+    args = _fields(ens.context)
+    key = f"{version}_sweep_bands"
+    before = sweep.launches[key]
+    f_k = kernel.pair_forces(*args)
+    torch.cuda.synchronize()
+    assert sweep.launches[key] == before + 1
+    f_p = kernel.pair_forces_plain(*args)
+    scale = float(torch.max(torch.abs(f_p)))
+    assert float(torch.max(torch.abs(f_k - f_p))) <= 2e-5 * scale
+    e_k = float(kernel.pair_energy(*args))
+    e_p = float(sweep.pair_energy_plain(*args))
+    assert abs(e_k - e_p) <= 1e-6 * abs(e_p)
+
+
+@KERNELS
+def test_band_launches_are_bit_identical_and_isolated(cuda, version):
+    """Two launches on the same banded fields give the same bits; moving
+    every atom of replica 0 leaves the other replicas' forces bit for
+    bit."""
+    ens = _flat(cuda)
+    kernel = sweep if version == "b1" else sweep_chunked
+    ctx = ens.context
+    args = _fields(ctx)
+    first = kernel.pair_forces(*args)
+    assert torch.equal(kernel.pair_forces(*args), first)
+    st, nb = ctx._state, ctx._nb
+    n0 = st.positions.shape[0] // 4
+    box = torch.diagonal(st.box)
+    moved = st.positions.clone()
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    moved[:n0] = torch.remainder(moved[:n0] + 0.01 * torch.randn(
+        (n0, 3), generator=gen).to(moved.device), box)
+    nbl = nb.cellsort(moved, box)
+    fb = kernel.pair_forces(nb.fields(moved, box, nbl), *args[1:])
+    fa = first[st.neighbors.inv_slot]
+    fb = fb[nbl.inv_slot]
+    assert float(torch.max(torch.abs(fa[:n0] - fb[:n0]))) > 0
+    assert torch.equal(fa[n0:], fb[n0:])
+
+
+@pytest.mark.parametrize("use_pallas", [None, 3], ids=["b1", "b2"])
+def test_flat_ensemble_steps_through_band_kernels(cuda, use_pallas):
+    ens = _flat(cuda, {"use_pallas": use_pallas})
+    version = "b2" if use_pallas == 3 else "b1"
+    assert ens.context._nb.sweep_kernel == version
+    before = dict(sweep.launches)
+    ens.step(20)
+    torch.cuda.synchronize()
+    assert (sweep.launches[f"{version}_sweep_bands"]
+            - before[f"{version}_sweep_bands"]) >= 20
+    assert sweep.launches["b1_sweep"] == before["b1_sweep"]
+    t = ens.group_temperatures()
+    assert t.shape == (4, 3) and np.all(np.isfinite(t))
+    assert np.all(np.isfinite(ens.kinetic_energies()))
+
+
+def test_flat_checkpoint_replay_is_bit_exact_on_card(cuda, tmp_path):
+    """A flat-ensemble run through B1's band path: save, 32 steps, load,
+    32 steps give the same positions and (R, G+2) baths bit for bit."""
+    ens = _flat(cuda)
+    ctx = ens.context
+    ens.step(16)
+    path = str(tmp_path / "flat.chk")
+    dt.save_checkpoint(path, ctx)
+    ens.step(32)
+    first = ctx._state.positions.clone()
+    eta = ctx._state.eta_dot.clone()
+    dt.load_checkpoint(path, ctx)
+    ens.step(32)
+    assert torch.equal(first, ctx._state.positions)
+    assert torch.equal(eta, ctx._state.eta_dot) and eta.shape[0] == 4

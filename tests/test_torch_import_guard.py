@@ -21,6 +21,7 @@ from openmm_drudenose_tpu_torch.integrators import barostat
 from openmm_drudenose_tpu_torch.io import (builders, ionic_liquid, nacl,
                                            pdbfile, polymer)
 from openmm_drudenose_tpu_torch.ops import scatter, sweep, sweep_chunked
+from openmm_drudenose_tpu_torch.parallel import flatrep
 from openmm_drudenose_tpu_torch.tools import walk_model
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
