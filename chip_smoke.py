@@ -149,9 +149,38 @@ seconds):
      f64, and replicas at band edges (FLAT_EDGE_REPLICAS) against
      single-replica f64 Contexts of the template on the cell-pair
      strategy; a Context routed to B2 stepped FLAT_B2_STEPS steps
- 11. the seconds of each phase, the `kernels` JSON line (each kernel's
+ 11. flat NPT through the scaled instantiations of B1 (each replica at
+     its own box, the template box times s_r; B1 and B2 read an (R,
+     n_off, 3) shift table): phase 10's ensemble from its settled
+     template (positions and velocities) with the barostat of the JAX
+     package's scripts/validate_flatnpt_tpu.py, MonteCarloBarostat(
+     1.01325, 300, FLAT_NPT_BARO); FLAT_NPT_SETTLE settling steps, then
+     FLAT_NPT_REPEATS x FLAT_NPT_STEPS timed steps counted (B1's scaled
+     force instantiation, two scaled energy launches an attempt, nothing
+     else, no plain sweep): ms/step, ns/day a replica and over the 64,
+     the host time inside the attempts; every replica attempted, the
+     scales parted, each scale and density in FLAT_NPT_BANDS (written
+     before the first card run), phase 10's bath bands, no latch, the
+     wall; at the final state B1 and B2 scaled against their plain
+     versions, f64 and each other, bit-identical, timed with the bound,
+     both energy instantiations per replica against plain and f64; the
+     breakdown (with a barostat attempt's mc_energies pass); replica 0's
+     scale and positions changed, the other replicas' forces
+     and energies out of both kernels the same bits; the f32 flat NPT
+     force pass against f64, and the band-edge replicas against
+     single-replica f64 Contexts at the box template * s_r (the flat
+     template's PME plan): forces at the f32 floor, a proposed move's
+     mc_energies difference against the two Contexts' full-PE
+     difference within 1e-6 of |E_r| from the flat pass in f64 and
+     within E_F64_REL (the float32 energy floor of phases 4, 6 and 10)
+     from the f32 one; a Context routed to B2 stepped
+     FLAT_NPT_B2_STEPS steps with a move every FLAT_NPT_B2_BARO; a
+     checkpoint replayed bit for bit over FLAT_NPT_REPLAY steps with an
+     attempt
+ 12. the seconds of each phase, the `kernels` JSON line (each kernel's
      force and energy instantiations, Ewald and reaction field, the
-     triclinic runs and the replica bands), then the result line.
+     triclinic runs, the replica bands and the per-replica scales), then
+     the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -268,6 +297,18 @@ FLAT_B2_STEPS = 16
 FLAT_EDGE_REPLICAS = (0, 9, 10, 69)
 FLAT_BANDS = {"mean": ((250.0, 350.0), (150.0, 450.0), (0.0, 10.0)),
               "replica": (150.0, 450.0)}
+# phase 11: flat NPT at phase 10's width from its settled template, the
+# barostat of the JAX package's scripts/validate_flatnpt_tpu.py
+# (MonteCarloBarostat(1.01325, 300, 25)): FLAT_NPT_SETTLE settling
+# steps, FLAT_NPT_REPEATS x FLAT_NPT_STEPS timed (the best reported, as
+# phase 10); a Context routed to B2 with a move every FLAT_NPT_B2_BARO
+# steps; a checkpoint replay of FLAT_NPT_REPLAY steps (an attempt among
+# them); the bands of each replica's scale and density, written before
+# the phase's first card run (the bath bands are phase 10's)
+FLAT_NPT_BARO, FLAT_NPT_SETTLE, FLAT_NPT_STEPS, FLAT_NPT_REPEATS = \
+    25, 128, 128, 3
+FLAT_NPT_B2_STEPS, FLAT_NPT_B2_BARO, FLAT_NPT_REPLAY = 16, 4, 32
+FLAT_NPT_BANDS = {"scale": (0.97, 1.03), "density": (0.95, 1.05)}
 
 
 def log(msg):
@@ -325,6 +366,18 @@ def kernel_split(fn, reps=10):
     return out
 
 
+def offset_shift(shifts, cfg, o, d):
+    """Offset o's shift along d, broadcastable to (n_cells, C): a number
+    for an (n_off, 3) table, each home cell's replica's for a
+    per-replica (R, n_off, 3) one (flat-ensemble NPT)."""
+    import torch
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    if shifts.dim() == 2:
+        return shifts[o, d]
+    rep = torch.as_tensor(cellpair.rep_of_cell(cfg), device=shifts.device)
+    return shifts[rep, o, d][:, None]
+
+
 def pair_counts(fields, cfg, shifts):
     """(pair tests, pairs inside the cutoff) that this run's slot data
     gives the sweep: occupied-slot products over the half stencil."""
@@ -342,7 +395,8 @@ def pair_counts(fields, cfg, shifts):
         b = nbr[:, o]
         r2 = 0
         for d in range(3):
-            diff = xyz[d][:, :, None] - (xyz[d][b] + shifts[o, d])[:, None, :]
+            diff = xyz[d][:, :, None] - (
+                xyz[d][b] + offset_shift(shifts, cfg, o, d))[:, None, :]
             r2 = r2 + diff * diff
         ok = (r2 < cut2) & occ[:, :, None] & occ[b][:, None, :]
         if o == 0:
@@ -364,8 +418,10 @@ def sweep_bound(fields, cfg, shifts, energy=False, method="ewald"):
     n_tests, n_cut = pair_counts(fields, cfg, shifts)
     n_slots = cfg.n_cells * cfg.capacity
     n_bytes = (n_slots * 8 * 4 + cfg.n_cells * 4
-               + cfg.n_cells * cfg.n_offsets * 4 + cfg.n_offsets * 16
-               + (8 if energy else n_slots * 3 * 4))
+               + cfg.n_cells * cfg.n_offsets * 4 + shifts.numel() * 4
+               + cfg.n_offsets * 4
+               + (8 * cfg.n_replicas if energy and shifts.dim() == 3
+                  else 8 if energy else n_slots * 3 * 4))
     per_pair = {("ewald", False): OPS_PER_PAIR,
                 ("ewald", True): OPS_PER_PAIR_ENERGY,
                 ("rf", False): OPS_PER_PAIR_RF,
@@ -396,7 +452,8 @@ def cutoff_flips(fa, fb, cfg, sha, shb):
         r2 = 0
         for d, k in enumerate("xyz"):
             v = f[k].reshape(nc, C)
-            diff = v[:, :, None] - (v[b] + sh[o, d])[:, None, :]
+            diff = v[:, :, None] - (v[b] + offset_shift(sh, cfg, o, d))[
+                :, None, :]
             r2 = r2 + diff * diff
         return r2 < cut2
 
@@ -679,33 +736,42 @@ def check_after_steps(ctx, phase):
 def breakdown(ctx, kernel, name, ms_step, card, phase, reps=5):
     """Stream time of each part of the force pass at the current state
     (PME where the method has it, the bonded terms where the system has
-    them), against the whole step."""
+    them; with per-replica scales, their scaled forms and the energies
+    of a barostat attempt, mc_energies), against the whole step."""
     import torch
     from openmm_drudenose_tpu_torch.constraints.vsites import apply_vsites
     from openmm_drudenose_tpu_torch.forces import bonded, cellpair
     from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
     nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
     box_t = ctx._box_arg(st.box)
+    rs = ctx._dev_scale(st.rep_scale)
     pos_comp = apply_vsites(ctx._spec, ctx._static, st.positions)
-    fields = nb.fields(pos_comp, box_t, st.neighbors)
+    fields = nb.fields(pos_comp, box_t, st.neighbors, rep_scale=rs)
     terms = [t for t in ctx._terms if isinstance(t, bonded._Term)]
     parts = {
-        "sorted_fields": lambda: nb.fields(pos_comp, box_t, st.neighbors),
+        "sorted_fields": lambda: nb.fields(pos_comp, box_t, st.neighbors,
+                                           rep_scale=rs),
         name: lambda: kernel(
-            fields, cfg, cellpair.offset_shifts(cfg, box_t), nb.alpha,
+            fields, cfg, cellpair.offset_shifts(cfg, box_t, rs), nb.alpha,
             ONE_4PI_EPS0, **nb.coulomb),
-        "pme_recip": lambda: nb.recip(pos_comp, box_t),
-        "pair_terms": lambda: nb.extras(pos_comp, box_t),
+        "pme_recip": lambda: nb.recip(pos_comp, box_t, rep_scale=rs),
+        "pair_terms": lambda: nb.extras(pos_comp, box_t, rep_scale=rs),
         "bonded": lambda: [t.energy_forces(pos_comp, box_t)
                            for t in terms],
         "force_pass": lambda: ctx._forces_only(st.positions, st.box,
-                                               st.neighbors, st.pos_err),
-        "cell_rebuild": lambda: ctx._neighbor_fn(st.positions, st.box),
+                                               st.neighbors, st.pos_err,
+                                               st.rep_scale),
+        "cell_rebuild": lambda: ctx._neighbor_fn(st.positions, st.box,
+                                                 st.rep_scale),
+        "mc_energies": lambda: ctx._mc_energies(
+            st.positions, st.box, st.neighbors, st.pos_err, st.rep_scale),
     }
     if nb.pme is None:
         del parts["pme_recip"]
     if not terms:
         del parts["bonded"]
+    if rs is None:
+        del parts["mc_energies"]
     times = {k: cuda_time_ms(fn, reps) for k, fn in parts.items()}
     log(f"{phase} breakdown (ms of stream time): " + ", ".join(
         f"{k} {v:.3f}" for k, v in times.items())
@@ -730,17 +796,22 @@ def force_pass_floor(ctx, ctx64, rms_skip=False, flips_out=None):
     f64_forces = ctx64._state.forces
     nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
     box_t = ctx._box_arg(st.box)
-    shifts = cellpair.offset_shifts(cfg, box_t)
+    # per-replica box scales (flat-ensemble NPT; None elsewhere)
+    rs = ctx._dev_scale(st.rep_scale)
+    rs64 = ctx64._dev_scale(ctx64._state.rep_scale)
+    shifts = cellpair.offset_shifts(cfg, box_t, rs)
     # the f32 pass takes its distances from the compensated positions
     fa = nb.fields(apply_vsites(ctx._spec, ctx._static, st.positions),
                    box_t, st.neighbors,
-                   ctx._exact_positions(st.positions, st.pos_err))
+                   ctx._exact_positions(st.positions, st.pos_err), rs)
     box64 = ctx64._box_arg(ctx64._state.box)
     fb = nb.fields(apply_vsites(ctx64._spec, ctx64._static,
-                                ctx64._state.positions), box64, st.neighbors)
+                                ctx64._state.positions), box64, st.neighbors,
+                   rep_scale=rs64)
     # each pass with its own box's offset shifts
     slot_flips, n_flip = cutoff_flips(fa, fb, cfg, shifts,
-                                      cellpair.offset_shifts(cfg, box64))
+                                      cellpair.offset_shifts(cfg, box64,
+                                                             rs64))
     n_atoms = st.positions.shape[0]
     sa = st.neighbors.slot_atom
     atom_flips = torch.zeros(n_atoms, dtype=torch.bool, device=sa.device)
@@ -1739,7 +1810,8 @@ def phase_flat(card):
     """10. The flattened replica ensemble at the full width of the JAX
     package's scripts/bench_replicas.py --flat, through the replica-band
     path of B1 (see the module docstring).  Returns the `kernels`
-    entries of the band instantiations of B1 and B2."""
+    entries of the band instantiations of B1 and B2, the breakdown and
+    the settled template's (positions, velocities)."""
     import torch
     import openmm_drudenose_tpu_torch as dt
     from openmm_drudenose_tpu_torch.forces import cellpair
@@ -1778,6 +1850,11 @@ def phase_flat(card):
             tpl.setPositions(settled_pos)
             tpl.setVelocitiesToTemperature(300.0, seed=1)
 
+    # the settled template (compensated positions, velocities): phase 11
+    # starts from it
+    settled = ((tpl._state.positions.double()
+                + tpl._state.pos_err.double()).cpu().numpy(),
+               tpl._state.velocities.double().cpu().numpy())
     t = time.time()
     ens = dt.FlatReplicaEnsemble(tpl, FLAT_REPLICAS, seed=7)
     ctx = ens.context
@@ -2041,7 +2118,504 @@ def phase_flat(card):
                  bound_ms=bound_ms, bound_by=bound_by),
             dict(common, name="b2_energy_bands", instantiation="energy",
                  source=src2, replaces=tpu2,
-                 launches=b2_e_launches["b2_energy_bands"], **e2)], times
+                 launches=b2_e_launches["b2_energy_bands"], **e2)], times, \
+        settled
+
+
+def energy_check_scaled(tag, kernel, fields, cfg, shifts, alpha, card,
+                        excl_skip=True):
+    """A kernel's scaled energy instantiation (per-replica shifts) on these
+    fields: each replica's energy against the plain version in f32
+    (E_PLAIN_REL of its |E_r|) and in f64 (E_F64_REL), two launches the
+    same bits, timed beside the plain version and the bound.  Returns
+    the numbers of its `kernels` entry."""
+    import torch
+    from openmm_drudenose_tpu_torch.ops import sweep
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    kw = dict(method="ewald", excl_skip=excl_skip)
+    args = (fields, cfg, shifts, alpha, ONE_4PI_EPS0)
+    e1 = kernel.pair_energy(*args, **kw)
+    e2 = kernel.pair_energy(*args, **kw)
+    torch.cuda.synchronize()
+    identical = bool(torch.equal(e1, e2))
+    ep = sweep.pair_energy_plain(*args, **kw).double()
+    f64 = {k: (v.double() if v.is_floating_point() else v)
+           for k, v in fields.items()}
+    ep64 = sweep.pair_energy_plain(f64, cfg, shifts.double(), alpha,
+                                   ONE_4PI_EPS0, **kw)
+    del f64
+    torch.cuda.empty_cache()
+    rel = float(torch.max(torch.abs(e1 - ep) / torch.abs(ep)))
+    rel64 = float(torch.max(torch.abs(e1 - ep64) / torch.abs(ep64)))
+    ms = cuda_time_ms(lambda: kernel.pair_energy(*args, **kw), 20)
+    plain_ms = cuda_time_ms(lambda: sweep.pair_energy_plain(*args, **kw), 2)
+    bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(
+        fields, cfg, shifts, energy=True)
+    log(f"{tag} energies of {e1.shape[0]} replicas (sum {float(e1.sum()):.6f}"
+        f" kJ/mol): largest |dE_r|/|E_r| against plain f32 {rel:.3e}, "
+        f"against plain f64 {rel64:.3e}; two launches bit-identical: "
+        f"{identical}; {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {n_tests} pair tests, {n_cut} "
+        f"inside the cutoff, {n_bytes} bytes) on {card}")
+    if not (np.isfinite(rel) and rel <= E_PLAIN_REL):
+        fail(f"{tag} energies disagree with their plain version: {rel:.3e}")
+    if not rel64 <= E_F64_REL:
+        fail(f"{tag} energies miss f64: {rel64:.3e}")
+    if not identical:
+        fail(f"{tag}: two energy launches gave different bits")
+    return {"max_abs_err": float(torch.max(torch.abs(e1 - ep))), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "capacity": cfg.capacity}
+
+
+def phase_flat_npt(card, settled):
+    """11. Flat NPT at the width of phase 10, each replica at its own box
+    (the template box times s_r), through the scaled instantiations of
+    B1 (see the module docstring).  `settled`: phase 10's settled
+    template (positions, velocities).  Returns the `kernels` entries of
+    the scaled instantiations of B1 and B2."""
+    import torch
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.integrators import barostat
+    from openmm_drudenose_tpu_torch.io import builders
+    from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
+    from openmm_drudenose_tpu_torch.parallel import flatrep
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0, ns_per_day
+    settled_pos, settled_vel = settled
+    rx, rz = FLAT_LAYOUT
+
+    def integrator():
+        integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+        integ.setMaxDrudeDistance(0.02)
+        return integ
+
+    def template(freq):
+        system, _ = builders.build_water_box(FLAT_MOL)
+        system.addForce(dt.MonteCarloBarostat(1.01325, 300.0, freq))
+        tpl = dt.Context(system, integrator(), precision="single",
+                         device="cuda")
+        tpl.setPositions(settled_pos)
+        tpl.setVelocities(settled_vel)
+        return tpl, system
+
+    t = time.time()
+    tpl, system = template(FLAT_NPT_BARO)
+    n0 = system.getNumParticles()
+    ens = dt.FlatReplicaEnsemble(tpl, FLAT_REPLICAS, seed=7)
+    ens.setVelocities(settled_vel)
+    ctx = ens.context
+    integ = ctx._integrator
+    ctx._ensure_neighbors()
+    nb, cfg = ctx._nb, ctx._cp_cfg
+    R = ens.n_replicas_padded
+    log(f"11 flat NPT ensemble built in {time.time() - t:.1f} s from phase "
+        f"10's settled template: layout {ens.layout} ({R} internal, "
+        f"{ctx._static.n_atoms} atoms), cell grid {cfg.grid}, capacity "
+        f"{cfg.capacity}, {cfg.n_offsets} offsets, PME grid {nb.pme.grid} x "
+        f"{nb.n_replicas}, route {nb.sweep_kernel}, MonteCarloBarostat("
+        f"1.01325, 300, {FLAT_NPT_BARO}), scales "
+        f"{ctx._state.rep_scale.unique().tolist()}")
+    if not (ens.layout == FLAT_LAYOUT and R == rx * rz
+            and ctx._static.n_atoms == R * n0
+            and cfg.grid == (5 * rx, 5, 5 * rz) and nb.sweep_kernel == "b1"
+            and nb.pme.grid == (25, 25, 25) and cfg.n_offsets == 63
+            and ctx._state.rep_scale is not None
+            and torch.equal(ctx._state.rep_scale,
+                            torch.ones(R, dtype=torch.float64))):
+        fail(f"11: the ensemble is not the {FLAT_LAYOUT} flat NPT layout of "
+             f"{R * n0} atoms on B1 with 25^3 PME grids")
+    box0 = float(ctx._state.box[0, 0])
+
+    # the host time inside the attempts, and each replica's accepted
+    # moves (the scale changes)
+    inside, accepted = [], np.zeros(R, np.int64)
+    attempt = barostat.maybe_attempt_mc_move_ensemble
+
+    def timed_attempt(spec, static, state, *a, **kw):
+        t0 = time.perf_counter()
+        out = attempt(spec, static, state, *a, **kw)
+        if out is not state:
+            inside.append(time.perf_counter() - t0)
+            accepted[:] += (out.rep_scale != state.rep_scale).numpy()
+        return out
+
+    barostat.maybe_attempt_mc_move_ensemble = timed_attempt
+    try:
+        t = time.time()
+        ens.step(FLAT_NPT_SETTLE)
+        torch.cuda.synchronize()
+        log(f"11 {FLAT_NPT_SETTLE} settling steps in {time.time() - t:.2f} "
+            f"s; capacity {ctx._cp_cfg.capacity}; {len(inside)} attempts")
+        nkbt = ctx._spec.nh_nkbt.double().numpy()
+        targets = np.array([300.0, 300.0, 1.0])
+        samples, walls, ins = [], [], []
+
+        def drive():
+            for _ in range(FLAT_NPT_REPEATS):
+                n_in = len(inside)
+                t0 = time.time()
+                ens.step(FLAT_NPT_STEPS)
+                torch.cuda.synchronize()
+                walls.append(time.time() - t0)
+                ins.append(inside[n_in:])
+                samples.append((ctx._state.group_ke.double().numpy() / nkbt
+                                * targets)[:FLAT_REPLICAS])
+
+        n_before = len(inside)
+        _, launches, plain = counted(drive)
+    finally:
+        barostat.maybe_attempt_mc_move_ensemble = attempt
+    n_att = len(inside) - n_before
+    best = int(np.argmin(walls))
+    ms_step = walls[best] / FLAT_NPT_STEPS * 1e3
+    nsd = ns_per_day(FLAT_NPT_STEPS / walls[best], integ.getStepSize())
+    host_ms = [sum(x) * 1e3 for x in ins]
+    log(f"11 {FLAT_NPT_REPEATS} x {FLAT_NPT_STEPS} NPT steps: "
+        + ", ".join(f"{w / FLAT_NPT_STEPS * 1e3:.2f}" for w in walls)
+        + f" ms/step (best {ms_step:.2f}); per replica {nsd:.4f} ns/day, "
+        f"aggregate over {FLAT_REPLICAS} replicas "
+        f"{nsd * FLAT_REPLICAS:.3f} ns/day on {card}; {n_att} attempts, "
+        f"host ms inside them per run {[round(h, 2) for h in host_ms]} "
+        f"({host_ms[best] / FLAT_NPT_STEPS:.3f} ms/step in the best run, "
+        f"{np.mean([x for r in ins for x in r]) * 1e3:.2f} ms an attempt); "
+        f"launches {launches}; plain sweeps on the card {plain}; capacity "
+        f"{ctx._cp_cfg.capacity}; cell grid {ctx._cp_cfg.grid}")
+    n_total = FLAT_NPT_REPEATS * FLAT_NPT_STEPS
+    if (launches["b1_sweep_scaled"] < n_total or plain
+            or launches["b1_energy_scaled"] != 2 * n_att
+            or any(v for k, v in launches.items()
+                   if not k.startswith("b1") or not k.endswith("_scaled"))):
+        fail("11: the NPT steps did not run through B1's scaled "
+             "instantiations alone (two energy launches an attempt)")
+
+    # per-replica scales, densities, baths, latches
+    st = ctx._state
+    s = st.rep_scale.double().numpy()[:FLAT_REPLICAS]
+    dens = ens.densities()
+    temps, e_launches, plain_e = counted(ens.group_temperatures)
+    nbl = st.neighbors
+    latches = {"overflow": bool(nbl.overflow),
+               "drift": bool(nbl.drift_exceeded) or ctx._drift_warned,
+               "excl_span": bool(nbl.excl_span_exceeded)
+               if nbl.excl_span_exceeded is not None else False,
+               "hardwall_runaway": ctx.hardwallRunaway}
+    spec = ctx._spec
+    p = st.positions.double() + st.pos_err.double()
+    drude = torch.nonzero(spec.is_pair & ~spec.is_parent)[:, 0]
+    dmax = float(torch.max(torch.linalg.norm(
+        p[drude] - p[spec.partner[drude]], dim=1)))
+    mean = np.mean(np.concatenate(samples), axis=0)
+    total_att = len(inside)
+    log(f"11 after {FLAT_NPT_SETTLE + n_total} NPT steps ({total_att} "
+        f"attempts by every replica): accepted moves a replica min "
+        f"{accepted[:FLAT_REPLICAS].min()}, max "
+        f"{accepted[:FLAT_REPLICAS].max()}; scales min {s.min():.6f}, max "
+        f"{s.max():.6f}, {len(np.unique(s))} distinct; densities min "
+        f"{dens.min():.5f}, mean {dens.mean():.5f}, max {dens.max():.5f} "
+        f"g/mL; move sizes {st.baro_scale.min().item():.5f}.."
+        f"{st.baro_scale.max().item():.5f} nm^3; latches {latches}; max "
+        f"core-Drude distance {dmax:.6f} nm; the state's energy: launches "
+        f"{e_launches}, plain sweeps {plain_e}; water bath over the "
+        f"replicas at the end: min {temps[:, 0].min():.3f}, mean "
+        f"{temps[:, 0].mean():.3f}, max {temps[:, 0].max():.3f} K; bath "
+        f"means over the replicas and the {FLAT_NPT_REPEATS} samples "
+        f"{np.round(mean, 3).tolist()} K; bands {FLAT_NPT_BANDS}, "
+        f"{FLAT_BANDS}")
+    lo, hi = FLAT_NPT_BANDS["scale"]
+    dlo, dhi = FLAT_NPT_BANDS["density"]
+    if total_att < 1 or len(np.unique(s)) < 2:
+        fail("11: no attempt, or the replicas' scales did not part")
+    if not (np.all((s > lo) & (s < hi)) and np.all((dens > dlo)
+                                                     & (dens < dhi))):
+        fail(f"11: a scale outside ({lo}, {hi}) or a density outside "
+             f"({dlo}, {dhi})")
+    if any(latches.values()):
+        fail(f"11: a latch is set: {latches}")
+    if dmax > 0.02 * 1.00001:
+        fail(f"11: hard wall broken: {dmax}")
+    if e_launches["b1_energy_scaled"] != 1 or plain_e:
+        fail("11: the state's energy did not come from B1's scaled energy "
+             "alone")
+    for b, name in ((0, "water"), (2, "Drude")):
+        blo, bhi = FLAT_BANDS["mean"][b]
+        if not blo < mean[b] < bhi:
+            fail(f"11: the {name} bath's mean {mean[b]:.3f} K outside "
+                 f"({blo}, {bhi})")
+    blo, bhi = FLAT_BANDS["replica"]
+    if not (np.all(np.isfinite(temps))
+            and np.all((temps[:, 0] > blo) & (temps[:, 0] < bhi))):
+        fail(f"11: a replica's water bath outside ({blo}, {bhi})")
+    if ctx._cp_cfg.grid != cfg.grid or float(st.box[0, 0]) != box0:
+        fail("11: the grid was planned again (a replica left the "
+             "stencil's slack)")
+
+    # the kernels at the final state, with its distinct scales
+    nb, cfg = ctx._nb, ctx._cp_cfg
+    box_diag = torch.diagonal(st.box)
+    rs = ctx._dev_scale(st.rep_scale)
+    exact = ctx._exact_positions(st.positions, st.pos_err)
+    fields = nb.fields(st.positions, box_diag, st.neighbors, exact, rs)
+    shifts = cellpair.offset_shifts(cfg, box_diag, rs)
+    args = (fields, cfg, shifts, nb.alpha, ONE_4PI_EPS0)
+    kw = dict(nb.coulomb, excl_skip=nb.excl_skip)
+    f_b1, err_b1, ms_b1, plain_b1 = kernel_parity("11", "B1 scaled", sweep,
+                                                  args, kw)
+    _, err_b2, ms_b2, plain_b2 = kernel_parity(
+        "11", "B2 scaled", sweep_chunked, args, kw, ref=f_b1)
+    del f_b1
+    bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(fields, cfg,
+                                                              shifts)
+    log(f"11 force bound {bound_ms:.4f} ms ({bound_by}: {n_tests} pair "
+        f"tests, {n_cut} inside the cutoff, {n_bytes} bytes): B1 scaled "
+        f"{ms_b1:.4f} ms at {bound_ms / ms_b1:.1%}, B2 scaled {ms_b2:.4f} "
+        f"ms at {bound_ms / ms_b2:.1%} on {card}")
+    # the band instantiation on the same fields with the unscaled table,
+    # for the price of the scaled read
+    shifts1 = cellpair.offset_shifts(cfg, box_diag)
+    ms_band = cuda_time_ms(lambda: sweep.pair_forces(
+        fields, cfg, shifts1, nb.alpha, ONE_4PI_EPS0, **kw), 20)
+    log(f"11 B1 band instantiation on the same fields with one replica's "
+        f"shift table: {ms_band:.4f} ms (scaled {ms_b1:.4f})")
+    del fields, args
+    breakdown(ctx, sweep.pair_forces, "b1_sweep_scaled", ms_step, card,
+              "11", reps=3)
+    fields = nb.fields(st.positions, box_diag, st.neighbors, exact, rs)
+    e1 = energy_check_scaled("11 B1 scaled", sweep, fields, cfg, shifts,
+                             nb.alpha, card, nb.excl_skip)
+    e2 = energy_check_scaled("11 B2 scaled", sweep_chunked, fields, cfg,
+                             shifts, nb.alpha, card, nb.excl_skip)
+
+    # isolation: replica 0's scale and positions changed; replicas 1..R-1
+    # the same bits out of both kernels (forces and energies)
+    ls0 = 1.004
+    s2 = st.rep_scale.clone()
+    s2[0] *= ls0
+    moved = barostat.scale_molecules_per_replica(
+        spec, ctx._static, st.positions,
+        np.r_[ls0, np.ones(R - 1)])
+    rs2 = ctx._dev_scale(s2)
+    nbl1 = nb.cellsort(st.positions, box_diag, rs)
+    nbl2 = nb.cellsort(moved, box_diag, rs2)
+    a1 = (nb.fields(st.positions, box_diag, nbl1, rep_scale=rs), cfg,
+          shifts, nb.alpha, ONE_4PI_EPS0)
+    a2 = (nb.fields(moved, box_diag, nbl2, rep_scale=rs2), cfg,
+          cellpair.offset_shifts(cfg, box_diag, rs2), nb.alpha,
+          ONE_4PI_EPS0)
+    iso = []
+    for name, kernel in (("B1", sweep), ("B2", sweep_chunked)):
+        fa = kernel.pair_forces(*a1, **kw)[nbl1.inv_slot]
+        fb = kernel.pair_forces(*a2, **kw)[nbl2.inv_slot]
+        ea = kernel.pair_energy(*a1, **kw)
+        eb = kernel.pair_energy(*a2, **kw)
+        torch.cuda.synchronize()
+        changed = float(torch.max(torch.abs(fa[:n0] - fb[:n0])))
+        same = (bool(torch.equal(fa[n0:], fb[n0:]))
+                and bool(torch.equal(ea[1:], eb[1:])))
+        iso.append(f"{name}: replica 0 changed by up to {changed:.3e} (its "
+                   f"energy {float(eb[0] - ea[0]):+.4f} kJ/mol), replicas "
+                   f"1..{R - 1} bit for bit {same}")
+        if not (same and changed > 0 and bool(ea[0] != eb[0])):
+            fail(f"11: {name} let replica 0's scale reach another replica")
+    log(f"11 replica isolation (replica 0 scaled by {ls0}): "
+        + "; ".join(iso))
+    del fields, a1, a2, nbl1, nbl2, moved, fa, fb
+    torch.cuda.empty_cache()
+
+    # physics: the f32 force pass against the f64 flat NPT pass, and the
+    # band-edge replicas against single-replica f64 Contexts at the box
+    # template * s_r with the flat template's PME plan
+    ctx64 = dt.Context(ctx._system, flatrep._clone_integrator(
+        integ, R), precision="double", strategy="cellpair",
+        nb_options=dict(ctx._nb_options), device="cuda", ensemble_r=R)
+    exact = (st.positions.double() + st.pos_err.double())
+    ctx64._state = ctx64._state.replace(rep_scale=st.rep_scale.clone())
+    ctx64.setPositions(exact.cpu().numpy())
+    flips = []
+    ferr, ferr_all, frms, n_flip, fs, _ = force_pass_floor(ctx, ctx64,
+                                                           flips_out=flips)
+    log(f"11 force pass f32 vs f64 (flat NPT): max {ferr:.3e} "
+        f"({ferr_all:.3e} with the atoms of {n_flip} cutoff-flipped pairs)"
+        f", rms {frms:.3e} (max|F| {fs:.1f})")
+    if not (ferr <= 1e-4 and frms <= 5e-6):
+        fail("11: the f32 force pass misses the f32 floor against f64")
+    f32_forces = ctx._state.forces.double()
+    f64_forces = ctx64._state.forces
+    skip = flips[0]
+    st64 = ctx64._state
+    box_t = np.array(system.getDefaultPeriodicBoxVectors(), np.float64)
+
+    def single(scale, positions):
+        sys1, _ = builders.build_water_box(FLAT_MOL)
+        sys1.setDefaultPeriodicBoxVectors(*(box_t * scale))
+        nbf = next(f for f in sys1.getForces()
+                   if type(f).__name__ == "NonbondedForce")
+        nbf.setPMEParameters(nb.alpha, *nb.pme.grid)
+        one = dt.Context(sys1, integrator(), precision="double",
+                         strategy="cellpair", device="cuda")
+        one.setPositions(positions)
+        return one
+
+    def pe(one):
+        one._ensure_pe()
+        return float(one._state.potential_energy)
+
+    e_now = ctx._mc_energies(st.positions, st.box, st.neighbors, st.pos_err,
+                             st.rep_scale).cpu().numpy()
+    e64_now = ctx64._mc_energies(st64.positions, st64.box, st64.neighbors,
+                                 None, st64.rep_scale).cpu().numpy()
+    # the molecules' centres in float64 (the proposed moves below scale
+    # them in float64 and split the result into float32 positions and
+    # their compensation, so that the molecules keep their geometry to
+    # float64 and the full-PE difference holds no intramolecular change)
+    mass = spec.mass.double()
+    res_mass = torch.zeros(ctx._static.n_residues, dtype=torch.float64,
+                           device=mass.device).index_add_(0, spec.resid,
+                                                          mass)
+    com = torch.zeros((ctx._static.n_residues, 3), dtype=torch.float64,
+                      device=mass.device).index_add_(
+        0, spec.resid, mass[:, None] * exact) / res_mass[:, None]
+    n_mol0 = ctx._static.n_residues // R
+    edge, bad = [], []
+    for r in FLAT_EDGE_REPLICAS:
+        rows = slice(r * n0, (r + 1) * n0)
+        sr = float(st.rep_scale[r])
+        one = single(sr, exact[rows].cpu().numpy())
+        one._ensure_forces()
+        ref = one._state.forces
+        scale = float(torch.max(torch.abs(ref)))
+        keep = ~skip[rows]
+        err32 = float(torch.max(torch.abs(
+            f32_forces[rows] - ref)[keep])) / scale
+        err64 = float(torch.max(torch.abs(f64_forces[rows] - ref))) / scale
+        # one proposed move of replica r: the mc_energies difference
+        # against the full-PE difference of two such Contexts
+        ls = 1.003
+        ls_res = torch.ones(ctx._static.n_residues, dtype=torch.float64,
+                            device=mass.device)
+        ls_res[r * n_mol0:(r + 1) * n_mol0] = ls
+        new_exact = exact + ((ls_res - 1.0)[:, None] * com)[spec.resid]
+        new_pos = new_exact.to(st.positions.dtype)
+        new_err = (new_exact - new_pos.double()).to(st.positions.dtype)
+        s_new = st.rep_scale.clone()
+        s_new[r] *= ls
+        e_new = ctx._mc_energies(new_pos, st.box, st.neighbors, new_err,
+                                 s_new).cpu().numpy()
+        e64_new = ctx64._mc_energies(new_exact, st64.box, st64.neighbors,
+                                     None, s_new).cpu().numpy()
+        pe0 = pe(one)
+        pe1 = pe(single(sr * ls, new_exact[rows].cpu().numpy()))
+        d_ref = pe1 - pe0
+        d32, d64 = e_new[r] - e_now[r], e64_new[r] - e64_now[r]
+        err_d32 = abs(d32 - d_ref) / abs(pe0)
+        err_d64 = abs(d64 - d_ref) / abs(pe0)
+        others = float(np.max(np.abs(np.delete(e_new - e_now, r))
+                               / np.abs(np.delete(e_now, r))))
+        edge.append(f"replica {r} (s {sr:.6f}): forces f32 flat "
+                    f"{err32:.3e}, f64 flat {err64:.3e}; move x{ls}: dE "
+                    f"single f64 {d_ref:+.6f}, flat f64 {d64:+.6f} "
+                    f"({err_d64:.3e} of |E_r|), flat f32 {d32:+.6f} "
+                    f"kJ/mol ({err_d32:.3e}); other replicas {others:.1e} "
+                    "of theirs")
+        if not (err32 <= 1e-4 and err64 <= 1e-8 and err_d64 <= 1e-6
+                and err_d32 <= E_F64_REL and others <= 1e-12):
+            bad.append(r)
+        del one
+    log("11 against single-replica f64 Contexts at the box template * s_r "
+        "(max |dF| / max|F|; a move's energy difference): "
+        + "; ".join(edge))
+    del ctx64, st64
+    torch.cuda.empty_cache()
+    if bad:
+        fail(f"11: replicas {bad} differ from their single-replica Contexts "
+             "at their boxes")
+    del f32_forces, f64_forces, skip
+    torch.cuda.empty_cache()
+
+    # a Context routed to B2, its barostat every FLAT_NPT_B2_BARO steps,
+    # from the same state
+    tpl2, _ = template(FLAT_NPT_B2_BARO)
+    ens2 = dt.FlatReplicaEnsemble(
+        tpl2, FLAT_REPLICAS, seed=7,
+        nb_options={"use_pallas": 3, "capacity": cfg.capacity})
+    ctx2 = ens2.context
+    ctx2.setPositions(exact.cpu().numpy())
+    ctx2.setVelocities(st.velocities.double().cpu().numpy())
+    ctx2._state = ctx2._state.replace(rep_scale=st.rep_scale.clone())
+    ctx2._ensure_forces()
+    if ctx2._nb.sweep_kernel != "b2" or ctx2._cp_cfg.grid != cfg.grid:
+        fail(f"11: use_pallas 3 routed to {ctx2._nb.sweep_kernel}")
+    _, b2_launches, plain = counted(lambda: ens2.step(FLAT_NPT_B2_STEPS))
+    _, b2_e_launches, plain_e = counted(
+        lambda: ctx2.getState(energy=True).getPotentialEnergy())
+    s2 = ctx2._state.rep_scale.numpy()
+    b2_att = len(range(0, FLAT_NPT_B2_STEPS, FLAT_NPT_B2_BARO))
+    log(f"11 a Context routed to B2: {FLAT_NPT_B2_STEPS} NPT steps "
+        f"({b2_att} attempts), launches {b2_launches}, then its energy: "
+        f"{b2_e_launches}; plain sweeps {plain + plain_e}; scales moved "
+        f"in {int(np.sum(s2 != st.rep_scale.numpy()))} replicas")
+    if (b2_launches["b2_sweep_scaled"] < FLAT_NPT_B2_STEPS
+            or b2_launches["b2_energy_scaled"] != 2 * b2_att
+            or b2_launches["b1_sweep_scaled"]
+            or b2_e_launches["b2_energy_scaled"] != 1 or plain or plain_e
+            or not np.any(s2 != st.rep_scale.numpy())):
+        fail("11: the B2-routed Context did not run B2's scaled path, or "
+             "no move fired")
+    del ens2, ctx2, tpl2
+    torch.cuda.empty_cache()
+
+    # the checkpoint replay: FLAT_NPT_REPLAY steps (an attempt among
+    # them) twice from one checkpoint
+    path = os.path.join(HERE, "build", "chip_smoke", "flat_npt.chk")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    dt.save_checkpoint(path, ctx)
+    step0 = ctx._state.step
+    ens.step(FLAT_NPT_REPLAY)
+    first = (ctx._state.positions.clone(), ctx._state.rep_scale.clone())
+    dt.load_checkpoint(path, ctx)
+    _, replay_launches, _ = counted(lambda: ens.step(FLAT_NPT_REPLAY))
+    dx = float(torch.max(torch.abs(ctx._state.positions - first[0])))
+    same_s = bool(torch.equal(ctx._state.rep_scale, first[1]))
+    log(f"11 checkpoint of the flat NPT state at step {step0}, "
+        f"{FLAT_NPT_REPLAY} steps, loaded, {FLAT_NPT_REPLAY} steps "
+        f"(launches {replay_launches}): max |dx| {dx:.3e} nm, scales the "
+        f"same bits {same_s}")
+    if (dx != 0.0 or not same_s
+            or replay_launches["b1_energy_scaled"] < 2):
+        fail("11: the flat NPT checkpoint replay (with an attempt) was not "
+             "bit for bit")
+    log(f"11 peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del ens, ctx, tpl
+    torch.cuda.empty_cache()
+
+    src1 = "openmm_drudenose_tpu_torch/csrc/sweep.cu"
+    src2 = "openmm_drudenose_tpu_torch/csrc/sweep_chunked.cu"
+    tpu1 = "openmm_drudenose_tpu/ops/pallas_sweep.py:440"
+    tpu2 = "openmm_drudenose_tpu/ops/pallas_sweep.py:851"
+    common = {"route": "cuda", "coulomb": "ewald", "geometry": "scaled",
+              "capacity": cfg.capacity, "library_ms": None}
+    return [dict(common, name="b1_sweep_scaled", instantiation="forces",
+                 source=src1, replaces=tpu1,
+                 launches=launches["b1_sweep_scaled"],
+                 launches_per_step=launches["b1_sweep_scaled"] / n_total,
+                 max_abs_err=err_b1, ms=ms_b1, plain_ms=plain_b1,
+                 bound_ms=bound_ms, bound_by=bound_by),
+            dict(common, name="b1_energy_scaled", instantiation="energy",
+                 source=src1, replaces=tpu1,
+                 launches=launches["b1_energy_scaled"],
+                 launches_per_step=launches["b1_energy_scaled"] / n_total,
+                 **e1),
+            dict(common, name="b2_sweep_scaled", instantiation="forces",
+                 source=src2, replaces=tpu2,
+                 launches=b2_launches["b2_sweep_scaled"],
+                 launches_per_step=(b2_launches["b2_sweep_scaled"]
+                                    / FLAT_NPT_B2_STEPS),
+                 max_abs_err=err_b2, ms=ms_b2, plain_ms=plain_b2,
+                 bound_ms=bound_ms, bound_by=bound_by),
+            dict(common, name="b2_energy_scaled", instantiation="energy",
+                 source=src2, replaces=tpu2,
+                 launches=b2_launches["b2_energy_scaled"], **e2)]
 
 
 def main():
@@ -2261,12 +2835,20 @@ def main():
     phase_seconds["9 the sheared box"] = phase_mark()
 
     # ---- 10. the flattened replica ensemble: replica bands through B1 ----
-    flat_entries, _ = phase_flat(card)
+    flat_entries, _, settled = phase_flat(card)
     for e in flat_entries:
         e["registers"] = regs[e["name"].replace("_bands", "")]
     phase_seconds["10 the flat ensemble"] = phase_mark()
 
-    # ---- 11. kernel summary -------------------------------------------------
+    # ---- 11. flat NPT: per-replica box scales through B1 ------------------
+    npt_entries = phase_flat_npt(card, settled)
+    for e in npt_entries:
+        mod = sweep if e["name"].startswith("b1") else sweep_chunked
+        e["registers"] = mod.attributes(e["instantiation"] == "energy",
+                                        "ewald", scaled=True)["regs"]
+    phase_seconds["11 flat NPT"] = phase_mark()
+
+    # ---- 12. kernel summary -------------------------------------------------
     log("seconds per phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_seconds.items()))
     src, tpu = ("openmm_drudenose_tpu_torch/csrc/sweep.cu",
@@ -2284,7 +2866,8 @@ def main():
         "name": "b1_energy", "instantiation": "energy", "route": "cuda",
         "source": src, "replaces": tpu, "registers": regs["b1_energy"],
         **b1_energy, "library_ms": None,
-    }, *b2_entries, *rf_entries, *tri_entries, *flat_entries]
+    }, *b2_entries, *rf_entries, *tri_entries, *flat_entries,
+        *npt_entries]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

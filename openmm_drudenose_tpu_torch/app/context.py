@@ -30,8 +30,16 @@ A flattened replica ensemble (ensemble_r = R > 1, built by
 parallel/flatrep.py with nb_options={"ensemble": [R, rx, rz]}; the JAX
 package's app/context.py:80-116) holds R replica-major copies of one
 replica's system in one box: (R, G+2) baths, per-replica KE sums and
-group temperatures, capacity growth binned in the replicas' frame.  Its
-NPT (the JAX package's per-replica box scale) is not ported.
+group temperatures, capacity growth binned in the replicas' frame.  With
+a MonteCarloBarostat it runs flat-ensemble NPT (the JAX package's
+SimState.rep_scale): the state's box is the template box, replica r's is
+that times s_r, every force and energy pass takes the scales (their
+device copy, `_dev_scale`), each replica moves its own volume
+(integrators/barostat.py::maybe_attempt_mc_move_ensemble, against
+`_mc_energies`), and the cells are binned at p / s_r on the template
+grid.  Where the smallest replica outgrows the stencil's slack, the grid
+is planned again at the template box times min(s), the scales divided by
+it (`_replan_at_box`); a box too small for a regular grid there raises.
 
 Entry points run on CUDA unless the caller passes device="cpu"; a Context
 without a device on a machine without CUDA raises.
@@ -51,7 +59,7 @@ from ..constraints.vsites import (apply_vsites, apply_vsites_relative,
                                   spread_vsite_forces)
 from ..core import spec as spec_mod
 from ..core.state import zeros_state
-from ..forces import boxutils
+from ..forces import boxutils, cellpair
 from ..integrators import barostat, tgnh
 from ..units import BOLTZ
 
@@ -129,8 +137,8 @@ class Context:
         sends the float32 sweep to the chunked kernel B2 whatever the
         gates say (the JAX option of that name).  ensemble_r: the
         replicas of a flattened ensemble (parallel/flatrep.py, which
-        also passes nb_options {"ensemble": [R, rx, rz]}); NPT is not
-        ported for them and raises."""
+        also passes nb_options {"ensemble": [R, rx, rz]} and, with a
+        MonteCarloBarostat, sets the per-replica scales)."""
         # full-float32 products wherever a matmul could reach r^2 or
         # forces (TF32 keeps ~3 decimal digits)
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -150,11 +158,10 @@ class Context:
         if self._ensemble_r > 1 and any(
                 type(f).__name__ == "MonteCarloBarostat"
                 for f in system.getForces()):
-            raise ValueError(
-                "flat NPT (a flattened replica ensemble with a "
-                "MonteCarloBarostat) is not yet ported: the JAX package "
-                "runs it with a per-replica box scale that the sweep "
-                "kernels do not take (ROADMAP.md)")
+            barostat.check_ensemble_forces(system)
+        # (host scales, their device copy) of the last few rep_scale
+        # tensors (the current, a move's trial and its outcome)
+        self._scale_cache = []
         self._state = None
         self._init_spec_and_state()
 
@@ -213,9 +220,34 @@ class Context:
             self._forces_valid = False
 
     def _mc_move(self, spec, state):
-        """The barostat's move at this step (integrators/barostat.py)."""
+        """The barostat's move at this step (integrators/barostat.py):
+        one box, or each replica's with per-replica scales."""
+        if state.rep_scale is not None:
+            return barostat.maybe_attempt_mc_move_ensemble(
+                spec, self._static, state, self._mc_energies,
+                self._forces_only)
         return barostat.maybe_attempt_mc_move(
             spec, self._static, state, self._potential, self._forces_only)
+
+    def _dev_scale(self, rep_scale):
+        """The device copy of host scales (None for None), made once per
+        scale tensor: the state's scales change only on an accepted
+        move."""
+        if rep_scale is None:
+            return None
+        for host, dev in self._scale_cache:
+            if host is rep_scale:
+                return dev
+        dev = rep_scale.to(device=self._device, dtype=torch.float64)
+        self._scale_cache = [(rep_scale, dev)] + self._scale_cache[:2]
+        return dev
+
+    def _scale_kw(self, term, scale):
+        """The per-atom scales a term takes with per-replica boxes (the
+        DrudeForce's NBTHOLE pairs image in their replica's box)."""
+        if scale is None or not hasattr(term, "mc_energies"):
+            return {}
+        return {"scale": scale}
 
     def _exact_positions(self, positions, pos_err):
         """Float64 positions with the virtual sites, at positions + pos_err:
@@ -235,23 +267,28 @@ class Context:
         triclinic, else its diagonal (boxutils.mi_box)."""
         return boxutils.mi_box(box, self._triclinic)
 
-    def _forces_only(self, positions, box, neighbors, pos_err):
-        """Total force on the particles (no energy)."""
+    def _forces_only(self, positions, box, neighbors, pos_err,
+                     rep_scale=None):
+        """Total force on the particles (no energy); rep_scale: the host
+        per-replica scales of flat-ensemble NPT."""
         spec, static = self._spec, self._static
         box_t = self._box_arg(box)
         pos = apply_vsites(spec, static, positions)
         f = torch.zeros_like(pos)
         nb = self._nb
         exact = self._exact_positions(positions, pos_err)
+        s = self._dev_scale(rep_scale)
+        atom_s = None if s is None else cellpair.atom_scales(
+            s, pos.shape[0])
         if nb is not None:
-            f = nb.sweep_forces(pos, box_t, neighbors, exact)
+            f = nb.sweep_forces(pos, box_t, neighbors, exact, rep_scale=s)
             if nb.pme is not None:
-                f = f + nb.recip(pos, box_t, exact)[1]
-            f = f + nb.extras(pos, box_t, exact)[1]
+                f = f + nb.recip(pos, box_t, exact, rep_scale=s)[1]
+            f = f + nb.extras(pos, box_t, exact, rep_scale=s)[1]
         for term in self._terms:
             f = f + term.energy_forces(pos, box_t,
-                                       **self._term_kw(term, pos_err,
-                                                       exact))[1]
+                                       **self._term_kw(term, pos_err, exact),
+                                       **self._scale_kw(term, atom_s))[1]
         return spread_vsite_forces(spec, static, f)
 
     @staticmethod
@@ -262,28 +299,53 @@ class Context:
             return {"exact": exact}
         return {"pos_err": pos_err}
 
-    def _potential(self, positions, box, neighbors, pos_err):
+    def _potential(self, positions, box, neighbors, pos_err,
+                   rep_scale=None):
         """Total potential energy, a float64 0-d tensor: each part in the
         positions' type (the direct space by the kernels' energy
         instantiation on the cell-pair strategy in float32, in float64
         there) and the parts summed in float64, so that the barostat's
         Metropolis test sees no float32 rounding of |E| (~1e6 kJ/mol at
-        100k atoms, where a float32 ulp is 0.06-0.12 kJ/mol)."""
+        100k atoms, where a float32 ulp is 0.06-0.12 kJ/mol).  rep_scale:
+        as _forces_only."""
         box_t = self._box_arg(box)
         pos = apply_vsites(self._spec, self._static, positions)
         e = torch.zeros((), dtype=torch.float64, device=pos.device)
         nb = self._nb
         exact = self._exact_positions(positions, pos_err)
+        s = self._dev_scale(rep_scale)
+        atom_s = None if s is None else cellpair.atom_scales(
+            s, pos.shape[0])
         if nb is not None:
-            e = e + nb.sweep_energy(pos, box_t, neighbors, exact).double()
+            e = e + nb.sweep_energy(pos, box_t, neighbors, exact,
+                                    rep_scale=s).double()
             if nb.pme is not None:
-                e = e + nb.recip_energy(pos, box_t, exact).double()
-            e = e + nb.extras(pos, box_t, exact,
-                              with_forces=False)[0].double()
+                e = e + nb.recip_energy(pos, box_t, exact,
+                                        rep_scale=s).double()
+            e = e + nb.extras(pos, box_t, exact, with_forces=False,
+                              rep_scale=s)[0].double()
         for term in self._terms:
             e = e + term.energy_forces(pos, box_t, with_forces=False,
-                                       **self._term_kw(term, pos_err,
-                                                       exact))[0].double()
+                                       **self._term_kw(term, pos_err, exact),
+                                       **self._scale_kw(term, atom_s)
+                                       )[0].double()
+        return e
+
+    def _mc_energies(self, positions, box, neighbors, pos_err, rep_scale):
+        """(R,) float64 per-replica energies of every term a molecule-COM
+        volume move changes (the JAX Context's summed mc_energies hooks):
+        the NonbondedForce's (sweep, PME, dispersion, NBFIX) and the
+        DrudeForce's NBTHOLE pairs."""
+        box_t = self._box_arg(box)
+        pos = apply_vsites(self._spec, self._static, positions)
+        exact = self._exact_positions(positions, pos_err)
+        s = self._dev_scale(rep_scale)
+        e = self._nb.mc_energies(pos, box_t, neighbors, exact, s)
+        atom_s = cellpair.atom_scales(s, pos.shape[0])
+        for term in self._terms:
+            if hasattr(term, "mc_energies"):
+                e = e + term.mc_energies(pos, box_t, atom_s,
+                                         self._ensemble_r)
         return e
 
     # -- state manipulation ---------------------------------------------------
@@ -421,7 +483,8 @@ class Context:
             return
         for _ in range(8):
             nbl = self._nb.cellsort(self._state.positions,
-                                    self._box_arg(self._state.box))
+                                    self._box_arg(self._state.box),
+                                    self._dev_scale(self._state.rep_scale))
             if (nbl.excl_span_exceeded is not None
                     and bool(nbl.excl_span_exceeded)):
                 # an excluded pair already spans >= 2 cells at setup: the
@@ -446,11 +509,40 @@ class Context:
     def _replan_at_box(self) -> None:
         """Make the current box the system's default and recompile: a new
         cell grid, stencil and PME grid (the kernels' device tables and
-        B2's plan follow the new config)."""
-        box = self._state.box.double().cpu().numpy()
+        B2's plan follow the new config).
+
+        With per-replica scales the state's box is the template box,
+        which a replan at it would plan the same grid for (the JAX
+        Context does so, ROADMAP.md C17): the template box becomes the
+        smallest replica's, box * min(s), and every scale is divided by
+        min(s), so each replica keeps its box and the grid's window
+        covers r_list in all of them.  Where that box is too small for a
+        regular grid, this raises."""
+        st = self._state
+        box = st.box.double().cpu().numpy()
+        if st.rep_scale is not None:
+            s = st.rep_scale.double()
+            s_min = float(torch.min(s))
+            box = box * s_min
+            st = st.replace(rep_scale=s / s_min,
+                            box=torch.as_tensor(box, dtype=st.box.dtype,
+                                                device=st.box.device))
+        old = self._system.getDefaultPeriodicBoxVectors()
         self._system.setDefaultPeriodicBoxVectors(
             tuple(box[0]), tuple(box[1]), tuple(box[2]))
-        self._build_potential()
+        try:
+            self._build_potential()
+        except ValueError as err:
+            if st.rep_scale is None:
+                raise
+            self._system.setDefaultPeriodicBoxVectors(*old)
+            self._build_potential()
+            raise RuntimeError(
+                "flat-ensemble NPT: a replica shrank past the cell "
+                "stencil's slack and the grid cannot be planned again at "
+                f"its box {np.diagonal(box).tolist()} nm ({err}); a "
+                "replica box this small needs the dense strategy") from err
+        self._state = st.replace(neighbors=None)
 
     def _grow_pair_capacity(self, positions=None) -> None:
         """Grow the cell capacity from the occupancy measured at
@@ -462,7 +554,7 @@ class Context:
         if positions is None:
             positions = self._state.positions
         frac = boxutils.frac_coords(
-            positions.double().cpu(),
+            cellpair.stored(positions, self._state.rep_scale).cpu(),
             self._box_arg(self._state.box.double().cpu())).numpy()
         grid = np.asarray(cfg.phys_grid)
         frac = frac - np.floor(frac)
@@ -476,15 +568,16 @@ class Context:
         self._nb_options["capacity"] = min(new_cap, self._static.n_atoms)
         self._build_potential()
 
-    def _neighbor_fn(self, positions, box):
-        return self._nb.cellsort(positions, self._box_arg(box))
+    def _neighbor_fn(self, positions, box, rep_scale=None):
+        return self._nb.cellsort(positions, self._box_arg(box),
+                                 self._dev_scale(rep_scale))
 
     def _ensure_forces(self) -> None:
         if not self._forces_valid:
             self._ensure_neighbors()
             st = self._state
             f = self._forces_only(st.positions, st.box, st.neighbors,
-                                  st.pos_err)
+                                  st.pos_err, st.rep_scale)
             self._state = st.replace(forces=f)
             self._forces_valid = True
 
@@ -493,7 +586,8 @@ class Context:
             return
         self._ensure_neighbors()
         st = self._state
-        pe = self._potential(st.positions, st.box, st.neighbors, st.pos_err)
+        pe = self._potential(st.positions, st.box, st.neighbors, st.pos_err,
+                             st.rep_scale)
         self._state = st.replace(potential_energy=pe.to(self._prec.accum))
         self._pe_valid = True
 
@@ -635,20 +729,21 @@ class Context:
         self._ensure_neighbors()
         st = self._state
         box = st.box
+        rs = st.rep_scale
         movable = (spec.inv_mass > 0)[:, None]
         pos = st.positions
         neighbors = st.neighbors
         sort_ref = pos
         half_skin = (0.5 * self._cp_cfg.skin if self._cp_cfg is not None
                      else None)
-        pe_before = float(self._potential(pos, box, neighbors, None))
+        pe_before = float(self._potential(pos, box, neighbors, None, rs))
         vel = torch.zeros_like(pos)
         dt = torch.tensor(1e-4, dtype=pos.dtype, device=pos.device)
         alpha = torch.tensor(0.1, dtype=pos.dtype, device=pos.device)
         n_pos = 0
         self._minimize_sorts = 1
         for _ in range(int(maxIterations)):
-            f = self._forces_only(pos, box, neighbors, None)
+            f = self._forces_only(pos, box, neighbors, None, rs)
             f = torch.where(movable, f, torch.zeros_like(f))
             p = torch.sum(f * vel)
             f_norm = torch.sqrt(torch.sum(f * f))
@@ -682,10 +777,10 @@ class Context:
             if host[0] <= tolerance:
                 break
             if half_skin is not None and host[2] > half_skin * half_skin:
-                neighbors = self._sort_for_minimize(pos, box)
+                neighbors = self._sort_for_minimize(pos, box, rs)
                 sort_ref = pos
                 self._minimize_sorts += 1
-        pe_after = float(self._potential(pos, box, neighbors, None))
+        pe_after = float(self._potential(pos, box, neighbors, None, rs))
         if not pe_after < pe_before:
             return  # never make things worse (already near a minimum)
         self._state = self._state.replace(
@@ -714,11 +809,12 @@ class Context:
         self._pe_valid = False
         self._ke_valid = False
 
-    def _sort_for_minimize(self, positions, box):
+    def _sort_for_minimize(self, positions, box, rep_scale=None):
         """A fresh cell sort at `positions`, the capacity grown until no
         cell overflows."""
         for _ in range(8):
-            nbl = self._nb.cellsort(positions, self._box_arg(box))
+            nbl = self._nb.cellsort(positions, self._box_arg(box),
+                                    self._dev_scale(rep_scale))
             if not bool(nbl.overflow):
                 return nbl
             self._grow_pair_capacity(positions)
@@ -790,7 +886,12 @@ class Context:
                     pos = pos - boxutils.rows_combo(shift, box_t).numpy()[
                         resid]
                 else:
-                    pos = pos - np.floor(centers / box_d)[resid] * box_d
+                    if st.rep_scale is not None:
+                        # each residue in its replica's box
+                        box_d = box_d[None, :] * np.repeat(
+                            st.rep_scale.double().numpy(),
+                            n_res // self._ensemble_r)[:, None]
+                    pos = pos - (np.floor(centers / box_d) * box_d)[resid]
             kw["positions"] = pos
         if velocities:
             kw["velocities"] = st.velocities.double().cpu().numpy()
@@ -838,7 +939,8 @@ class Context:
                 box=old.box, time=old.time, step=old.step,
                 pos_err=old.pos_err, baro_scale=old.baro_scale,
                 baro_naccept=old.baro_naccept,
-                baro_nattempt=old.baro_nattempt, baro_gen=old.baro_gen)
+                baro_nattempt=old.baro_nattempt, baro_gen=old.baro_gen,
+                rep_scale=old.rep_scale)
             if old.eta.shape == st.eta.shape:
                 st = st.replace(eta=old.eta, eta_dot=old.eta_dot,
                                 eta_dot_dot=old.eta_dot_dot)

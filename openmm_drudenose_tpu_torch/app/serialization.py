@@ -11,6 +11,8 @@ such as a grown capacity).  Loading it into a Context of the same System
 continues the saved trajectory bit for bit: the same sort, the same sums
 (on the card every scatter-add sums in a fixed order, ops/scatter.py,
 and both sweep kernels sum in a fixed order), the same random draws.
+Flat-ensemble NPT adds the per-replica box scales and the per-replica
+barostat move sizes and counters.
 The format is the port's own (it does not read the JAX package's
 checkpoints).  numpy arrays only, no pickled objects.
 """
@@ -28,6 +30,7 @@ FORMAT = "openmm_drudenose_tpu_torch checkpoint 1"
 _TENSORS = ("positions", "velocities", "forces", "potential_energy", "box",
             "eta", "eta_dot", "eta_dot_dot", "ke_sum", "group_ke",
             "hardwall_runaway", "pos_err")
+_PER_REPLICA = ("rep_scale", "baro_scale", "baro_naccept", "baro_nattempt")
 _SORT = ("slot_atom", "inv_slot", "overflow", "ref_positions", "image",
          "stencil_invalid", "drift_exceeded", "excl_span_exceeded")
 
@@ -40,9 +43,16 @@ def save_checkpoint(path: str, context) -> None:
         v = getattr(st, name)
         if v is not None:
             arrays[f"state.{name}"] = v.detach().cpu().numpy()
-    arrays["scalars"] = np.asarray(
-        [st.step, st.time, st.baro_scale, st.baro_naccept,
-         st.baro_nattempt], np.float64)
+    if st.rep_scale is None:
+        arrays["scalars"] = np.asarray(
+            [st.step, st.time, st.baro_scale, st.baro_naccept,
+             st.baro_nattempt], np.float64)
+    else:
+        # flat-ensemble NPT: (R,) scales, move sizes and counters
+        arrays["scalars"] = np.asarray([st.step, st.time, 0, 0, 0],
+                                       np.float64)
+        for name in _PER_REPLICA:
+            arrays[f"state.{name}"] = getattr(st, name).numpy()
     arrays["baro_gen"] = st.baro_gen.get_state().numpy()
     arrays["plan_box"] = np.asarray(context._plan_box, np.float64)
     arrays["nb_options"] = np.asarray(json.dumps(context._nb_options,
@@ -98,10 +108,14 @@ def load_checkpoint(path: str, context) -> None:
         neighbors = CellSort(**{
             name: (torch.as_tensor(data[f"sort.{name}"], device=dev)
                    if f"sort.{name}" in data else None) for name in _SORT})
+    baro = dict(baro_scale=float(scale), baro_naccept=int(nacc),
+                baro_nattempt=int(natt), rep_scale=None)
+    if "state.rep_scale" in data:
+        baro = {name: torch.from_numpy(data[f"state.{name}"].copy())
+                for name in _PER_REPLICA}
     context._state = st.replace(
-        step=int(step), time=float(time), baro_scale=float(scale),
-        baro_naccept=int(nacc), baro_nattempt=int(natt), baro_gen=gen,
-        neighbors=neighbors, **kw)
+        step=int(step), time=float(time), baro_gen=gen,
+        neighbors=neighbors, **baro, **kw)
     context._forces_valid = True
     context._ke_valid = True
     context._pe_valid = False

@@ -59,7 +59,15 @@ def state_from_numpy(d: dict, device="cpu") -> SimState:
         bool(np.asarray(hw)) if hw is not None else False, device=device)
     pe = d.get("pos_err")
     kw["pos_err"] = _tensor(pe, device) if pe is not None else None
-    if "baro_scale" in d:
+    if d.get("rep_scale") is not None:
+        # flat-ensemble NPT: (R,) host scales, move sizes and counters
+        kw["rep_scale"] = torch.as_tensor(
+            np.array(d["rep_scale"], np.float64))
+        kw["baro_scale"] = torch.as_tensor(
+            np.array(d["baro_scale"], np.float64))
+        for f in ("baro_naccept", "baro_nattempt"):
+            kw[f] = torch.as_tensor(np.array(d[f], np.int64))
+    elif "baro_scale" in d:
         kw["baro_scale"] = float(np.asarray(d["baro_scale"]))
         kw["baro_naccept"] = int(np.asarray(d["baro_naccept"]))
         kw["baro_nattempt"] = int(np.asarray(d["baro_nattempt"]))

@@ -7,6 +7,8 @@ reference plugin's host loop does.  So does the barostat's state (its
 move size and counters, Python numbers) and the torch.Generator its
 proposals and Metropolis tests draw from: the host chooses the attempt
 steps and reads one accept flag per attempt (integrators/barostat.py).
+A flat-ensemble NPT run keeps its per-replica box scales there too
+(`rep_scale`); the Context holds their device copy.
 """
 
 from __future__ import annotations
@@ -42,11 +44,16 @@ class SimState:
     pos_err: Optional[torch.Tensor] = None
     # MonteCarloBarostat: adaptive volume move size (nm^3, 0 = not yet
     # set), accepted and attempted moves since the last adaptation, and
-    # the host generator of its draws
-    baro_scale: float = 0.0
-    baro_naccept: int = 0
-    baro_nattempt: int = 0
+    # the host generator of its draws; in flat-ensemble NPT the first
+    # three are (R,) host tensors (float64, int64), one a replica
+    baro_scale: Any = 0.0
+    baro_naccept: Any = 0
+    baro_nattempt: Any = 0
     baro_gen: Optional[torch.Generator] = None
+    # flat-ensemble NPT (the JAX core/state.py rep_scale): (R,) float64 on
+    # the host, replica r's box is `box` (the template box) times s_r;
+    # None everywhere else
+    rep_scale: Optional[torch.Tensor] = None
 
     def replace(self, **kw) -> "SimState":
         return dataclasses.replace(self, **kw)

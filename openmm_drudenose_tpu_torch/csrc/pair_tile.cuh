@@ -434,4 +434,26 @@ __global__ void __launch_bounds__(kSumThreads)
   if (threadIdx.x == 0) *out = s[0];
 }
 
+// out[r] = the sum of in[rows[r * m + i]], i = 0 .. m-1, for every row r
+// of the (n_rows, m) index table, each in an order fixed by the table:
+// one CTA of kSumThreads threads a row, as sum_fixed_order.  Launched as
+// <<<n_rows, kSumThreads>>>; the per-replica energies of a flattened
+// ensemble (each row lists the partials of one replica's cells).
+__global__ void __launch_bounds__(kSumThreads)
+    sum_rows_fixed_order(const double* __restrict__ in,
+                         const int* __restrict__ rows, int m,
+                         double* __restrict__ out) {
+  __shared__ double s[kSumThreads];
+  const int* row = rows + (size_t)blockIdx.x * m;
+  double v = 0.0;
+  for (int i = threadIdx.x; i < m; i += kSumThreads) v += in[row[i]];
+  s[threadIdx.x] = v;
+  __syncthreads();
+  for (int w = kSumThreads / 2; w > 0; w >>= 1) {
+    if (threadIdx.x < w) s[threadIdx.x] += s[threadIdx.x + w];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[blockIdx.x] = s[0];
+}
+
 }  // namespace pair_tile

@@ -49,6 +49,20 @@
 // space or the reaction field, as the TPU kernel's method argument), so
 // each kind compiles to its own instantiation.
 //
+// Per-replica box scales (flat-ensemble NPT, kScaled): replica r's box
+// is the template box times s_r.  The fields hold physical cell-local
+// coordinates (position minus s_r times the cell centre and image,
+// forces/cellpair.py::sorted_fields), so the only change is the shift
+// table: (n_replicas, n_off, 3), s_r times the template's, read at the
+// home cell's replica (rep_cell, a small int table a cell).  r^2, the
+// cutoff test, the culling boxes and the forces are then physical, and
+// the pair function and its float32 rounding order are unchanged.  The
+// JAX package runs this path on its XLA sweep in stored coordinates
+// p / s_r (r^2 times s_r^2, forces times s_r); no TPU kernel takes it.
+// kScaled is a template parameter: the unscaled instantiations compile
+// to the code they were.  The scaled energy instantiation's partials are
+// summed per replica (pair_tile::sum_rows_fixed_order).
+//
 // The energy instantiation (sweep_energy) is the same unit loop with the
 // energy walk of pair_tile.cuh: the exact erfc (erfcf) or the reaction
 // field, no forces; each unit's energy, summed in double in a fixed
@@ -85,10 +99,13 @@ constexpr int kOffsetsPerUnit = 8;  // stencil offsets a work unit
 // row forces into hframe[(cell, part, group)][component][lane].  With
 // kEnergy the unit's energy goes to e_part[unit] (left zero for an empty
 // part) and no force is written.
-template <bool kEnergy, int kCoul>
+// With kScaled the shifts are read at the home cell's replica,
+// shift[3 * (rep_cell[cell] * n_off + o)].
+template <bool kEnergy, int kCoul, bool kScaled>
 __global__ void __launch_bounds__(kWarps * 32)
     sweep_kernel(Fields fd, const int* __restrict__ nbr,
                  const float* __restrict__ shift,
+                 const int* __restrict__ rep_cell,
                  const int* __restrict__ check_excl,
                  float* __restrict__ rframe, float* __restrict__ hframe,
                  double* __restrict__ e_part, int* __restrict__ next_unit,
@@ -117,11 +134,12 @@ __global__ void __launch_bounds__(kWarps * 32)
         pair_tile::stage(th, fd, cell * cap + a0, na, 0.f, 0.f, 0.f, lane);
     float fx = 0.f, fy = 0.f, fz = 0.f, rx, ry, rz;
     double es = 0.0;
+    const float* sh = shift;
+    if constexpr (kScaled) sh = shift + (size_t)3 * rep_cell[cell] * n_off;
     for (int o = o0; o < min(o0 + kOffsetsPerUnit, n_off); ++o) {
       const int bc = nbr[cell * n_off + o];
       const int nb = fd.count[bc];
-      const float tx = shift[3 * o], ty = shift[3 * o + 1],
-                  tz = shift[3 * o + 2];
+      const float tx = sh[3 * o], ty = sh[3 * o + 1], tz = sh[3 * o + 2];
       const bool chk = check_excl[o] != 0 && p.excl_window > 0;
       // this (cell, part, o)'s frame entry: (3, cap) floats
       float* fo = (kEnergy || o == 0)
@@ -221,13 +239,16 @@ __global__ void gather_kernel(const float* __restrict__ rframe,
   f[3 * s + 2] = fz;
 }
 
-// The launch shared by both instantiations: rframe, hframe, rnbr and f
+// The launch shared by every instantiation: rframe, hframe, rnbr and f
 // (forces) or e_part and e_out (energy) are the outputs' and their work
-// space; the others may be null.
-template <bool kEnergy, int kCoul>
+// space; the others may be null.  kScaled: rep_cell gives each cell's
+// replica, and the energy goes to e_out[0 .. n_rows - 1], row r the sum
+// of the partials listed in rows[r * m .. r * m + m - 1].
+template <bool kEnergy, int kCoul, bool kScaled>
 int launch(const Fields& fd, const void* nbr, const void* rnbr,
-           const void* shift, const void* check_excl, void* rframe,
-           void* hframe, void* f, void* e_part, void* e_out, void* next_unit,
+           const void* shift, const void* rep_cell, const void* check_excl,
+           void* rframe, void* hframe, void* f, void* e_part, void* e_out,
+           void* next_unit, const void* rows, int n_rows, int m,
            int n_cells, int cap, int n_off, const Params& p, int max_ctas,
            void* stream) {
   const long long parts = (cap + 31) / 32;
@@ -236,7 +257,8 @@ int launch(const Fields& fd, const void* nbr, const void* rnbr,
   if (cap < 1 || n_cells < 1 || n_off < 1 || p.n_words < 1 ||
       max_ctas < 1 || 3LL * n_cells * cap > INT32_MAX ||
       (long long)n_cells * cap * p.n_words > INT32_MAX ||
-      (long long)n_cells * n_off > INT32_MAX || units > INT32_MAX)
+      (long long)n_cells * n_off > INT32_MAX || units > INT32_MAX ||
+      (kScaled && kEnergy && (n_rows < 1 || m < 1 || rows == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(next_unit, 0, sizeof(int), s);
@@ -246,13 +268,19 @@ int launch(const Fields& fd, const void* nbr, const void* rnbr,
   // as many CTAs as the card holds at once (they loop over the units)
   const int blocks = (int)std::min<long long>(
       (units + kWarps - 1) / kWarps, (long long)max_ctas);
-  sweep_kernel<kEnergy, kCoul><<<blocks, kWarps * 32, 0, s>>>(
-      fd, (const int*)nbr, (const float*)shift, (const int*)check_excl,
-      (float*)rframe, (float*)hframe, (double*)e_part, (int*)next_unit,
-      n_cells, cap, (int)parts, n_off, (int)n_groups, p);
+  sweep_kernel<kEnergy, kCoul, kScaled><<<blocks, kWarps * 32, 0, s>>>(
+      fd, (const int*)nbr, (const float*)shift, (const int*)rep_cell,
+      (const int*)check_excl, (float*)rframe, (float*)hframe,
+      (double*)e_part, (int*)next_unit, n_cells, cap, (int)parts, n_off,
+      (int)n_groups, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if constexpr (kEnergy) {
+  if constexpr (kEnergy && kScaled) {
+    pair_tile::sum_rows_fixed_order<<<n_rows, pair_tile::kSumThreads, 0,
+                                      s>>>((const double*)e_part,
+                                           (const int*)rows, m,
+                                           (double*)e_out);
+  } else if constexpr (kEnergy) {
     pair_tile::sum_fixed_order<<<1, pair_tile::kSumThreads, 0, s>>>(
         (const double*)e_part, (int)units, (double*)e_out);
   } else {
@@ -265,33 +293,47 @@ int launch(const Fields& fd, const void* nbr, const void* rnbr,
   return (int)cudaGetLastError();
 }
 
-// The instantiation of the Coulomb kind `coulomb` (pair_tile::Coulomb).
+// The instantiation of the Coulomb kind `coulomb` (pair_tile::Coulomb),
+// scaled where rep_cell is given.
 template <bool kEnergy>
 int launch_kind(int coulomb, const Fields& fd, const void* nbr,
-                const void* rnbr, const void* shift, const void* check_excl,
-                void* rframe, void* hframe, void* f, void* e_part,
-                void* e_out, void* next_unit, int n_cells, int cap,
-                int n_off, const Params& p, int max_ctas, void* stream) {
+                const void* rnbr, const void* shift, const void* rep_cell,
+                const void* check_excl, void* rframe, void* hframe, void* f,
+                void* e_part, void* e_out, void* next_unit, const void* rows,
+                int n_rows, int m, int n_cells, int cap, int n_off,
+                const Params& p, int max_ctas, void* stream) {
+#define SWEEP_LAUNCH(COUL, SCALED)                                           \
+  launch<kEnergy, COUL, SCALED>(fd, nbr, rnbr, shift, rep_cell, check_excl, \
+                                rframe, hframe, f, e_part, e_out, next_unit, \
+                                rows, n_rows, m, n_cells, cap, n_off, p,     \
+                                max_ctas, stream)
+  const bool scaled = rep_cell != nullptr;
   if (coulomb == pair_tile::kEwald)
-    return launch<kEnergy, pair_tile::kEwald>(
-        fd, nbr, rnbr, shift, check_excl, rframe, hframe, f, e_part, e_out,
-        next_unit, n_cells, cap, n_off, p, max_ctas, stream);
+    return scaled ? SWEEP_LAUNCH(pair_tile::kEwald, true)
+                  : SWEEP_LAUNCH(pair_tile::kEwald, false);
   if (coulomb == pair_tile::kRF)
-    return launch<kEnergy, pair_tile::kRF>(
-        fd, nbr, rnbr, shift, check_excl, rframe, hframe, f, e_part, e_out,
-        next_unit, n_cells, cap, n_off, p, max_ctas, stream);
+    return scaled ? SWEEP_LAUNCH(pair_tile::kRF, true)
+                  : SWEEP_LAUNCH(pair_tile::kRF, false);
+#undef SWEEP_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
-// The kernel function of (energy, coulomb), or null.
-const void* kernel_of(int energy, int coulomb) {
+// The kernel function of (energy, coulomb, scaled), or null.
+template <bool kScaled>
+const void* kernel_of_scaled(int energy, int coulomb) {
   if (coulomb == pair_tile::kEwald)
-    return energy ? (const void*)sweep_kernel<true, pair_tile::kEwald>
-                  : (const void*)sweep_kernel<false, pair_tile::kEwald>;
+    return energy
+               ? (const void*)sweep_kernel<true, pair_tile::kEwald, kScaled>
+               : (const void*)sweep_kernel<false, pair_tile::kEwald, kScaled>;
   if (coulomb == pair_tile::kRF)
-    return energy ? (const void*)sweep_kernel<true, pair_tile::kRF>
-                  : (const void*)sweep_kernel<false, pair_tile::kRF>;
+    return energy ? (const void*)sweep_kernel<true, pair_tile::kRF, kScaled>
+                  : (const void*)sweep_kernel<false, pair_tile::kRF, kScaled>;
   return nullptr;
+}
+
+const void* kernel_of(int energy, int coulomb, int scaled) {
+  return scaled ? kernel_of_scaled<true>(energy, coulomb)
+                : kernel_of_scaled<false>(energy, coulomb);
 }
 
 }  // namespace
@@ -308,9 +350,10 @@ extern "C" int sweep_units(int n_cells, int cap, int n_off) {
 // out[0..3]: registers a thread, static shared memory, the most threads
 // a CTA may have and local (spill) memory a thread, as compiled for the
 // card, of the force (energy = 0) or the energy instantiation of the
-// Coulomb kind `coulomb`.
-extern "C" int sweep_attributes(int* out, int energy, int coulomb) {
-  const void* k = kernel_of(energy, coulomb);
+// Coulomb kind `coulomb`, with per-replica scales where `scaled`.
+extern "C" int sweep_attributes(int* out, int energy, int coulomb,
+                                int scaled) {
+  const void* k = kernel_of(energy, coulomb, scaled);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, k);
@@ -323,10 +366,11 @@ extern "C" int sweep_attributes(int* out, int energy, int coulomb) {
 }
 
 // out[0..1]: the current card's SMs and the CTAs an SM holds at once of
-// the (energy, coulomb) instantiation; the caller reads them once and
-// passes SMs x CTAs to sweep_forces / sweep_energy as max_ctas.
-extern "C" int sweep_occupancy(int* out, int energy, int coulomb) {
-  const void* k = kernel_of(energy, coulomb);
+// the (energy, coulomb, scaled) instantiation; the caller reads them
+// once and passes SMs x CTAs to sweep_forces / sweep_energy as max_ctas.
+extern "C" int sweep_occupancy(int* out, int energy, int coulomb,
+                               int scaled) {
+  const void* k = kernel_of(energy, coulomb, scaled);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
@@ -341,53 +385,59 @@ extern "C" int sweep_occupancy(int* out, int energy, int coulomb) {
 
 // f: (n_slots, 3), every entry written; ew: (n_slots, n_words); rnbr:
 // (n_cells, n_off), the cell whose offset-o neighbour is the row's cell;
-// rframe: n_cells * parts * (n_off - 1) * 3 * cap floats and hframe:
-// sweep_units() * 96 floats of work space (written before they are
-// read); next_unit: one int of work space on the card (set to 0 here);
-// coulomb: pair_tile::Coulomb (krf and crf read for the reaction field
-// only); max_ctas: the CTAs the card holds at once (sweep_occupancy).
+// shift: (n_off, 3), or (n_replicas, n_off, 3) with rep_cell (n_cells,),
+// each cell's replica (null: no per-replica scales); rframe: n_cells *
+// parts * (n_off - 1) * 3 * cap floats and hframe: sweep_units() * 96
+// floats of work space (written before they are read); next_unit: one
+// int of work space on the card (set to 0 here); coulomb:
+// pair_tile::Coulomb (krf and crf read for the reaction field only);
+// max_ctas: the CTAs the card holds at once (sweep_occupancy).
 extern "C" int sweep_forces(const void* x, const void* y, const void* z,
                             const void* q, const void* sig, const void* seps,
                             const void* gid, const void* ew,
                             const void* count, const void* nbr,
                             const void* rnbr, const void* shift,
-                            const void* check_excl, void* rframe,
-                            void* hframe, void* f, void* next_unit,
-                            int n_cells, int cap, int n_off, float cutoff2,
-                            float alpha, float coulomb_scale,
-                            int excl_window, int n_words, int coulomb,
-                            float krf, float crf, int max_ctas,
-                            void* stream) {
+                            const void* rep_cell, const void* check_excl,
+                            void* rframe, void* hframe, void* f,
+                            void* next_unit, int n_cells, int cap,
+                            int n_off, float cutoff2, float alpha,
+                            float coulomb_scale, int excl_window,
+                            int n_words, int coulomb, float krf, float crf,
+                            int max_ctas, void* stream) {
   Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
             (const float*)q,   (const float*)sig,  (const float*)seps,
             (const int*)gid,   (const int*)ew,     (const int*)count};
   Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words, krf, crf};
-  return launch_kind<false>(coulomb, fd, nbr, rnbr, shift, check_excl,
-                            rframe, hframe, f, nullptr, nullptr, next_unit,
-                            n_cells, cap, n_off, p, max_ctas, stream);
+  return launch_kind<false>(coulomb, fd, nbr, rnbr, shift, rep_cell,
+                            check_excl, rframe, hframe, f, nullptr, nullptr,
+                            next_unit, nullptr, 0, 0, n_cells, cap, n_off, p,
+                            max_ctas, stream);
 }
 
-// The direct-space energy into e_out (one double on the card):
-// e_part: sweep_units() doubles of work space (zeroed here), one partial
-// a work unit, summed by sum_fixed_order.  Other arguments as
-// sweep_forces.
+// The direct-space energy into e_out on the card: e_part: sweep_units()
+// doubles of work space (zeroed here), one partial a work unit.  Without
+// rep_cell one double, the partials summed by sum_fixed_order; with it
+// (shift and rep_cell as sweep_forces) n_rows doubles, the per-replica
+// energies, row r the partials listed in rows[r * m .. r * m + m - 1]
+// (sum_rows_fixed_order).  Other arguments as sweep_forces.
 extern "C" int sweep_energy(const void* x, const void* y, const void* z,
                             const void* q, const void* sig, const void* seps,
                             const void* gid, const void* ew,
                             const void* count, const void* nbr,
-                            const void* shift, const void* check_excl,
-                            void* e_part, void* e_out, void* next_unit,
+                            const void* shift, const void* rep_cell,
+                            const void* check_excl, void* e_part,
+                            void* e_out, void* next_unit, const void* rows,
                             int n_cells, int cap, int n_off, float cutoff2,
                             float alpha, float coulomb_scale,
                             int excl_window, int n_words, int coulomb,
-                            float krf, float crf, int max_ctas,
-                            void* stream) {
+                            float krf, float crf, int max_ctas, int n_rows,
+                            int m, void* stream) {
   Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
             (const float*)q,   (const float*)sig,  (const float*)seps,
             (const int*)gid,   (const int*)ew,     (const int*)count};
   Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words, krf, crf};
-  return launch_kind<true>(coulomb, fd, nbr, nullptr, shift, check_excl,
-                           nullptr, nullptr, nullptr, e_part, e_out,
-                           next_unit, n_cells, cap, n_off, p, max_ctas,
-                           stream);
+  return launch_kind<true>(coulomb, fd, nbr, nullptr, shift, rep_cell,
+                           check_excl, nullptr, nullptr, nullptr, e_part,
+                           e_out, next_unit, rows, n_rows, m, n_cells, cap,
+                           n_off, p, max_ctas, stream);
 }

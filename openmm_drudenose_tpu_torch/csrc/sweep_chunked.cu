@@ -63,6 +63,15 @@
 // band.  Without bands the period is the grid and the chunks are the
 // grid's.
 //
+// Per-replica box scales (flat-ensemble NPT, kScaled; see sweep.cu):
+// the fields are physical and the shift table is (n_replicas, n_off, 3);
+// a chunk lies in one band, so its replica, (band x) * (y bands) * (z
+// bands) + ..., is known once per CTA and the chunk reads that
+// replica's shifts.  The scaled energy instantiation's partials (one a
+// home cell) are summed per replica (pair_tile::sum_rows_fixed_order).
+// kScaled is a template parameter: the unscaled instantiations compile
+// to the code they were.
+//
 // Plain C interface for ctypes; the launch returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -102,7 +111,8 @@ constexpr int kMaxWarps = 8;
 // cell's pair energies (the energy walk of pair_tile.cuh) and writes
 // their sum to e_part[chunk * home cells + h], zero for an empty cell.
 // kCoul: the Coulomb kind (pair_tile::Coulomb).
-template <bool kEnergy, int kCoul>
+// With kScaled, shift is (replicas, n_off, 3), read at the chunk's band.
+template <bool kEnergy, int kCoul, bool kScaled>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     chunk_sweep_kernel(Fields fd, const int* __restrict__ offsets,
                        const float* __restrict__ shift,
@@ -132,6 +142,13 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
             baz = (chz / pl.kz) * pl.pz;
   const int lx = (chx % pl.kx) * pl.bx + hx, ly = (chy % pl.ky) * pl.by + hy,
             lz = (chz % pl.kz) * pl.bz + hz;
+  const float* sh = shift;
+  if constexpr (kScaled) {
+    const int rep = ((chx / pl.kx) * (pl.gy / pl.py) + chy / pl.ky) *
+                        (pl.gz / pl.pz) +
+                    chz / pl.kz;
+    sh = shift + (size_t)3 * rep * n_off;
+  }
   const bool home_ok = lx < pl.px && ly < pl.py && lz < pl.pz;
   const int cell = ((bax + lx) * pl.gy + bay + ly) * pl.gz + baz + lz;
   const int na = home_ok ? fd.count[cell] : 0;   // warp-uniform
@@ -153,8 +170,7 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     if (na > 0) {
       const int ox = offsets[3 * o], oy = offsets[3 * o + 1],
                 oz = offsets[3 * o + 2];
-      const float tx = shift[3 * o], ty = shift[3 * o + 1],
-                  tz = shift[3 * o + 2];
+      const float tx = sh[3 * o], ty = sh[3 * o + 1], tz = sh[3 * o + 2];
       const bool chk = check_excl[o] != 0 && p.excl_window > 0;
       const int bc = ((bax + wrap(lx + ox, pl.px)) * pl.gy + bay +
                       wrap(ly + oy, pl.py)) * pl.gz + baz +
@@ -263,15 +279,25 @@ Plan make_plan(const int* v) {
   return p;
 }
 
-// The kernel function of (energy, coulomb), or null.
-const void* kernel_of(int energy, int coulomb) {
+// The kernel function of (energy, coulomb, scaled), or null.
+template <bool kScaled>
+const void* kernel_of_scaled(int energy, int coulomb) {
   if (coulomb == pair_tile::kEwald)
-    return energy ? (const void*)chunk_sweep_kernel<true, pair_tile::kEwald>
-                  : (const void*)chunk_sweep_kernel<false, pair_tile::kEwald>;
+    return energy ? (const void*)
+                        chunk_sweep_kernel<true, pair_tile::kEwald, kScaled>
+                  : (const void*)
+                        chunk_sweep_kernel<false, pair_tile::kEwald, kScaled>;
   if (coulomb == pair_tile::kRF)
-    return energy ? (const void*)chunk_sweep_kernel<true, pair_tile::kRF>
-                  : (const void*)chunk_sweep_kernel<false, pair_tile::kRF>;
+    return energy
+               ? (const void*)chunk_sweep_kernel<true, pair_tile::kRF, kScaled>
+               : (const void*)
+                     chunk_sweep_kernel<false, pair_tile::kRF, kScaled>;
   return nullptr;
+}
+
+const void* kernel_of(int energy, int coulomb, int scaled) {
+  return scaled ? kernel_of_scaled<true>(energy, coulomb)
+                : kernel_of_scaled<false>(energy, coulomb);
 }
 
 }  // namespace
@@ -279,9 +305,10 @@ const void* kernel_of(int energy, int coulomb) {
 // out[0..3]: registers a thread, static shared memory, the most threads
 // a CTA may have and local (spill) memory a thread, as compiled for the
 // card, of the force (energy = 0) or the energy instantiation of the
-// Coulomb kind `coulomb`.
-extern "C" int chunk_sweep_attributes(int* out, int energy, int coulomb) {
-  const void* k = kernel_of(energy, coulomb);
+// Coulomb kind `coulomb`, with per-replica scales where `scaled`.
+extern "C" int chunk_sweep_attributes(int* out, int energy, int coulomb,
+                                      int scaled) {
+  const void* k = kernel_of(energy, coulomb, scaled);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, k);
@@ -321,8 +348,8 @@ extern "C" int chunk_sweep_smem_bytes(const int* plan, int cap) {
                4 * 3 * cap);
 }
 
-// The checks and the sweep launch shared by both instantiations.
-template <bool kEnergy, int kCoul>
+// The checks and the sweep launch shared by every instantiation.
+template <bool kEnergy, int kCoul, bool kScaled>
 int launch_sweep(const Fields& fd, const void* offsets, const void* shift,
                  const void* check_excl, void* frames, void* e_part,
                  const int* plan, int cap, int n_off, const Params& p,
@@ -344,35 +371,43 @@ int launch_sweep(const Fields& fd, const void* offsets, const void* shift,
     return (int)cudaErrorInvalidValue;
   const int smem = chunk_sweep_smem_bytes(plan, cap);
   cudaError_t err = cudaFuncSetAttribute(
-      chunk_sweep_kernel<kEnergy, kCoul>,
+      chunk_sweep_kernel<kEnergy, kCoul, kScaled>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  chunk_sweep_kernel<kEnergy, kCoul><<<(int)n_chunks, nh * 32, smem, s>>>(
-      fd, (const int*)offsets, (const float*)shift, (const int*)check_excl,
-      (float*)frames, (double*)e_part, pl, cap, n_off, p);
+  chunk_sweep_kernel<kEnergy, kCoul, kScaled>
+      <<<(int)n_chunks, nh * 32, smem, s>>>(
+          fd, (const int*)offsets, (const float*)shift,
+          (const int*)check_excl, (float*)frames, (double*)e_part, pl, cap,
+          n_off, p);
   return (int)cudaGetLastError();
 }
 
-// launch_sweep of the Coulomb kind `coulomb` (pair_tile::Coulomb).
+// launch_sweep of the Coulomb kind `coulomb` (pair_tile::Coulomb), with
+// per-replica scales where `scaled`.
 template <bool kEnergy>
-int launch_kind(int coulomb, const Fields& fd, const void* offsets,
-                const void* shift, const void* check_excl, void* frames,
-                void* e_part, const int* plan, int cap, int n_off,
-                const Params& p, cudaStream_t s) {
+int launch_kind(int coulomb, int scaled, const Fields& fd,
+                const void* offsets, const void* shift,
+                const void* check_excl, void* frames, void* e_part,
+                const int* plan, int cap, int n_off, const Params& p,
+                cudaStream_t s) {
+#define CHUNK_LAUNCH(COUL, SCALED)                                         \
+  launch_sweep<kEnergy, COUL, SCALED>(fd, offsets, shift, check_excl,     \
+                                      frames, e_part, plan, cap, n_off, p, \
+                                      s)
   if (coulomb == pair_tile::kEwald)
-    return launch_sweep<kEnergy, pair_tile::kEwald>(
-        fd, offsets, shift, check_excl, frames, e_part, plan, cap, n_off, p,
-        s);
+    return scaled ? CHUNK_LAUNCH(pair_tile::kEwald, true)
+                  : CHUNK_LAUNCH(pair_tile::kEwald, false);
   if (coulomb == pair_tile::kRF)
-    return launch_sweep<kEnergy, pair_tile::kRF>(
-        fd, offsets, shift, check_excl, frames, e_part, plan, cap, n_off, p,
-        s);
+    return scaled ? CHUNK_LAUNCH(pair_tile::kRF, true)
+                  : CHUNK_LAUNCH(pair_tile::kRF, false);
+#undef CHUNK_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
 // plan: the 21 ints of Plan, on the host.  frames: n_chunks * nf * 3 * cap
 // floats of work space (zeroed and filled by the sweep); f: (n_slots, 3);
-// ew: (n_slots, n_words).
+// ew: (n_slots, n_words); scaled: shift is (replicas, n_off, 3), one
+// table a replica band (per-replica box scales).
 extern "C" int chunk_sweep_forces(
     const void* x, const void* y, const void* z, const void* q,
     const void* sig, const void* seps, const void* gid, const void* ew,
@@ -381,14 +416,15 @@ extern "C" int chunk_sweep_forces(
     const void* tab_z, void* frames, void* f, const int* plan, int lx,
     int ly, int lz, int cap, int n_off, float cutoff2, float alpha,
     float coulomb_scale, int excl_window, int n_words, int coulomb,
-    float krf, float crf, void* stream) {
+    float krf, float crf, int scaled, void* stream) {
   Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
             (const float*)q,   (const float*)sig,  (const float*)seps,
             (const int*)gid,   (const int*)ew,     (const int*)count};
   Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words, krf, crf};
   cudaStream_t s = (cudaStream_t)stream;
-  int err = launch_kind<false>(coulomb, fd, offsets, shift, check_excl,
-                               frames, nullptr, plan, cap, n_off, p, s);
+  int err = launch_kind<false>(coulomb, scaled, fd, offsets, shift,
+                               check_excl, frames, nullptr, plan, cap, n_off,
+                               p, s);
   if (err != 0) return err;
   const Plan pl = make_plan(plan);
   const long long n_slots = (long long)pl.gx * pl.gy * pl.gz * cap;
@@ -398,29 +434,42 @@ extern "C" int chunk_sweep_forces(
   return (int)cudaGetLastError();
 }
 
-// The direct-space energy into e_out (one double on the card): e_part is
-// n_chunks * home cells a chunk doubles of work space, one partial a
-// home cell (every one written), summed by sum_fixed_order.  Other
-// arguments as chunk_sweep_forces.
+// The direct-space energy into e_out on the card: e_part is n_chunks *
+// home cells a chunk doubles of work space, one partial a home cell
+// (every one written).  Unscaled: one double, the partials summed by
+// sum_fixed_order.  Scaled (shift as chunk_sweep_forces): n_rows
+// doubles, the per-replica energies, row r the partials listed in
+// rows[r * m .. r * m + m - 1] (sum_rows_fixed_order).  Other arguments
+// as chunk_sweep_forces.
 extern "C" int chunk_sweep_energy(
     const void* x, const void* y, const void* z, const void* q,
     const void* sig, const void* seps, const void* gid, const void* ew,
     const void* count, const void* offsets, const void* shift,
-    const void* check_excl, void* e_part, void* e_out, const int* plan,
-    int cap, int n_off, float cutoff2, float alpha, float coulomb_scale,
-    int excl_window, int n_words, int coulomb, float krf, float crf,
-    void* stream) {
+    const void* check_excl, void* e_part, void* e_out, const void* rows,
+    const int* plan, int cap, int n_off, float cutoff2, float alpha,
+    float coulomb_scale, int excl_window, int n_words, int coulomb,
+    float krf, float crf, int scaled, int n_rows, int m, void* stream) {
   Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
             (const float*)q,   (const float*)sig,  (const float*)seps,
             (const int*)gid,   (const int*)ew,     (const int*)count};
   Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words, krf, crf};
   cudaStream_t s = (cudaStream_t)stream;
-  int err = launch_kind<true>(coulomb, fd, offsets, shift, check_excl,
-                              nullptr, e_part, plan, cap, n_off, p, s);
+  if (scaled && (n_rows < 1 || m < 1 || rows == nullptr))
+    return (int)cudaErrorInvalidValue;
+  int err = launch_kind<true>(coulomb, scaled, fd, offsets, shift,
+                              check_excl, nullptr, e_part, plan, cap, n_off,
+                              p, s);
   if (err != 0) return err;
   const Plan pl = make_plan(plan);
-  const int n_part = pl.nbx * pl.nby * pl.nbz * pl.bx * pl.by * pl.bz;
-  pair_tile::sum_fixed_order<<<1, pair_tile::kSumThreads, 0, s>>>(
-      (const double*)e_part, n_part, (double*)e_out);
+  if (scaled) {
+    pair_tile::sum_rows_fixed_order<<<n_rows, pair_tile::kSumThreads, 0,
+                                      s>>>((const double*)e_part,
+                                           (const int*)rows, m,
+                                           (double*)e_out);
+  } else {
+    const int n_part = pl.nbx * pl.nby * pl.nbz * pl.bx * pl.by * pl.bz;
+    pair_tile::sum_fixed_order<<<1, pair_tile::kSumThreads, 0, s>>>(
+        (const double*)e_part, n_part, (double*)e_out);
+  }
   return (int)cudaGetLastError();
 }

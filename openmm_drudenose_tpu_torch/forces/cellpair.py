@@ -27,6 +27,18 @@ binned in the replicas' shared box frame and shifted into its bands, the
 stencil wraps modulo the periods inside each band (`neighbor_map`), and
 the centres and shifts are one replica's, so replicas never read each
 other and the kernels see one grid.
+
+Flat-ensemble NPT (the JAX package's SimState.rep_scale): replica r's box
+is the template box times s_r, on the one template grid.  Atoms are
+binned at p / s_r in the template frame (`stored`), formed in float64;
+the stencil latch reads r_list / min(s) (the JAX :462-463).  The fields
+stay physical: an atom's cell-local coordinate is p - s_r (image @ box +
+centre), formed in float64 and rounded once, and offset o's shift in
+replica r is s_r times the template's, an (R, n_off, 3) table
+(`offset_shifts` with the scales).  r^2, the cutoff test and the forces
+are then physical as they stand; the JAX package sweeps the stored
+coordinates instead, with r^2 times s_r^2 and the forces times s_r
+(:714-716, :874-877).
 `pair_tiles` is the plain pair sum and `sweep` the energy+force sum over
 it, with Ewald real-space or reaction-field Coulomb (`make_pair_eg`);
 ops/sweep.py and ops/sweep_chunked.py hold the hand-written kernels.
@@ -290,15 +302,41 @@ def build_exclusion_words(n_atoms: int, exc_i, exc_j, W: int,
     return words.astype(np.int32)
 
 
+def atom_scales(rep_scale, n_atoms: int):
+    """(N,) each atom's replica scale (replica-major atoms, float64)."""
+    R = rep_scale.shape[0]
+    return torch.repeat_interleave(rep_scale.double(), n_atoms // R)
+
+
+def cell_scales(rep_scale, cfg: CellPairConfig):
+    """(n_cells,) the scale of each cell's replica (float64)."""
+    rep = torch.as_tensor(rep_of_cell(cfg), device=rep_scale.device)
+    return rep_scale.double()[rep]
+
+
+def stored(positions, rep_scale):
+    """Flat-ensemble NPT stored coordinates p / s_r in float64 (the
+    frame of the shared template grid); `positions` unchanged (float64)
+    without scales."""
+    p = positions.double()
+    if rep_scale is None:
+        return p
+    return p / atom_scales(rep_scale.to(p.device), p.shape[0])[:, None]
+
+
 def build_cellsort(positions, box, cfg: CellPairConfig,
-                   excl_ij=None) -> CellSort:
+                   excl_ij=None, rep_scale=None) -> CellSort:
     """Bin atoms into cells and fill the slot tables.  `box`: the (3,)
     diagonal, or the (3, 3) matrix of a triclinic config (binned by
     fractional coordinates formed in float64, the stencil latch in
     plane widths).  `excl_ij` (the excluded pairs as index tensors)
     switches on the excl-span latch.  An embedded ensemble bins every
     atom in the replicas' shared box frame on one replica's grid and
-    shifts it into the bands of its replica (atom // n0)."""
+    shifts it into the bands of its replica (atom // n0).  rep_scale
+    ((R,) float64, flat-ensemble NPT): atoms are binned at their stored
+    coordinates p / s_r (`stored`), the stencil latch reads the smallest
+    replica box, and ref_positions (the drift reference) are stored
+    coordinates."""
     n = positions.shape[0]
     dev = positions.device
     dtype = positions.dtype
@@ -306,10 +344,15 @@ def build_cellsort(positions, box, cfg: CellPairConfig,
     C = cfg.capacity
     n_cells = cfg.n_cells
     gridf = torch.as_tensor(cfg.phys_grid, dtype=dtype, device=dev)
+    if rep_scale is not None:
+        positions = stored(positions, rep_scale)
 
     # the static stencil covers r_list only while window * width / grid
-    # >= r_list (a shrinking box could break it)
+    # >= r_list (a shrinking box could break it); per-replica scales:
+    # the smallest replica box, r_list / min(s) in the template frame
     widths = boxutils.plane_widths(box)
+    if rep_scale is not None:
+        widths = widths * torch.min(rep_scale).to(dev, widths.dtype)
     wcell = torch.as_tensor(cfg.window, dtype=dtype, device=dev) \
         * widths / gridf
     stencil_invalid = torch.any(wcell < cfg.r_list)
@@ -369,7 +412,7 @@ def build_cellsort(positions, box, cfg: CellPairConfig,
 
 
 def sorted_fields(params, positions, box, cellsort: CellSort,
-                  cfg: CellPairConfig, exact=None) -> dict:
+                  cfg: CellPairConfig, exact=None, rep_scale=None) -> dict:
     """Per-slot fields in cell-major order, each (n_cells * C,): cell-local
     coordinates x/y/z (box-frame position minus cell centre), charge q,
     sigma `sig`, sqrt(epsilon) `seps`, atom index `gid` (negative and
@@ -383,7 +426,11 @@ def sorted_fields(params, positions, box, cellsort: CellSort,
     a float32 subtraction of rounded cell centres would pass on to every
     pair distance.  `exact` (float64 positions, the float32 ones plus the
     integrator's compensation) replaces positions there, so the sweep
-    sees the positions the integrator carries, not their rounding."""
+    sees the positions the integrator carries, not their rounding.
+
+    rep_scale ((R,) float64, flat-ensemble NPT): replica r's image and
+    centres are s_r times the template's, so the fields are physical
+    (p - s_r (image @ box + centre), in float64, rounded once)."""
     n = positions.shape[0]
     sa = cellsort.slot_atom
     pad = sa >= n
@@ -391,8 +438,10 @@ def sorted_fields(params, positions, box, cellsort: CellSort,
     dtype = positions.dtype
     dev = positions.device
     box64 = box.double()
-    pos = (positions.double() if exact is None else exact) \
-        - boxutils.rows_combo(cellsort.image.double(), box64)
+    wrap = boxutils.rows_combo(cellsort.image.double(), box64)
+    if rep_scale is not None:
+        wrap = wrap * atom_scales(rep_scale.to(dev), n)[:, None]
+    pos = (positions.double() if exact is None else exact) - wrap
     c3 = torch.as_tensor(local_c3(cfg), dtype=torch.float64,
                          device=dev) + 0.5
     if cfg.triclinic:
@@ -401,6 +450,8 @@ def sorted_fields(params, positions, box, cellsort: CellSort,
         h = box64 / torch.as_tensor(cfg.phys_grid, dtype=torch.float64,
                                     device=dev)
         centers = c3 * h
+    if rep_scale is not None:
+        centers = centers * cell_scales(rep_scale.to(dev), cfg)[:, None]
     centers = centers.repeat_interleave(cfg.capacity, dim=0)    # (S, 3)
     out = {}
     for c, name in enumerate("xyz"):
@@ -430,10 +481,12 @@ def _grid_inv(cfg: CellPairConfig, dev) -> torch.Tensor:
                            device=dev)
 
 
-def offset_shifts(cfg: CellPairConfig, box) -> torch.Tensor:
+def offset_shifts(cfg: CellPairConfig, box, rep_scale=None) -> torch.Tensor:
     """(n_off, 3) per-offset image shift, o * h (h = box / grid, one
     replica's grid) for a diagonal and (o / g) @ box for a triclinic
-    matrix, formed in float64 and rounded once."""
+    matrix, formed in float64 and rounded once.  With rep_scale ((R,),
+    flat-ensemble NPT) an (R, n_off, 3) table: replica r's shifts are
+    s_r times the template's."""
     box64 = box.double()
     offs = torch.as_tensor(cfg.offsets, dtype=torch.float64,
                            device=box.device)
@@ -442,7 +495,18 @@ def offset_shifts(cfg: CellPairConfig, box) -> torch.Tensor:
                                    box64).to(box.dtype)
     h = box64 / torch.as_tensor(cfg.phys_grid, dtype=torch.float64,
                                 device=box.device)
+    if rep_scale is not None:
+        s = rep_scale.to(box.device, torch.float64)
+        return (s[:, None, None] * (offs * h)[None]).to(box.dtype)
     return (offs * h).to(box.dtype)
+
+
+def replica_cells(cfg: CellPairConfig) -> np.ndarray:
+    """(R, cells a replica): each replica's cells in ascending order
+    (the per-replica energy sums run over them in this order)."""
+    rep = rep_of_cell(cfg)
+    order = np.argsort(rep, kind="stable")
+    return order.reshape(cfg.n_replicas, -1)
 
 
 def erfc_approx(x):
@@ -501,16 +565,18 @@ TILE_ELEMS = 1 << 19
 def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
                coulomb_scale: float, with_energy: bool = True,
                excl_skip: bool = False, erfc_fn=None, method: str = "ewald",
-               krf: float = 0.0, crf: float = 0.0):
+               krf: float = 0.0, crf: float = 0.0, cell_energy=False):
     """The half-stencil pair sum, one chunk of offsets at a time.
 
     Yields (ob, b, g2, d, e) per chunk: the offset indices `ob` (the self
     offset alone first), the neighbour cell of every cell at each of them
     `b` (nc, P), the pair factor g2 = -2 dE/dr^2 with excluded and
     out-of-range pairs zeroed (nc, C, P*C), the displacements d = a - b
-    per component and the chunk's energy (None without with_energy).  A
-    pair's force on the home slot is g2 * d, its reaction on the
-    neighbour slot -g2 * d.  excl_skip drops the exclusion test at offsets
+    per component and the chunk's energy (None without with_energy; with
+    cell_energy each home cell's, (nc,)).  shifts: (n_off, 3), or
+    (R, n_off, 3) per replica (flat-ensemble NPT), read at each home
+    cell's replica.  A pair's force on the home slot is g2 * d, its
+    reaction on the neighbour slot -g2 * d.  excl_skip drops the exclusion test at offsets
     with any |o| >= 2, as the kernels do (sound while the cell sort's
     excl-span latch stays clear).  method, krf, crf: the Coulomb kind
     (make_pair_eg).  erfc_fn defaults to the exact erfc; the kernels'
@@ -532,6 +598,9 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
     nbr = torch.as_tensor(cfg.nbr_map, device=dev)
     qa = coulomb_scale * q
     far = np.max(np.abs(cfg.offsets), axis=1) >= 2
+    if shifts.dim() == 3:
+        # each home cell's replica's table: (nc, n_off, 3)
+        shifts = shifts[torch.as_tensor(rep_of_cell(cfg), device=dev)]
 
     P_max = max(1, TILE_ELEMS // (nc * C * C))
     chunks = [[0]]
@@ -542,10 +611,11 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
         P = len(ob)
         obt = torch.as_tensor(ob, device=dev)
         b = nbr[:, obt]                                       # (nc, P)
-        t = shifts[obt]                                       # (P, 3)
+        # (1, P, 3), or (nc, P, 3) per home cell
+        t = shifts[obt][None] if shifts.dim() == 2 else shifts[:, obt]
         d = []
         for comp, src in enumerate((x, y, z)):
-            bv = (src[b] + t[None, :, comp:comp + 1]).reshape(nc, P * C)
+            bv = (src[b] + t[:, :, comp:comp + 1]).reshape(nc, P * C)
             d.append(src[:, :, None] - bv[:, None, :])        # (nc, C, P*C)
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
         valid = r2 < cutoff2
@@ -581,26 +651,32 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
         e_chunk = None
         if with_energy:
             factor = 0.5 if self_block else 1.0
-            e_chunk = factor * torch.sum(torch.where(keep, e, zero))
+            kept = torch.where(keep, e, zero)
+            e_chunk = factor * (torch.sum(kept, dim=(1, 2)) if cell_energy
+                                else torch.sum(kept))
         yield ob, b, g2, d, e_chunk
 
 
 def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
           coulomb_scale: float, with_energy: bool = True,
           excl_skip: bool = False, erfc_fn=None, method: str = "ewald",
-          krf: float = 0.0, crf: float = 0.0):
+          krf: float = 0.0, crf: float = 0.0, per_replica: bool = False):
     """Plain direct-space sum over the half stencil (pair_tiles), each
     reaction added straight onto its neighbour slot.
 
-    Returns (energy, slot forces (n_cells * C, 3))."""
+    Returns (energy, slot forces (n_cells * C, 3)); with per_replica the
+    energy is (R,), each replica's cells summed in ascending order
+    (`replica_cells`).  shifts: as pair_tiles."""
     nc, C = cfg.n_cells, cfg.capacity
     dtype, dev = fields["x"].dtype, fields["x"].device
     fx, fy, fz = (torch.zeros((nc, C), dtype=dtype, device=dev)
                   for _ in range(3))
-    energy = torch.zeros((), dtype=dtype, device=dev)
+    energy = torch.zeros((nc,) if per_replica else (), dtype=dtype,
+                         device=dev)
     for ob, b, g2, d, e in pair_tiles(fields, cfg, shifts, alpha,
                                       coulomb_scale, with_energy,
-                                      excl_skip, erfc_fn, method, krf, crf):
+                                      excl_skip, erfc_fn, method, krf, crf,
+                                      cell_energy=per_replica):
         if e is not None:
             energy = energy + e
         fa = [torch.sum(g2 * dc, dim=2) for dc in d]
@@ -613,4 +689,7 @@ def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
                     scatter.index_add_(fc, b[:, p], react[:, p])
     f_slots = torch.stack([fx.reshape(-1), fy.reshape(-1), fz.reshape(-1)],
                           dim=1)
+    if per_replica:
+        rows = torch.as_tensor(replica_cells(cfg), device=dev)
+        energy = torch.sum(energy[rows], dim=1)
     return energy, f_slots

@@ -149,8 +149,10 @@ class DrudeTerm:
         self.nbthole = None
 
     def energy_forces(self, positions, box=None, pos_err=None,
-                      with_forces=True):
-        """(energy, forces (N, 3); None without with_forces)."""
+                      with_forces=True, scale=None):
+        """(energy, forces (N, 3); None without with_forces).  scale
+        ((N,) float64, flat-ensemble NPT): the NBTHOLE pairs are
+        minimum-imaged in their replica's box."""
         delta = positions[self.drude] - positions[self.parent]
         if pos_err is not None:
             # two-float compensation (core/state.py): the dropped low bits
@@ -164,7 +166,7 @@ class DrudeTerm:
                     self.screened, positions, False)[0]
             if self.nbthole is not None:
                 energy = energy + nbthole_energy_forces(
-                    self.nbthole, positions, box, False)[0]
+                    self.nbthole, positions, box, False, scale)[0]
             return energy, None
         fd = -self.k3[:, None] * delta
         forces = torch.zeros_like(positions)
@@ -175,10 +177,30 @@ class DrudeTerm:
             energy = energy + e_s
             forces = forces + f_s
         if self.nbthole is not None:
-            e_t, f_t = nbthole_energy_forces(self.nbthole, positions, box)
+            e_t, f_t = nbthole_energy_forces(self.nbthole, positions, box,
+                                             atom_scale=scale)
             energy = energy + e_t
             forces = forces + f_t
         return energy, forces
+
+    def mc_energies(self, positions, box, scale, n_replicas: int):
+        """(R,) float64 per-replica NBTHOLE sums, the DrudeForce's share of
+        a flat-ensemble NPT move (the JAX package's hook,
+        forces/drude.py:203-216 there): intermolecular, so they change
+        under a volume move; the springs and the screened pairs are
+        intramolecular and cancel.  Zeros without NBTHOLE pairs; raises
+        where their count is not replica-uniform."""
+        R = int(n_replicas)
+        if self.nbthole is None:
+            return torch.zeros(R, dtype=torch.float64,
+                               device=positions.device)
+        n_pairs = self.nbthole[0].shape[0]
+        if n_pairs % R:
+            raise ValueError("NBTHOLE pair count is not replica-uniform: "
+                             "flat-ensemble NPT needs identical replicas")
+        e = nbthole_energy_forces(self.nbthole, positions, box, False,
+                                  scale, per_pair=True)[0]
+        return torch.sum(e.double().reshape(R, -1), dim=1)
 
 
 def screened_energy_forces(screened, positions, with_forces=True):
@@ -205,21 +227,31 @@ def screened_energy_forces(screened, positions, with_forces=True):
     return energy, forces
 
 
-def nbthole_energy_forces(nbthole, positions, box, with_forces=True):
+def nbthole_energy_forces(nbthole, positions, box, with_forces=True,
+                          atom_scale=None, per_pair=False):
     """NBTHOLE deficit -s qq (1 + u/2) exp(-u) / r over the 4 core/shell
     cross pairs, minimum-imaged, and its analytic forces:
-    dE/dr = s qq exp(-u) (scale (1 + u) / (2 r) + (1 + u/2) / r^2)."""
+    dE/dr = s qq exp(-u) (scale (1 + u) / (2 r) + (1 + u/2) / r^2).
+    atom_scale ((N,) float64): each pair imaged in its replica's box (the
+    diagonal times its first atom's scale).  per_pair: the energy of
+    each NBTHOLE pair, (P,)."""
     d1, c1, d2, c2, scale, qq = nbthole
-    energy = positions.new_zeros(())
+    energy = positions.new_zeros(d1.shape if per_pair else ())
     forces = torch.zeros_like(positions) if with_forces else None
     for ia, ib, sign in ((d1, d2, 1.0), (d1, c2, -1.0), (c1, d2, -1.0),
                          (c1, c2, 1.0)):
         delta = positions[ia] - positions[ib]
-        delta = min_image(delta, box)
+        if atom_scale is None:
+            delta = min_image(delta, box)
+        else:
+            pbox = (box.double()[None, :] * atom_scale[ia][:, None]).to(
+                delta.dtype)
+            delta = delta - pbox * torch.round(delta / pbox)
         r = torch.sqrt(torch.sum(delta * delta, dim=-1))
         u = scale * r
         expu = torch.exp(-u)
-        energy = energy - torch.sum(sign * qq * (1.0 + 0.5 * u) * expu / r)
+        e_pair = sign * qq * (1.0 + 0.5 * u) * expu / r
+        energy = energy - (e_pair if per_pair else torch.sum(e_pair))
         if not with_forces:
             continue
         dedr = sign * qq * expu * (0.5 * scale * (1.0 + u) / r

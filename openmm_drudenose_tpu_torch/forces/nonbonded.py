@@ -50,6 +50,18 @@ planned on one replica's cell grid and the reciprocal sum runs for the R
 replicas in one batched pass (pme.recip_energy_forces, n_replicas); the
 exception and exclusion-correction terms are the replicas' copies
 through the same pair terms.
+
+Flat-ensemble NPT (the JAX package's rep_scale route, forces/
+nonbonded.py:641-796 there): every method of the compiled term takes
+`rep_scale`, the (R,) float64 box scales on the device.  The sweep runs
+the kernels' scaled instantiations on physical fields (cellpair.py), the
+PME sum each replica at its own box (pme.py), the pair terms
+minimum-image in each pair's replica box, and the dispersion tail is
+disp / R / (V s_r^3) a replica.  `mc_energies` gives the (R,) float64
+per-replica energies of every term that changes under a molecule-COM
+volume move (the sweep, PME, the dispersion tail, the NBFIX overrides);
+the others cancel in the Metropolis difference.  `route` sends a scaled
+config to B1 or B2 by the same gates.
 """
 
 from __future__ import annotations
@@ -369,47 +381,124 @@ class NonbondedTerm:
                 exc_i, exc_j, pairterms.ewald_correction_eg(
                     t(ONE_4PI_EPS0 * charge[exc_i] * charge[exc_j]),
                     self.alpha), device))
+        self.override_term = None
+        self.overrides_uniform = True
         if force._lj_overrides:
             oi, oj, sig_o, eps_o = override_pairs(force, exc_i, exc_j)
             if len(oi):
-                self.pair_terms.append(pairterms.make_pair_list_term(
+                self.override_term = pairterms.make_pair_list_term(
                     oi, oj, pairterms.lj_override_eg(
                         t(sig_o), t(eps_o),
                         t(0.5 * (sigma[oi] + sigma[oj])),
                         t(np.sqrt(eps[oi] * eps[oj])),
                         cutoff if self.use_cutoff else math.inf), device,
-                    self.periodic))
+                    self.periodic)
+                self.pair_terms.append(self.override_term)
+                R = self.n_replicas
+                rep_i, rep_j = oi // (n // R), oj // (n // R)
+                P = len(oi)
+                # per-replica sums need replica-major pair lists of one
+                # length a replica (replicate_system builds them so)
+                self.overrides_uniform = bool(
+                    P % R == 0
+                    and np.array_equal(rep_i, np.arange(P) // (P // R))
+                    and np.array_equal(rep_i, rep_j))
+        self._eterms = []
 
-    def recip(self, positions, box, exact=None):
+    def _eterm(self, box, rep_scale, dtype):
+        """The per-replica PME eterm of these scales (pme.scaled_eterm),
+        built once per set of scales: an accepted move makes new ones.
+        The last three are kept (the current scales, a move's trial and
+        its outcome), keyed by the scale tensor and the box's storage,
+        both held."""
+        for rs, _, ptr, et in self._eterms:
+            if (rs is rep_scale and ptr == box.data_ptr()
+                    and et.dtype == dtype):
+                return et
+        et = pme_mod.scaled_eterm(self.pme, box, rep_scale, dtype)
+        self._eterms = [(rep_scale, box, box.data_ptr(), et)] \
+            + self._eterms[:2]
+        return et
+
+    def recip(self, positions, box, exact=None, rep_scale=None):
         """(energy, forces) of the PME reciprocal sum (Ewald/PME only;
         the replicas' sums in one batched pass in a flattened
-        ensemble).  `box` here and below: the (3,) diagonal or the
-        (3, 3) triclinic matrix (boxutils.mi_box)."""
+        ensemble, each at its own box with rep_scale).  `box` here and
+        below: the (3,) diagonal or the (3, 3) triclinic matrix
+        (boxutils.mi_box)."""
+        eterm = (None if rep_scale is None
+                 else self._eterm(box, rep_scale, positions.dtype))
         e, f = pme_mod.recip_energy_forces(
             self.pme, self.params["charge"], positions, box, exact,
-            self.charge_bound, self.n_replicas)
+            self.charge_bound, self.n_replicas, rep_scale, eterm)
         return (e if self.n_replicas == 1 else torch.sum(e)), f
 
-    def recip_energy(self, positions, box, exact=None):
+    def recip_energy(self, positions, box, exact=None, rep_scale=None,
+                     per_replica=False):
+        eterm = (None if rep_scale is None
+                 else self._eterm(box, rep_scale, positions.dtype))
         return pme_mod.reciprocal_energy(self.pme, self.params["charge"],
                                          positions, box, exact,
                                          self.charge_bound,
-                                         self.n_replicas)
+                                         self.n_replicas, rep_scale, eterm,
+                                         per_replica)
 
-    def extras(self, positions, box, exact=None, with_forces=True):
+    def _dispersion(self, box, rep_scale=None):
+        """The dispersion tail, or with rep_scale its (R,) per-replica
+        values disp / R / (V s_r^3) in float64."""
+        vol = boxutils.volume(box)
+        if rep_scale is None:
+            return self.disp / vol
+        return (self.disp / self.n_replicas) / (
+            vol.double() * rep_scale.double() ** 3)
+
+    def extras(self, positions, box, exact=None, with_forces=True,
+               rep_scale=None):
         """(energy, forces; None without with_forces): exceptions,
         exclusion corrections, NBFIX overrides, self term, dispersion
-        tail (each where the method has it)."""
+        tail (each where the method has it); with rep_scale each pair
+        imaged in its replica's box and each replica's tail at its
+        volume."""
         e = positions.new_zeros(()) + self.pme_self
         f = torch.zeros_like(positions) if with_forces else None
+        scale = (None if rep_scale is None
+                 else cellpair.atom_scales(rep_scale, positions.shape[0]))
         for term in self.pair_terms:
-            et, ft = term(positions, box, exact, with_forces)
+            et, ft = term(positions, box, exact, with_forces, scale)
             e = e + et
             if with_forces:
                 f = f + ft
         if self.disp is not None:
-            e = e + self.disp / boxutils.volume(box)
+            d = self._dispersion(box, rep_scale)
+            e = e + (d if rep_scale is None else torch.sum(d).to(e.dtype))
         return e, f
+
+    def mc_energies(self, positions, box, neighbors, exact, rep_scale):
+        """(R,) float64 per-replica energies of the terms that change
+        under a molecule-COM volume move (the JAX package's mc_energies,
+        forces/nonbonded.py:767-796 there): the direct-space sweep, the
+        PME reciprocal sum, the dispersion tail and the NBFIX overrides.
+        Exceptions, exclusion corrections and the self term are
+        intramolecular or constant and cancel in the Metropolis
+        difference."""
+        e = self.sweep_energy(positions, box, neighbors, exact, rep_scale,
+                              per_replica=True).double()
+        if self.pme is not None:
+            e = e + self.recip_energy(positions, box, exact, rep_scale,
+                                      per_replica=True).double()
+        if self.override_term is not None:
+            if not self.overrides_uniform:
+                raise ValueError(
+                    "flat-ensemble NPT needs replica-uniform NBFIX override "
+                    "pair lists (every replica the same overrides, "
+                    "replica-major)")
+            scale = cellpair.atom_scales(rep_scale, positions.shape[0])
+            e = e + self.override_term(
+                positions, box, exact, False, scale,
+                n_replicas=self.n_replicas)[0].double()
+        if self.disp is not None:
+            e = e + self._dispersion(box, rep_scale)
+        return e
 
 
 class DenseTerm(NonbondedTerm):
@@ -436,10 +525,16 @@ class DenseTerm(NonbondedTerm):
             periodic=self.periodic, use_cutoff=self.use_cutoff,
             **self.coulomb)
 
-    def sweep_forces(self, positions, box, neighbors=None, exact=None):
+    def sweep_forces(self, positions, box, neighbors=None, exact=None,
+                     rep_scale=None):
+        """rep_scale: None (per-replica scales are a cell-pair
+        ensemble's)."""
+        assert rep_scale is None
         return self._sweep(positions, box, exact, False)[1]
 
-    def sweep_energy(self, positions, box, neighbors=None, exact=None):
+    def sweep_energy(self, positions, box, neighbors=None, exact=None,
+                     rep_scale=None):
+        assert rep_scale is None
         return self._sweep(positions, box, exact, True)[0]
 
 
@@ -498,21 +593,24 @@ class CellPairTerm(NonbondedTerm):
                          torch.as_tensor(exc_j, device=device))
                         if self.excl_skip else None)
 
-    def cellsort(self, positions, box):
+    def cellsort(self, positions, box, rep_scale=None):
         return cellpair.build_cellsort(positions, box, self.cfg,
-                                       excl_ij=self.excl_ij)
+                                       excl_ij=self.excl_ij,
+                                       rep_scale=rep_scale)
 
-    def fields(self, positions, box, cellsort, exact=None):
+    def fields(self, positions, box, cellsort, exact=None, rep_scale=None):
         return cellpair.sorted_fields(self.params, positions, box,
-                                      cellsort, self.cfg, exact)
+                                      cellsort, self.cfg, exact, rep_scale)
 
     def _kernel(self):
         return sweep_chunked if self.sweep_kernel == "b2" else sweep
 
-    def sweep_forces(self, positions, box, cellsort, exact=None):
-        """Direct-space forces (N, 3), atom order."""
-        fields = self.fields(positions, box, cellsort, exact)
-        shifts = cellpair.offset_shifts(self.cfg, box)
+    def sweep_forces(self, positions, box, cellsort, exact=None,
+                     rep_scale=None):
+        """Direct-space forces (N, 3), atom order; physical with
+        rep_scale (the kernels' scaled instantiations)."""
+        fields = self.fields(positions, box, cellsort, exact, rep_scale)
+        shifts = cellpair.offset_shifts(self.cfg, box, rep_scale)
         if self.use_kernel:
             f = self._kernel().pair_forces(fields, self.cfg, shifts,
                                            self.alpha, ONE_4PI_EPS0,
@@ -524,17 +622,25 @@ class CellPairTerm(NonbondedTerm):
                                   **self.coulomb)
         return f[cellsort.inv_slot]
 
-    def sweep_energy(self, positions, box, cellsort, exact=None):
+    def sweep_energy(self, positions, box, cellsort, exact=None,
+                     rep_scale=None, per_replica=False):
         """Direct-space energy (exact erfc): in float32 the energy
         instantiation of the kernel that `route` chose (float64 on the
-        card; its plain version on the CPU), else the plain sweep."""
-        fields = self.fields(positions, box, cellsort, exact)
-        shifts = cellpair.offset_shifts(self.cfg, box)
+        card; its plain version on the CPU), else the plain sweep.  With
+        rep_scale the scaled instantiation: the (R,) per-replica energies
+        with per_replica, else their sum."""
+        fields = self.fields(positions, box, cellsort, exact, rep_scale)
+        shifts = cellpair.offset_shifts(self.cfg, box, rep_scale)
         if self.use_kernel:
-            return self._kernel().pair_energy(fields, self.cfg, shifts,
-                                              self.alpha, ONE_4PI_EPS0,
-                                              excl_skip=self.excl_skip,
-                                              **self.coulomb)
-        e, _ = cellpair.sweep(fields, self.cfg, shifts, self.alpha,
-                              ONE_4PI_EPS0, with_energy=True, **self.coulomb)
+            e = self._kernel().pair_energy(fields, self.cfg, shifts,
+                                           self.alpha, ONE_4PI_EPS0,
+                                           excl_skip=self.excl_skip,
+                                           **self.coulomb)
+        else:
+            e, _ = cellpair.sweep(fields, self.cfg, shifts, self.alpha,
+                                  ONE_4PI_EPS0, with_energy=True,
+                                  per_replica=rep_scale is not None,
+                                  **self.coulomb)
+        if rep_scale is not None and not per_replica:
+            e = torch.sum(e.double())
         return e

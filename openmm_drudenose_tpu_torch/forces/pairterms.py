@@ -22,26 +22,39 @@ from .boxutils import min_image
 
 
 def make_pair_list_term(i_idx, j_idx, eg_fn, device, periodic: bool = True):
-    """term(positions, box, exact=None, with_forces=True) -> (energy,
-    forces (N, 3), None without with_forces); `box` is the (3,) diagonal
-    or the (3, 3) triclinic matrix (boxutils.mi_box); `exact` (float64
-    positions) gives the displacements, rounded once."""
+    """term(positions, box, exact=None, with_forces=True, scale=None,
+    n_replicas=0) -> (energy, forces (N, 3), None without with_forces);
+    `box` is the (3,) diagonal or the (3, 3) triclinic matrix
+    (boxutils.mi_box); `exact` (float64 positions) gives the
+    displacements, rounded once.  scale ((N,) float64, flat-ensemble
+    NPT): each pair is minimum-imaged in its replica's box, the diagonal
+    times its first atom's scale.  n_replicas = R > 0: the energy as
+    (R,) per-replica sums (the pairs replica-major, P / R a replica; no
+    forces)."""
     ii = torch.as_tensor(np.asarray(i_idx, np.int64), device=device)
     jj = torch.as_tensor(np.asarray(j_idx, np.int64), device=device)
 
-    def term(positions, box, exact=None, with_forces=True):
+    def term(positions, box, exact=None, with_forces=True, scale=None,
+             n_replicas=0):
+        def image(delta):
+            if not periodic:
+                return delta
+            if scale is None:
+                return min_image(delta, box.to(delta.dtype))
+            # (P, 3) orthorhombic replica boxes
+            pbox = (box.double()[None, :] * scale[ii][:, None]).to(
+                delta.dtype)
+            return delta - pbox * torch.round(delta / pbox)
+
         if exact is None:
-            delta = positions[ii] - positions[jj]
-            if periodic:
-                delta = min_image(delta, box)
+            delta = image(positions[ii] - positions[jj])
         else:
-            delta = exact[ii] - exact[jj]
-            if periodic:
-                delta = min_image(delta, box.double())
-            delta = delta.to(positions.dtype)
+            delta = image(exact[ii] - exact[jj]).to(positions.dtype)
         r2 = torch.sum(delta * delta, dim=-1)
         r2s = torch.clamp(r2, min=1e-10)
         e, g = eg_fn(r2s, r2)
+        if n_replicas:
+            return torch.sum(e.reshape(n_replicas, -1), dim=1), None
         if not with_forces:
             return torch.sum(e), None
         fpair = (-2.0 * g)[:, None] * delta           # force on i; -f on j

@@ -23,6 +23,16 @@ one pass, in place of the JAX package's jax.vmap of its generic sum
 an (R K1 K2 K3) grid, each atom's taps offset by its replica's K1 K2 K3,
 one batched rfftn / irfftn over the last three axes, and batched tap
 gathers.  Each replica's grid is bounded by its own sum |q|.
+
+Per-replica box scales (flat-ensemble NPT: replica r's box is the
+template box times s_r; the JAX package's per-replica boxes,
+forces/pme.py:754-755, :784-787 there): a replica's fractional
+coordinates at box template * s_r are those of p / s_r in the template
+box, so the taps, the spread, the FFTs and the gathers run on the stored
+coordinates as they stand.  Only three things change per replica: the
+reciprocal vectors m / s_r in the eterm (`scaled_eterm`, built once per
+set of scales in float64), the volume V0 s_r^3 in the prefactor, and
+the gathered forces times 1 / s_r.
 """
 
 from __future__ import annotations
@@ -35,7 +45,7 @@ import torch
 
 from ..ops import scatter
 from ..units import ONE_4PI_EPS0
-from . import boxutils
+from . import boxutils, cellpair
 
 PME_ORDER = 5
 
@@ -180,6 +190,29 @@ def _eterm(setup: PmeSetup, box, dtype, device):
                        / m_sq_safe * bm2, torch.zeros_like(m_sq))
 
 
+def scaled_eterm(setup: PmeSetup, box, rep_scale, dtype):
+    """(R, K1, K2, K3 // 2 + 1) eterm of R replicas whose boxes are the
+    diagonal `box` times rep_scale (R,): _eterm's formula at m^2 / s_r^2,
+    formed in float64 in one batched pass and rounded once."""
+    K1, K2, K3 = setup.grid
+    K3h = K3 // 2 + 1
+    kw = dict(dtype=torch.float64, device=box.device)
+    b = box.double()
+    m1 = torch.fft.fftfreq(K1, d=1.0 / K1, **kw)[:, None, None] / b[0]
+    m2 = torch.fft.fftfreq(K2, d=1.0 / K2, **kw)[None, :, None] / b[1]
+    m3 = torch.arange(K3h, **kw)[None, None, :] / b[2]
+    s2 = rep_scale.to(**kw)[:, None, None, None] ** 2
+    m_sq = (m1 * m1 + m2 * m2 + m3 * m3)[None] / s2
+    bm2 = (torch.as_tensor(setup.bm2x, **kw)[:, None, None]
+           * torch.as_tensor(setup.bm2y, **kw)[None, :, None]
+           * torch.as_tensor(setup.bm2z[:K3h], **kw)[None, None, :])
+    m_safe = torch.where(m_sq > 0, m_sq, torch.ones_like(m_sq))
+    out = torch.where(m_sq > 0, torch.exp(-math.pi ** 2 * m_safe
+                                          / setup.alpha ** 2)
+                      / m_safe * bm2[None], torch.zeros_like(m_sq))
+    return out.to(dtype)
+
+
 def _taps(setup: PmeSetup, positions, box, exact=None, derivs=True):
     """Per-atom tap indices (N, order), weights and (with derivs) their
     derivatives per dimension.  With `exact` (float64 positions) the grid
@@ -252,55 +285,88 @@ def spread(setup: PmeSetup, charges, idx, wts, charge_bound=None,
 _FFT_DIMS = (-3, -2, -1)
 
 
-def _grid_energy(setup: PmeSetup, F, eterm, box):
+def _grid_energy(setup: PmeSetup, F, eterm, box, rep_scale=None):
     """Reciprocal energy of the charge grid's spectrum F (rfftn): a 0-d
-    tensor, or (R,) per-replica energies of a batch of R grids."""
+    tensor, or (R,) per-replica energies of a batch of R grids (each at
+    the volume V0 s_r^3 with rep_scale); also the prefactor c (R, 1, 1,
+    1 with rep_scale)."""
     K3 = setup.grid[2]
     S2 = F.real ** 2 + F.imag ** 2
     k3 = torch.arange(K3 // 2 + 1, device=F.device)
     double = ((k3 >= 1) & (k3 <= (K3 - 1) // 2)).to(eterm.dtype) + 1.0
     volume = boxutils.volume(box)
+    if rep_scale is not None:
+        volume = (volume.double() * rep_scale.to(
+            F.device, torch.float64) ** 3).to(eterm.dtype)
     c = ONE_4PI_EPS0 / (2.0 * math.pi * volume)
-    w = eterm * double[None, None, :]
+    w = eterm * double
     if F.dim() == 3:
         return c * torch.sum(w * S2), c
-    return c * torch.sum(w * S2, dim=_FFT_DIMS), c
+    e = c * torch.sum(w * S2, dim=_FFT_DIMS)
+    return e, (c[:, None, None, None] if rep_scale is not None else c)
 
 
-def grid_energy_and_potential(setup: PmeSetup, Q, box):
+def grid_energy_and_potential(setup: PmeSetup, Q, box, eterm=None,
+                              rep_scale=None):
     """(energy, Phi = dE/dQ) of a charge grid (or a batch of grids along
-    a leading axis): one rfftn, one irfftn."""
+    a leading axis): one rfftn, one irfftn.  eterm / rep_scale: a batch's
+    per-replica eterm (scaled_eterm) and scales."""
     K1, K2, K3 = setup.grid
-    eterm = _eterm(setup, box, Q.dtype, Q.device)
+    if eterm is None:
+        eterm = _eterm(setup, box, Q.dtype, Q.device)
     F = torch.fft.rfftn(Q, dim=_FFT_DIMS)
-    energy, c = _grid_energy(setup, F, eterm, box)
+    energy, c = _grid_energy(setup, F, eterm, box, rep_scale)
     phi = (2.0 * c * (K1 * K2 * K3)) * torch.fft.irfftn(
         eterm * F, s=(K1, K2, K3), dim=_FFT_DIMS)
     return energy, phi
 
 
+def _stored(positions, exact, rep_scale):
+    """(positions, exact) in the stored frame p / s_r of per-replica
+    scales (replica-major atoms), formed in float64; unchanged
+    without."""
+    if rep_scale is None:
+        return positions, exact
+    s = cellpair.atom_scales(rep_scale.to(positions.device),
+                             positions.shape[0])[:, None]
+    return ((positions.double() / s).to(positions.dtype),
+            None if exact is None else exact / s)
+
+
 def reciprocal_energy(setup: PmeSetup, charges, positions, box,
-                      exact=None, charge_bound=None, n_replicas: int = 1):
+                      exact=None, charge_bound=None, n_replicas: int = 1,
+                      rep_scale=None, eterm=None, per_replica=False):
     """The reciprocal energy alone: one rfftn, no potential grid (the
-    sum of the R replicas' energies for n_replicas = R)."""
+    sum of the R replicas' energies for n_replicas = R, or the (R,)
+    energies with per_replica).  rep_scale ((R,), flat-ensemble NPT)
+    with its scaled_eterm (built here where not given): each replica at
+    its own box."""
+    positions, exact = _stored(positions, exact, rep_scale)
     idx, wts, _ = _taps(setup, positions, box, exact, derivs=False)
     Q = spread(setup, charges, idx, wts, charge_bound, n_replicas)
-    eterm = _eterm(setup, box, Q.dtype, Q.device)
+    if eterm is None:
+        eterm = (_eterm(setup, box, Q.dtype, Q.device) if rep_scale is None
+                 else scaled_eterm(setup, box, rep_scale, Q.dtype))
     e = _grid_energy(setup, torch.fft.rfftn(Q, dim=_FFT_DIMS), eterm,
-                     box)[0]
-    return e if n_replicas == 1 else torch.sum(e)
+                     box, rep_scale)[0]
+    return e if n_replicas == 1 or per_replica else torch.sum(e)
 
 
 def recip_energy_forces(setup: PmeSetup, charges, positions, box,
-                        exact=None, charge_bound=None, n_replicas: int = 1):
+                        exact=None, charge_bound=None, n_replicas: int = 1,
+                        rep_scale=None, eterm=None):
     """(energy, forces (N, 3)) of the reciprocal sum, forces analytic;
     `exact` as in _taps.  For n_replicas = R the R replicas' sums in one
-    batched pass: (per-replica energies (R,), forces)."""
+    batched pass: (per-replica energies (R,), forces); rep_scale and
+    eterm as reciprocal_energy (the forces then times 1 / s_r)."""
     K1, K2, K3 = setup.grid
     n = positions.shape[0]
+    positions, exact = _stored(positions, exact, rep_scale)
     idx, wts, dwts = _taps(setup, positions, box, exact)
     Q = spread(setup, charges, idx, wts, charge_bound, n_replicas)
-    energy, phi = grid_energy_and_potential(setup, Q, box)
+    if rep_scale is not None and eterm is None:
+        eterm = scaled_eterm(setup, box, rep_scale, Q.dtype)
+    energy, phi = grid_energy_and_potential(setup, Q, box, eterm, rep_scale)
     phi = phi.reshape(-1)
     yz = _yz_index(setup, idx, n, n_replicas)
     w_yz = (wts[1][:, :, None] * wts[2][:, None, :]).reshape(n, -1)
@@ -326,4 +392,7 @@ def recip_energy_forces(setup: PmeSetup, charges, positions, box,
         return energy, -charges[:, None] * grad
     scale = K / box
     forces = -charges[:, None] * torch.stack([gx, gy, gz], dim=1) * scale
+    if rep_scale is not None:
+        inv_s = 1.0 / cellpair.atom_scales(rep_scale.to(positions.device), n)
+        forces = forces * inv_s.to(positions.dtype)[:, None]
     return energy, forces

@@ -18,7 +18,11 @@ A flattened replica ensemble (static.ensemble_r = R > 1, replica-major
 atoms, replica = index // n0) has (R, G+2) baths: every KE and CM
 reduction is per replica (the JAX integrators/tgnh.py:148-160, :305-320,
 :557, :841), and the host chain runs on all R x (G+2) baths at once with
-one device-to-host read a step, not one a replica.
+one device-to-host read a step, not one a replica.  With per-replica
+box scales (flat-ensemble NPT, SimState.rep_scale) the force pass and the
+cell sort take the scales, and the drift latch compares stored
+coordinates p / s_r, the frame the cells are binned in (the JAX
+integrators/tgnh.py:632, :757-760).
 """
 
 from __future__ import annotations
@@ -312,8 +316,9 @@ def apply_hardwall(spec, static, positions, velocities, dt, pos_err=None):
 
 class Stepper:
     """One TGNH step and the fused multi-step, around a force pass
-    forces_fn(positions, box, neighbors, pos_err) -> forces (N, 3) and,
-    with a MonteCarloBarostat, its move barostat_fn(spec, state) -> state
+    forces_fn(positions, box, neighbors, pos_err[, rep_scale]) -> forces
+    (N, 3) (rep_scale passed where the state has it) and, with a
+    MonteCarloBarostat, its move barostat_fn(spec, state) -> state
     (velocity-independent; the JAX package's apply_barostat)."""
 
     def __init__(self, static, forces_fn, barostat_fn=None):
@@ -387,8 +392,9 @@ class Stepper:
             state = state.replace(
                 hardwall_runaway=state.hardwall_runaway | runaway)
         pos = apply_vsites(spec, static, pos)
+        scales = () if state.rep_scale is None else (state.rep_scale,)
         forces = self.forces_fn(pos, state.box, state.neighbors,
-                                state.pos_err)
+                                state.pos_err, *scales)
         v = half_kick(spec, static, v, forces, dt)
         if static.n_settle:
             v = settle.apply_velocity_constraints(
@@ -493,12 +499,20 @@ class Stepper:
 def rebuild_neighbors(state, neighbor_fn, skin):
     """Fresh cell sort; the overflow, stencil, drift and excl-span latches
     carry forward.  Drift latches when one atom moved > 2x skin or the two
-    largest displacements sum to > 3x skin since the last rebuild."""
+    largest displacements sum to > 3x skin since the last rebuild (in
+    stored coordinates p / s_r with per-replica scales: the sort's
+    ref_positions)."""
     old = state.neighbors
-    nbl = neighbor_fn(state.positions, state.box)
+    rs = state.rep_scale
+    if rs is None:
+        nbl = neighbor_fn(state.positions, state.box)
+        cur = state.positions
+    else:
+        nbl = neighbor_fn(state.positions, state.box, rs)
+        cur = nbl.ref_positions
     nbl.overflow = nbl.overflow | old.overflow
     nbl.stencil_invalid = nbl.stencil_invalid | old.stencil_invalid
-    d = state.positions - old.ref_positions
+    d = cur - old.ref_positions
     d2 = torch.sum(d * d, dim=1)
     top2 = torch.topk(d2, 2).values
     exceeded = ((top2[0] > (2.0 * skin) * (2.0 * skin))

@@ -25,6 +25,15 @@ Its forces are the same bits at every launch: the
 reactions go through frames with one writer an entry and a fixed-order
 gather (csrc/sweep.cu), not atomics.
 
+Per-replica box scales (flat-ensemble NPT; the JAX package takes its
+XLA sweep there, forces/nonbonded.py:905-915, so no TPU kernel has this
+path): the fields are physical and `shifts` is an (R, n_off, 3) table,
+s_r times the template's (forces/cellpair.py); the kernel's scaled
+instantiations (a compile-time flag, kScaled) read the table at the
+home cell's replica, and the energy comes back per replica, (R,) in
+float64, each replica's work-unit partials summed in a fixed order.
+Launches count under the "_scaled" keys.
+
 `pair_forces` is the entry point.  For a CPU tensor it runs the plain
 version (`pair_forces_plain`); for a CUDA tensor it launches the kernel or
 raises.  The kernels of csrc/ build at first use, one nvcc per source, all
@@ -64,10 +73,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches of each kernel, counted where it is launched and nowhere else
 # (the force and the energy instantiations apart, each Coulomb kind apart:
 # "_rf" for the reaction field; launches on a grid of replica bands
-# apart: "_bands")
+# apart: "_bands", and those with per-replica scales: "_scaled")
 launches = {f"{k}_{i}{c}{b}": 0 for k in ("b1", "b2")
             for i in ("sweep", "energy") for c in ("", "_rf")
-            for b in ("", "_bands")}
+            for b in ("", "_bands", "_scaled")}
 INT32_MAX = 2 ** 31 - 1
 
 # the kernels' Coulomb kinds (csrc/pair_tile.cuh::Coulomb)
@@ -88,12 +97,15 @@ def coulomb_kind(method: str, alpha: float, krf: float, crf: float) -> int:
     return COULOMB[method]
 
 
-def launch_key(kernel: str, energy: bool, method: str, cfg=None) -> str:
+def launch_key(kernel: str, energy: bool, method: str, cfg=None,
+               scaled: bool = False) -> str:
     """The `launches` key of a kernel's instantiation (on `cfg`'s grid:
-    "_bands" where it embeds replica bands)."""
+    "_bands" where it embeds replica bands; "_scaled" with per-replica
+    scales)."""
+    geometry = ("_scaled" if scaled else "_bands"
+                if cfg is not None and cfg.n_replicas > 1 else "")
     return (f"{kernel}_{'energy' if energy else 'sweep'}"
-            + ("_rf" if method == "rf" else "")
-            + ("_bands" if cfg is not None and cfg.n_replicas > 1 else ""))
+            + ("_rf" if method == "rf" else "") + geometry)
 
 _libs = {}
 build_log = ""
@@ -171,15 +183,15 @@ def load(name: str, declare):
 
 def _declare(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sweep_forces.argtypes = [vp] * 17 + [ci, ci, ci, cf, cf, cf, ci, ci,
+    lib.sweep_forces.argtypes = [vp] * 18 + [ci, ci, ci, cf, cf, cf, ci, ci,
                                              ci, cf, cf, ci, vp]
     lib.sweep_forces.restype = ci
-    lib.sweep_energy.argtypes = [vp] * 15 + [ci, ci, ci, cf, cf, cf, ci, ci,
-                                             ci, cf, cf, ci, vp]
+    lib.sweep_energy.argtypes = [vp] * 17 + [ci, ci, ci, cf, cf, cf, ci, ci,
+                                             ci, cf, cf, ci, ci, ci, vp]
     lib.sweep_energy.restype = ci
-    lib.sweep_attributes.argtypes = [vp, ci, ci]
+    lib.sweep_attributes.argtypes = [vp, ci, ci, ci]
     lib.sweep_attributes.restype = ci
-    lib.sweep_occupancy.argtypes = [vp, ci, ci]
+    lib.sweep_occupancy.argtypes = [vp, ci, ci, ci]
     lib.sweep_occupancy.restype = ci
     lib.sweep_units.argtypes = [ci, ci, ci]
     lib.sweep_units.restype = ci
@@ -187,45 +199,49 @@ def _declare(lib):
 
 
 def kernel_attributes(lib, fn: str, energy: bool = False,
-                      method: str = "ewald") -> dict:
+                      method: str = "ewald", scaled: bool = False) -> dict:
     """Registers a thread, static shared memory, the most threads a CTA
     may have and local (spill) bytes a thread of a kernel's force (or
-    energy) instantiation of one Coulomb kind, read from the card with
-    cudaFuncGetAttributes by the library's function `fn`."""
+    energy) instantiation of one Coulomb kind (with per-replica scales
+    where `scaled`), read from the card with cudaFuncGetAttributes by the
+    library's function `fn`."""
     out = (ctypes.c_int * 4)()
     err = getattr(lib, fn)(ctypes.cast(out, ctypes.c_void_p), int(energy),
-                           COULOMB[method])
+                           COULOMB[method], int(scaled))
     if err != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {err}")
     return {"regs": out[0], "static_smem": out[1], "max_threads": out[2],
             "local_bytes": out[3]}
 
 
-def attributes(energy: bool = False, method: str = "ewald") -> dict:
+def attributes(energy: bool = False, method: str = "ewald",
+               scaled: bool = False) -> dict:
     """B1's kernel_attributes."""
     return kernel_attributes(load("sweep", _declare), "sweep_attributes",
-                             energy, method)
+                             energy, method, scaled)
 
 
 _occupancy = {}
 
 
-def occupancy(device, energy: bool = False, method: str = "ewald") -> tuple:
+def occupancy(device, energy: bool = False, method: str = "ewald",
+              scaled: bool = False) -> tuple:
     """(SMs, CTAs of B1's force or energy instantiation of a Coulomb kind
-    resident an SM) of a card, read once from it
+    (scaled or not) resident an SM) of a card, read once from it
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); B1 launches as many
     CTAs as the card holds at once."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    key = (device.index, bool(energy), method)
+    key = (device.index, bool(energy), method, bool(scaled))
     hit = _occupancy.get(key)
     if hit is None:
         lib = load("sweep", _declare)
         out = (ctypes.c_int * 2)()
         with torch.cuda.device(device):
             err = lib.sweep_occupancy(ctypes.cast(out, ctypes.c_void_p),
-                                      int(energy), COULOMB[method])
+                                      int(energy), COULOMB[method],
+                                      int(scaled))
         if err != 0:
             raise RuntimeError(f"sweep_occupancy failed: CUDA error {err}")
         hit = _occupancy[key] = (out[0], max(out[1], 1))
@@ -374,6 +390,49 @@ def _device_tables(cfg, excl_skip, dev):
     return hit[1:]
 
 
+def unit_rows(cfg) -> np.ndarray:
+    """(R, units a replica): the work units of each replica's cells
+    (csrc/sweep.cu: unit = (cell * parts + part) * groups + group), in
+    cell, part and group order: the order of the per-replica energy
+    sums."""
+    parts = -(-cfg.capacity // 32)
+    groups = -(-cfg.n_offsets // 8)
+    cells = cellpair.replica_cells(cfg)                    # (R, m)
+    sub = np.arange(parts * groups)
+    return (cells[:, :, None] * (parts * groups)
+            + sub[None, None, :]).reshape(cfg.n_replicas, -1)
+
+
+_scaled_tables = {}
+
+
+def _scaled_device_tables(cfg, dev):
+    """Each cell's replica and the per-replica rows of the energy
+    partials on the device, cached per config."""
+    key = (id(cfg), str(dev))
+    hit = _scaled_tables.get(key)
+    if hit is None:
+        i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                        device=dev)
+        hit = _scaled_tables[key] = (cfg, i32(cellpair.rep_of_cell(cfg)),
+                                     i32(unit_rows(cfg)))
+    return hit[1:]
+
+
+def check_shifts(shifts, cfg) -> bool:
+    """Whether `shifts` is the per-replica (R, n_off, 3) table of a
+    flattened ensemble (True) or the (n_off, 3) one (False); raise on
+    anything else."""
+    if tuple(shifts.shape) == (cfg.n_offsets, 3):
+        return False
+    if cfg.n_replicas > 1 and tuple(shifts.shape) == (
+            cfg.n_replicas, cfg.n_offsets, 3):
+        return True
+    raise ValueError(f"shifts of shape {tuple(shifts.shape)}: need "
+                     f"({cfg.n_offsets}, 3) or, per replica, "
+                     f"({cfg.n_replicas}, {cfg.n_offsets}, 3)")
+
+
 def check_config(cfg):
     """Raise unless the kernels take the config's layout."""
     if not (cfg.half_stencil and cfg.regular):
@@ -433,17 +492,20 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
     at every launch.
 
     fields: cellpair.sorted_fields output; shifts: (n_off, 3) per-offset
-    image shift; method: the Coulomb kind, "ewald" (alpha) or "rf" (krf,
-    crf).  CPU tensors run the plain version; CUDA tensors launch the
-    kernel (float32 only) or raise."""
+    image shift, or (R, n_off, 3) per replica (flat-ensemble NPT: the
+    scaled instantiation); method: the Coulomb kind, "ewald" (alpha) or
+    "rf" (krf, crf).  CPU tensors run the plain version; CUDA tensors
+    launch the kernel (float32 only) or raise."""
     check_config(cfg)
     kind = coulomb_kind(method, alpha, krf, crf)
+    scaled = check_shifts(shifts, cfg)
     if fields["x"].device.type == "cpu":
         return pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
                                  excl_skip, method, krf, crf)
     dev = _card_args(fields, cfg)
     lib = load("sweep", _declare)
     nbr, rnbr, chk = _device_tables(cfg, excl_skip, dev)
+    rep_cell = _scaled_device_tables(cfg, dev)[0] if scaled else None
     sh = shifts.to(device=dev, dtype=torch.float32).contiguous()
     nc, C, n_off = cfg.n_cells, cfg.capacity, cfg.n_offsets
     f = torch.empty((nc * C, 3), dtype=torch.float32, device=dev)
@@ -456,18 +518,19 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
                          dtype=torch.float32, device=dev)
     # the work-unit counter of the launch (sweep_forces sets it to 0)
     counter = torch.empty(1, dtype=torch.int32, device=dev)
-    sms, per_sm = occupancy(dev, False, method)
+    sms, per_sm = occupancy(dev, False, method, scaled)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.sweep_forces(
-        *field_ptrs(fields), p(nbr), p(rnbr), p(sh), p(chk), p(rframe),
+        *field_ptrs(fields), p(nbr), p(rnbr), p(sh),
+        None if rep_cell is None else p(rep_cell), p(chk), p(rframe),
         p(hframe), p(f), p(counter), nc, C, n_off,
         float(cfg.cutoff * cfg.cutoff), float(alpha), float(coulomb_scale),
         cfg.excl_window, cfg.excl_words, kind, float(krf), float(crf),
         sms * per_sm, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
-    launches[launch_key("b1", False, method, cfg)] += 1
+    launches[launch_key("b1", False, method, cfg, scaled)] += 1
     return f
 
 
@@ -475,10 +538,12 @@ def pair_energy_plain(fields, cfg, shifts, alpha, coulomb_scale,
                       excl_skip=True, method="ewald", krf=0.0, crf=0.0):
     """The energy instantiation's plain PyTorch version: the direct-space
     energy with the exact erfc or the reaction field (forces/cellpair.py::
-    sweep), a 0-d tensor in the fields' type."""
+    sweep), a 0-d tensor in the fields' type; with per-replica shifts
+    (R, n_off, 3) the (R,) per-replica energies."""
     e, _ = cellpair.sweep(fields, cfg, shifts, alpha, coulomb_scale,
                           with_energy=True, excl_skip=excl_skip,
-                          method=method, krf=krf, crf=crf)
+                          method=method, krf=krf, crf=crf,
+                          per_replica=check_shifts(shifts, cfg))
     return e
 
 
@@ -493,31 +558,40 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
                 method="ewald", krf=0.0, crf=0.0):
     """The direct-space energy (0-d) by B1's energy instantiation: float64
     on the card, summed in an order fixed by the data (the same bits at
-    every launch).  CPU tensors run the plain version; CUDA tensors launch
-    the kernel (float32 fields only) or raise."""
+    every launch); with per-replica shifts (R, n_off, 3) the scaled
+    instantiation's (R,) per-replica energies.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel (float32 fields only) or
+    raise."""
     check_config(cfg)
     kind = coulomb_kind(method, alpha, krf, crf)
+    scaled = check_shifts(shifts, cfg)
     if fields["x"].device.type == "cpu":
         return pair_energy_plain(fields, cfg, shifts, alpha, coulomb_scale,
                                  excl_skip, method, krf, crf)
     dev = _card_args(fields, cfg)
     lib = load("sweep", _declare)
     nbr, _, chk = _device_tables(cfg, excl_skip, dev)
+    rep_cell, rows = (_scaled_device_tables(cfg, dev) if scaled
+                      else (None, None))
     sh = shifts.to(device=dev, dtype=torch.float32).contiguous()
     units = lib.sweep_units(cfg.n_cells, cfg.capacity, cfg.n_offsets)
     part = torch.empty(units, dtype=torch.float64, device=dev)
-    e = torch.empty((), dtype=torch.float64, device=dev)
+    e = torch.empty((cfg.n_replicas,) if scaled else (),
+                    dtype=torch.float64, device=dev)
     counter = torch.empty(1, dtype=torch.int32, device=dev)
-    sms, per_sm = occupancy(dev, True, method)
+    sms, per_sm = occupancy(dev, True, method, scaled)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = lambda t: ctypes.c_void_p(t.data_ptr())
+    opt = lambda t: None if t is None else p(t)
     err = lib.sweep_energy(
-        *field_ptrs(fields), p(nbr), p(sh), p(chk), p(part),
-        p(e), p(counter), cfg.n_cells, cfg.capacity, cfg.n_offsets,
-        float(cfg.cutoff * cfg.cutoff), float(alpha), float(coulomb_scale),
-        cfg.excl_window, cfg.excl_words, kind, float(krf), float(crf),
-        sms * per_sm, ctypes.c_void_p(stream))
+        *field_ptrs(fields), p(nbr), p(sh), opt(rep_cell), p(chk), p(part),
+        p(e), p(counter), opt(rows), cfg.n_cells, cfg.capacity,
+        cfg.n_offsets, float(cfg.cutoff * cfg.cutoff), float(alpha),
+        float(coulomb_scale), cfg.excl_window, cfg.excl_words, kind,
+        float(krf), float(crf), sms * per_sm,
+        rows.shape[0] if scaled else 0, rows.shape[1] if scaled else 0,
+        ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sweep energy launch failed: CUDA error {err}")
-    launches[launch_key("b1", True, method, cfg)] += 1
+    launches[launch_key("b1", True, method, cfg, scaled)] += 1
     return e

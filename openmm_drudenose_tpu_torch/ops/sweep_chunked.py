@@ -39,6 +39,12 @@ since the sum order is the only difference between B1 and B2), with
 sweep.pair_energy's signature; each launch adds one to
 sweep.launches["b2_energy"].
 
+Per-replica box scales (flat-ensemble NPT): as in B1 (ops/sweep.py), an
+(R, n_off, 3) shift table launches the scaled instantiations; a chunk
+lies in one band, so the kernel reads its replica's shifts once per CTA,
+and the scaled energy comes back per replica, each replica's partials
+(one a home cell of its chunks) summed in a fixed order.
+
 `pair_forces` is the entry point, with sweep.pair_forces' signature.  For
 a CPU tensor it runs the plain version (`pair_forces_plain`), which sums
 the chunked way on the same plan: per-chunk frames filled offset by
@@ -99,12 +105,15 @@ H100 = CardLimits(regs=None, static_smem=0, max_threads=256,
 _card_limits = {}
 
 
-def attributes(energy: bool = False, method: str = "ewald") -> dict:
+def attributes(energy: bool = False, method: str = "ewald",
+               scaled: bool = False) -> dict:
     """B2's registers, static shared memory, most threads a CTA and
     local bytes a thread (of its force or energy instantiation of a
-    Coulomb kind), read from the card (sweep.kernel_attributes)."""
+    Coulomb kind, scaled or not), read from the card
+    (sweep.kernel_attributes)."""
     return sweep.kernel_attributes(sweep.load("sweep_chunked", _declare),
-                                   "chunk_sweep_attributes", energy, method)
+                                   "chunk_sweep_attributes", energy, method,
+                                   scaled)
 
 
 def card_limits(device):
@@ -339,12 +348,12 @@ def pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
 def _declare(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.chunk_sweep_forces.argtypes = [vp] * 18 + [ci] * 5 + [cf] * 3 \
-        + [ci, ci, ci, cf, cf, vp]
+        + [ci, ci, ci, cf, cf, ci, vp]
     lib.chunk_sweep_forces.restype = ci
-    lib.chunk_sweep_energy.argtypes = [vp] * 15 + [ci] * 2 + [cf] * 3 \
-        + [ci, ci, ci, cf, cf, vp]
+    lib.chunk_sweep_energy.argtypes = [vp] * 16 + [ci] * 2 + [cf] * 3 \
+        + [ci, ci, ci, cf, cf, ci, ci, ci, vp]
     lib.chunk_sweep_energy.restype = ci
-    lib.chunk_sweep_attributes.argtypes = [vp, ci, ci]
+    lib.chunk_sweep_attributes.argtypes = [vp, ci, ci, ci]
     lib.chunk_sweep_attributes.restype = ci
     lib.chunk_sweep_device.argtypes = [vp]
     lib.chunk_sweep_device.restype = ci
@@ -366,6 +375,36 @@ def _device_tables(cfg, plan, excl_skip, dev):
         hit = _tables[key] = (cfg, plan, (
             i32(cfg.offsets), i32(sweep.check_excl_flags(cfg, excl_skip)),
             *(i32(t) for t in plan.tables)))
+    return hit[2]
+
+
+def energy_rows(cfg, plan) -> np.ndarray:
+    """(R, partials a replica): the energy partials (chunk * home cells
+    + home cell) of each replica's chunks, in chunk order: the order of
+    the per-replica energy sums.  A chunk's replica is its band's, (bx
+    * y bands + by) * z bands + bz, r = bx * rz + bz of
+    cellpair.rep_of_cell."""
+    nb = plan.n_chunks
+    c3 = cellpair.cell_coords(nb)                   # every chunk, x-major
+    bands = np.array(plan.grid) // np.array(plan.periods)
+    band3 = c3 // np.array(plan.per_band)
+    rep = (band3[:, 0] * bands[1] + band3[:, 1]) * bands[2] + band3[:, 2]
+    order = np.argsort(rep, kind="stable").reshape(cfg.n_replicas, -1)
+    nh = int(np.prod(plan.brick))
+    return (order[:, :, None] * nh
+            + np.arange(nh)[None, None, :]).reshape(cfg.n_replicas, -1)
+
+
+_rows = {}
+
+
+def _energy_rows_device(cfg, plan, dev):
+    key = (id(cfg), id(plan), str(dev))
+    hit = _rows.get(key)
+    if hit is None:
+        hit = _rows[key] = (cfg, plan, torch.as_tensor(
+            np.ascontiguousarray(energy_rows(cfg, plan), np.int32),
+            device=dev))
     return hit[2]
 
 
@@ -402,6 +441,7 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
     kernel (float32 only) or raise."""
     sweep.check_config(cfg)
     kind = sweep.coulomb_kind(method, alpha, krf, crf)
+    scaled = sweep.check_shifts(shifts, cfg)
     x = fields["x"]
     if x.device.type == "cpu":
         return pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
@@ -425,11 +465,11 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
         tx.shape[1], ty.shape[1], tz.shape[1], C, cfg.n_offsets,
         float(cfg.cutoff * cfg.cutoff), float(alpha), float(coulomb_scale),
         cfg.excl_window, cfg.excl_words, kind, float(krf), float(crf),
-        ctypes.c_void_p(stream))
+        int(scaled), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"chunked sweep kernel launch failed: CUDA "
                            f"error {err}")
-    sweep.launches[sweep.launch_key("b2", False, method, cfg)] += 1
+    sweep.launches[sweep.launch_key("b2", False, method, cfg, scaled)] += 1
     return f
 
 
@@ -437,10 +477,13 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
                 brick=None, method="ewald", krf=0.0, crf=0.0):
     """The direct-space energy (0-d) by B2's energy instantiation, as
     sweep.pair_energy: float64 on the card, one partial a home cell,
-    summed in a fixed order.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel (float32 fields only) or raise."""
+    summed in a fixed order; with per-replica shifts (R, n_off, 3) the
+    scaled instantiation's (R,) per-replica energies.  CPU tensors run
+    the plain version; CUDA tensors launch the kernel (float32 fields
+    only) or raise."""
     sweep.check_config(cfg)
     kind = sweep.coulomb_kind(method, alpha, krf, crf)
+    scaled = sweep.check_shifts(shifts, cfg)
     x = fields["x"]
     if x.device.type == "cpu":
         return sweep.pair_energy_plain(fields, cfg, shifts, alpha,
@@ -455,18 +498,22 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
     sh = shifts.to(device=dev, dtype=torch.float32).contiguous()
     part = torch.empty(plan.total_chunks * int(np.prod(plan.brick)),
                        dtype=torch.float64, device=dev)
-    e = torch.empty((), dtype=torch.float64, device=dev)
+    rows = _energy_rows_device(cfg, plan, dev) if scaled else None
+    e = torch.empty((cfg.n_replicas,) if scaled else (),
+                    dtype=torch.float64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.chunk_sweep_energy(
         *sweep.field_ptrs(fields), p(offs), p(sh), p(chk), p(part), p(e),
+        None if rows is None else p(rows),
         ctypes.cast(plan_c, ctypes.c_void_p), cfg.capacity, cfg.n_offsets,
         float(cfg.cutoff * cfg.cutoff),
         float(alpha), float(coulomb_scale), cfg.excl_window,
-        cfg.excl_words, kind, float(krf), float(crf),
+        cfg.excl_words, kind, float(krf), float(crf), int(scaled),
+        rows.shape[0] if scaled else 0, rows.shape[1] if scaled else 0,
         ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"chunked sweep energy launch failed: CUDA "
                            f"error {err}")
-    sweep.launches[sweep.launch_key("b2", True, method, cfg)] += 1
+    sweep.launches[sweep.launch_key("b2", True, method, cfg, scaled)] += 1
     return e

@@ -19,14 +19,19 @@ per replica by construction:
   * bonded terms, constraints and virtual sites are replicated index by
     index (replicate_system).
 
-NVT only: with a MonteCarloBarostat the JAX package runs a per-replica
-box scale through its XLA sweep; the port's kernels do not take that
-scale yet, and the Context raises (ROADMAP.md).
+With a MonteCarloBarostat in the template the ensemble runs NPT, each
+replica at its own box (the JAX package's flat NPT, :290-303 there):
+replica r's box is the template box times s_r (SimState.rep_scale), the
+cells are binned at p / s_r on the one template grid, kernels B1 and B2
+read a per-replica shift table (their scaled instantiations), and each
+replica moves its own volume against its own energy
+(integrators/barostat.py::maybe_attempt_mc_move_ensemble).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _shift_vsite(vs, o: int):
@@ -222,6 +227,15 @@ class FlatReplicaEnsemble:
             precision=context._prec, strategy="cellpair", seed=seed,
             hardwall_strict=context._hardwall_strict, nb_options=nb,
             device=context._device, ensemble_r=R_int)
+        if any(type(f).__name__ == "MonteCarloBarostat"
+               for f in context._system.getForces()):
+            # per-replica NPT: unit scales, each replica's own move size
+            # and counters (the JAX flatrep.py:290-303)
+            self.context._state = self.context._state.replace(
+                rep_scale=torch.ones(R_int, dtype=torch.float64),
+                baro_scale=torch.zeros(R_int, dtype=torch.float64),
+                baro_naccept=torch.zeros(R_int, dtype=torch.int64),
+                baro_nattempt=torch.zeros(R_int, dtype=torch.int64))
         pos0 = context._state.positions.double().cpu().numpy()
         self.setPositions(np.broadcast_to(pos0, (R,) + pos0.shape))
 
@@ -340,23 +354,24 @@ class FlatReplicaEnsemble:
 
     def potential_energies(self) -> np.ndarray:
         """(R,) per-replica potential energies: the template Context's
-        potential at each replica's positions (the flattened pass gives
-        the ensemble's total only).  A loop over the replicas: a
-        reporting path, not the hot one."""
+        potential at each replica's positions and box (the flattened
+        pass gives the ensemble's total only).  A loop over the replicas:
+        a reporting path, not the hot one."""
         tpl = self._template
         st = self.context._state
         R, n0 = self._n_replicas, self._n0
         pos = st.positions.reshape(self._r_int, n0, 3)
         err = (None if st.pos_err is None
                else st.pos_err.reshape(self._r_int, n0, 3))
-        box = st.box.to(device=tpl._device)
+        boxes = torch.as_tensor(self.boxes(), dtype=st.box.dtype,
+                                device=tpl._device)
         out = np.empty(R)
         for r in range(R):
             p = pos[r].to(tpl._device)
             e = None if err is None else err[r].to(tpl._device)
             nbl = (None if tpl._cp_cfg is None
-                   else tpl._sort_for_minimize(p, box))
-            out[r] = float(tpl._potential(p, box, nbl, e))
+                   else tpl._sort_for_minimize(p, boxes[r]))
+            out[r] = float(tpl._potential(p, boxes[r], nbl, e))
         return out
 
     def total_potential_energy(self) -> float:
@@ -368,9 +383,14 @@ class FlatReplicaEnsemble:
                      .getPotentialEnergy())
 
     def boxes(self) -> np.ndarray:
-        """(R, 3, 3) per-replica box vectors (copies of the one box)."""
-        box = self.context._state.box.double().cpu().numpy()
-        return np.broadcast_to(box, (self._n_replicas, 3, 3)).copy()
+        """(R, 3, 3) per-replica box vectors: the template box times each
+        replica's scale in NPT, copies of the one box otherwise."""
+        st = self.context._state
+        box = st.box.double().cpu().numpy()
+        if st.rep_scale is None:
+            return np.broadcast_to(box, (self._n_replicas, 3, 3)).copy()
+        s = st.rep_scale.double().numpy()[:self._n_replicas]
+        return box[None, :, :] * s[:, None, None]
 
     def densities(self, total_mass_amu: float = None) -> np.ndarray:
         """(R,) per-replica mass densities in g/mL (the mass defaults to

@@ -10,7 +10,8 @@ bit; the ensemble plan of 64 x 4k SWM4-NDP (JAX `_auto_layout` (7, 10),
 grid, capacity, stencil, PME grid, the pencil gate, the route to B1);
 FlatReplicaEnsemble against the JAX one (PE 1e-10, forces 1e-8 of
 max|F|, 32 TGNH steps 1e-9, the per-replica accessors), padded too;
-against independent port Contexts; flat NPT refused.  The TPU kernels
+against independent port Contexts; flat NPT builds with unit scales.
+The TPU kernels
 in interpret mode against the plain versions: test_torch_flatrep_
 interpret.py."""
 
@@ -454,8 +455,15 @@ def test_flat_npt_and_unported_forces_raise():
     ctx = dt.Context(system, integ, precision="double", strategy="cellpair",
                      nb_options=dict(NB), device="cpu")
     ctx.setPositions(pos)
-    with pytest.raises(ValueError, match="flat NPT"):
-        flatrep.FlatReplicaEnsemble(ctx, 2)
+    # flat NPT builds (its physics: tests/test_torch_flatnpt.py): unit
+    # scales, each replica its own move size and counters
+    ens = flatrep.FlatReplicaEnsemble(ctx, 2)
+    st = ens.context._state
+    assert torch.equal(st.rep_scale, torch.ones(2, dtype=torch.float64))
+    assert torch.equal(st.baro_scale, torch.zeros(2, dtype=torch.float64))
+    assert st.baro_naccept.tolist() == st.baro_nattempt.tolist() == [0, 0]
+    box = np.array(system.getDefaultPeriodicBoxVectors(), np.float64)
+    np.testing.assert_allclose(ens.boxes(), [box, box], rtol=1e-7)
 
     class CustomNonbondedForce:
         pass

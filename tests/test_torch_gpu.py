@@ -30,6 +30,7 @@ import torch
 
 import openmm_drudenose_tpu_torch as dt
 from openmm_drudenose_tpu_torch.forces import cellpair
+from openmm_drudenose_tpu_torch.integrators import barostat
 from openmm_drudenose_tpu_torch.io import builders
 from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
@@ -475,11 +476,14 @@ def test_bonded_terms_on_card_match_cpu(cuda):
 KERNELS = pytest.mark.parametrize("version", ["b1", "b2"])
 
 
-def _flat(device, nb_options=None):
+def _flat(device, nb_options=None, barostat=0):
     """Four replicas of the 216-water box (the template on the dense
     strategy) in a 2 x 2 layout: a (10, 5, 10) grid of 5^3 replica
-    grids."""
+    grids; with `barostat` a MonteCarloBarostat of that interval (flat
+    NPT)."""
     system, pos = builders.build_water_box(216, cutoff=0.6)
+    if barostat:
+        system.addForce(dt.MonteCarloBarostat(1.01325, 300.0, barostat))
     integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
     integ.setMaxDrudeDistance(0.02)
     tpl = dt.Context(system, integ, precision="single", device=device)
@@ -567,3 +571,115 @@ def test_flat_checkpoint_replay_is_bit_exact_on_card(cuda, tmp_path):
     ens.step(32)
     assert torch.equal(first, ctx._state.positions)
     assert torch.equal(eta, ctx._state.eta_dot) and eta.shape[0] == 4
+
+
+# -- flat NPT: the scaled instantiations --------------------------------------
+
+SCALES4 = (1.012, 0.991, 1.0, 0.984)
+
+
+def _scaled_args(ctx, scales, positions=None):
+    """The sorted fields and the per-replica shift table of `ctx` at
+    `scales` (the flat NPT fields: physical, binned at p / s_r; by
+    default the state's molecules scaled about their centres by each
+    replica's scale, as volume moves leave them), and the sort."""
+    st, nb = ctx._state, ctx._nb
+    box = ctx._box_arg(st.box)
+    pos = (barostat.scale_molecules_per_replica(
+        ctx._spec, ctx._static, st.positions, np.asarray(scales))
+        if positions is None else positions)
+    rs = torch.tensor(scales, dtype=torch.float64, device=pos.device)
+    nbl = nb.cellsort(pos, box, rs)
+    return (nb.fields(pos, box, nbl, rep_scale=rs), nb.cfg,
+            cellpair.offset_shifts(nb.cfg, box, rs), nb.alpha,
+            ONE_4PI_EPS0), nbl
+
+
+@KERNELS
+def test_scaled_kernels_match_plain_on_card(cuda, version):
+    ens = _flat(cuda, barostat=25)
+    kernel = sweep if version == "b1" else sweep_chunked
+    args, _ = _scaled_args(ens.context, SCALES4)
+    before = dict(sweep.launches)
+    f_k = kernel.pair_forces(*args)
+    e_k = kernel.pair_energy(*args)
+    torch.cuda.synchronize()
+    for kind in ("sweep", "energy"):
+        key = f"{version}_{kind}_scaled"
+        assert sweep.launches[key] == before[key] + 1
+    f_p = kernel.pair_forces_plain(*args)
+    scale = float(torch.max(torch.abs(f_p)))
+    assert float(torch.max(torch.abs(f_k - f_p))) <= 2e-5 * scale
+    e_p = sweep.pair_energy_plain(*args).double()
+    assert e_k.shape == (4,) and e_k.dtype == torch.float64
+    # each replica within 1e-6 of the ensemble's sum |E_r| (the band
+    # test's 1e-6 of |E|): on the lattice start a replica's direct-space
+    # energy nearly cancels (tens of kJ/mol), below the float32 plain
+    # sum's own rounding relative to it
+    tol = 1e-6 * float(torch.sum(torch.abs(e_p)))
+    assert float(torch.max(torch.abs(e_k - e_p))) <= tol
+
+
+@KERNELS
+def test_scaled_launches_are_bit_identical_and_isolated(cuda, version):
+    """Two launches give the same bits (forces and per-replica
+    energies); changing replica 0's scale and moving its atoms leaves the
+    other replicas' forces and energies bit for bit."""
+    ens = _flat(cuda, barostat=25)
+    kernel = sweep if version == "b1" else sweep_chunked
+    ctx = ens.context
+    args, nbl = _scaled_args(ctx, SCALES4)
+    fa = kernel.pair_forces(*args)
+    assert torch.equal(kernel.pair_forces(*args), fa)
+    ea = kernel.pair_energy(*args)
+    assert torch.equal(kernel.pair_energy(*args), ea)
+    n0 = ctx._state.positions.shape[0] // 4
+    scales2 = (1.003,) + SCALES4[1:]
+    moved = barostat.scale_molecules_per_replica(
+        ctx._spec, ctx._static, ctx._state.positions, np.asarray(scales2))
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    moved[:n0] += 0.01 * torch.randn((n0, 3), generator=gen).to(
+        moved.device)
+    args2, nbl2 = _scaled_args(ctx, scales2, moved)
+    fb = kernel.pair_forces(*args2)[nbl2.inv_slot]
+    eb = kernel.pair_energy(*args2)
+    fa = fa[nbl.inv_slot]
+    assert float(torch.max(torch.abs(fa[:n0] - fb[:n0]))) > 0
+    assert torch.equal(fa[n0:], fb[n0:])
+    assert ea[0] != eb[0] and torch.equal(ea[1:], eb[1:])
+
+
+@pytest.mark.parametrize("use_pallas", [None, 3], ids=["b1", "b2"])
+def test_flat_npt_steps_through_scaled_kernels(cuda, use_pallas):
+    ens = _flat(cuda, {"use_pallas": use_pallas}, barostat=4)
+    version = "b2" if use_pallas == 3 else "b1"
+    before = dict(sweep.launches)
+    ens.step(20)
+    torch.cuda.synchronize()
+    runs = {k: sweep.launches[k] - before[k] for k in before}
+    assert runs[f"{version}_sweep_scaled"] >= 20
+    assert runs[f"{version}_energy_scaled"] >= 2 * 5
+    assert not any(v for k, v in runs.items() if not k.endswith("_scaled"))
+    st = ens.context._state
+    assert st.baro_nattempt.tolist() == [5] * 4
+    s = st.rep_scale.numpy()
+    assert np.all((s > 0.97) & (s < 1.03))
+    assert np.all(np.isfinite(ens.group_temperatures()))
+
+
+def test_flat_npt_checkpoint_replay_is_bit_exact_on_card(cuda, tmp_path):
+    """A flat NPT run through B1's scaled instantiations (a move every 4
+    steps): save, 32 steps, load, 32 steps give the same positions and
+    scales bit for bit."""
+    ens = _flat(cuda, barostat=4)
+    ctx = ens.context
+    ens.step(16)
+    path = str(tmp_path / "flatnpt.chk")
+    dt.save_checkpoint(path, ctx)
+    ens.step(32)
+    first = ctx._state.positions.clone()
+    scales = ctx._state.rep_scale.clone()
+    dt.load_checkpoint(path, ctx)
+    ens.step(32)
+    assert torch.equal(first, ctx._state.positions)
+    assert torch.equal(scales, ctx._state.rep_scale)

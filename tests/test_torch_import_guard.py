@@ -22,7 +22,7 @@ from openmm_drudenose_tpu_torch.io import (builders, ionic_liquid, nacl,
                                            pdbfile, polymer)
 from openmm_drudenose_tpu_torch.ops import scatter, sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.parallel import flatrep
-from openmm_drudenose_tpu_torch.tools import walk_model
+from openmm_drudenose_tpu_torch.tools import time_nvt, walk_model
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "openmm_drudenose_tpu"
