@@ -177,7 +177,48 @@ seconds):
      FLAT_NPT_B2_STEPS steps with a move every FLAT_NPT_B2_BARO; a
      checkpoint replayed bit for bit over FLAT_NPT_REPLAY steps with an
      attempt
- 12. the seconds of each phase, the `kernels` JSON line (each kernel's
+ 12. the reference's ForceField workflow at 100k, NPT through B1: the
+     example's generated box times 40 (build_nacl_water_box(19680, 400,
+     400): 100,000 atoms) written as a position PDB and a bare PDB
+     (59,840 atoms, 20,480 residues; numbers wrap at 10,000) and read
+     back through PDBFile -> ForceField(tests/data/swm4_nacl.xml) ->
+     Modeller.addExtraParticles -> createSystem(PME, 1.0, HBonds,
+     rigidWater) with the example's mass repartition
+     (examples/nacl_tg_ff.py), the host seconds of each stage printed;
+     (a) the FF System against io/nacl.load_nacl_swm4 of the position
+     PDB term by term on the host; (b) each System's force pass on the
+     card at the same positions (max|dF|/max|F| <= 2e-5, energies 1e-6
+     of |E|, through B1); then MonteCarloBarostat(1.0, 300, FF_BARO),
+     DrudeTGNHIntegrator(300, 0.1, 1, 0.1, 0.001, 20) with the 0.02 nm
+     wall, single precision: minimize(FF_MIN), FF_SETTLE settling steps,
+     a restart with a fresh chain, FF_SETTLE more, FF_STEPS steps counted
+     (B1 alone, two energy launches an attempt, no plain sweep): ms/step,
+     ns/day, the host ms inside the attempts; latches, wall, finiteness,
+     the bath bands and the density band (FF_BANDS, FF_DENSITY); the
+     hard-wall runaway latch (a Drude back from past twice the wall) is
+     printed and cleared after each stage: the deck's Cl- Drudes reach
+     0.034-0.046 nm before the bounce in the fields of their neighbours
+ 13. SHAKE clusters at 100k, NVT through B1: the same deck with
+     rigidWater=False (39,360 O-H constraints in 19,680 three-atom
+     clusters, no SETTLE), from phase 12's final state and box,
+     SHAKE_STEPS steps counted: every constraint within 2 tol of its
+     length at SHAKE's result in every step (and the worst after a
+     block printed: the hard wall moves a bounced Drude's parent after
+     SHAKE, in the reference's order), |r.v|/d^2 <= tol after a
+     projection, the blocks in which a Drude came back from past twice
+     the wall counted and printed (rare at 100k 1 M NaCl: the wall holds
+     them), the
+     bath bands, wall and latches, no plain sweep; ms/step against phase
+     3's, the SHAKE and RATTLE sweeps a step (mean and max) and the host
+     reads of the done flag a step, the stream ms of one SHAKE and one
+     RATTLE call; one step of an f32 Context against an f64 one from the
+     same state (positions to 1e-5 nm)
+ 14. the plain-PyTorch terms on the card (tools/term_checks.py): CMAP,
+     the out-of-plane and local-coordinates sites, anisotropic Drudes,
+     each Custom*Force, a setParameter scan and a System read back from
+     its XML, in float64 on the card against the CPU (1e-10 of |E|,
+     1e-8 of max|F|); 200 float32 steps of the custom-force system
+ 15. the seconds of each phase, the `kernels` JSON line (each kernel's
      force and energy instantiations, Ewald and reaction field, the
      triclinic runs, the replica bands and the per-replica scales), then
      the result line.
@@ -309,6 +350,33 @@ FLAT_NPT_BARO, FLAT_NPT_SETTLE, FLAT_NPT_STEPS, FLAT_NPT_REPEATS = \
     25, 128, 128, 3
 FLAT_NPT_B2_STEPS, FLAT_NPT_B2_BARO, FLAT_NPT_REPLAY = 16, 4, 32
 FLAT_NPT_BANDS = {"scale": (0.97, 1.03), "density": (0.95, 1.05)}
+# phase 12: the force-field XML path at 100k: the example's generated
+# box (492 : 10 : 10) times 40, written as PDB files and read back
+# through PDBFile -> ForceField(tests/data/swm4_nacl.xml) -> Modeller ->
+# createSystem(PME, 1.0, HBonds, rigidWater); the NBFIX and NBTHOLE
+# values of the deck (its NBFixPair and NBTholePair) for the hand-built
+# System it is held against; FIRE iterations, settling steps (twice:
+# the minimized lattice rings the single chain, see phase 9), the
+# counted NPT steps and the barostat's frequency; the bands, written
+# before the phase's first card run: the baths' run means in phase 3's
+# bands, the last in phase 9's, and the density (1 M NaCl in SWM4-NDP is
+# near 1.04 g/mL) in FF_DENSITY.  The Drude bath's band was (0, 10) K
+# there; this deck's Drude bath holds at 16-17 K over 1,600 steps on an
+# NVIDIA H100 (700 W) and the JAX package reads 13-23 K on the same deck
+# at 2,500 atoms: the 400 ions' Drudes (Cl-: q_D = -3.46 e), which sit
+# at the wall, not a fault of the port, so its band is (0, 25) K
+# (PERF.md)
+FF_WATER, FF_IONS = 19680, 400
+FF_NBFIX_SIGMA, FF_NBFIX_EPS, FF_NBTHOLE = 0.31, 0.20, 2.6
+FF_MIN, FF_SETTLE, FF_STEPS, FF_BARO = 200, 512, 400, 25
+FF_BANDS = {"mean": ((250.0, 350.0), (150.0, 450.0), (0.0, 25.0)),
+            "last": ((200.0, 420.0), (150.0, 450.0), (0.0, 25.0))}
+FF_DENSITY = (0.98, 1.10)
+# phase 13: SHAKE clusters at 100k (the deck with rigidWater=False: O-H
+# constraints only), NVT from phase 12's final state, SHAKE_STEPS steps
+# in blocks of BLOCK; bands as phase 12's
+SHAKE_STEPS = 208
+SHAKE_BANDS = FF_BANDS
 
 
 def log(msg):
@@ -2618,6 +2686,410 @@ def phase_flat_npt(card, settled):
                  launches=b2_launches["b2_energy_scaled"], **e2)]
 
 
+def ff_deck(card):
+    """The phase 12 deck: build_nacl_water_box(FF_WATER, FF_IONS,
+    FF_IONS), written as a position PDB (Drudes, M sites) and a bare PDB
+    under build/chip_smoke/; returns (bare path, position path)."""
+    from openmm_drudenose_tpu_torch.examples import nacl_tg_ff
+    from openmm_drudenose_tpu_torch.io import builders
+    t = time.time()
+    system, pos = builders.build_nacl_water_box(FF_WATER, FF_IONS, FF_IONS)
+    n = system.getNumParticles()
+    out = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out, exist_ok=True)
+    bare = os.path.join(out, "nacl100k_bare.pdb")
+    with_sites = os.path.join(out, "nacl100k_pos.pdb")
+    nacl_tg_ff.write_nacl_pdbs(system, pos, bare, with_sites)
+    log(f"12 deck: build_nacl_water_box({FF_WATER}, {FF_IONS}, {FF_IONS}) "
+        f"= {n} atoms, written as PDB files in {time.time() - t:.1f} s")
+    if n != 100000:
+        fail(f"12: the deck has {n} atoms, not 100,000")
+    return bare, with_sites
+
+
+def ff_compare(sys_f, sys_h):
+    """(a) of phase 12: the FF System against the hand-built one, term by
+    term on the host (the JAX package's tests/test_forcefield.py:
+    136-190): masses, constraints as sets, sites, nonbonded parameters,
+    exclusions as sets, Drude rows, NBFIX and NBTHOLE."""
+    import openmm_drudenose_tpu_torch as dt
+    n = sys_h.getNumParticles()
+    if sys_f.getNumParticles() != n:
+        fail("12 (a): particle counts differ")
+    m_f = np.array([sys_f.getParticleMass(i) for i in range(n)])
+    m_h = np.array([sys_h.getParticleMass(i) for i in range(n)])
+    con = lambda s: {(*sorted(s.getConstraintParameters(i)[:2]),
+                      round(s.getConstraintParameters(i)[2], 9))
+                     for i in range(s.getNumConstraints())}
+    force = lambda s, cls: next(f for f in s.getForces()
+                                if isinstance(f, cls))
+    site_ok = all(
+        sys_f.isVirtualSite(i) == sys_h.isVirtualSite(i)
+        and (not sys_h.isVirtualSite(i)
+             or (sys_f.getVirtualSite(i).particles
+                 == sys_h.getVirtualSite(i).particles
+                 and np.allclose(sys_f.getVirtualSite(i).weights,
+                                 sys_h.getVirtualSite(i).weights,
+                                 atol=1e-9)))
+        for i in range(n))
+    nb_f, nb_h = (force(s, dt.NonbondedForce) for s in (sys_f, sys_h))
+    p_f = np.array(nb_f._particles)
+    p_h = np.array(nb_h._particles)
+    lj = p_h[:, 2] > 0
+    nb_ok = (np.allclose(p_f[:, [0, 2]], p_h[:, [0, 2]], atol=1e-9)
+             and np.allclose(p_f[lj, 1], p_h[lj, 1], atol=1e-9))
+    exc = lambda f: {tuple(sorted(e[:2])) for e in f._exceptions}
+    norm_ov = lambda f: sorted(
+        tuple(sorted([tuple(sorted(o[0])), tuple(sorted(o[1]))]))
+        + (round(o[2], 9), round(o[3], 9)) for o in f._lj_overrides)
+    dr_f, dr_h = (force(s, dt.DrudeForce) for s in (sys_f, sys_h))
+    rows_ok = (dr_f.getNumParticles() == dr_h.getNumParticles() and all(
+        dr_f.getParticleParameters(i)[:5] == dr_h.getParticleParameters(i)[:5]
+        and np.allclose(dr_f.getParticleParameters(i)[5:],
+                        dr_h.getParticleParameters(i)[5:], atol=1e-9)
+        for i in range(dr_h.getNumParticles())))
+    checks = {
+        "masses": bool(np.allclose(m_f, m_h, atol=1e-12)),
+        "constraints": con(sys_f) == con(sys_h), "sites": site_ok,
+        "nonbonded": bool(nb_ok), "exclusions": exc(nb_f) == exc(nb_h),
+        "nbfix": norm_ov(nb_f) == norm_ov(nb_h), "drude_rows": rows_ok,
+        "nbthole": dr_f._nbthole == dr_h._nbthole}
+    log(f"12 (a) FF System against the hand-built one ({n} particles, "
+        f"{sys_h.getNumConstraints()} constraints, "
+        f"{len(nb_h._exceptions)} exceptions, {len(dr_h._nbthole)} "
+        f"NBTHOLE pairs): {checks}")
+    if not all(checks.values()):
+        fail("12 (a): the FF System differs from the hand-built one")
+
+
+def phase_ff(card, ms_step_nvt):
+    """12. The force-field XML path at 100k, NPT through B1 (see the
+    module docstring).  Returns (the FF Context's final state as
+    (compensated positions, velocities, box), the deck's modeller)."""
+    import torch
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.examples import nacl_tg_ff
+    from openmm_drudenose_tpu_torch.integrators import barostat
+    from openmm_drudenose_tpu_torch.io import nacl, pdbfile
+    from openmm_drudenose_tpu_torch.ops import sweep
+    bare, with_sites = ff_deck(card)
+    top = pdbfile.PDBFile(bare).topology
+    residues = top.residues()
+    log(f"12 bare PDB: {len(top.atoms)} atoms, {len(residues)} residues "
+        f"(residue numbers up to {max(a.res_seq for a in top.atoms)}, "
+        f"wrapped at 10,000)")
+    if (len(top.atoms), len(residues)) != (59840, 20480) or any(
+            len(a) not in (1, 3) for _, a in residues):
+        fail("12: the bare PDB did not read back as 20,480 residues")
+    sys_f, modeller, seconds = nacl_tg_ff.build(nacl_tg_ff.FFXML, bare)
+    log("12 ingestion (host seconds): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in seconds.items())
+        + f"; total {sum(seconds.values()):.2f}")
+    t = time.time()
+    rmin_a = FF_NBFIX_SIGMA * 2 ** (1 / 6) / 0.1
+    sys_h, _, _ = nacl.load_nacl_swm4(
+        with_sites, cutoff=1.0,
+        nbfix={("SOD", "CLA"): (rmin_a, FF_NBFIX_EPS / 4.184)},
+        nbthole={("SOD", "CLA"): FF_NBTHOLE})
+    log(f"12 hand-built System from the position PDB in "
+        f"{time.time() - t:.1f} s")
+    ff_compare(sys_f, sys_h)
+    positions = np.asarray(modeller.positions, np.float64)
+
+    def make_ctx(system, precision="single"):
+        integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20)
+        integ.setMaxDrudeDistance(0.02)
+        ctx = dt.Context(system, integ, precision=precision, device="cuda")
+        ctx.setPositions(positions)
+        return ctx, integ
+
+    # (b) the force pass of each System on the card at the same positions
+    # (f32, through B1) and its energy in f32 and in f64: the f32 energy
+    # sums parts of ~1e7 kJ/mol (the Ewald self term) whose float32 ulps
+    # are several kJ/mol, so the parameters' last-bit differences show
+    # there at ~4e-6 of |E| (on an NVIDIA H100); the 1e-6 is held in
+    # f64, the f32 energy at the f32 energy floor E_F64_REL
+    passes = []
+    for system in (sys_f, sys_h):
+        ctx, _ = make_ctx(system)
+        (f, e), launches, plain = counted(lambda: (
+            ctx.getState(forces=True).getForces(),
+            ctx.getState(energy=True).getPotentialEnergy()))
+        kernel = ctx._nb.sweep_kernel
+        del ctx
+        ctx64, _ = make_ctx(system, "double")
+        e64 = ctx64.getState(energy=True).getPotentialEnergy()
+        del ctx64
+        torch.cuda.empty_cache()
+        passes.append((f, e, e64, launches, plain, kernel))
+    (f_f, e_f, e64_f, l_f, pl_f, k_f), (f_h, e_h, e64_h, _, pl_h, k_h) = \
+        passes
+    ferr = float(np.max(np.abs(f_f - f_h)) / np.max(np.abs(f_h)))
+    erel = abs(e_f - e_h) / abs(e_h)
+    erel64 = abs(e64_f - e64_h) / abs(e64_h)
+    log(f"12 (b) force pass of the FF System against the hand-built one "
+        f"on the card (f32, route {k_f}/{k_h}): max|dF|/max|F| {ferr:.3e}; "
+        f"energy in f32 {e_f:.3f} against {e_h:.3f} kJ/mol ({erel:.3e} of "
+        f"|E|), in f64 {e64_f:.6f} against {e64_h:.6f} ({erel64:.3e}); "
+        f"launches {l_f}, plain sweeps in the f32 passes {pl_f + pl_h}")
+    if not (ferr <= 2e-5 and erel64 <= 1e-6 and erel <= E_F64_REL) \
+            or pl_f or pl_h or k_f != "b1" or l_f["b1_sweep"] < 1:
+        fail("12 (b): the FF System's force pass differs from the "
+             "hand-built one's, or did not run through B1")
+
+    # (c), (d) minimize, settle, then NPT counted
+    sys_f.addForce(dt.MonteCarloBarostat(1.0, 300.0, FF_BARO))
+    ctx, integ = make_ctx(sys_f)
+    minimized("12", ctx, FF_MIN)
+    ctx.setVelocitiesToTemperature(300.0, seed=0)
+    targets = np.array([300.0, 300.0, 1.0])
+    for stage in ("from the minimized lattice", "after the restart"):
+        t = time.time()
+        integ.step(FF_SETTLE)
+        torch.cuda.synchronize()
+        temps = ctx.getState(groups=True).getGroupTemperatures()
+        log(f"12 {FF_SETTLE} settling NPT steps {stage} in "
+            f"{time.time() - t:.2f} s; bath temperatures "
+            f"{np.round(temps, 3).tolist()} K; box "
+            f"{float(ctx._state.box[0, 0]):.4f} nm")
+        log(f"12 hard-wall runaway latched in these settling steps: "
+            f"{ctx.hardwallRunaway} (fresh 300 K velocities give the "
+            f"Drudes 300 K relative motion for a few hundred steps); the "
+            f"latch is cleared, the counted steps must not set it")
+        ctx.clearHardwallRunaway()
+        if stage.startswith("from"):
+            # a fresh chain at the settled positions and box
+            st = ctx._state
+            settled = (st.positions.double() + st.pos_err.double())
+            box = st.box.double().cpu().numpy()
+            sys_f.setDefaultPeriodicBoxVectors(*map(tuple, box))
+            ctx.reinitialize(preserveState=False)
+            ctx.setPositions(settled.cpu().numpy())
+            ctx.setVelocitiesToTemperature(300.0, seed=1)
+    inside = []
+    attempt = barostat.maybe_attempt_mc_move
+
+    def timed_attempt(spec, static, state, *a, **kw):
+        t0 = time.perf_counter()
+        out = attempt(spec, static, state, *a, **kw)
+        if out is not state:
+            inside.append(time.perf_counter() - t0)
+        return out
+
+    step0 = ctx._state.step
+    attempts = sum(1 for k in range(step0, step0 + FF_STEPS)
+                   if k % FF_BARO == 0)
+    barostat.maybe_attempt_mc_move = timed_attempt
+    try:
+        ms_step, nsd, launches, plain, mean = run_blocks(ctx, integ,
+                                                         FF_STEPS, targets)
+    finally:
+        barostat.maybe_attempt_mc_move = attempt
+    log(f"12 {FF_STEPS} NPT steps: {ms_step:.2f} ms/step, {nsd:.3f} ns/day "
+        f"on {card} (phase 3, NVT water: {ms_step_nvt:.2f}); {len(inside)} "
+        f"attempts, {np.mean(inside) * 1e3:.2f} ms each inside the attempt: "
+        f"{np.sum(inside) * 1e3 / FF_STEPS:.3f} ms/step; launches "
+        f"{launches}; plain sweeps on the card {plain}")
+    if (launches["b1_sweep"] < FF_STEPS or plain or launches["b2_sweep"]
+            or launches["b1_energy"] != 2 * attempts
+            or len(inside) != attempts):
+        fail("12: the NPT steps did not run through B1 alone, or the "
+             "attempts were not B1's energy")
+    # the deck's Cl- Drudes (q_D = -3.46 e) reach 0.034-0.046 nm before
+    # the bounce in the fields of their neighbours (PERF.md): the 0.02 nm
+    # wall binds them, and the runaway latch (twice the wall) reads their
+    # field, not an instability; printed, then cleared
+    log(f"12 a Drude bounced back from past twice the wall in the counted "
+        f"steps: {ctx.hardwallRunaway}")
+    ctx.clearHardwallRunaway()
+    last, e_launches, plain = counted(lambda: check_after_steps(ctx, "12"))
+    if e_launches["b1_energy"] != 1 or plain:
+        fail(f"12: the state's energy: {e_launches}, {plain} plain sweeps")
+    hold_bands("12", ["water+ions", "COM", "Drude"], mean, last, FF_BANDS)
+    breakdown(ctx, sweep.pair_forces, "b1_sweep", ms_step, card, "12")
+    st = ctx._state
+    mass = float(torch.sum(ctx._spec.mass.double()))
+    vol = float(st.box[0, 0] * st.box[1, 1] * st.box[2, 2])
+    density = mass * 1.66053906660 / (vol * 1e3)
+    log(f"12 density {density:.4f} g/mL (band {FF_DENSITY}), volume "
+        f"{vol:.3f} nm^3, {st.baro_naccept} of {st.baro_nattempt} moves "
+        f"accepted since the last adaptation")
+    if not FF_DENSITY[0] < density < FF_DENSITY[1]:
+        fail(f"12: density {density:.4f} g/mL outside {FF_DENSITY}")
+    final = ((st.positions.double() + st.pos_err.double()).cpu().numpy(),
+             st.velocities.double().cpu().numpy(),
+             st.box.double().cpu().numpy())
+    del ctx
+    torch.cuda.empty_cache()
+    return final, modeller
+
+
+def constraint_errors(ctx):
+    """(max |r^2/d^2 - 1| over the SHAKE constraints at the compensated
+    positions, max |r.v|/d^2)."""
+    import torch
+    spec, st = ctx._spec, ctx._state
+    p = st.positions.double()
+    if st.pos_err is not None:
+        p = p + st.pos_err.double()
+    i, j = spec.shake_idx[:, 0], spec.shake_idx[:, 1]
+    r = p[i] - p[j]
+    d2 = spec.shake_dist.double() ** 2
+    v = st.velocities.double()
+    rv = torch.sum(r * (v[i] - v[j]), dim=1)
+    return (float(torch.max(torch.abs(torch.sum(r * r, 1) / d2 - 1))),
+            float(torch.max(torch.abs(rv) / d2)))
+
+
+def phase_shake(card, ms_step_nvt, final, modeller):
+    """13. SHAKE clusters at 100k, NVT through B1 (see the module
+    docstring)."""
+    import torch
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.app import ForceField, HBonds, PME
+    from openmm_drudenose_tpu_torch.constraints import shake
+    from openmm_drudenose_tpu_torch.examples import nacl_tg_ff
+    from openmm_drudenose_tpu_torch.ops import sweep
+    pos, vel, box = final
+    t = time.time()
+    system = ForceField(nacl_tg_ff.FFXML).createSystem(
+        modeller.topology, nonbondedMethod=PME, nonbondedCutoff=1.0,
+        constraints=HBonds, rigidWater=False)
+    nacl_tg_ff.repartition(system, modeller.topology)
+    system.setDefaultPeriodicBoxVectors(*map(tuple, box))
+    log(f"13 createSystem(rigidWater=False) in {time.time() - t:.1f} s")
+
+    def make_ctx(precision):
+        integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20)
+        integ.setMaxDrudeDistance(0.02)
+        ctx = dt.Context(system, integ, precision=precision, device="cuda")
+        ctx.setPositions(pos)
+        ctx.setVelocities(vel)
+        return ctx, integ
+
+    ctx, integ = make_ctx("single")
+    static = ctx._static
+    tol = static.constraint_tol
+    log(f"13 {static.n_shake} SHAKE constraints, {static.n_settle} SETTLE "
+        f"triangles, tolerance {tol}; route {ctx._nb.sweep_kernel}")
+    if static.n_shake != 2 * FF_WATER or static.n_settle:
+        fail("13: the flexible deck is not 39,360 SHAKE constraints")
+    stats = shake.ShakeStats()
+    ctx._stepper.shake_stats = stats
+    nkbt = ctx._spec.nh_nkbt.double().numpy()
+    targets = np.array([300.0, 300.0, 1.0])
+    samples, worst, runaways = [], [0.0], [0]
+
+    def drive():
+        for _ in range(SHAKE_STEPS // BLOCK):
+            integ.step(BLOCK)
+            samples.append(ctx._state.group_ke.double().numpy() / nkbt
+                           * targets)
+            worst[0] = max(worst[0], constraint_errors(ctx)[0])
+            # a Drude bounced back from past twice the wall (phase 12's
+            # Cl- Drudes): counted and printed, the wall held at the end
+            runaways[0] += ctx.hardwallRunaway
+            ctx.clearHardwallRunaway()
+
+    t = time.time()
+    _, launches, plain = counted(drive)
+    wall = time.time() - t
+    ms_step = wall / SHAKE_STEPS * 1e3
+    sweeps_pos = np.array(stats.per_call("pos"))
+    sweeps_vel = np.array(stats.per_call("vel"))
+    shake_worst = float(torch.max(torch.stack(stats.violation)))
+    log(f"13 {SHAKE_STEPS} NVT steps: {ms_step:.2f} ms/step against phase "
+        f"3's {ms_step_nvt:.2f} on {card}; SHAKE sweeps a step mean "
+        f"{sweeps_pos.mean():.2f} (max {sweeps_pos.max()}), RATTLE "
+        f"{sweeps_vel.mean():.2f} (max {sweeps_vel.max()}); host reads of "
+        f"the done flag {stats.reads / SHAKE_STEPS:.2f} a step; worst "
+        f"|r^2/d^2 - 1| of SHAKE's result over the steps {shake_worst:.3e} "
+        f"(limit {2 * tol}), after a block {worst[0]:.3e} (the hard wall "
+        f"moves a bounced Drude's parent after SHAKE, in the reference's "
+        f"order: the next step's SHAKE restores it); blocks in which a "
+        f"Drude was bounced back from past twice the wall: {runaways[0]} "
+        f"of {SHAKE_STEPS // BLOCK}; launches {launches}; plain sweeps on "
+        f"the card {plain}")
+    if launches["b1_sweep"] < SHAKE_STEPS or plain or launches["b2_sweep"]:
+        fail("13: the steps did not run through B1 alone")
+    # (a chunk that overflowed the cell capacity is run again: more calls)
+    if not shake_worst <= 2 * tol or len(sweeps_pos) < SHAKE_STEPS:
+        fail("13: SHAKE left a constraint outside its 2 tol band")
+    last, e_launches, plain = counted(lambda: check_after_steps(ctx, "13"))
+    if e_launches["b1_energy"] != 1 or plain:
+        fail(f"13: the state's energy: {e_launches}, {plain} plain sweeps")
+    hold_bands("13", ["water+ions", "COM", "Drude"],
+               np.mean(samples, axis=0), last, SHAKE_BANDS)
+    breakdown(ctx, sweep.pair_forces, "b1_sweep", ms_step, card, "13")
+    # RATTLE's projection at the final state
+    after_step = constraint_errors(ctx)[1]
+    ctx.applyVelocityConstraints(tol)
+    projected = constraint_errors(ctx)[1]
+    log(f"13 max |r.v|/d^2: {after_step:.3e} after the last step (the NH "
+        f"half step scales the bath velocities after RATTLE), "
+        f"{projected:.3e} after the projection (limit {tol})")
+    if not projected <= tol:
+        fail("13: the velocity projection left |r.v|/d^2 above tol")
+    # the stream time of one SHAKE and one RATTLE call at the step's size
+    st, spec = ctx._state, ctx._spec
+    delta = 0.001 * st.velocities
+    shake_ms = cuda_time_ms(lambda: shake.apply_position_constraints(
+        st.positions, delta, spec.inv_mass, spec.shake_idx,
+        spec.shake_dist, tol, static.shake_max_iter), 5)
+    rattle_ms = cuda_time_ms(lambda: shake.apply_velocity_constraints(
+        st.positions, st.velocities, spec.inv_mass, spec.shake_idx,
+        spec.shake_dist, tol, static.shake_max_iter), 5)
+    log(f"13 one SHAKE call {shake_ms:.3f} ms, one RATTLE call "
+        f"{rattle_ms:.3f} ms of stream time (with their host reads) on "
+        f"{card}")
+    # one step in f32 against one in f64 from the same state
+    p0 = (st.positions.double() + st.pos_err.double()).cpu().numpy()
+    v0 = st.velocities.double().cpu().numpy()
+    del ctx
+    torch.cuda.empty_cache()
+    out = []
+    for precision in ("single", "double"):
+        c, ig = make_ctx(precision)
+        c.setPositions(p0)
+        c.setVelocities(v0)
+        ig.step(1)
+        s_ = c._state
+        p = s_.positions.double()
+        if s_.pos_err is not None:
+            p = p + s_.pos_err.double()
+        out.append((p.cpu().numpy(), constraint_errors(c)[0]))
+        del c
+        torch.cuda.empty_cache()
+    dx = float(np.max(np.abs(out[0][0] - out[1][0])))
+    log(f"13 one step f32 against f64 from the same state: max |dx| "
+        f"{dx:.3e} nm; |r^2/d^2 - 1| {out[0][1]:.3e} (f32), "
+        f"{out[1][1]:.3e} (f64)")
+    if not dx <= 1e-5:
+        fail("13: the f32 step left the f64 one by more than 1e-5 nm")
+    return ms_step, sweeps_pos
+
+
+def phase_terms(card):
+    """14. The plain-PyTorch terms on the card (see the module
+    docstring)."""
+    from openmm_drudenose_tpu_torch.tools import term_checks
+    t = time.time()
+    worst = term_checks.compare_devices("cuda")
+    log(f"14 float64 card against CPU (|dE|/|E|, max|dF|/max|F|) in "
+        f"{time.time() - t:.1f} s: " + ", ".join(
+            f"{k} ({e:.1e}, {f:.1e})" for k, (e, f) in worst.items()))
+    bad = {k: v for k, v in worst.items()
+           if not (v[0] <= 1e-10 and v[1] <= 1e-8)}
+    if bad:
+        fail(f"14: the card left the CPU on {bad}")
+    t = time.time()
+    pos, pe = term_checks.custom_dynamics("cuda", 200, "single")
+    log(f"14 200 float32 steps of the custom-force system on the card in "
+        f"{time.time() - t:.1f} s: PE {pe:.4f} kJ/mol")
+    if not (np.isfinite(pe) and np.all(np.isfinite(pos))):
+        fail("14: the custom-force dynamics went non-finite")
+
+
 def main():
     # ---- 0. device --------------------------------------------------------
     import torch
@@ -2848,7 +3320,20 @@ def main():
                                         "ewald", scaled=True)["regs"]
     phase_seconds["11 flat NPT"] = phase_mark()
 
-    # ---- 12. kernel summary -------------------------------------------------
+    # ---- 12. the force-field XML path at 100k, NPT through B1 ------------
+    final, modeller = phase_ff(card, ms_step)
+    phase_seconds["12 the ffxml path"] = phase_mark()
+
+    # ---- 13. SHAKE clusters at 100k ------------------------------------------
+    phase_shake(card, ms_step, final, modeller)
+    del final, modeller
+    phase_seconds["13 SHAKE clusters"] = phase_mark()
+
+    # ---- 14. the plain-PyTorch terms on the card ----------------------------
+    phase_terms(card)
+    phase_seconds["14 the plain terms"] = phase_mark()
+
+    # ---- 15. kernel summary -------------------------------------------------
     log("seconds per phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_seconds.items()))
     src, tpu = ("openmm_drudenose_tpu_torch/csrc/sweep.cu",

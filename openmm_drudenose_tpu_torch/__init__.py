@@ -14,6 +14,18 @@ hand-written CUDA kernels (ops/sweep.py, ops/sweep_chunked.py, csrc/);
 everything else is plain PyTorch.  Entry points run on CUDA unless the
 caller passes device="cpu".
 
+A System also comes from a force-field XML and a PDB, as the reference's
+own workflow builds it (app/forcefield.py; examples/nacl_tg_ff.py):
+
+    ff = dt.ForceField("tests/data/swm4_nacl.xml")
+    pdb = dt.PDBFile("box.pdb")
+    modeller = dt.Modeller(pdb.topology, pdb.positions)
+    modeller.addExtraParticles(ff)
+    system = ff.createSystem(modeller.topology, nonbondedMethod=PME,
+                             nonbondedCutoff=1.0, constraints=HBonds)
+
+with PME and HBonds from openmm_drudenose_tpu_torch.app.
+
     import openmm_drudenose_tpu_torch as dt
     from openmm_drudenose_tpu_torch.io.builders import build_water_box
     system, pos = build_water_box(20000)
@@ -25,24 +37,40 @@ caller passes device="cpu".
 """
 
 from .app.context import Context, State
+from .app.forcefield import ForceField, Modeller
 from .app.integrator import DrudeTGNHIntegrator
-from .app.serialization import load_checkpoint, save_checkpoint
+from .app.serialization import (XmlSerializer, deserialize_integrator,
+                                deserialize_system, load_checkpoint,
+                                save_checkpoint, serialize_integrator,
+                                serialize_system)
 from .app.simulation import CheckpointReporter, Simulation, StateDataReporter
 from .forces.bonded import (HarmonicAngleForce, HarmonicBondForce,
                             HarmonicTorsionForce, PeriodicTorsionForce)
+from .forces.cmap import CMAPTorsionForce
 from .forces.cmmotion import CMMotionRemover, MonteCarloBarostat
+from .forces.custom import (CustomAngleForce, CustomBondForce,
+                            CustomExternalForce, CustomNonbondedForce,
+                            CustomTorsionForce)
 from .forces.drude import DrudeForce
 from .forces.nonbonded import NonbondedForce
+from .io.pdbfile import PDBFile
 from .parallel.flatrep import FlatReplicaEnsemble
-from .system import System, ThreeParticleAverageSite, TwoParticleAverageSite
+from .system import (LocalCoordinatesSite, OutOfPlaneSite, System,
+                     ThreeParticleAverageSite, TwoParticleAverageSite)
 from .units import BOLTZ, ONE_4PI_EPS0
 
 __all__ = [
     "System", "TwoParticleAverageSite", "ThreeParticleAverageSite",
+    "OutOfPlaneSite", "LocalCoordinatesSite",
     "DrudeForce", "NonbondedForce", "CMMotionRemover", "MonteCarloBarostat",
     "HarmonicBondForce", "HarmonicAngleForce", "PeriodicTorsionForce",
-    "HarmonicTorsionForce",
+    "HarmonicTorsionForce", "CMAPTorsionForce",
+    "CustomBondForce", "CustomAngleForce", "CustomTorsionForce",
+    "CustomNonbondedForce", "CustomExternalForce",
     "DrudeTGNHIntegrator", "Context", "State", "Simulation",
-    "StateDataReporter", "CheckpointReporter", "save_checkpoint",
-    "load_checkpoint", "FlatReplicaEnsemble", "BOLTZ", "ONE_4PI_EPS0",
+    "StateDataReporter", "CheckpointReporter", "ForceField", "Modeller",
+    "PDBFile", "serialize_integrator", "deserialize_integrator",
+    "serialize_system", "deserialize_system", "XmlSerializer",
+    "save_checkpoint", "load_checkpoint", "FlatReplicaEnsemble", "BOLTZ",
+    "ONE_4PI_EPS0",
 ]

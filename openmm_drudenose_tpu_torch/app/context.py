@@ -2,8 +2,8 @@
 
 OpenMM-shaped semantics (setPositions, setVelocities,
 setVelocitiesToTemperature, setPeriodicBoxVectors, applyConstraints,
-applyVelocityConstraints, minimizeEnergy, reinitialize, getState, step)
-as in the JAX package's app/context.py.  The in-step force pass
+applyVelocityConstraints, minimizeEnergy, reinitialize, getState, step,
+setParameter / getParameter(s)) as in the JAX package's app/context.py.  The in-step force pass
 (`_forces_only`, the JAX forces_only :248) adds the direct-space sweep
 forces (kernel B1 or B2 in float32 on the cell-pair strategy, the dense
 sum on the dense one), the analytic PME reciprocal forces (Ewald/PME), the
@@ -40,6 +40,12 @@ device copy, `_dev_scale`), each replica moves its own volume
 grid.  Where the smallest replica outgrows the stencil's slack, the grid
 is planned again at the template box times min(s), the scales divided by
 it (`_replan_at_box`); a box too small for a regular grid there raises.
+
+The custom forces' global parameters live in the Context
+(`_parameters`, from the forces' defaults): setParameter changes the
+compiled terms' values and leaves the System as it is, as OpenMM's
+Context does (the JAX package writes the System's default: ROADMAP.md
+C19).
 
 Entry points run on CUDA unless the caller passes device="cpu"; a Context
 without a device on a machine without CUDA raises.
@@ -155,6 +161,10 @@ class Context:
         self._prec = precision_mod.get_precision(precision)
         self._nb_options = dict(nb_options or {})
         self._ensemble_r = int(ensemble_r)
+        # the Context's values of the custom forces' global parameters,
+        # from the forces' defaults (OpenMM's Context::setParameter
+        # changes these, not the System)
+        self._parameters = self._default_parameters()
         if self._ensemble_r > 1 and any(
                 type(f).__name__ == "MonteCarloBarostat"
                 for f in system.getForces()):
@@ -205,15 +215,19 @@ class Context:
                 term = f.compile(self._system, r, self._device)
                 if term is not None:
                     self._terms.append(term)
+        self._push_parameters()
         self._cp_cfg = self._nb.cfg if self._nb is not None else None
         self._rebuild_interval = (self._cp_cfg.rebuild_interval
                                   if self._cp_cfg is not None else None)
         self._plan_box = np.array(self._system.getDefaultPeriodicBoxVectors(),
                                   np.float64)
         self._triclinic = boxutils.is_triclinic(self._plan_box)
+        stats = getattr(getattr(self, "_stepper", None), "shake_stats", None)
         self._stepper = tgnh.Stepper(
             self._static, self._forces_only,
             self._mc_move if self._static.baro_freq else None)
+        # a recompile (capacity growth, a replan) keeps the SHAKE counts
+        self._stepper.shake_stats = stats
         self._pe_valid = False
         if self._state is not None:
             self._state = self._state.replace(neighbors=None)
@@ -289,7 +303,7 @@ class Context:
             f = f + term.energy_forces(pos, box_t,
                                        **self._term_kw(term, pos_err, exact),
                                        **self._scale_kw(term, atom_s))[1]
-        return spread_vsite_forces(spec, static, f)
+        return spread_vsite_forces(spec, static, f, pos)
 
     @staticmethod
     def _term_kw(term, pos_err, exact):
@@ -438,42 +452,50 @@ class Context:
         self._pe_valid = False
 
     def _all_constraints(self):
-        """Every distance constraint as (idx (C, 2), dist (C,)): the
-        SETTLE triangles' three sides, in the JAX package's order."""
+        """Every distance constraint as (idx (C, 2), dist (C,)): the SHAKE
+        pairs, then the SETTLE triangles' three sides, in the JAX
+        package's order (app/context.py:974-986 there)."""
         spec = self._spec
         t = spec.settle_idx
-        idx = torch.cat([t[:, (0, 1)], t[:, (0, 2)], t[:, (1, 2)]], dim=0)
+        idx = torch.cat([spec.shake_idx, t[:, (0, 1)], t[:, (0, 2)],
+                         t[:, (1, 2)]], dim=0)
         d = spec.settle_dist
-        dist = torch.cat([d[:, 0], d[:, 0], d[:, 1]], dim=0)
+        dist = torch.cat([spec.shake_dist, d[:, 0], d[:, 0], d[:, 1]],
+                         dim=0)
         return idx, dist
 
     def applyConstraints(self, tol: float) -> None:
         """Project the positions onto the constraints (Jacobi SHAKE from
         the current directions, constraints/shake.py), then place the
         virtual sites."""
-        if not self._static.n_settle:
-            return
         spec, static = self._spec, self._static
+        if not (static.n_settle or static.n_shake):
+            return
         idx, dist = self._all_constraints()
         pos = self._state.positions
         delta = shake.apply_position_constraints(
             pos, torch.zeros_like(pos), spec.inv_mass, idx, dist,
-            float(tol), shake.MAX_ITER)
+            float(tol), static.shake_max_iter)
         self._state = self._state.replace(
             positions=apply_vsites(spec, static, pos + delta))
         self._forces_valid = False
         self._pe_valid = False
 
     def applyVelocityConstraints(self, tol: float) -> None:
-        """Remove the velocity components along the constraints (the
-        rigid-triangle solve of constraints/settle.py, exact; `tol` is
-        the OpenMM signature's)."""
-        if not self._static.n_settle:
-            return
-        spec = self._spec
-        v = settle.apply_velocity_constraints(
-            self._state.positions, self._state.velocities, spec.inv_mass,
-            spec.settle_idx, spec.settle_dist)
+        """Remove the velocity components along the constraints: the
+        rigid-triangle solve of constraints/settle.py (exact), then
+        RATTLE on the other constraints to `tol`."""
+        spec, static = self._spec, self._static
+        v = self._state.velocities
+        if static.n_settle:
+            v = settle.apply_velocity_constraints(
+                self._state.positions, v, spec.inv_mass, spec.settle_idx,
+                spec.settle_dist)
+        if static.n_shake:
+            v = shake.apply_velocity_constraints(
+                self._state.positions, v, spec.inv_mass, spec.shake_idx,
+                spec.shake_dist, float(tol), static.shake_max_iter,
+                pos_err=self._state.pos_err)
         self._state = self._state.replace(velocities=v)
         self._ke_valid = False
 
@@ -931,6 +953,11 @@ class Context:
         velocities, box, time, step, barostat and compensation carry
         over, and the thermostat chain where its shape is unchanged."""
         old = self._state
+        kept = self._parameters
+        self._parameters = self._default_parameters()
+        if preserveState:
+            self._parameters.update({k: v for k, v in kept.items()
+                                     if k in self._parameters})
         self._init_spec_and_state()
         st = self._state
         if preserveState and old.positions.shape == st.positions.shape:
@@ -948,3 +975,43 @@ class Context:
 
     def getIntegrator(self):
         return self._integrator
+
+    # -- global parameters of the custom forces ------------------------------
+    def _default_parameters(self) -> dict:
+        out: dict = {}
+        for f in self._system.getForces():
+            for name, v in (getattr(f, "_globals", None) or ()):
+                out.setdefault(name, float(v))
+        return out
+
+    def _push_parameters(self) -> None:
+        """The Context's parameter values into the compiled terms."""
+        for term in self._terms:
+            glb = getattr(term, "globals", None)
+            if glb is not None:
+                for name in glb:
+                    glb[name] = self._parameters[name]
+
+    def setParameter(self, name: str, value: float) -> None:
+        """Set a global parameter of the custom forces in this Context
+        (OpenMM's Context::setParameter).  The System's default stays as
+        it is, so another Context of the same System starts from the
+        default (the JAX package writes the value into the force's
+        default, app/context.py:906-925 there: ROADMAP.md C19).  The
+        compiled terms read the new value at their next evaluation."""
+        if name not in self._parameters:
+            raise ValueError(
+                f"no force declares a global parameter {name!r}")
+        self._parameters[name] = float(value)
+        self._push_parameters()
+        self._forces_valid = False
+        self._pe_valid = False
+
+    def getParameter(self, name: str) -> float:
+        if name not in self._parameters:
+            raise ValueError(
+                f"no force declares a global parameter {name!r}")
+        return self._parameters[name]
+
+    def getParameters(self) -> dict:
+        return dict(self._parameters)

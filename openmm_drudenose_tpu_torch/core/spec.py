@@ -11,7 +11,9 @@ does and as the reference plugin's initialize() does
     (tempGroupRedMass, CudaDrudeTGNHKernels.cpp:130-132, 219-220) and the
     constraint and CMMotionRemover deductions
   - NH chain masses and initial accelerations
-  - SETTLE triangles and the average virtual-site tables
+  - SETTLE triangles, the other constraints as SHAKE pairs (the JAX
+    spec's shake_idx / shake_dist, core/spec.py:341-346 there), and the
+    tables of the average, out-of-plane and local-coordinates sites
   - the MonteCarloBarostat's frequency, pressure and kT
 
 Per-atom tables go to the simulation device; the NH chain constants stay
@@ -57,6 +59,11 @@ class StaticSpec:
     cm_freq: int                # 0 = no CMMotionRemover
     baro_freq: int = 0          # 0 = no MonteCarloBarostat
     ensemble_r: int = 1         # replicas of a flattened ensemble
+    n_shake: int = 0            # constraints outside SETTLE triangles
+    n_vsites_oop: int = 0       # out-of-plane sites
+    n_vsites_lc: int = 0        # local-coordinates sites
+    constraint_tol: float = 1e-5
+    shake_max_iter: int = 150
 
     @property
     def n_baths(self) -> int:
@@ -88,6 +95,17 @@ class SystemSpec:
     vs_avg_w: torch.Tensor      # (Va, 3)
     baro_pressure: float = 0.0  # kJ/mol/nm^3
     baro_kt: float = 0.0        # kB T of the barostat, kJ/mol
+    shake_idx: torch.Tensor = None   # (C, 2)
+    shake_dist: torch.Tensor = None  # (C,)
+    vs_oop_idx: torch.Tensor = None  # (Vo,)
+    vs_oop_p: torch.Tensor = None    # (Vo, 3)
+    vs_oop_w: torch.Tensor = None    # (Vo, 3) [w12, w13, wcross]
+    vs_lc_idx: torch.Tensor = None   # (Vl,)
+    vs_lc_p: torch.Tensor = None     # (Vl, K) parents, padded with 0
+    vs_lc_ow: torch.Tensor = None    # (Vl, K) origin weights, pad 0
+    vs_lc_xw: torch.Tensor = None    # (Vl, K) x-direction weights
+    vs_lc_yw: torch.Tensor = None    # (Vl, K) y-direction weights
+    vs_lc_local: torch.Tensor = None  # (Vl, 3) local position
 
 
 def _find_drude_force(system):
@@ -139,7 +157,8 @@ def build_spec(system, integrator, real_dtype, accum_dtype, device,
     the bath constants are one replica's and the initial eta_dot_dot is
     (R, G+2, M)."""
     from ..forces.cmmotion import CMMotionRemover, MonteCarloBarostat
-    from ..system import ThreeParticleAverageSite, TwoParticleAverageSite
+    from ..system import (LocalCoordinatesSite, OutOfPlaneSite,
+                          ThreeParticleAverageSite, TwoParticleAverageSite)
 
     n = system.getNumParticles()
     drude_force = _find_drude_force(system)
@@ -252,16 +271,17 @@ def build_spec(system, integrator, real_dtype, accum_dtype, device,
         link_active[G + 1, 1:] = False
 
     # ---- constraints ---------------------------------------------------
-    settle, other = partition_constraints(system, masses)
-    if other:
-        raise NotImplementedError(
-            "constraints outside rigid triangles (SHAKE) are not ported yet")
+    settle, shake = partition_constraints(system, masses)
+    shake_idx = np.array([c[:2] for c in shake], np.int64).reshape(-1, 2)
+    shake_dist = np.array([c[2] for c in shake], np.float64)
     settle_idx = np.array([s[:3] for s in settle], np.int64).reshape(-1, 3)
     settle_dist = np.array([s[3:] for s in settle],
                            np.float64).reshape(-1, 2)
 
     # ---- virtual sites ---------------------------------------------------
     avg_idx, avg_p, avg_w = [], [], []
+    oop_idx, oop_p, oop_w = [], [], []
+    lc = []
     for i in range(n):
         if not system.isVirtualSite(i):
             continue
@@ -274,12 +294,31 @@ def build_spec(system, integrator, real_dtype, accum_dtype, device,
             avg_idx.append(i)
             avg_p.append(vs.particles)
             avg_w.append(vs.weights)
+        elif isinstance(vs, OutOfPlaneSite):
+            oop_idx.append(i)
+            oop_p.append(vs.particles)
+            oop_w.append(vs.weights)
+        elif isinstance(vs, LocalCoordinatesSite):
+            lc.append((i, vs))
         else:
             raise SpecError(
                 f"Unsupported virtual site type {type(vs).__name__}")
-    is_avg = np.zeros(n, bool)
-    is_avg[avg_idx] = True
-    if any(is_avg[p] for row in avg_p for p in row):
+    lc_k = max((len(v.particles) for _, v in lc), default=1)
+    lc_p = np.zeros((len(lc), lc_k), np.int64)
+    lc_w = np.zeros((3, len(lc), lc_k), np.float64)
+    lc_local = np.zeros((len(lc), 3), np.float64)
+    for row, (i, vs) in enumerate(lc):
+        k = len(vs.particles)
+        lc_p[row, :k] = vs.particles
+        lc_w[0, row, :k] = vs.origin_weights
+        lc_w[1, row, :k] = vs.x_weights
+        lc_w[2, row, :k] = vs.y_weights
+        lc_local[row] = vs.local_position
+    is_site = np.zeros(n, bool)
+    is_site[avg_idx + oop_idx + [i for i, _ in lc]] = True
+    parents = [p for row in avg_p + oop_p for p in row] + [
+        p for _, vs in lc for p in vs.particles]
+    if any(is_site[p] for p in parents):
         raise NotImplementedError("virtual sites built on virtual sites "
                                   "are not ported yet")
 
@@ -290,7 +329,9 @@ def build_spec(system, integrator, real_dtype, accum_dtype, device,
         has_pairs=n_pairs > 0,
         has_hardwall=integrator.getMaxDrudeDistance() > 0,
         n_settle=len(settle), n_vsites_avg=len(avg_idx), cm_freq=cm_freq,
-        baro_freq=baro_freq, ensemble_r=int(ensemble_r))
+        baro_freq=baro_freq, ensemble_r=int(ensemble_r),
+        n_shake=len(shake), n_vsites_oop=len(oop_idx), n_vsites_lc=len(lc),
+        constraint_tol=float(integrator.getConstraintTolerance()))
 
     r, a = real_dtype, accum_dtype
     dev = lambda x, dt=None: torch.as_tensor(x, dtype=dt, device=device)
@@ -310,7 +351,15 @@ def build_spec(system, integrator, real_dtype, accum_dtype, device,
         vs_avg_idx=dev(np.array(avg_idx, np.int64)),
         vs_avg_p=dev(np.array(avg_p, np.int64).reshape(-1, 3)),
         vs_avg_w=dev(np.array(avg_w, np.float64).reshape(-1, 3), r),
-        baro_pressure=float(baro_pressure), baro_kt=float(baro_kt))
+        baro_pressure=float(baro_pressure), baro_kt=float(baro_kt),
+        shake_idx=dev(shake_idx), shake_dist=dev(shake_dist, r),
+        vs_oop_idx=dev(np.array(oop_idx, np.int64)),
+        vs_oop_p=dev(np.array(oop_p, np.int64).reshape(-1, 3)),
+        vs_oop_w=dev(np.array(oop_w, np.float64).reshape(-1, 3), r),
+        vs_lc_idx=dev(np.array([i for i, _ in lc], np.int64)),
+        vs_lc_p=dev(lc_p), vs_lc_ow=dev(lc_w[0], r),
+        vs_lc_xw=dev(lc_w[1], r), vs_lc_yw=dev(lc_w[2], r),
+        vs_lc_local=dev(lc_local, r))
     if ensemble_r > 1:
         init_edd = np.broadcast_to(init_edd,
                                    (ensemble_r,) + init_edd.shape).copy()

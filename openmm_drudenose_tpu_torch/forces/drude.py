@@ -1,6 +1,13 @@
 """DrudeForce: core-shell harmonic springs and Thole-screened dipole pairs.
 
-  spring:   E = 1/2 k r^2, k = ONE_4PI_EPS0 q^2 / alpha (isotropic)
+  spring:   E = 1/2 k3 r^2 + 1/2 k1 (a12 . r)^2 + 1/2 k2 (a34 . r)^2,
+            r the shell's offset from its core, a12 the unit vector from
+            particle2 to the core and a34 from particle4 to particle3;
+            with a1 = aniso12 (or 1), a2 = aniso34 (or 1), a3 = 3-a1-a2:
+              k3 = ONE_4PI_EPS0 q^2 / (alpha a3)
+              k1 = ONE_4PI_EPS0 q^2 / (alpha a1) - k3
+              k2 = ONE_4PI_EPS0 q^2 / (alpha a2) - k3
+            (OpenMM's convention; k1 = k2 = 0 for an isotropic spring)
   screened: E = sum over the 4 core/shell cross pairs of s qq S(u) / r,
             S(u) = 1 - (1 + u/2) exp(-u), u = thole r / (a1 a2)^(1/6),
             signs (+,-,-,+) for (d1,d2), (d1,c2), (c1,d2), (c1,c2).
@@ -12,8 +19,11 @@
             minimum-imaged.
 
 The same physics as the JAX package's forces/drude.py.  Forces here are
-analytic (no autograd): F = -dE/dr along each pair.  Anisotropic springs
-are not on the ported path and are refused.
+analytic (no autograd): F = -dE/dr along each pair.  An anisotropic term
+1/2 k (a . r)^2, a = u / |u|, pushes the shell by -k (a . r) a and the
+axis u by -k (a . r) (r - (a . r) a) / |u|.  The axes, like the JAX
+package's, take the positions without compensation (the axis atoms are
+~0.1 nm apart, where float32 rounding is ~1e-6 of the length).
 """
 
 from __future__ import annotations
@@ -97,18 +107,30 @@ class DrudeForce:
         if not self._particles:
             return None
         p = self._particles
-        if any(x[2] >= 0 or x[3] >= 0 for x in p):
-            raise NotImplementedError(
-                "anisotropic Drude springs are not ported yet")
         drude = np.array([x[0] for x in p], np.int64)
         parent = np.array([x[1] for x in p], np.int64)
+        p2, p3, p4 = (np.array([x[c] for x in p], np.int64)
+                      for c in (2, 3, 4))
         charge = np.array([x[5] for x in p], np.float64)
         alpha = np.array([x[6] for x in p], np.float64)
-        k3 = ONE_4PI_EPS0 * charge * charge / alpha
+        a1 = np.where(p2 >= 0, [x[7] for x in p], 1.0)
+        a2 = np.where(p3 >= 0, [x[8] for x in p], 1.0)
+        ktot = ONE_4PI_EPS0 * charge * charge / alpha
+        k3 = ktot / (3.0 - a1 - a2)
+        k1 = np.where(p2 >= 0, ktot / a1 - k3, 0.0)
+        k2 = np.where(p3 >= 0, ktot / a2 - k3, 0.0)
         term = DrudeTerm(
             drude=torch.as_tensor(drude, device=device),
             parent=torch.as_tensor(parent, device=device),
             k3=torch.as_tensor(k3, dtype=dtype, device=device))
+        tt = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)
+        # the rows with a k1 term: the axis from particle2 to the core;
+        # with a k2 term: from particle4 to particle3
+        for k, head, tail in ((k1, parent, p2), (k2, p3, p4)):
+            rows = np.nonzero(k != 0.0)[0]
+            if len(rows):
+                term.aniso.append((tt(rows), tt(head[rows]), tt(tail[rows]),
+                                   tt(k[rows], dtype)))
         if self._screened_pairs:
             sp = self._screened_pairs
             sp1 = np.array([s[0] for s in sp], np.int64)
@@ -145,6 +167,7 @@ class DrudeTerm:
         self.drude = drude
         self.parent = parent
         self.k3 = k3
+        self.aniso = []          # (rows, axis head, axis tail, k)
         self.screened = None
         self.nbthole = None
 
@@ -160,6 +183,21 @@ class DrudeTerm:
             delta = delta + (pos_err[self.drude] - pos_err[self.parent])
         r2 = torch.sum(delta * delta, dim=-1)
         energy = 0.5 * torch.sum(self.k3 * r2)
+        forces = torch.zeros_like(positions) if with_forces else None
+        fd = -self.k3[:, None] * delta
+        for rows, head, tail, k in self.aniso:
+            u = positions[head] - positions[tail]
+            norm = torch.linalg.norm(u, dim=-1, keepdim=True)
+            a = u / norm
+            d_rows = delta[rows]
+            rp = torch.sum(a * d_rows, dim=-1, keepdim=True)
+            energy = energy + 0.5 * torch.sum(k * rp[:, 0] * rp[:, 0])
+            if with_forces:
+                krp = k[:, None] * rp
+                scatter.index_add_(fd, rows, -krp * a)
+                fu = -krp * (d_rows - rp * a) / norm
+                scatter.index_add_(forces, head, fu)
+                scatter.index_add_(forces, tail, -fu)
         if not with_forces:
             if self.screened is not None:
                 energy = energy + screened_energy_forces(
@@ -168,8 +206,6 @@ class DrudeTerm:
                 energy = energy + nbthole_energy_forces(
                     self.nbthole, positions, box, False, scale)[0]
             return energy, None
-        fd = -self.k3[:, None] * delta
-        forces = torch.zeros_like(positions)
         scatter.index_add_(forces, self.drude, fd)
         scatter.index_add_(forces, self.parent, -fd)
         if self.screened is not None:

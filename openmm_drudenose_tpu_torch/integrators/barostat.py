@@ -110,7 +110,9 @@ def maybe_attempt_mc_move(spec, static, state, energy_fn, forces_fn,
 # `mc_energies` hook (forces/nonbonded.py, forces/drude.py)
 _COM_INVARIANT = ("HarmonicBondForce", "HarmonicAngleForce",
                   "PeriodicTorsionForce", "HarmonicTorsionForce",
-                  "CMMotionRemover", "MonteCarloBarostat")
+                  "CMAPTorsionForce", "CustomBondForce", "CustomAngleForce",
+                  "CustomTorsionForce", "CMMotionRemover",
+                  "MonteCarloBarostat")
 _WITH_HOOK = ("NonbondedForce", "DrudeForce")
 
 
@@ -120,8 +122,10 @@ def check_ensemble_forces(system) -> None:
     mc_energies hook: a force with neither would take part in the
     dynamics but not in the Metropolis test, and bias the volume (the
     JAX package's CustomExternalForce restraints do so, ROADMAP.md C6).
-    A force type that gains a hook (the custom forces of ROADMAP.md
-    A15) joins _WITH_HOOK with it."""
+    The custom bonded forces and CMAP link their atoms into one molecule
+    (their bonded_pairs), so they are invariant; a CustomExternalForce
+    has no hook and is refused.  A force type that gains a hook joins
+    _WITH_HOOK with it."""
     for f in system.getForces():
         name = type(f).__name__
         if name not in _COM_INVARIANT + _WITH_HOOK:

@@ -3,9 +3,10 @@
 The per-step pipeline of the reference CUDA platform
 (CudaIntegrateDrudeTGNHStepKernel::execute, CudaDrudeTGNHKernels.cpp:
 284-408), as the JAX package's integrators/tgnh.py implements it:
-NH half step -> velocity scaling -> half kick -> position constraints ->
+NH half step -> velocity scaling -> half kick -> position constraints
+(SETTLE triangles, then SHAKE on the other constraints) ->
 position update -> hard wall -> virtual sites -> force pass -> half kick
--> velocity constraints -> NH half step.
+-> velocity constraints (SETTLE, then RATTLE) -> NH half step.
 
 Per-bath kinetic energies are device reductions; the NH chain itself (a
 few numbers per bath, numDrudeSteps sequential substeps) runs on the host
@@ -30,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..constraints import settle
+from ..constraints import settle, shake
 from ..constraints.vsites import apply_vsites
 from ..ops import scatter
 
@@ -325,6 +326,8 @@ class Stepper:
         self.static = static
         self.forces_fn = forces_fn
         self.barostat_fn = barostat_fn
+        # constraints/shake.ShakeStats to count SHAKE/RATTLE sweeps
+        self.shake_stats = None
 
     def nh_half(self, spec, state, v):
         static = self.static
@@ -379,6 +382,12 @@ class Stepper:
             delta = settle.apply_position_constraints(
                 state.positions, delta, spec.inv_mass, spec.settle_idx,
                 spec.settle_dist)
+        if static.n_shake:
+            delta = shake.apply_position_constraints(
+                state.positions, delta, spec.inv_mass, spec.shake_idx,
+                spec.shake_dist, static.constraint_tol,
+                static.shake_max_iter, stats=self.shake_stats,
+                pos_err=state.pos_err)
         if state.pos_err is not None:
             total = state.pos_err + delta
             pos = state.positions + total
@@ -399,6 +408,11 @@ class Stepper:
         if static.n_settle:
             v = settle.apply_velocity_constraints(
                 pos, v, spec.inv_mass, spec.settle_idx, spec.settle_dist)
+        if static.n_shake:
+            v = shake.apply_velocity_constraints(
+                pos, v, spec.inv_mass, spec.shake_idx, spec.shake_dist,
+                static.constraint_tol, static.shake_max_iter,
+                stats=self.shake_stats, pos_err=state.pos_err)
         state = state.replace(positions=pos, forces=forces,
                               step=state.step + 1,
                               time=state.time + spec.dt)

@@ -35,23 +35,32 @@ import torch
 
 
 def _shift_vsite(vs, o: int):
-    from ..system import ThreeParticleAverageSite, TwoParticleAverageSite
+    from ..system import (LocalCoordinatesSite, OutOfPlaneSite,
+                          ThreeParticleAverageSite, TwoParticleAverageSite)
     if isinstance(vs, TwoParticleAverageSite):
         return TwoParticleAverageSite(vs.particles[0] + o,
                                       vs.particles[1] + o, *vs.weights)
-    if isinstance(vs, ThreeParticleAverageSite):
-        return ThreeParticleAverageSite(
-            *(p + o for p in vs.particles), *vs.weights)
+    if isinstance(vs, (ThreeParticleAverageSite, OutOfPlaneSite)):
+        return type(vs)(*(p + o for p in vs.particles), *vs.weights)
+    if isinstance(vs, LocalCoordinatesSite):
+        return LocalCoordinatesSite(
+            [p + o for p in vs.particles], vs.origin_weights, vs.x_weights,
+            vs.y_weights, vs.local_position)
     raise ValueError(f"unsupported virtual site {type(vs).__name__}")
 
 
 def _replicate_force(f, R: int, n0: int):
-    """R replica-major copies of force `f` of an n0-atom system, for the
-    force types the port has; the others raise, as the JAX package
-    raises on a CustomNonbondedForce."""
+    """R replica-major copies of force `f` of an n0-atom system (the JAX
+    package's _replicate_force, :155 there); a CustomNonbondedForce
+    raises, as there: its dense pair sum would couple the replicas that
+    share the extended box."""
     from ..forces.bonded import (HarmonicAngleForce, HarmonicBondForce,
                                  HarmonicTorsionForce, PeriodicTorsionForce)
+    from ..forces.cmap import CMAPTorsionForce
     from ..forces.cmmotion import CMMotionRemover, MonteCarloBarostat
+    from ..forces.custom import (CustomAngleForce, CustomBondForce,
+                                 CustomExternalForce, CustomNonbondedForce,
+                                 CustomTorsionForce)
     from ..forces.drude import DrudeForce
     from ..forces.nonbonded import NonbondedForce
 
@@ -122,6 +131,36 @@ def _replicate_force(f, R: int, n0: int):
                 t = f.getTorsionParameters(i)
                 g.addTorsion(*(p + o for p in t[:4]), *t[4:])
         return g
+
+    if isinstance(f, CMAPTorsionForce):
+        g = CMAPTorsionForce()
+        for size, energy in f._maps:
+            g.addMap(size, energy)
+        for r in range(R):
+            o = r * n0
+            for t in f._torsions:
+                g.addTorsion(t[0], *(x + o for x in t[1:]))
+        return g
+
+    if isinstance(f, (CustomBondForce, CustomAngleForce,
+                      CustomTorsionForce, CustomExternalForce)):
+        g = type(f)(f.getEnergyFunction())
+        g._per_names = list(f._per_names)
+        g._globals = list(f._globals)
+        k = f._N_PARTICLES
+        for r in range(R):
+            o = r * n0
+            for t in f._terms:
+                g._terms.append(tuple(p + o for p in t[:k]) + (t[k],))
+        return g
+
+    if isinstance(f, CustomNonbondedForce):
+        raise ValueError(
+            "FlatReplicaEnsemble cannot replicate a general "
+            "CustomNonbondedForce (replicas share one extended box; the "
+            "dense pair path would couple them) — map the interaction "
+            "onto NonbondedForce / LennardJonesForce tables as "
+            "app/forcefield.py does for the stock CHARMM decks")
 
     if isinstance(f, CMMotionRemover):
         return CMMotionRemover(f.getFrequency())

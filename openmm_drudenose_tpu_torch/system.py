@@ -2,7 +2,7 @@
 
 OpenMM-shaped host-side builders (addParticle, addConstraint,
 setVirtualSite, setDefaultPeriodicBoxVectors, addForce), as in the JAX
-package's system.py.  core/spec.build_spec compiles a System and an
+package's system.py, with its four kinds of virtual site.  core/spec.build_spec compiles a System and an
 integrator into tensors.  Periodic boxes are orthorhombic or triclinic
 in OpenMM's reduced form (forces/boxutils.py).
 """
@@ -34,6 +34,40 @@ class ThreeParticleAverageSite(VirtualSite):
                  weight1: float, weight2: float, weight3: float):
         self.particles = (particle1, particle2, particle3)
         self.weights = (weight1, weight2, weight3)
+
+
+class OutOfPlaneSite(VirtualSite):
+    """pos = p1 + w12 r12 + w13 r13 + wcross (r12 x r13), r1k = pk - p1."""
+
+    def __init__(self, particle1: int, particle2: int, particle3: int,
+                 weight12: float, weight13: float, weightCross: float):
+        self.particles = (particle1, particle2, particle3)
+        self.weights = (weight12, weight13, weightCross)
+
+
+class LocalCoordinatesSite(VirtualSite):
+    """A site at a fixed position in a local frame made of weighted sums
+    of its parents (OpenMM's semantics; the lone pairs of CHARMM-Drude
+    decks):
+
+      origin = sum_i ow_i p_i
+      xdir   = sum_i xw_i p_i,  ydir = sum_i yw_i p_i
+      x^ = xdir/|xdir|; z^ = (xdir x ydir)/|...|; y^ = z^ x x^
+      pos = origin + local[0] x^ + local[1] y^ + local[2] z^
+    """
+
+    def __init__(self, particles: Sequence[int],
+                 originWeights: Sequence[float],
+                 xWeights: Sequence[float], yWeights: Sequence[float],
+                 localPosition: Sequence[float]):
+        if not (len(particles) == len(originWeights) == len(xWeights)
+                == len(yWeights)):
+            raise ValueError("particles and weight lists must match")
+        self.particles = tuple(int(p) for p in particles)
+        self.origin_weights = tuple(float(w) for w in originWeights)
+        self.x_weights = tuple(float(w) for w in xWeights)
+        self.y_weights = tuple(float(w) for w in yWeights)
+        self.local_position = tuple(float(w) for w in localPosition)
 
 
 class System:

@@ -17,7 +17,12 @@ sheared as the JAX package's scripts/check_triclinic_tpu.py shears its
 replica-band path: both kernels against their plain versions on a
 flattened ensemble's banded grid, bit-identical launches, replicas
 isolated bit for bit, a flat-ensemble Context stepping through each, and
-a checkpoint of a flat-ensemble run replayed bit for bit.
+a checkpoint of a flat-ensemble run replayed bit for bit.  The
+force-field path, SHAKE clusters and the plain-PyTorch terms (phases
+12-14 of chip_smoke.py at small size): a small NaCl deck read through
+ForceField against io/nacl.py's System and stepped in NPT through B1, its
+flexible-water variant stepped with SHAKE and RATTLE, and
+tools/term_checks.py's systems in f64 on the card against the CPU.
 Marked `gpu`; each test skips (through the `cuda` fixture) where
 no CUDA card is present.
 On the card (tests/conftest.py imports JAX, which the machine with the
@@ -683,3 +688,121 @@ def test_flat_npt_checkpoint_replay_is_bit_exact_on_card(cuda, tmp_path):
     ens.step(32)
     assert torch.equal(first, ctx._state.positions)
     assert torch.equal(scales, ctx._state.rep_scale)
+
+
+# -- the force-field XML path, SHAKE clusters and the plain terms -------------
+
+def _ff_deck(tmp_path, rigid_water=True, n_water=1000, n_ion=10):
+    """A small NaCl deck through PDBFile -> ForceField -> Modeller ->
+    createSystem (cutoff 0.6: a cell grid at this size), with the
+    position PDB for io/nacl.load_nacl_swm4."""
+    from openmm_drudenose_tpu_torch.examples import nacl_tg_ff
+    system, pos = builders.build_nacl_water_box(n_water, n_ion, n_ion)
+    bare, with_sites = str(tmp_path / "bare.pdb"), str(tmp_path / "pos.pdb")
+    nacl_tg_ff.write_nacl_pdbs(system, pos, bare, with_sites)
+    sys_f, modeller, _ = nacl_tg_ff.build(nacl_tg_ff.FFXML, bare, cutoff=0.6,
+                                          rigid_water=rigid_water)
+    return sys_f, np.asarray(modeller.positions), with_sites
+
+
+def _ff_ctx(system, positions, device, precision="single"):
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20)
+    integ.setMaxDrudeDistance(0.02)
+    ctx = dt.Context(system, integ, precision=precision, device=device,
+                     strategy="cellpair")
+    ctx.setPositions(positions)
+    ctx.setVelocitiesToTemperature(300.0, seed=2)
+    return ctx, integ
+
+
+def test_ff_deck_matches_hand_built_and_steps_through_b1(cuda, tmp_path):
+    """Phase 12 of chip_smoke.py at small size: the FF System's force
+    pass against io/nacl.load_nacl_swm4's on the card, then NPT steps
+    through B1 (two energy launches an attempt, no plain sweep)."""
+    from openmm_drudenose_tpu_torch.io import nacl
+    sys_f, pos, with_sites = _ff_deck(tmp_path)
+    sys_h, _, _ = nacl.load_nacl_swm4(
+        with_sites, cutoff=0.6,
+        nbfix={("SOD", "CLA"): (0.31 * 2 ** (1 / 6) / 0.1, 0.20 / 4.184)},
+        nbthole={("SOD", "CLA"): 2.6})
+    forces = [_ff_ctx(s, pos, cuda)[0].getState(forces=True).getForces()
+              for s in (sys_f, sys_h)]
+    assert np.max(np.abs(forces[0] - forces[1])) \
+        <= 2e-5 * np.max(np.abs(forces[1]))
+    sys_f.addForce(dt.MonteCarloBarostat(1.0, 300.0, 8))
+    ctx, integ = _ff_ctx(sys_f, pos, cuda)
+    ctx.minimizeEnergy(maxIterations=50)
+    before = dict(sweep.launches)
+    plain = cellpair.plain_sweeps["cuda"]
+    integ.step(32)
+    torch.cuda.synchronize()
+    assert sweep.launches["b1_sweep"] - before["b1_sweep"] >= 32
+    assert sweep.launches["b1_energy"] - before["b1_energy"] == 2 * 4
+    assert cellpair.plain_sweeps["cuda"] == plain
+    st = ctx.getState(positions=True, energy=True)
+    assert np.isfinite(st.getPotentialEnergy())
+    # the wall holds (its Cl- Drudes may come back from past twice the
+    # wall: the runaway latch reads their field, chip_smoke.py phase 12)
+    spec, s_ = ctx._spec, ctx._state
+    p = s_.positions.double() + s_.pos_err.double()
+    drude = torch.nonzero(spec.is_pair & ~spec.is_parent)[:, 0]
+    dist = torch.linalg.norm(p[drude] - p[spec.partner[drude]], dim=1)
+    assert float(torch.max(dist)) <= 0.02 * 1.00001
+
+
+def test_shake_clusters_step_through_b1(cuda, tmp_path):
+    """Phase 13 at small size: the flexible deck (O-H constraints, no
+    SETTLE) stepped on the card through B1: SHAKE leaves every constraint
+    within 2 tol of its length in every step (the hard wall may move a
+    bounced Drude's parent after it) and |r.v|/d^2 within tol after a
+    projection; one step in f32 against f64 from the same state to 1e-5
+    nm."""
+    from openmm_drudenose_tpu_torch.constraints import shake
+    sys_f, pos, _ = _ff_deck(tmp_path, rigid_water=False)
+    ctx, integ = _ff_ctx(sys_f, pos, cuda)
+    assert ctx._static.n_shake == 2000 and ctx._static.n_settle == 0
+    ctx.minimizeEnergy(maxIterations=50)
+    stats = shake.ShakeStats()
+    ctx._stepper.shake_stats = stats
+    before = sweep.launches["b1_sweep"]
+    spec = ctx._spec
+    i, j = spec.shake_idx[:, 0], spec.shake_idx[:, 1]
+    d2 = spec.shake_dist.double() ** 2
+    integ.step(32)
+    assert float(torch.max(torch.stack(stats.violation))) <= 2e-5
+    st = ctx._state
+    r = (st.positions.double() + st.pos_err.double())[i] \
+        - (st.positions.double() + st.pos_err.double())[j]
+    assert sweep.launches["b1_sweep"] - before >= 32
+    assert len(stats.per_call("pos")) == 32
+    ctx.applyVelocityConstraints(1e-5)
+    v = ctx._state.velocities.double()
+    assert float(torch.max(torch.abs(torch.sum(
+        r * (v[i] - v[j]), 1)) / d2)) <= 1e-5
+    p0 = (ctx._state.positions.double()
+          + ctx._state.pos_err.double()).cpu().numpy()
+    v0 = v.cpu().numpy()
+    out = []
+    for precision in ("single", "double"):
+        c, ig = _ff_ctx(sys_f, p0, cuda, precision)
+        c.setVelocities(v0)
+        ig.step(1)
+        s_ = c._state
+        q = s_.positions.double()
+        if s_.pos_err is not None:
+            q = q + s_.pos_err.double()
+        out.append(q.cpu().numpy())
+    assert np.max(np.abs(out[0] - out[1])) <= 1e-5
+
+
+def test_plain_terms_on_card_match_cpu(cuda):
+    """Phase 14: CMAP, the sites, anisotropic Drudes, every custom force,
+    a setParameter scan and a System read back from its XML in float64
+    on the card against the CPU (1e-10 on energies, 1e-8 on forces), and
+    200 float32 steps of the custom-force system."""
+    from openmm_drudenose_tpu_torch.tools import term_checks
+    worst = term_checks.compare_devices(cuda)
+    for name, (e, f) in worst.items():
+        assert e <= 1e-10 and f <= 1e-8, name
+    pos, pe = term_checks.custom_dynamics(cuda, 200, "single")
+    assert np.isfinite(pe) and np.all(np.isfinite(pos))

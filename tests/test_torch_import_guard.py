@@ -13,16 +13,20 @@ PROBE = """
 import sys
 import openmm_drudenose_tpu_torch
 from openmm_drudenose_tpu_torch import convert
-from openmm_drudenose_tpu_torch.app import context, serialization, simulation
-from openmm_drudenose_tpu_torch.constraints import shake
-from openmm_drudenose_tpu_torch.examples import nacl_tg
-from openmm_drudenose_tpu_torch.forces import bonded, boxutils, dense
+from openmm_drudenose_tpu_torch.app import (context, forcefield,
+                                            serialization, simulation)
+from openmm_drudenose_tpu_torch.constraints import shake, vsites
+from openmm_drudenose_tpu_torch.examples import nacl_tg, nacl_tg_ff
+from openmm_drudenose_tpu_torch.forces import (bonded, boxutils, cmap,
+                                              custom, dense)
+from openmm_drudenose_tpu_torch.utils import expr
 from openmm_drudenose_tpu_torch.integrators import barostat
 from openmm_drudenose_tpu_torch.io import (builders, ionic_liquid, nacl,
                                            pdbfile, polymer)
 from openmm_drudenose_tpu_torch.ops import scatter, sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.parallel import flatrep
-from openmm_drudenose_tpu_torch.tools import time_nvt, walk_model
+from openmm_drudenose_tpu_torch.tools import (nacl_wall, term_checks, time_nvt,
+                                         walk_model)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "openmm_drudenose_tpu"
