@@ -218,10 +218,56 @@ seconds):
      each Custom*Force, a setParameter scan and a System read back from
      its XML, in float64 on the card against the CPU (1e-10 of |E|,
      1e-8 of max|F|); 200 float32 steps of the custom-force system
- 15. the seconds of each phase, the `kernels` JSON line (each kernel's
+ 15. switched LJ at full width through the switched instantiations of
+     B1 and B2 (kSwitch): the deck of phase 12 read through
+     createSystem(PME, nonbondedCutoff=1.2, switchDistance=1.0, HBonds,
+     rigidWater) (the cutoffs CHARMM-GUI writes for Drude decks), from
+     phase 12's final state and box in NVT; the f32 force pass against
+     f64 (phase 2's gates); B1 and B2 switched on its fields against
+     their plain versions (2e-5 of max|F|), f64 and each other,
+     bit-identical, the switch's own effect (switched minus unswitched
+     on the fields with the charges zeroed) against the plain
+     version's in f64 (SW_EFFECT_TOL of that effect's max), their
+     energies (1e-6 of |E|), timed with the bound
+     (the switch's window pairs counted), B1 unswitched on the same
+     fields and on phase 3's fields in the same call (PERF.md: 0.8840
+     ms), every instantiation's registers read from the card;
+     SW_SETTLE settling and SW_STEPS counted steps (B1's switched
+     instantiation alone, no plain sweep): ms/step, ns/day, latches,
+     wall, the bath bands of phase 12; a Context routed to B2 stepped
+     SW_B2_STEPS; the ionic liquid of phase 7 from its final state with
+     the switch from 1.0 at its 1.2 cutoff: B1 switched RF against its
+     plain version, the switch's own effect as above, its energy,
+     SW_IL_STEPS steps counted
+ 16. ReplicaEnsemble at the width of the JAX package's
+     scripts/bench_replicas.py without --flat: 64 replicas of
+     build_water_box(800) from phase 10's settled template, each its own
+     300 K velocities, on the dense strategy ("auto": the block-diagonal
+     all-pairs sum) and on the cell-pair one (B1's band path, an 8 x 8
+     layout): one replica against a standalone f64 Context over
+     REP_CHECK_STEPS steps, replicas isolated (replica 0 moved, the
+     others' forces the same bits), REP_SETTLE settling steps, the best
+     of REP_REPEATS x REP_STEPS counted (the dense term, ~0.35 s a step:
+     REP_DENSE_STEPS, no settling) (one force pass a step for all
+     replicas, at most one more a step() call and a chunk's more a
+     capacity growth, B1's band instantiation alone on the cell-pair
+     strategy, no kernel on the dense one, no plain sweep): ms/step,
+     ns/day a replica and aggregate beside phase 10's; temperatures, the
+     wall; one dense force pass at each of forces/dense.py's two block
+     sizes
+ 17. the rest of the single-card modules: strategy "cell" (neighbour
+     lists) against the cell-pair sweep on the settled 4k box in f64
+     (1e-10 of |E|, 1e-8 of max|F|) and REST_CELL_STEPS f32 steps on it;
+     the DCD and PDB reporters through Simulation on phase 5's example
+     box, read back (frames against the state and each other); the
+     native host library built and loaded (utils/native.py) and its
+     union-find's molecule ids of the 100k water equal to the Python
+     labels' (core/topology.py), each timed on the same edges;
+     utils/profiling.step_breakdown of the 100k Context
+ 18. the seconds of each phase, the `kernels` JSON line (each kernel's
      force and energy instantiations, Ewald and reaction field, the
-     triclinic runs, the replica bands and the per-replica scales), then
-     the result line.
+     triclinic runs, the replica bands, the per-replica scales and the
+     switched LJ), then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -265,6 +311,10 @@ OPS_PER_PAIR_ENERGY = 45
 # its energy, LJ and qq (1/r + krf r^2 - crf) and the float64 add (~25)
 OPS_PER_PAIR_RF = 33
 OPS_PER_PAIR_ENERGY_RF = 25
+# the LJ switch on a pair inside the switching window (r_on < r < r_off):
+# r, t, S and dS/dr^2 and the products (~20; ~12 for the energy's S)
+OPS_SWITCH = 20
+OPS_SWITCH_ENERGY = 12
 # the force kernels' times recorded while B1 still added its reactions
 # with atomics (NVIDIA H100 80GB HBM3, 700 W): B1 at 100k, B2 at 800k
 # (C = 56); each run prints its own beside them
@@ -377,6 +427,39 @@ FF_DENSITY = (0.98, 1.10)
 # in blocks of BLOCK; bands as phase 12's
 SHAKE_STEPS = 208
 SHAKE_BANDS = FF_BANDS
+# phase 15: switched LJ at full width, the cutoffs CHARMM-GUI writes for
+# Drude decks (switchDistance 1.0 nm at a 1.2 nm cutoff): the deck of
+# phase 12 from its final state in NVT, settling and counted steps
+# (bands as phase 12's), the steps of the B2-routed Context and of the
+# switched ionic liquid (phase 7's final state)
+SW_CUTOFF, SW_ON = 1.2, 1.0
+# the switch's own effect on a force kernel (switch_effect): its error
+# against the plain version's in f64, as a fraction of the effect's max.
+# The deck's float32 floor is ~2e-2 of it (the ions' contact LJ forces,
+# ~7,700 kJ/mol/nm, round in the accumulators; 4e-4 on the ionic
+# liquid; NVIDIA H100 80GB HBM3, 700 W); a dropped switch reads 1, a
+# dropped dS/dr^2 term O(1)
+SW_EFFECT_TOL = 5e-2
+SW_SETTLE, SW_STEPS, SW_B2_STEPS, SW_IL_STEPS = 64, 208, 16, 16
+# phase 16: ReplicaEnsemble, scripts/bench_replicas.py without --flat:
+# 64 replicas of build_water_box(800) from phase 10's settled template;
+# one replica held against a standalone f64 Context over
+# REP_CHECK_STEPS steps (positions within REP_CHECK_TOL nm: float32
+# forces against float64 over 20 fs), settling steps, then the best of
+# REP_REPEATS x REP_STEPS
+REP_REPLICAS, REP_CHECK_REPLICA, REP_CHECK_STEPS = 64, 37, 20
+REP_CHECK_TOL = 1e-4
+REP_SETTLE, REP_STEPS, REP_REPEATS = 128, 128, 3
+# the dense block term takes ~0.35 s a step at 64 x 4k (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md): its window is REP_REPEATS x
+# REP_DENSE_STEPS after the check's steps, with no settling of its own
+REP_DENSE_SETTLE, REP_DENSE_STEPS = 0, 16
+# force passes timed at each of the dense term's two block sizes
+REP_BLOCK_REPS = 2
+# phase 17: float32 steps on the neighbour lists; the reporters' steps
+# and intervals on the example box
+REST_CELL_STEPS = 32
+REST_REPORT_STEPS, REST_DCD_EVERY, REST_PDB_EVERY = 100, 25, 50
 
 
 def log(msg):
@@ -446,9 +529,11 @@ def offset_shift(shifts, cfg, o, d):
     return shifts[rep, o, d][:, None]
 
 
-def pair_counts(fields, cfg, shifts):
-    """(pair tests, pairs inside the cutoff) that this run's slot data
-    gives the sweep: occupied-slot products over the half stencil."""
+def pair_counts(fields, cfg, shifts, r_on=None):
+    """(pair tests, pairs inside the cutoff, pairs inside the cutoff and
+    beyond r_on (0 without r_on: the LJ switch's window)) that this
+    run's slot data gives the sweep: occupied-slot products over the
+    half stencil."""
     import torch
     nc, C = cfg.n_cells, cfg.capacity
     dev = fields["x"].device
@@ -457,7 +542,7 @@ def pair_counts(fields, cfg, shifts):
     occ = torch.arange(C, device=dev)[None, :] < count[:, None]
     xyz = [fields[k].reshape(nc, C) for k in "xyz"]
     n_tests = int(torch.sum(count * (count - 1)))
-    n_cut = 0
+    n_cut = n_win = 0
     cut2 = cfg.cutoff * cfg.cutoff
     for o in range(cfg.n_offsets):
         b = nbr[:, o]
@@ -472,18 +557,22 @@ def pair_counts(fields, cfg, shifts):
         else:
             n_tests += int(torch.sum(count * count[b]))
         n_cut += int(torch.sum(ok))
-    return n_tests, n_cut
+        if r_on is not None:
+            n_win += int(torch.sum(ok & (r2 > r_on * r_on)))
+    return n_tests, n_cut, n_win
 
 
-def sweep_bound(fields, cfg, shifts, energy=False, method="ewald"):
+def sweep_bound(fields, cfg, shifts, energy=False, method="ewald",
+                r_switch=None):
     """(bound ms, "operations" or "bytes", pair tests, pairs inside the
     cutoff, bytes) of the direct-space sweep on these fields: the larger
     of its FP32 operations over the card's peak and the bytes it must
     move (each field read once, the forces, or the energy, written once)
     over the memory rate.  B1 and B2 compute the same function, so both
     are held to this one bound (one for each instantiation and Coulomb
-    kind)."""
-    n_tests, n_cut = pair_counts(fields, cfg, shifts)
+    kind; with r_switch, the switch's operations on the pairs of its
+    window added)."""
+    n_tests, n_cut, n_win = pair_counts(fields, cfg, shifts, r_switch)
     n_slots = cfg.n_cells * cfg.capacity
     n_bytes = (n_slots * 8 * 4 + cfg.n_cells * 4
                + cfg.n_cells * cfg.n_offsets * 4 + shifts.numel() * 4
@@ -494,7 +583,8 @@ def sweep_bound(fields, cfg, shifts, energy=False, method="ewald"):
                 ("ewald", True): OPS_PER_PAIR_ENERGY,
                 ("rf", False): OPS_PER_PAIR_RF,
                 ("rf", True): OPS_PER_PAIR_ENERGY_RF}[(method, energy)]
-    t_ops = (OPS_PER_TEST * n_tests + per_pair * n_cut) \
+    t_ops = (OPS_PER_TEST * n_tests + per_pair * n_cut
+             + (OPS_SWITCH_ENERGY if energy else OPS_SWITCH) * n_win) \
         / PEAK_FP32_FLOPS * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
@@ -581,7 +671,8 @@ def energy_check(tag, kernel, fields, cfg, shifts, alpha, card,
     ms = cuda_time_ms(lambda: kernel.pair_energy(*args, **kw), 20)
     plain_ms = cuda_time_ms(lambda: sweep.pair_energy_plain(*args, **kw), 2)
     bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(
-        fields, cfg, shifts, energy=True, method=kw["method"])
+        fields, cfg, shifts, energy=True, method=kw["method"],
+        r_switch=kw.get("r_switch"))
     log(f"{tag} energy {ek:.6f} kJ/mol; plain f32 {ep:.6f} (|dE|/|E| "
         f"{rel:.3e}), plain f64 {ep64:.6f} ({rel64:.3e}); two launches "
         f"bit-identical: {identical}; {ms:.4f} ms, plain {plain_ms:.3f} ms, "
@@ -1447,6 +1538,52 @@ def kernel_parity(phase, tag, kernel, args, kw, ref=None):
     return f1, max_abs_err, ms, plain_ms
 
 
+def switch_effect(phase, tag, kernel, args, kw, ref=None):
+    """The switch's own contribution to a force kernel: its switched minus
+    its unswitched instantiation on `args`' fields with the charges
+    zeroed (LJ alone: the f32 noise of the Coulomb sum, ~1e-6 of max|F|,
+    would hide a window that moves the forces by ~1e-5 of it), against
+    the plain version's difference in f64, relative to max|that
+    difference| (<= SW_EFFECT_TOL).  The atoms of cutoff-flipped pairs
+    are left out: the unswitched LJ force at the cutoff, ~0.01-0.1
+    kJ/mol/nm a pair, is a step the two precisions take at different r.
+    A kernel that dropped the switch misses by 1, one that dropped its
+    dS/dr^2 term by O(1).  `ref`: the plain difference of an earlier call
+    on the same fields.  Returns (error, ref)."""
+    import numpy as np
+    import torch
+    fields, cfg, shifts, alpha, scale = args
+    lj = dict(fields, q=torch.zeros_like(fields["q"]))
+    kw_u = {k: v for k, v in kw.items() if k != "r_switch"}
+    lj_args = (lj, cfg, shifts, alpha, scale)
+    d_k = (kernel.pair_forces(*lj_args, **kw)
+           - kernel.pair_forces(*lj_args, **kw_u)).double()
+    if ref is None:
+        lj64 = {k: (v.double() if v.is_floating_point() else v)
+                for k, v in lj.items()}
+        a64 = (lj64, cfg, shifts.double(), alpha, scale)
+        f_sw = kernel.pair_forces_plain(*a64, **kw)
+        d_p = f_sw - kernel.pair_forces_plain(*a64, **kw_u)
+        flips, n_flip = cutoff_flips(lj, lj64, cfg, shifts, shifts.double())
+        ref = (d_p, flips, n_flip, float(torch.max(torch.abs(d_p)))
+               / float(torch.max(torch.abs(f_sw))))
+        del lj64, f_sw
+    d_p, flips, n_flip, rel = ref
+    scale_d = float(torch.max(torch.abs(d_p)))
+    diff = torch.abs(d_k - d_p)
+    err = float(torch.max(diff[~flips])) / scale_d
+    err_all = float(torch.max(diff)) / scale_d
+    log(f"{phase} {tag}, the switch's own effect (switched minus "
+        f"unswitched, LJ alone) against the plain version's in f64: "
+        f"max|dF| {err:.3e} of its max {scale_d:.4e} kJ/mol/nm, leaving "
+        f"out {n_flip} cutoff-flipped pairs ({err_all:.3e} with them); "
+        f"the effect {rel:.3e} of the LJ's max|F|")
+    if not (np.isfinite(err) and scale_d > 0 and err <= SW_EFFECT_TOL):
+        fail(f"{phase} {tag}: the switch's effect misses the plain "
+             f"version's by {err:.3e} of its max > {SW_EFFECT_TOL}")
+    return err, ref
+
+
 def state_checks(phase, ctx, make_ctx, energy_key, rms_skip=False):
     """After the counted steps: latches, wall, finiteness and the
     state's energy by `energy_key` alone (one launch, no plain sweep);
@@ -1499,7 +1636,9 @@ def minimized(phase, ctx, iterations):
 def phase_ionic_liquid(card):
     """7. The paper's ionic liquid at full width through B1's
     reaction-field instantiation (see the module docstring).  Returns
-    the `kernels` entries of the RF instantiations of B1 and B2."""
+    the `kernels` entries of the RF instantiations of B1 and B2, the
+    breakdown and (the System, its Context factory, the final
+    compensated positions and velocities)."""
     import torch
     import openmm_drudenose_tpu_torch as dt
     from openmm_drudenose_tpu_torch.forces import cellpair
@@ -1604,6 +1743,10 @@ def phase_ionic_liquid(card):
     if (b2_launches["b2_sweep_rf"] < IL_B2_STEPS or b2_launches["b1_sweep_rf"]
             or b2_e_launches["b2_energy_rf"] != 1 or plain or plain_e):
         fail("7: the B2-routed Context did not run B2's RF instantiation")
+    # the final state, for phase 15's switched reaction field
+    il_state = (system, make_ctx,
+                (st.positions.double() + st.pos_err.double()).cpu().numpy(),
+                st.velocities.double().cpu().numpy())
     del ctx2, integ2, ctx, integ
     torch.cuda.empty_cache()
     src1 = "openmm_drudenose_tpu_torch/csrc/sweep.cu"
@@ -1628,7 +1771,8 @@ def phase_ionic_liquid(card):
                  bound_ms=bound_ms, bound_by=bound_by),
             dict(common, name="b2_energy_rf", instantiation="energy",
                  source=src2, replaces=tpu2,
-                 launches=b2_e_launches["b2_energy_rf"], **e2)], times
+                 launches=b2_e_launches["b2_energy_rf"], **e2)], times, \
+        il_state
 
 
 def phase_polymer(card):
@@ -1878,8 +2022,9 @@ def phase_flat(card):
     """10. The flattened replica ensemble at the full width of the JAX
     package's scripts/bench_replicas.py --flat, through the replica-band
     path of B1 (see the module docstring).  Returns the `kernels`
-    entries of the band instantiations of B1 and B2, the breakdown and
-    the settled template's (positions, velocities)."""
+    entries of the band instantiations of B1 and B2, the breakdown, the
+    settled template's (positions, velocities) and the ensemble's
+    (ms/step, ns/day a replica)."""
     import torch
     import openmm_drudenose_tpu_torch as dt
     from openmm_drudenose_tpu_torch.forces import cellpair
@@ -2187,7 +2332,7 @@ def phase_flat(card):
             dict(common, name="b2_energy_bands", instantiation="energy",
                  source=src2, replaces=tpu2,
                  launches=b2_e_launches["b2_energy_bands"], **e2)], times, \
-        settled
+        settled, (ms_step, nsd)
 
 
 def energy_check_scaled(tag, kernel, fields, cfg, shifts, alpha, card,
@@ -3090,6 +3235,579 @@ def phase_terms(card):
         fail("14: the custom-force dynamics went non-finite")
 
 
+def phase_switch(card, final, il_state, bench_args):
+    """15. Switched LJ at full width, through the switched instantiations
+    of B1 and B2 (see the module docstring).  Returns their `kernels`
+    entries."""
+    import torch
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.examples import nacl_tg_ff
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    bare = os.path.join(HERE, "build", "chip_smoke", "nacl100k_bare.pdb")
+    system, _, seconds = nacl_tg_ff.build(nacl_tg_ff.FFXML, bare,
+                                          cutoff=SW_CUTOFF,
+                                          switch_distance=SW_ON)
+    pos, vel, box = final
+    system.setDefaultPeriodicBoxVectors(*map(tuple, box))
+    nbf = next(f for f in system.getForces()
+               if isinstance(f, dt.NonbondedForce))
+    log(f"15 the deck of phase 12 through createSystem(PME, "
+        f"nonbondedCutoff={SW_CUTOFF}, switchDistance={SW_ON}, HBonds, "
+        f"rigidWater): {system.getNumParticles()} atoms in "
+        f"{sum(seconds.values()):.2f} s of host time; cutoff "
+        f"{nbf.getCutoffDistance()}, switch {nbf.getUseSwitchingFunction()} "
+        f"from {nbf.getSwitchingDistance()}")
+    if not (nbf.getUseSwitchingFunction()
+            and nbf.getSwitchingDistance() == SW_ON
+            and nbf.getCutoffDistance() == SW_CUTOFF):
+        fail("15: createSystem did not set the switch")
+
+    def make_ctx(precision, options=None, state=(pos, vel)):
+        integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20)
+        integ.setMaxDrudeDistance(0.02)
+        ctx = dt.Context(system, integ, precision=precision, device="cuda",
+                         nb_options=options)
+        ctx.setPositions(state[0])
+        ctx.setVelocities(state[1])
+        return ctx, integ
+
+    ctx, integ = make_ctx("single")
+    ctx._ensure_neighbors()
+    nb, cfg = ctx._nb, ctx._cp_cfg
+    log(f"15 context: cell grid {cfg.grid}, capacity {cfg.capacity}, "
+        f"{cfg.n_offsets} offsets, PME grid {nb.pme.grid}, alpha "
+        f"{nb.alpha:.6f}, route {nb.sweep_kernel}, pair kind {nb.coulomb}")
+    if nb.sweep_kernel != "b1" or nb.coulomb.get("r_switch") != SW_ON:
+        fail("15: the switched deck is not on B1 with the switch")
+    ctx64, _ = make_ctx("double", {"capacity": cfg.capacity})
+    ferr, ferr_all, frms, n_flip, fs, _ = force_pass_floor(ctx, ctx64)
+    del ctx64
+    torch.cuda.empty_cache()
+    log(f"15 force pass f32 vs f64: max {ferr:.3e} ({ferr_all:.3e} with "
+        f"the atoms of {n_flip} cutoff-flipped pairs), rms {frms:.3e} "
+        f"(max|F| {fs:.1f})")
+    if not (ferr <= 1e-4 and frms <= 5e-6):
+        fail("15: the switched f32 force pass misses the f32 floor")
+
+    # the switched instantiations on the deck's fields, and B1's
+    # unswitched one on the same fields and on phase 3's
+    st = ctx._state
+    box_diag = torch.diagonal(st.box)
+    fields = nb.fields(st.positions, box_diag, st.neighbors)
+    shifts = cellpair.offset_shifts(cfg, box_diag)
+    args = (fields, cfg, shifts, nb.alpha, ONE_4PI_EPS0)
+    kw = dict(nb.coulomb, excl_skip=nb.excl_skip)
+    f_b1, err_b1, ms_b1, plain_b1 = kernel_parity("15", "B1 switched",
+                                                  sweep, args, kw)
+    _, err_b2, ms_b2, plain_b2 = kernel_parity(
+        "15", "B2 switched", sweep_chunked, args, kw, ref=f_b1)
+    kw_plain = {k: v for k, v in kw.items() if k != "r_switch"}
+    f_u = sweep.pair_forces(*args, **kw_plain)
+    moved = float(torch.max(torch.abs(f_u - f_b1))) \
+        / float(torch.max(torch.abs(f_b1)))
+    del f_b1, f_u
+    eff_b1, eff_ref = switch_effect("15", "B1", sweep, args, kw)
+    eff_b2, _ = switch_effect("15", "B2", sweep_chunked, args, kw, eff_ref)
+    del eff_ref
+    ms_unsw = cuda_time_ms(lambda: sweep.pair_forces(*args, **kw_plain), 20)
+    bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(
+        fields, cfg, shifts, r_switch=SW_ON)
+    n_win = pair_counts(fields, cfg, shifts, SW_ON)[2]
+    e1 = energy_check("15 B1 switched", sweep, fields, cfg, shifts,
+                      nb.alpha, card, nb.coulomb, nb.excl_skip)
+    e2 = energy_check("15 B2 switched", sweep_chunked, fields, cfg, shifts,
+                      nb.alpha, card, nb.coulomb, nb.excl_skip)
+    ms_bench = cuda_time_ms(lambda: sweep.pair_forces(*bench_args), 20)
+    regs = {f"{k}_{i}{c}": mod.attributes(i == "energy", m, False, sw)
+            for k, mod in (("b1", sweep), ("b2", sweep_chunked))
+            for i in ("sweep", "energy") for m, c0 in (("ewald", ""),
+                                                      ("rf", "_rf"))
+            for sw, c in ((False, c0), (True, c0 + "_sw"))}
+    log(f"15 B1 switched {ms_b1:.4f} ms, B2 switched {ms_b2:.4f} ms, B1 "
+        f"unswitched on the same fields {ms_unsw:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {n_tests} pair tests, {n_cut} "
+        f"inside the {SW_CUTOFF} nm cutoff, {n_win} of them in the switch's "
+        f"window, {n_bytes} bytes); the switch moves the forces by "
+        f"{moved:.3e} of max|F|; on {card}")
+    log(f"15 B1 unswitched on phase 3's fields {ms_bench:.4f} ms "
+        f"(PERF.md's kernel table: 0.8840 ms, 77 registers); registers of "
+        f"each instantiation (read from the card): " + ", ".join(
+            f"{k} {a['regs']}" + (f" ({a['local_bytes']} B local)"
+                                  if a["local_bytes"] else "")
+            for k, a in regs.items()))
+
+    # steps through B1's switched instantiation
+    integ.step(SW_SETTLE)
+    torch.cuda.synchronize()
+    log(f"15 {SW_SETTLE} settling steps; hard-wall runaway latched there: "
+        f"{ctx.hardwallRunaway} (cleared)")
+    ctx.clearHardwallRunaway()
+    targets = np.array([300.0, 300.0, 1.0])
+    ms_step, nsd, launches, plain, mean = run_blocks(ctx, integ, SW_STEPS,
+                                                     targets)
+    log(f"15 {SW_STEPS} NVT steps: {ms_step:.2f} ms/step, {nsd:.3f} ns/day "
+        f"on {card}; launches {launches}; plain sweeps on the card {plain}")
+    if (launches["b1_sweep_sw"] < SW_STEPS or plain
+            or any(v for k, v in launches.items() if k != "b1_sweep_sw")):
+        fail("15: the steps did not run their forces through B1's "
+             "switched instantiation alone")
+    log(f"15 a Drude bounced back from past twice the wall in the counted "
+        f"steps: {ctx.hardwallRunaway} (cleared)")
+    ctx.clearHardwallRunaway()
+    last, e_launches, plain = counted(lambda: check_after_steps(ctx, "15"))
+    if e_launches["b1_energy_sw"] != 1 or plain:
+        fail(f"15: the state's energy: {e_launches}, {plain} plain sweeps")
+    hold_bands("15", ["water+ions", "COM", "Drude"], mean, last, FF_BANDS)
+    breakdown(ctx, sweep.pair_forces, "b1_sweep_sw", ms_step, card, "15")
+
+    # the forced route to B2 from the same state
+    st = ctx._state
+    state = ((st.positions.double() + st.pos_err.double()).cpu().numpy(),
+             st.velocities.double().cpu().numpy())
+    del ctx, integ, fields, args
+    torch.cuda.empty_cache()
+    ctx2, integ2 = make_ctx("single", {"use_pallas": 3,
+                                       "capacity": cfg.capacity}, state)
+    ctx2._ensure_forces()
+    _, b2_launches, plain = counted(lambda: integ2.step(SW_B2_STEPS))
+    _, b2_e, plain_e = counted(
+        lambda: ctx2.getState(energy=True).getPotentialEnergy())
+    log(f"15 a Context routed to B2: {SW_B2_STEPS} steps, launches "
+        f"{b2_launches}, then its energy: {b2_e}; plain sweeps "
+        f"{plain + plain_e}")
+    if (ctx2._nb.sweep_kernel != "b2"
+            or b2_launches["b2_sweep_sw"] < SW_B2_STEPS
+            or b2_launches["b1_sweep_sw"] or b2_e["b2_energy_sw"] != 1
+            or plain or plain_e):
+        fail("15: the B2-routed Context did not run B2's switched "
+             "instantiation")
+    del ctx2, integ2
+    torch.cuda.empty_cache()
+
+    # the reaction field, switched: phase 7's ionic liquid at its 1.2 nm
+    # cutoff, the switch from SW_ON
+    il_system, il_make_ctx, il_pos, il_vel = il_state
+    _switch_force(il_system, SW_ON)
+    ctx3, integ3 = il_make_ctx("single", {})
+    ctx3.setPositions(il_pos)
+    ctx3.setVelocities(il_vel)
+    ctx3._ensure_neighbors()
+    nb3, cfg3, st3 = ctx3._nb, ctx3._cp_cfg, ctx3._state
+    if not (nb3.coulomb["method"] == "rf"
+            and nb3.coulomb.get("r_switch") == SW_ON
+            and nb3.sweep_kernel == "b1"):
+        fail(f"15: the switched ionic liquid took {nb3.coulomb}")
+    box3 = torch.diagonal(st3.box)
+    fields3 = nb3.fields(st3.positions, box3, st3.neighbors)
+    shifts3 = cellpair.offset_shifts(cfg3, box3)
+    args3 = (fields3, cfg3, shifts3, nb3.alpha, ONE_4PI_EPS0)
+    kw3 = dict(nb3.coulomb, excl_skip=nb3.excl_skip)
+    _, err_rf, ms_rf, plain_rf = kernel_parity("15", "B1 switched RF", sweep,
+                                               args3, kw3)
+    eff_rf, _ = switch_effect("15", "B1 RF", sweep, args3, kw3)
+    bound_rf, bound_by_rf, *_ = sweep_bound(fields3, cfg3, shifts3,
+                                            method="rf", r_switch=SW_ON)
+    e3 = energy_check("15 B1 switched RF", sweep, fields3, cfg3, shifts3,
+                      nb3.alpha, card, nb3.coulomb, nb3.excl_skip)
+    del fields3, args3
+    _, rf_launches, plain = counted(lambda: integ3.step(SW_IL_STEPS))
+    _, rf_e, plain_e = counted(
+        lambda: ctx3.getState(energy=True).getPotentialEnergy())
+    log(f"15 the switched ionic liquid: {SW_IL_STEPS} steps, launches "
+        f"{rf_launches}, then its energy: {rf_e}; plain sweeps "
+        f"{plain + plain_e}; B1 switched RF {ms_rf:.4f} ms, bound "
+        f"{bound_rf:.4f} ms ({bound_by_rf})")
+    if (rf_launches["b1_sweep_rf_sw"] < SW_IL_STEPS or plain or plain_e
+            or rf_e["b1_energy_rf_sw"] != 1):
+        fail("15: the switched ionic liquid did not step through B1's "
+             "switched RF instantiation")
+    del ctx3, integ3
+    torch.cuda.empty_cache()
+
+    src1 = "openmm_drudenose_tpu_torch/csrc/sweep.cu"
+    src2 = "openmm_drudenose_tpu_torch/csrc/sweep_chunked.cu"
+    tpu1 = "openmm_drudenose_tpu/ops/pallas_sweep.py:440"
+    tpu2 = "openmm_drudenose_tpu/ops/pallas_sweep.py:851"
+    common = {"route": "cuda", "geometry": "switched", "library_ms": None,
+              "r_switch": SW_ON, "cutoff": SW_CUTOFF}
+    return [dict(common, name="b1_sweep_sw", instantiation="forces",
+                 coulomb="ewald", source=src1, replaces=tpu1,
+                 launches=launches["b1_sweep_sw"],
+                 launches_per_step=launches["b1_sweep_sw"] / SW_STEPS,
+                 max_abs_err=err_b1, switch_effect_err=eff_b1,
+                 ms=ms_b1, plain_ms=plain_b1,
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 unswitched_ms=ms_unsw, capacity=cfg.capacity,
+                 registers=regs["b1_sweep_sw"]["regs"]),
+            dict(common, name="b1_energy_sw", instantiation="energy",
+                 coulomb="ewald", source=src1, replaces=tpu1,
+                 launches=e_launches["b1_energy_sw"],
+                 registers=regs["b1_energy_sw"]["regs"], **e1),
+            dict(common, name="b2_sweep_sw", instantiation="forces",
+                 coulomb="ewald", source=src2, replaces=tpu2,
+                 launches=b2_launches["b2_sweep_sw"],
+                 launches_per_step=b2_launches["b2_sweep_sw"] / SW_B2_STEPS,
+                 max_abs_err=err_b2, switch_effect_err=eff_b2,
+                 ms=ms_b2, plain_ms=plain_b2,
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 capacity=cfg.capacity,
+                 registers=regs["b2_sweep_sw"]["regs"]),
+            dict(common, name="b2_energy_sw", instantiation="energy",
+                 coulomb="ewald", source=src2, replaces=tpu2,
+                 launches=b2_e["b2_energy_sw"],
+                 registers=regs["b2_energy_sw"]["regs"], **e2),
+            dict(common, name="b1_sweep_rf_sw", instantiation="forces",
+                 coulomb="rf", source=src1, replaces=tpu1,
+                 launches=rf_launches["b1_sweep_rf_sw"],
+                 launches_per_step=(rf_launches["b1_sweep_rf_sw"]
+                                    / SW_IL_STEPS),
+                 max_abs_err=err_rf, switch_effect_err=eff_rf,
+                 ms=ms_rf, plain_ms=plain_rf,
+                 bound_ms=bound_rf, bound_by=bound_by_rf,
+                 capacity=cfg3.capacity,
+                 registers=regs["b1_sweep_rf_sw"]["regs"]),
+            dict(common, name="b1_energy_rf_sw", instantiation="energy",
+                 coulomb="rf", source=src1, replaces=tpu1,
+                 launches=rf_e["b1_energy_rf_sw"],
+                 registers=regs["b1_energy_rf_sw"]["regs"], **e3)]
+
+
+def _switch_force(system, r_on):
+    """Switch the LJ of `system`'s NonbondedForce from r_on."""
+    nbf = next(f for f in system.getForces()
+               if type(f).__name__ == "NonbondedForce")
+    nbf.setUseSwitchingFunction(True)
+    nbf.setSwitchingDistance(r_on)
+
+
+def phase_replicas(card, settled, flat_rate):
+    """16. ReplicaEnsemble at the full width of the JAX package's
+    scripts/bench_replicas.py (vmap mode), on the dense and the cell-pair
+    strategy (see the module docstring)."""
+    import torch
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.io import builders
+    from openmm_drudenose_tpu_torch.parallel import ensemble
+    from openmm_drudenose_tpu_torch.units import BOLTZ, ns_per_day
+    system, _ = builders.build_water_box(FLAT_MOL)
+    n0 = system.getNumParticles()
+    pos, vel = settled
+    R = REP_REPLICAS
+
+    def context(strategy, precision, velocities=vel):
+        integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+        integ.setMaxDrudeDistance(0.02)
+        ctx = dt.Context(system, integ, precision=precision,
+                         strategy=strategy, device="cuda")
+        ctx.setPositions(pos)
+        ctx.setVelocities(velocities)
+        return ctx, integ
+
+    rates = {}
+    for strategy in ("auto", "cellpair"):
+        t = time.time()
+        tpl, integ = context(strategy, "single")
+        resolved = tpl._nb.strategy
+        ens = dt.ReplicaEnsemble(tpl, R, seed=7)
+        ctx = ens.context
+        # each replica's 300 K velocities, from numpy
+        rng = np.random.default_rng(11)
+        sigma = np.sqrt(BOLTZ * 300.0
+                        * ctx._spec.inv_mass.double().cpu().numpy()[:n0])
+        v = rng.normal(size=(R, n0, 3)) * sigma[None, :, None]
+        ens.setVelocities(v)
+        # count the force passes: the Context's own method, shadowed on
+        # the instance, so that a Stepper made by a recompile (capacity
+        # growth) takes the counting one too
+        passes = [0]
+        forces_fn = ctx._forces_only
+
+        def counting(*a, **k):
+            passes[0] += 1
+            return forces_fn(*a, **k)
+
+        ctx._forces_only = counting
+        ctx._stepper.forces_fn = counting
+        # and the capacity growths, each of which reruns a chunk
+        grows = [0]
+        grow_fn = ctx._grow_pair_capacity
+
+        def counting_grow(*a, **k):
+            grows[0] += 1
+            return grow_fn(*a, **k)
+
+        ctx._grow_pair_capacity = counting_grow
+        dense = resolved == "dense"
+        n_settle = REP_DENSE_SETTLE if dense else REP_SETTLE
+        n_steps = REP_DENSE_STEPS if dense else REP_STEPS
+        log(f"16 {strategy} ({resolved}): {R} replicas of {n0} atoms "
+            f"({ctx._static.n_atoms}) built in {time.time() - t:.1f} s"
+            + (f"; layout {ctx._cp_cfg.bands}, cell grid {ctx._cp_cfg.grid}"
+               if ctx._cp_cfg is not None else "")
+            + f"; PME grid {ctx._nb.pme.grid} x {ctx._nb.n_replicas}")
+        # replica REP_CHECK_REPLICA against a standalone f64 Context
+        ens.step(REP_CHECK_STEPS)
+        one, integ1 = context(resolved, "double", v[REP_CHECK_REPLICA])
+        integ1.step(REP_CHECK_STEPS)
+        st = ctx._state
+        exact = (st.positions.double() + st.pos_err.double()).reshape(
+            R, n0, 3)[REP_CHECK_REPLICA]
+        dx = float(torch.max(torch.abs(exact - one._state.positions)))
+        del one, integ1
+        iso = ensemble.check_isolated(ens, 0)
+        log(f"16 {resolved}: replica {REP_CHECK_REPLICA} after "
+            f"{REP_CHECK_STEPS} steps against a standalone f64 Context: "
+            f"max |dx| {dx:.3e} nm; replica 0 moved 0.05 nm: the other "
+            f"replicas' forces moved by {iso}")
+        if not dx <= REP_CHECK_TOL or iso != 0.0:
+            fail(f"16 {resolved}: a replica left its standalone Context or "
+                 "another replica")
+        ens.step(n_settle)
+        torch.cuda.synchronize()
+        walls = []
+
+        def drive():
+            for _ in range(REP_REPEATS):
+                t0 = time.time()
+                ens.step(n_steps)
+                torch.cuda.synchronize()
+                walls.append(time.time() - t0)
+
+        passes[0] = grows[0] = 0
+        _, launches, plain = counted(drive)
+        best = min(walls)
+        ms_step = best / n_steps * 1e3
+        nsd = ns_per_day(n_steps / best, integ.getStepSize())
+        n_total = REP_REPEATS * n_steps
+        rates[resolved] = (ms_step, nsd)
+        log(f"16 {resolved}: {n_settle} settling steps, {REP_REPEATS} x "
+            f"{n_steps} steps: "
+            + ", ".join(f"{w / n_steps * 1e3:.2f}" for w in walls)
+            + f" ms/step (best {ms_step:.2f}); per replica {nsd:.4f} "
+            f"ns/day, aggregate over {R} {nsd * R:.3f} ns/day on {card}; "
+            f"{passes[0]} force passes in {n_total} steps ({grows[0]} "
+            f"capacity growths); launches "
+            f"{ {k: v for k, v in launches.items() if v} }; plain sweeps "
+            f"on the card {plain}")
+        # one force pass a step for all the replicas: at most one more a
+        # step() call (its forces) and, after each capacity growth, the
+        # rerun of a chunk (8 rebuild intervals) and one more; each pass
+        # one launch of B1's band instantiation on the cell-pair
+        # strategy, no kernel on the dense one
+        most = (n_total + REP_REPEATS
+                + grows[0] * (8 * (ctx._rebuild_interval or 0) + 1))
+        path_ok = n_total <= passes[0] <= most
+        if dense:
+            path_ok = path_ok and not any(launches.values())
+        else:
+            path_ok = (path_ok and launches["b1_sweep_bands"] == passes[0]
+                       and not any(v for k, v in launches.items()
+                                   if k != "b1_sweep_bands"))
+        if plain or not path_ok:
+            fail(f"16 {resolved}: not one force pass a step for all "
+                 f"replicas on the strategy's path ({passes[0]} passes, "
+                 f"{n_total} to {most} allowed)")
+        if dense:
+            # the dense term's block on the card (forces/dense.py):
+            # BLOCK_ELEMS_ENSEMBLE_CUDA elements against BLOCK_ELEMS, one
+            # force pass each, in the same call
+            from openmm_drudenose_tpu_torch.forces import dense as dense_mod
+            big = dense_mod.BLOCK_ELEMS_ENSEMBLE_CUDA
+            st = ctx._state
+            one_pass = lambda: forces_fn(st.positions, st.box, st.neighbors,
+                                         st.pos_err, st.rep_scale)
+            block_ms = {}
+            try:
+                for elems in (big, dense_mod.BLOCK_ELEMS):
+                    dense_mod.BLOCK_ELEMS_ENSEMBLE_CUDA = elems
+                    block_ms[elems] = cuda_time_ms(one_pass, REP_BLOCK_REPS)
+            finally:
+                dense_mod.BLOCK_ELEMS_ENSEMBLE_CUDA = big
+            log(f"16 dense: one force pass (stream ms, {REP_BLOCK_REPS} "
+                f"each) with blocks of "
+                + ", ".join(f"{e} elements {v:.2f}"
+                            for e, v in block_ms.items())
+                + f" on {card}")
+        temps = ens.group_temperatures()
+        ke = ens.kinetic_energies()
+        p = st.positions.double() + st.pos_err.double()
+        spec = ctx._spec
+        drude = torch.nonzero(spec.is_pair & ~spec.is_parent)[:, 0]
+        dmax = float(torch.max(torch.linalg.norm(
+            p[drude] - p[spec.partner[drude]], dim=1)))
+        log(f"16 {resolved}: water bath over the replicas min "
+            f"{temps[:, 0].min():.3f}, mean {temps[:, 0].mean():.3f}, max "
+            f"{temps[:, 0].max():.3f} K, Drude mean {temps[:, -1].mean():.3f}"
+            f" K; max core-Drude distance {dmax:.6f} nm; hard-wall runaway "
+            f"{ctx.hardwallRunaway}, drift warned {ctx._drift_warned}")
+        lo, hi = FLAT_BANDS["replica"]
+        if not (np.all(np.isfinite(temps)) and np.all(np.isfinite(ke))
+                and np.all((temps[:, 0] > lo) & (temps[:, 0] < hi))
+                and dmax <= 0.02 * 1.00001 and not ctx._drift_warned):
+            fail(f"16 {resolved}: temperatures, the wall or a latch")
+        del ens, ctx, tpl
+        torch.cuda.empty_cache()
+    log(f"16 aggregate ns/day over {R} replicas on {card}: ReplicaEnsemble "
+        + ", ".join(f"{k} {v[1] * R:.3f} ({v[0]:.2f} ms/step)"
+                    for k, v in rates.items())
+        + f"; phase 10's FlatReplicaEnsemble (70 internal replicas) "
+        f"{flat_rate[1] * FLAT_REPLICAS:.3f} ({flat_rate[0]:.2f} ms/step)")
+
+
+def _pdb_models(path):
+    """(models, atoms, 3) positions in nm of a PDB file's MODEL blocks."""
+    models, cur = [], []
+    for line in open(path):
+        if line.startswith("ATOM"):
+            cur.append([float(line[30:38]), float(line[38:46]),
+                        float(line[46:54])])
+        elif line.startswith("ENDMDL"):
+            models.append(cur)
+            cur = []
+    return np.array(models) / 10.0
+
+
+def phase_rest(card, bench_system, snapshot, settled):
+    """17. The neighbour-list strategy, the DCD and PDB reporters, the
+    native host runtime and step_breakdown (see the module docstring)."""
+    import torch
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.core import topology
+    from openmm_drudenose_tpu_torch.io import builders, dcd
+    from openmm_drudenose_tpu_torch.utils import native, profiling
+
+    # (a) strategy "cell" against the cell pair sweep, f64 on the card,
+    # with the cell pairs' PME plan (rounded up to its cell grid) pinned
+    # for both, so that the two differ in their direct-space sums alone
+    system, _ = builders.build_water_box(FLAT_MOL)
+    out = {}
+    for strategy in ("cellpair", "cell"):
+        integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+        ctx = dt.Context(system, integ, precision="double",
+                         strategy=strategy, device="cuda")
+        ctx.setPositions(settled[0])
+        s = ctx.getState(energy=True, forces=True)
+        out[strategy] = (s.getPotentialEnergy(), s.getForces(), ctx)
+        next(f for f in system.getForces()
+             if isinstance(f, dt.NonbondedForce)).setPMEParameters(
+                 ctx._nb.pme.alpha, *ctx._nb.pme.grid)
+    (e_c, f_c, ctx_c), (e_p, f_p, _) = out["cell"], out["cellpair"]
+    erel = abs(e_c - e_p) / abs(e_p)
+    ferr = float(np.max(np.abs(f_c - f_p)) / np.max(np.abs(f_p)))
+    ncfg = ctx_c._nb.cfg
+    log(f"17 (a) strategy cell ({ncfg.grid} cells of capacity "
+        f"{ncfg.cell_capacity}, {ncfg.max_neighbors} neighbours an atom; "
+        f"PME grid {ctx_c._nb.pme.grid}) against cellpair on the settled "
+        f"4k box in f64: energy "
+        f"{e_c:.6f} against {e_p:.6f} kJ/mol ({erel:.3e}), max|dF|/max|F| "
+        f"{ferr:.3e}")
+    if not (erel <= 1e-10 and ferr <= 1e-8):
+        fail("17 (a): the neighbour lists disagree with the cell pairs")
+    del out, ctx_c
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    integ.setMaxDrudeDistance(0.02)
+    ctx = dt.Context(system, integ, precision="single", strategy="cell",
+                     device="cuda")
+    ctx.setPositions(settled[0])
+    ctx.setVelocities(settled[1])
+    t = time.time()
+    _, launches, plain = counted(lambda: integ.step(REST_CELL_STEPS))
+    wall = time.time() - t
+    temps = ctx.getState(groups=True).getGroupTemperatures()
+    log(f"17 (a) {REST_CELL_STEPS} f32 steps on the lists: "
+        f"{wall / REST_CELL_STEPS * 1e3:.2f} ms/step, overflow "
+        f"{ctx.neighborListOverflowed}, drift warned {ctx._drift_warned}, "
+        f"baths {np.round(temps, 3).tolist()} K; kernel launches "
+        f"{sum(launches.values())}, plain sweeps {plain}")
+    if (ctx.neighborListOverflowed or ctx._drift_warned
+            or not np.all(np.isfinite(temps)) or plain):
+        fail("17 (a): the f32 steps on the lists")
+    del ctx, integ
+
+    # (b) the DCD and PDB reporters through Simulation on phase 5's
+    # example box
+    system, pos = builders.build_nacl_water_box(492, 10, 10)
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20)
+    integ.setMaxDrudeDistance(0.02)
+    sim = dt.Simulation(None, system, integ, device="cuda")
+    sim.context.setPositions(pos)
+    sim.minimizeEnergy(maxIterations=50)
+    sim.context.setVelocitiesToTemperature(300.0, seed=0)
+    out_dir = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    dcd_path = os.path.join(out_dir, "example.dcd")
+    pdb_path = os.path.join(out_dir, "example.pdb")
+    sim.reporters.append(dt.DCDReporter(dcd_path, REST_DCD_EVERY))
+    sim.reporters.append(dt.PDBReporter(pdb_path, REST_PDB_EVERY))
+    sim.step(REST_REPORT_STEPS)
+    sim.reporters[0].close()
+    last = sim.context.getState(positions=True)
+    frames, cells, info = dcd.read_dcd(dcd_path)
+    models = _pdb_models(pdb_path)
+    k = REST_PDB_EVERY // REST_DCD_EVERY
+    box = np.diagonal(last.getPeriodicBoxVectors())
+    d_last = float(np.max(np.abs(frames[-1] - last.getPositions())))
+    d_pdb = float(np.max(np.abs(models - frames[k - 1::k])))
+    log(f"17 (b) {REST_REPORT_STEPS} example steps with a DCDReporter "
+        f"every {REST_DCD_EVERY} and a PDBReporter every {REST_PDB_EVERY}: "
+        f"{info['n_frames']} DCD frames of {info['n_atoms']} atoms, cell "
+        f"{np.round(cells[-1], 4).tolist()}, {len(models)} PDB models; last "
+        f"frame against the state {d_last:.2e} nm, PDB models against the "
+        f"DCD frames of their steps {d_pdb:.2e} nm")
+    if not (info["n_frames"] == REST_REPORT_STEPS // REST_DCD_EVERY
+            and len(models) == REST_REPORT_STEPS // REST_PDB_EVERY
+            and d_last <= 1e-5 and d_pdb <= 1e-4
+            and np.allclose(cells[-1, :3], box, rtol=1e-6)):
+        fail("17 (b): the reporters' files did not read back")
+    del sim
+
+    # (c) the native host runtime: its union-find against the Python
+    # labels that core/topology.molecule_ids takes, on the same edges
+    lib = native.get_lib()
+    if lib is None:
+        fail(f"17 (c): the native library did not load: "
+             f"{native.build_error}")
+    n = bench_system.getNumParticles()
+    t = time.time()
+    edges = topology.link_edges(bench_system)
+    t_edges = time.time() - t
+    t = time.time()
+    ids, _ = native.molecule_ids_native(n, edges)
+    t_native = time.time() - t
+    t = time.time()
+    _, ids_py = np.unique(topology.component_labels(n, edges),
+                          return_inverse=True)
+    t_py = time.time() - t
+    log(f"17 (c) native library {lib} ({native.library_path()}), build "
+        f"error {native.build_error}; molecule ids of the {n}-atom water: "
+        f"its {len(edges)} edges in {t_edges:.4f} s, then the native "
+        f"union-find {t_native:.4f} s against the Python labels' "
+        f"{t_py:.4f} s (host time): equal "
+        f"{bool(np.array_equal(ids, ids_py))}, {int(ids.max()) + 1} "
+        f"molecules")
+    if not np.array_equal(ids, ids_py):
+        fail("17 (c): the native union-find disagrees with the labels")
+
+    # (d) step_breakdown of the 100k Context
+    pos, vel, cap = snapshot
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    integ.setMaxDrudeDistance(0.02)
+    ctx = dt.Context(bench_system, integ, precision="single",
+                     nb_options={"capacity": cap}, device="cuda")
+    ctx.setPositions(pos)
+    ctx.setVelocities(vel)
+    parts = profiling.step_breakdown(ctx, n=16)
+    log("17 (d) step_breakdown of the 100k Context (ms, CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + f" on {card}")
+    if not all(np.isfinite(v) and v > 0 for v in parts.values()):
+        fail("17 (d): step_breakdown")
+    del ctx
+    torch.cuda.empty_cache()
+
+
 def main():
     # ---- 0. device --------------------------------------------------------
     import torch
@@ -3287,7 +4005,7 @@ def main():
     phase_seconds["6 NPT at 100k"] = phase_mark()
 
     # ---- 7. the ionic liquid, the reaction field through B1 ----------------
-    rf_entries, _ = phase_ionic_liquid(card)
+    rf_entries, _, il_state = phase_ionic_liquid(card)
     rf_regs = {f"{k}_sweep_rf": mod.attributes(False, "rf")["regs"]
                for k, mod in (("b1", sweep), ("b2", sweep_chunked))}
     rf_regs.update({f"{k}_energy_rf": mod.attributes(True, "rf")["regs"]
@@ -3307,7 +4025,7 @@ def main():
     phase_seconds["9 the sheared box"] = phase_mark()
 
     # ---- 10. the flattened replica ensemble: replica bands through B1 ----
-    flat_entries, _, settled = phase_flat(card)
+    flat_entries, _, settled, flat_rate = phase_flat(card)
     for e in flat_entries:
         e["registers"] = regs[e["name"].replace("_bands", "")]
     phase_seconds["10 the flat ensemble"] = phase_mark()
@@ -3326,14 +4044,27 @@ def main():
 
     # ---- 13. SHAKE clusters at 100k ------------------------------------------
     phase_shake(card, ms_step, final, modeller)
-    del final, modeller
+    del modeller
     phase_seconds["13 SHAKE clusters"] = phase_mark()
 
     # ---- 14. the plain-PyTorch terms on the card ----------------------------
     phase_terms(card)
     phase_seconds["14 the plain terms"] = phase_mark()
 
-    # ---- 15. kernel summary -------------------------------------------------
+    # ---- 15. switched LJ at full width --------------------------------------
+    sw_entries = phase_switch(card, final, il_state, bench_args)
+    del final, il_state
+    phase_seconds["15 switched LJ"] = phase_mark()
+
+    # ---- 16. ReplicaEnsemble, 64 x 4k -------------------------------------
+    phase_replicas(card, settled, flat_rate)
+    phase_seconds["16 ReplicaEnsemble"] = phase_mark()
+
+    # ---- 17. lists, reporters, native runtime, breakdown -------------------
+    phase_rest(card, system, (pos, vel, cap), settled)
+    phase_seconds["17 the rest"] = phase_mark()
+
+    # ---- 18. kernel summary -------------------------------------------------
     log("seconds per phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_seconds.items()))
     src, tpu = ("openmm_drudenose_tpu_torch/csrc/sweep.cu",
@@ -3352,7 +4083,7 @@ def main():
         "source": src, "replaces": tpu, "registers": regs["b1_energy"],
         **b1_energy, "library_ms": None,
     }, *b2_entries, *rf_entries, *tri_entries, *flat_entries,
-        *npt_entries]
+        *npt_entries, *sw_entries]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

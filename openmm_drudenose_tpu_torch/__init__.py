@@ -7,9 +7,9 @@ NaCl solution, io/ionic_liquid.build_ionic_liquid the coarse-grained
 ionic liquid with per-ion temperature groups and io/polymer.
 build_solvated_polymer the polarizable polymer in water), bind a
 DrudeTGNHIntegrator into a Context (or a Simulation with its reporters)
-and step it, with a MonteCarloBarostat for NPT; FlatReplicaEnsemble
-(parallel/flatrep.py) runs many replicas of a small box as one system
-in NVT.  The direct-space sweep of large systems and its energy run in
+and step it, with a MonteCarloBarostat for NPT; ReplicaEnsemble
+(parallel/ensemble.py) and FlatReplicaEnsemble (parallel/flatrep.py)
+run many replicas of a small box as one system.  The direct-space sweep of large systems and its energy run in
 hand-written CUDA kernels (ops/sweep.py, ops/sweep_chunked.py, csrc/);
 everything else is plain PyTorch.  Entry points run on CUDA unless the
 caller passes device="cpu".
@@ -43,7 +43,8 @@ from .app.serialization import (XmlSerializer, deserialize_integrator,
                                 deserialize_system, load_checkpoint,
                                 save_checkpoint, serialize_integrator,
                                 serialize_system)
-from .app.simulation import CheckpointReporter, Simulation, StateDataReporter
+from .app.simulation import (CheckpointReporter, DCDReporter, PDBReporter,
+                             Simulation, StateDataReporter)
 from .forces.bonded import (HarmonicAngleForce, HarmonicBondForce,
                             HarmonicTorsionForce, PeriodicTorsionForce)
 from .forces.cmap import CMAPTorsionForce
@@ -54,6 +55,7 @@ from .forces.custom import (CustomAngleForce, CustomBondForce,
 from .forces.drude import DrudeForce
 from .forces.nonbonded import NonbondedForce
 from .io.pdbfile import PDBFile
+from .parallel.ensemble import ReplicaEnsemble
 from .parallel.flatrep import FlatReplicaEnsemble
 from .system import (LocalCoordinatesSite, OutOfPlaneSite, System,
                      ThreeParticleAverageSite, TwoParticleAverageSite)
@@ -68,9 +70,11 @@ __all__ = [
     "CustomBondForce", "CustomAngleForce", "CustomTorsionForce",
     "CustomNonbondedForce", "CustomExternalForce",
     "DrudeTGNHIntegrator", "Context", "State", "Simulation",
-    "StateDataReporter", "CheckpointReporter", "ForceField", "Modeller",
+    "StateDataReporter", "CheckpointReporter", "DCDReporter",
+    "PDBReporter", "ForceField", "Modeller",
     "PDBFile", "serialize_integrator", "deserialize_integrator",
     "serialize_system", "deserialize_system", "XmlSerializer",
-    "save_checkpoint", "load_checkpoint", "FlatReplicaEnsemble", "BOLTZ",
+    "save_checkpoint", "load_checkpoint", "ReplicaEnsemble",
+    "FlatReplicaEnsemble", "BOLTZ",
     "ONE_4PI_EPS0",
 ]

@@ -132,16 +132,18 @@ class Context:
                  hardwall_strict: bool = False,
                  nb_options: dict | None = None, device=None,
                  ensemble_r: int = 1):
-        """strategy: the nonbonded pair sum, "dense", "cellpair" or
-        "auto" (the JAX package's rule, forces/nonbonded.py::
-        choose_strategy).  seed: the barostat's generator.
+        """strategy: the nonbonded pair sum, "dense", "cellpair", "cell"
+        (neighbour lists, forces/neighborlist.py) or "auto" (the JAX
+        package's rule, forces/nonbonded.py::choose_strategy).  seed: the barostat's generator.
         hardwall_strict: raise when a Drude moved more than twice past
         the hard wall (the Reference platform's throw) instead of
         bouncing it, warning once and latching hardwallRunaway.
         nb_options: {"capacity": C} pins the cell capacity (the bench
         pins the one its snapshot was measured with); {"use_pallas": 3}
         sends the float32 sweep to the chunked kernel B2 whatever the
-        gates say (the JAX option of that name).  ensemble_r: the
+        gates say (the JAX option of that name); "skin",
+        "rebuild_interval", "max_neighbors", "density_margin" size the
+        neighbour lists of strategy "cell".  ensemble_r: the
         replicas of a flattened ensemble (parallel/flatrep.py, which
         also passes nb_options {"ensemble": [R, rx, rz]} and, with a
         MonteCarloBarostat, sets the per-replica scales)."""
@@ -572,6 +574,12 @@ class Context:
         at least, so a retry always progresses).  A flattened ensemble
         bins in the replicas' frame: an extended cell is a (replica,
         cell of its grid)."""
+        if self._nb.strategy == "cell":
+            # the neighbour-list strategy: larger cell and list
+            # capacities, no recompile
+            self._nb.grow()
+            self._state = self._state.replace(neighbors=None)
+            return
         cfg = self._cp_cfg
         if positions is None:
             positions = self._state.positions

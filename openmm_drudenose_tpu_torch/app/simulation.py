@@ -1,7 +1,7 @@
 """Simulation: the OpenMM app-layer workflow the reference example runs
 (example/nacl_tg.py: Simulation, minimizeEnergy, StateDataReporter,
-CheckpointReporter), as the JAX package's app/simulation.py has it.
-DCD and PDB reporters are not ported yet."""
+CheckpointReporter, DCDReporter, PDBReporter), as the JAX package's
+app/simulation.py has it."""
 
 from __future__ import annotations
 
@@ -163,3 +163,40 @@ class CheckpointReporter(_IntervalReporter):
 
     def report(self, simulation, _state) -> None:
         serialization.save_checkpoint(self._path, simulation.context)
+
+
+class DCDReporter(_IntervalReporter):
+    """Positions and box every `reportInterval` steps into a DCD file
+    (io/dcd.py); the frame count is patched in on `close`."""
+
+    def __init__(self, file: str, reportInterval: int):
+        super().__init__(reportInterval)
+        from ..io.dcd import DCDWriter
+        self._writer = DCDWriter(file)
+
+    def report(self, simulation, _state) -> None:
+        st = simulation.context.getState(positions=True)
+        self._writer.write_frame(st.getPositions(),
+                                 st.getPeriodicBoxVectors())
+
+    def close(self) -> None:
+        self._writer.close()
+
+
+class PDBReporter(_IntervalReporter):
+    """Positions every `reportInterval` steps as MODEL records of one PDB
+    file (io/pdbfile.write_model, with the Simulation's topology)."""
+
+    def __init__(self, file: str, reportInterval: int):
+        super().__init__(reportInterval)
+        self._path = file
+        self._frame = 0
+
+    def report(self, simulation, _state) -> None:
+        from ..io import pdbfile
+        st = simulation.context.getState(positions=True)
+        mode = "w" if self._frame == 0 else "a"
+        with open(self._path, mode) as f:
+            pdbfile.write_model(f, st.getPositions(), simulation.topology,
+                                model=self._frame + 1)
+        self._frame += 1

@@ -36,6 +36,19 @@
 // fixed by the data, so two launches give the same bits.  The
 // force-only instantiation compiles as it did without this flag.
 //
+// The LJ switch (OpenMM's S(t) = 1 - 10t^3 + 15t^4 - 6t^5, t = (r - r_on)
+// / (r_off - r_on) clamped to [0, 1]; the JAX package's _switch,
+// forces/cellpair.py:587-596 there) is a template parameter (kSwitch) of
+// the pair function and of every walk above it, with r_on and
+// r_off - r_on in Params: the unswitched instantiations compile to the
+// code they were (a runtime flag cost them 2-14 registers on sm_90a:
+// PERF.md).  Its arithmetic runs only for pairs beyond r_on (below it
+// S = 1 and dS = 0, so skipping it changes no bit): the energy walk
+// multiplies the LJ energy by S, the force walk forms g_lj S + e_lj
+// dS/dr^2, in float32 in the plain version's order (forces/cellpair.py::
+// make_pair_eg).  The Pallas kernels of the JAX package take no switch
+// (its Queue C14); here both kernels do.
+//
 // The Coulomb kind is a template parameter (kCoul) of the pair function
 // and of every walk above it, as in the TPU kernel's _make_pair_g
 // (ops/pallas_sweep.py:111-135 in the JAX package): kEwald, the real
@@ -65,7 +78,8 @@ struct Fields {  // cell-major slot arrays (forces/cellpair.py::sorted_fields)
 struct Params {
   float cutoff2, alpha, coulomb_scale;
   int excl_window, n_words;
-  float krf, crf;  // the reaction field's constants (kRF only)
+  float krf, crf;        // the reaction field's constants (kRF only)
+  float r_on, sw_width;  // the LJ switch (kSwitch only): r_on, r_off - r_on
 };
 
 // the Coulomb kinds of the pair function (the launches' `coulomb`)
@@ -187,11 +201,21 @@ __device__ __forceinline__ bool beyond(const Box& a, const Box& b,
   return g2 >= cutoff2;
 }
 
+// S and dS/dr^2 of the LJ switch at r > r_on (t clamped to 1 at r_off).
+__device__ __forceinline__ void lj_switch(const Params& p, float r,
+                                          float inv_r, float& s,
+                                          float& ds_dr2) {
+  const float t = fminf((r - p.r_on) / p.sw_width, 1.f);
+  s = 1.f + t * t * t * (-10.f + t * (15.f - 6.f * t));
+  const float ds_dt = t * t * (-30.f + t * (60.f - 30.f * t));
+  ds_dr2 = ds_dt / p.sw_width * 0.5f * inv_r;
+}
+
 // The force on the lane's atom h from slot j of tile t, by the pair rules
 // above, or zero where the pair is not kept (`valid` false: no such slot).
 // With kEnergy, the pair's energy into *pe instead (zero where not kept)
-// and no force.  kCoul: the Coulomb kind.
-template <int kCoul, bool kSelf, bool kEnergy = false>
+// and no force.  kCoul: the Coulomb kind; kSwitch: the LJ switch.
+template <int kCoul, bool kSwitch, bool kSelf, bool kEnergy = false>
 __device__ __forceinline__ void pair_force(const Home& h, const Tile& t,
                                            int j, bool valid, int j0,
                                            bool chk, const Params& p,
@@ -231,10 +255,27 @@ __device__ __forceinline__ void pair_force(const Home& h, const Tile& t,
       e_c = qq * erfcf(p.alpha * r2s * inv_r) * inv_r;
     else
       e_c = qq * (inv_r + p.krf * r2s - p.crf);
-    *pe = 4.f * ep * x6 * (x6 - 1.f) + e_c;
+    float e_lj = 4.f * ep * x6 * (x6 - 1.f);
+    if constexpr (kSwitch) {
+      const float r = r2s * inv_r;
+      if (r > p.r_on) {
+        float s, ds;
+        lj_switch(p, r, inv_r, s, ds);
+        e_lj = e_lj * s;
+      }
+    }
+    *pe = e_lj + e_c;
     return;
   }
-  const float g_lj = -4.f * ep * (6.f * x6 * x6 - 3.f * x6) * inv_r2;
+  float g_lj = -4.f * ep * (6.f * x6 * x6 - 3.f * x6) * inv_r2;
+  if constexpr (kSwitch) {
+    const float r = r2s * inv_r;
+    if (r > p.r_on) {
+      float s, ds;
+      lj_switch(p, r, inv_r, s, ds);
+      g_lj = g_lj * s + 4.f * ep * x6 * (x6 - 1.f) * ds;
+    }
+  }
   float g_c;
   if constexpr (kCoul == kEwald) {
     const float two_over_sqrt_pi = 1.1283791670955126f;
@@ -262,7 +303,7 @@ __device__ __forceinline__ void pair_force(const Home& h, const Tile& t,
 // the staged tile (nb slots, tile slot j being cell slot j0 + j).  Adds
 // the row forces to (fx, fy, fz) and leaves in (rx, ry, rz) of lane l the
 // sum of the reactions on tile slot l (zero for l >= nb).
-template <int kCoul>
+template <int kCoul, bool kSwitch>
 __device__ __forceinline__ void walk(const Home& h, const Tile& t, int na,
                                      int nb, int j0, bool chk,
                                      const Params& p, int lane, float& fx,
@@ -274,7 +315,8 @@ __device__ __forceinline__ void walk(const Home& h, const Tile& t, int na,
   int j = lane;
   for (int k = 0; k < m; ++k) {
     float px, py, pz;
-    pair_force<kCoul, false>(h, t, j, j < nb, j0, chk, p, px, py, pz);
+    pair_force<kCoul, kSwitch, false>(h, t, j, j < nb, j0, chk, p, px, py,
+                                      pz);
     fx += px;
     fy += py;
     fz += pz;
@@ -293,7 +335,8 @@ __device__ __forceinline__ void walk(const Home& h, const Tile& t, int na,
 // and lane k takes its three sums into (rx, ry, rz).  With kEnergy
 // (and no kReact), only the lane's pair energies, added to *esum in step
 // order (at half weight in the self cell, which meets each pair twice).
-template <int kCoul, bool kSelf, bool kReact, bool kEnergy = false>
+template <int kCoul, bool kSwitch, bool kSelf, bool kReact,
+          bool kEnergy = false>
 __device__ __forceinline__ void walk_bcast(const Home& h, const Tile& t,
                                            int nb, int j0, bool chk,
                                            const Params& p, int lane,
@@ -306,12 +349,12 @@ __device__ __forceinline__ void walk_bcast(const Home& h, const Tile& t,
     float px, py, pz;
     if constexpr (kEnergy) {
       float e;
-      pair_force<kCoul, kSelf, true>(h, t, k, true, j0, chk, p, px, py, pz,
-                                     &e);
+      pair_force<kCoul, kSwitch, kSelf, true>(h, t, k, true, j0, chk, p, px,
+                                              py, pz, &e);
       *esum += kSelf ? 0.5 * (double)e : (double)e;
       continue;
     }
-    pair_force<kCoul, kSelf>(h, t, k, true, j0, chk, p, px, py, pz);
+    pair_force<kCoul, kSwitch, kSelf>(h, t, k, true, j0, chk, p, px, py, pz);
     fx += px;
     fy += py;
     fz += pz;
@@ -353,7 +396,7 @@ __device__ __forceinline__ void walk_bcast(const Home& h, const Tile& t,
 // atoms are loaded here, not held across calls, which keeps one atom's
 // registers live at a time.  Adds the row forces to (fx, fy, fz) and
 // leaves the reaction on tile slot l in (rx, ry, rz) of lane l.
-template <int kCoul>
+template <int kCoul, bool kSwitch>
 __device__ __forceinline__ void tile_pair(
     bool self, const Fields& fd, const Params& p, int abase, int a0, int na,
     const Tile& th, const Tile& t, int nbase, int nb, int j0, float tx,
@@ -364,8 +407,8 @@ __device__ __forceinline__ void tile_pair(
   if (bcast && nb > na) {
     const Home hb = load_home(fd, p, nbase, lane, lane < nb, tx, ty, tz);
     float gx = 0.f, gy = 0.f, gz = 0.f, sx, sy, sz;
-    walk_bcast<kCoul, false, true>(hb, th, na, a0, chk, p, lane, gx, gy, gz,
-                                   sx, sy, sz, part);
+    walk_bcast<kCoul, kSwitch, false, true>(hb, th, na, a0, chk, p, lane,
+                                            gx, gy, gz, sx, sy, sz, part);
     fx += sx;
     fy += sy;
     fz += sz;
@@ -376,20 +419,21 @@ __device__ __forceinline__ void tile_pair(
   }
   const Home h = load_home(fd, p, abase, a0 + lane, lane < na);
   if (self) {
-    walk_bcast<kCoul, true, false>(h, t, nb, j0, chk, p, lane, fx, fy, fz, rx,
-                                   ry, rz, part);
+    walk_bcast<kCoul, kSwitch, true, false>(h, t, nb, j0, chk, p, lane, fx,
+                                            fy, fz, rx, ry, rz, part);
   } else if (bcast) {
-    walk_bcast<kCoul, false, true>(h, t, nb, j0, chk, p, lane, fx, fy, fz, rx,
-                                   ry, rz, part);
+    walk_bcast<kCoul, kSwitch, false, true>(h, t, nb, j0, chk, p, lane, fx,
+                                            fy, fz, rx, ry, rz, part);
   } else {
-    walk<kCoul>(h, t, na, nb, j0, chk, p, lane, fx, fy, fz, rx, ry, rz);
+    walk<kCoul, kSwitch>(h, t, na, nb, j0, chk, p, lane, fx, fy, fz, rx, ry,
+                         rz);
   }
 }
 
 // The energy of one home part (na atoms from cell slot `abase` + a0)
 // against one staged tile t (nb slots, tile slot j being cell slot
 // j0 + j), added to the lane's *esum by the broadcast walk.
-template <int kCoul>
+template <int kCoul, bool kSwitch>
 __device__ __forceinline__ void tile_energy(bool self, const Fields& fd,
                                             const Params& p, int abase,
                                             int a0, int na, const Tile& t,
@@ -399,11 +443,13 @@ __device__ __forceinline__ void tile_energy(bool self, const Fields& fd,
   const Home h = load_home(fd, p, abase, a0 + lane, lane < na);
   float fx = 0.f, fy = 0.f, fz = 0.f, rx, ry, rz;
   if (self)
-    walk_bcast<kCoul, true, false, true>(h, t, nb, j0, chk, p, lane, fx, fy,
-                                         fz, rx, ry, rz, part, &esum);
+    walk_bcast<kCoul, kSwitch, true, false, true>(h, t, nb, j0, chk, p, lane,
+                                                  fx, fy, fz, rx, ry, rz,
+                                                  part, &esum);
   else
-    walk_bcast<kCoul, false, false, true>(h, t, nb, j0, chk, p, lane, fx, fy,
-                                          fz, rx, ry, rz, part, &esum);
+    walk_bcast<kCoul, kSwitch, false, false, true>(h, t, nb, j0, chk, p,
+                                                   lane, fx, fy, fz, rx, ry,
+                                                   rz, part, &esum);
 }
 
 // The sum of the warp's 32 values in a fixed tree order, on lane 0.

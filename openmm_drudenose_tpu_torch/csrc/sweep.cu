@@ -5,7 +5,10 @@
 // Physics: LJ with Lorentz sigma and Berthelot sqrt(eps) product, plus
 // either Ewald real-space Coulomb with the Abramowitz & Stegun 7.1.26
 // erfc (the same polynomial as the TPU kernel, so the two agree term for
-// term) or the reaction field qq (1/r + krf r^2 - crf) (CutoffPeriodic).
+// term) or the reaction field qq (1/r + krf r^2 - crf) (CutoffPeriodic);
+// the LJ switched from r_on to the cutoff where the launch asks for it
+// (an instantiation of its own, kSwitch: pair_tile.cuh; the TPU kernel
+// has no switch).
 // Pairs: the home cell against itself (a != b, row forces only) and the
 // half stencil of neighbour cells, each pair's reaction credited to the
 // neighbour slot (Newton's third law).  Cutoff test, r^2 clamp 1e-6, an
@@ -100,8 +103,8 @@ constexpr int kOffsetsPerUnit = 8;  // stencil offsets a work unit
 // kEnergy the unit's energy goes to e_part[unit] (left zero for an empty
 // part) and no force is written.
 // With kScaled the shifts are read at the home cell's replica,
-// shift[3 * (rep_cell[cell] * n_off + o)].
-template <bool kEnergy, int kCoul, bool kScaled>
+// shift[3 * (rep_cell[cell] * n_off + o)].  kSwitch: the LJ switch.
+template <bool kEnergy, int kCoul, bool kScaled, bool kSwitch>
 __global__ void __launch_bounds__(kWarps * 32)
     sweep_kernel(Fields fd, const int* __restrict__ nbr,
                  const float* __restrict__ shift,
@@ -159,13 +162,13 @@ __global__ void __launch_bounds__(kWarps * 32)
           continue;
         }
         if constexpr (kEnergy) {
-          pair_tile::tile_energy<kCoul>(o == 0, fd, p, cell * cap, a0, na,
-                                        t, nb_t, b0, chk, lane, part, es);
+          pair_tile::tile_energy<kCoul, kSwitch>(o == 0, fd, p, cell * cap,
+                                                 a0, na, t, nb_t, b0, chk,
+                                                 lane, part, es);
         } else {
-          pair_tile::tile_pair<kCoul>(o == 0, fd, p, cell * cap, a0, na, th,
-                                      t, bc * cap + b0, nb_t, b0, tx, ty, tz,
-                                      chk, lane, part, fx, fy, fz, rx, ry,
-                                      rz);
+          pair_tile::tile_pair<kCoul, kSwitch>(
+              o == 0, fd, p, cell * cap, a0, na, th, t, bc * cap + b0, nb_t,
+              b0, tx, ty, tz, chk, lane, part, fx, fy, fz, rx, ry, rz);
           if (o != 0 && lane < nb_t) {
             fo[b0 + lane] = rx;
             fo[cap + b0 + lane] = ry;
@@ -244,7 +247,7 @@ __global__ void gather_kernel(const float* __restrict__ rframe,
 // space; the others may be null.  kScaled: rep_cell gives each cell's
 // replica, and the energy goes to e_out[0 .. n_rows - 1], row r the sum
 // of the partials listed in rows[r * m .. r * m + m - 1].
-template <bool kEnergy, int kCoul, bool kScaled>
+template <bool kEnergy, int kCoul, bool kScaled, bool kSwitch>
 int launch(const Fields& fd, const void* nbr, const void* rnbr,
            const void* shift, const void* rep_cell, const void* check_excl,
            void* rframe, void* hframe, void* f, void* e_part, void* e_out,
@@ -268,7 +271,8 @@ int launch(const Fields& fd, const void* nbr, const void* rnbr,
   // as many CTAs as the card holds at once (they loop over the units)
   const int blocks = (int)std::min<long long>(
       (units + kWarps - 1) / kWarps, (long long)max_ctas);
-  sweep_kernel<kEnergy, kCoul, kScaled><<<blocks, kWarps * 32, 0, s>>>(
+  sweep_kernel<kEnergy, kCoul, kScaled, kSwitch>
+      <<<blocks, kWarps * 32, 0, s>>>(
       fd, (const int*)nbr, (const float*)shift, (const int*)rep_cell,
       (const int*)check_excl, (float*)rframe, (float*)hframe,
       (double*)e_part, (int*)next_unit, n_cells, cap, (int)parts, n_off,
@@ -294,46 +298,59 @@ int launch(const Fields& fd, const void* nbr, const void* rnbr,
 }
 
 // The instantiation of the Coulomb kind `coulomb` (pair_tile::Coulomb),
-// scaled where rep_cell is given.
+// scaled where rep_cell is given, switched where `switched`.
 template <bool kEnergy>
-int launch_kind(int coulomb, const Fields& fd, const void* nbr,
-                const void* rnbr, const void* shift, const void* rep_cell,
-                const void* check_excl, void* rframe, void* hframe, void* f,
-                void* e_part, void* e_out, void* next_unit, const void* rows,
-                int n_rows, int m, int n_cells, int cap, int n_off,
-                const Params& p, int max_ctas, void* stream) {
-#define SWEEP_LAUNCH(COUL, SCALED)                                           \
-  launch<kEnergy, COUL, SCALED>(fd, nbr, rnbr, shift, rep_cell, check_excl, \
-                                rframe, hframe, f, e_part, e_out, next_unit, \
-                                rows, n_rows, m, n_cells, cap, n_off, p,     \
-                                max_ctas, stream)
+int launch_kind(int coulomb, bool switched, const Fields& fd,
+                const void* nbr, const void* rnbr, const void* shift,
+                const void* rep_cell, const void* check_excl, void* rframe,
+                void* hframe, void* f, void* e_part, void* e_out,
+                void* next_unit, const void* rows, int n_rows, int m,
+                int n_cells, int cap, int n_off, const Params& p,
+                int max_ctas, void* stream) {
+#define SWEEP_LAUNCH(COUL, SCALED, SW)                                      \
+  launch<kEnergy, COUL, SCALED, SW>(fd, nbr, rnbr, shift, rep_cell,        \
+                                    check_excl, rframe, hframe, f, e_part, \
+                                    e_out, next_unit, rows, n_rows, m,     \
+                                    n_cells, cap, n_off, p, max_ctas, stream)
+#define SWEEP_LAUNCH_SW(COUL, SCALED)                                     \
+  (switched ? SWEEP_LAUNCH(COUL, SCALED, true)                            \
+            : SWEEP_LAUNCH(COUL, SCALED, false))
   const bool scaled = rep_cell != nullptr;
   if (coulomb == pair_tile::kEwald)
-    return scaled ? SWEEP_LAUNCH(pair_tile::kEwald, true)
-                  : SWEEP_LAUNCH(pair_tile::kEwald, false);
+    return scaled ? SWEEP_LAUNCH_SW(pair_tile::kEwald, true)
+                  : SWEEP_LAUNCH_SW(pair_tile::kEwald, false);
   if (coulomb == pair_tile::kRF)
-    return scaled ? SWEEP_LAUNCH(pair_tile::kRF, true)
-                  : SWEEP_LAUNCH(pair_tile::kRF, false);
+    return scaled ? SWEEP_LAUNCH_SW(pair_tile::kRF, true)
+                  : SWEEP_LAUNCH_SW(pair_tile::kRF, false);
+#undef SWEEP_LAUNCH_SW
 #undef SWEEP_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
-// The kernel function of (energy, coulomb, scaled), or null.
-template <bool kScaled>
-const void* kernel_of_scaled(int energy, int coulomb) {
+// The kernel function of (energy, coulomb) with kScaled and kSwitch, or
+// null.
+template <bool kScaled, bool kSwitch>
+const void* kernel_of_kind(int energy, int coulomb) {
   if (coulomb == pair_tile::kEwald)
-    return energy
-               ? (const void*)sweep_kernel<true, pair_tile::kEwald, kScaled>
-               : (const void*)sweep_kernel<false, pair_tile::kEwald, kScaled>;
+    return energy ? (const void*)
+                        sweep_kernel<true, pair_tile::kEwald, kScaled, kSwitch>
+                  : (const void*)sweep_kernel<false, pair_tile::kEwald,
+                                              kScaled, kSwitch>;
   if (coulomb == pair_tile::kRF)
-    return energy ? (const void*)sweep_kernel<true, pair_tile::kRF, kScaled>
-                  : (const void*)sweep_kernel<false, pair_tile::kRF, kScaled>;
+    return energy
+               ? (const void*)
+                     sweep_kernel<true, pair_tile::kRF, kScaled, kSwitch>
+               : (const void*)
+                     sweep_kernel<false, pair_tile::kRF, kScaled, kSwitch>;
   return nullptr;
 }
 
-const void* kernel_of(int energy, int coulomb, int scaled) {
-  return scaled ? kernel_of_scaled<true>(energy, coulomb)
-                : kernel_of_scaled<false>(energy, coulomb);
+const void* kernel_of(int energy, int coulomb, int scaled, int switched) {
+  if (scaled)
+    return switched ? kernel_of_kind<true, true>(energy, coulomb)
+                    : kernel_of_kind<true, false>(energy, coulomb);
+  return switched ? kernel_of_kind<false, true>(energy, coulomb)
+                  : kernel_of_kind<false, false>(energy, coulomb);
 }
 
 }  // namespace
@@ -350,10 +367,11 @@ extern "C" int sweep_units(int n_cells, int cap, int n_off) {
 // out[0..3]: registers a thread, static shared memory, the most threads
 // a CTA may have and local (spill) memory a thread, as compiled for the
 // card, of the force (energy = 0) or the energy instantiation of the
-// Coulomb kind `coulomb`, with per-replica scales where `scaled`.
+// Coulomb kind `coulomb`, with per-replica scales where `scaled`, with
+// the LJ switch where `switched`.
 extern "C" int sweep_attributes(int* out, int energy, int coulomb,
-                                int scaled) {
-  const void* k = kernel_of(energy, coulomb, scaled);
+                                int scaled, int switched) {
+  const void* k = kernel_of(energy, coulomb, scaled, switched);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, k);
@@ -366,11 +384,12 @@ extern "C" int sweep_attributes(int* out, int energy, int coulomb,
 }
 
 // out[0..1]: the current card's SMs and the CTAs an SM holds at once of
-// the (energy, coulomb, scaled) instantiation; the caller reads them
-// once and passes SMs x CTAs to sweep_forces / sweep_energy as max_ctas.
+// the (energy, coulomb, scaled, switched) instantiation; the caller
+// reads them once and passes SMs x CTAs to sweep_forces / sweep_energy
+// as max_ctas.
 extern "C" int sweep_occupancy(int* out, int energy, int coulomb,
-                               int scaled) {
-  const void* k = kernel_of(energy, coulomb, scaled);
+                               int scaled, int switched) {
+  const void* k = kernel_of(energy, coulomb, scaled, switched);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
@@ -391,7 +410,9 @@ extern "C" int sweep_occupancy(int* out, int energy, int coulomb,
 // floats of work space (written before they are read); next_unit: one
 // int of work space on the card (set to 0 here); coulomb:
 // pair_tile::Coulomb (krf and crf read for the reaction field only);
-// max_ctas: the CTAs the card holds at once (sweep_occupancy).
+// use_switch: the switched instantiation, the LJ switch from r_on over
+// sw_width = r_off - r_on (both read only with it); max_ctas: the CTAs
+// the card holds at once (sweep_occupancy of the same instantiation).
 extern "C" int sweep_forces(const void* x, const void* y, const void* z,
                             const void* q, const void* sig, const void* seps,
                             const void* gid, const void* ew,
@@ -403,15 +424,17 @@ extern "C" int sweep_forces(const void* x, const void* y, const void* z,
                             int n_off, float cutoff2, float alpha,
                             float coulomb_scale, int excl_window,
                             int n_words, int coulomb, float krf, float crf,
+                            int use_switch, float r_on, float sw_width,
                             int max_ctas, void* stream) {
   Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
             (const float*)q,   (const float*)sig,  (const float*)seps,
             (const int*)gid,   (const int*)ew,     (const int*)count};
-  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words, krf, crf};
-  return launch_kind<false>(coulomb, fd, nbr, rnbr, shift, rep_cell,
-                            check_excl, rframe, hframe, f, nullptr, nullptr,
-                            next_unit, nullptr, 0, 0, n_cells, cap, n_off, p,
-                            max_ctas, stream);
+  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words,
+           krf,     crf,   r_on,          sw_width};
+  return launch_kind<false>(coulomb, use_switch != 0, fd, nbr, rnbr, shift,
+                            rep_cell, check_excl, rframe, hframe, f, nullptr,
+                            nullptr, next_unit, nullptr, 0, 0, n_cells, cap,
+                            n_off, p, max_ctas, stream);
 }
 
 // The direct-space energy into e_out on the card: e_part: sweep_units()
@@ -430,14 +453,16 @@ extern "C" int sweep_energy(const void* x, const void* y, const void* z,
                             int n_cells, int cap, int n_off, float cutoff2,
                             float alpha, float coulomb_scale,
                             int excl_window, int n_words, int coulomb,
-                            float krf, float crf, int max_ctas, int n_rows,
-                            int m, void* stream) {
+                            float krf, float crf, int use_switch,
+                            float r_on, float sw_width, int max_ctas,
+                            int n_rows, int m, void* stream) {
   Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
             (const float*)q,   (const float*)sig,  (const float*)seps,
             (const int*)gid,   (const int*)ew,     (const int*)count};
-  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words, krf, crf};
-  return launch_kind<true>(coulomb, fd, nbr, nullptr, shift, rep_cell,
-                           check_excl, nullptr, nullptr, nullptr, e_part,
-                           e_out, next_unit, rows, n_rows, m, n_cells, cap,
-                           n_off, p, max_ctas, stream);
+  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words,
+           krf,     crf,   r_on,          sw_width};
+  return launch_kind<true>(coulomb, use_switch != 0, fd, nbr, nullptr,
+                           shift, rep_cell, check_excl, nullptr, nullptr,
+                           nullptr, e_part, e_out, next_unit, rows, n_rows, m,
+                           n_cells, cap, n_off, p, max_ctas, stream);
 }

@@ -9,7 +9,8 @@
 // same warp-tile pair loop (pair_tile.cuh): LJ with Lorentz sigma and
 // Berthelot sqrt(eps) product plus Ewald real-space Coulomb with the
 // Abramowitz & Stegun 7.1.26 erfc or the reaction field (the Coulomb
-// kind is a template parameter), the home cell against itself (row
+// kind and the LJ switch are template parameters, pair_tile.cuh), the
+// home cell against itself (row
 // forces only) and the half stencil with Newton reactions, the cutoff
 // test on an unfused r^2 in the plain version's order, r^2 clamp 1e-6,
 // and an exclusion bitmask of any number of words tested only at offsets
@@ -112,7 +113,8 @@ constexpr int kMaxWarps = 8;
 // their sum to e_part[chunk * home cells + h], zero for an empty cell.
 // kCoul: the Coulomb kind (pair_tile::Coulomb).
 // With kScaled, shift is (replicas, n_off, 3), read at the chunk's band.
-template <bool kEnergy, int kCoul, bool kScaled>
+// kSwitch: the LJ switch.
+template <bool kEnergy, int kCoul, bool kScaled, bool kSwitch>
 __global__ void __launch_bounds__(kMaxWarps * 32)
     chunk_sweep_kernel(Fields fd, const int* __restrict__ offsets,
                        const float* __restrict__ shift,
@@ -192,14 +194,14 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
               pair_tile::stage(t, fd, bc * cap + b0, nb_t, tx, ty, tz, lane);
           if (o != 0 && pair_tile::beyond(home, nbox, p.cutoff2)) continue;
           if constexpr (kEnergy) {
-            pair_tile::tile_energy<kCoul>(o == 0, fd, p, cell * cap, a0,
-                                          na_t, t, nb_t, b0, chk, lane, part,
-                                          es);
+            pair_tile::tile_energy<kCoul, kSwitch>(o == 0, fd, p, cell * cap,
+                                                   a0, na_t, t, nb_t, b0, chk,
+                                                   lane, part, es);
           } else {
-            pair_tile::tile_pair<kCoul>(o == 0, fd, p, cell * cap, a0, na_t,
-                                        th, t, bc * cap + b0, nb_t, b0, tx,
-                                        ty, tz, chk, lane, part, fx, fy, fz,
-                                        rx, ry, rz);
+            pair_tile::tile_pair<kCoul, kSwitch>(
+                o == 0, fd, p, cell * cap, a0, na_t, th, t, bc * cap + b0,
+                nb_t, b0, tx, ty, tz, chk, lane, part, fx, fy, fz, rx, ry,
+                rz);
             if (o != 0 && lane < nb_t) {
               float* e = fo + b0 + lane;
               if (rx != 0.f) e[0] += rx;
@@ -279,25 +281,29 @@ Plan make_plan(const int* v) {
   return p;
 }
 
-// The kernel function of (energy, coulomb, scaled), or null.
-template <bool kScaled>
-const void* kernel_of_scaled(int energy, int coulomb) {
+// The kernel function of (energy, coulomb) with kScaled and kSwitch, or
+// null.
+template <bool kScaled, bool kSwitch>
+const void* kernel_of_kind(int energy, int coulomb) {
   if (coulomb == pair_tile::kEwald)
-    return energy ? (const void*)
-                        chunk_sweep_kernel<true, pair_tile::kEwald, kScaled>
-                  : (const void*)
-                        chunk_sweep_kernel<false, pair_tile::kEwald, kScaled>;
+    return energy ? (const void*)chunk_sweep_kernel<true, pair_tile::kEwald,
+                                                    kScaled, kSwitch>
+                  : (const void*)chunk_sweep_kernel<false, pair_tile::kEwald,
+                                                    kScaled, kSwitch>;
   if (coulomb == pair_tile::kRF)
-    return energy
-               ? (const void*)chunk_sweep_kernel<true, pair_tile::kRF, kScaled>
-               : (const void*)
-                     chunk_sweep_kernel<false, pair_tile::kRF, kScaled>;
+    return energy ? (const void*)chunk_sweep_kernel<true, pair_tile::kRF,
+                                                    kScaled, kSwitch>
+                  : (const void*)chunk_sweep_kernel<false, pair_tile::kRF,
+                                                    kScaled, kSwitch>;
   return nullptr;
 }
 
-const void* kernel_of(int energy, int coulomb, int scaled) {
-  return scaled ? kernel_of_scaled<true>(energy, coulomb)
-                : kernel_of_scaled<false>(energy, coulomb);
+const void* kernel_of(int energy, int coulomb, int scaled, int switched) {
+  if (scaled)
+    return switched ? kernel_of_kind<true, true>(energy, coulomb)
+                    : kernel_of_kind<true, false>(energy, coulomb);
+  return switched ? kernel_of_kind<false, true>(energy, coulomb)
+                  : kernel_of_kind<false, false>(energy, coulomb);
 }
 
 }  // namespace
@@ -305,10 +311,11 @@ const void* kernel_of(int energy, int coulomb, int scaled) {
 // out[0..3]: registers a thread, static shared memory, the most threads
 // a CTA may have and local (spill) memory a thread, as compiled for the
 // card, of the force (energy = 0) or the energy instantiation of the
-// Coulomb kind `coulomb`, with per-replica scales where `scaled`.
+// Coulomb kind `coulomb`, with per-replica scales where `scaled`, with
+// the LJ switch where `switched`.
 extern "C" int chunk_sweep_attributes(int* out, int energy, int coulomb,
-                                      int scaled) {
-  const void* k = kernel_of(energy, coulomb, scaled);
+                                      int scaled, int switched) {
+  const void* k = kernel_of(energy, coulomb, scaled, switched);
   if (k == nullptr) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
   cudaError_t err = cudaFuncGetAttributes(&a, k);
@@ -349,7 +356,7 @@ extern "C" int chunk_sweep_smem_bytes(const int* plan, int cap) {
 }
 
 // The checks and the sweep launch shared by every instantiation.
-template <bool kEnergy, int kCoul, bool kScaled>
+template <bool kEnergy, int kCoul, bool kScaled, bool kSwitch>
 int launch_sweep(const Fields& fd, const void* offsets, const void* shift,
                  const void* check_excl, void* frames, void* e_part,
                  const int* plan, int cap, int n_off, const Params& p,
@@ -371,10 +378,10 @@ int launch_sweep(const Fields& fd, const void* offsets, const void* shift,
     return (int)cudaErrorInvalidValue;
   const int smem = chunk_sweep_smem_bytes(plan, cap);
   cudaError_t err = cudaFuncSetAttribute(
-      chunk_sweep_kernel<kEnergy, kCoul, kScaled>,
+      chunk_sweep_kernel<kEnergy, kCoul, kScaled, kSwitch>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  chunk_sweep_kernel<kEnergy, kCoul, kScaled>
+  chunk_sweep_kernel<kEnergy, kCoul, kScaled, kSwitch>
       <<<(int)n_chunks, nh * 32, smem, s>>>(
           fd, (const int*)offsets, (const float*)shift,
           (const int*)check_excl, (float*)frames, (double*)e_part, pl, cap,
@@ -383,31 +390,37 @@ int launch_sweep(const Fields& fd, const void* offsets, const void* shift,
 }
 
 // launch_sweep of the Coulomb kind `coulomb` (pair_tile::Coulomb), with
-// per-replica scales where `scaled`.
+// per-replica scales where `scaled`, with the LJ switch where `switched`.
 template <bool kEnergy>
-int launch_kind(int coulomb, int scaled, const Fields& fd,
+int launch_kind(int coulomb, int scaled, bool switched, const Fields& fd,
                 const void* offsets, const void* shift,
                 const void* check_excl, void* frames, void* e_part,
                 const int* plan, int cap, int n_off, const Params& p,
                 cudaStream_t s) {
-#define CHUNK_LAUNCH(COUL, SCALED)                                         \
-  launch_sweep<kEnergy, COUL, SCALED>(fd, offsets, shift, check_excl,     \
-                                      frames, e_part, plan, cap, n_off, p, \
-                                      s)
+#define CHUNK_LAUNCH(COUL, SCALED, SW)                                     \
+  launch_sweep<kEnergy, COUL, SCALED, SW>(fd, offsets, shift, check_excl, \
+                                          frames, e_part, plan, cap,      \
+                                          n_off, p, s)
+#define CHUNK_LAUNCH_SW(COUL, SCALED)                                     \
+  (switched ? CHUNK_LAUNCH(COUL, SCALED, true)                            \
+            : CHUNK_LAUNCH(COUL, SCALED, false))
   if (coulomb == pair_tile::kEwald)
-    return scaled ? CHUNK_LAUNCH(pair_tile::kEwald, true)
-                  : CHUNK_LAUNCH(pair_tile::kEwald, false);
+    return scaled ? CHUNK_LAUNCH_SW(pair_tile::kEwald, true)
+                  : CHUNK_LAUNCH_SW(pair_tile::kEwald, false);
   if (coulomb == pair_tile::kRF)
-    return scaled ? CHUNK_LAUNCH(pair_tile::kRF, true)
-                  : CHUNK_LAUNCH(pair_tile::kRF, false);
+    return scaled ? CHUNK_LAUNCH_SW(pair_tile::kRF, true)
+                  : CHUNK_LAUNCH_SW(pair_tile::kRF, false);
+#undef CHUNK_LAUNCH_SW
 #undef CHUNK_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
 
 // plan: the 21 ints of Plan, on the host.  frames: n_chunks * nf * 3 * cap
 // floats of work space (zeroed and filled by the sweep); f: (n_slots, 3);
-// ew: (n_slots, n_words); scaled: shift is (replicas, n_off, 3), one
-// table a replica band (per-replica box scales).
+// ew: (n_slots, n_words); use_switch: the switched instantiation, the LJ
+// switch from r_on over sw_width = r_off - r_on; scaled: shift is
+// (replicas, n_off, 3), one table a replica band (per-replica box
+// scales).
 extern "C" int chunk_sweep_forces(
     const void* x, const void* y, const void* z, const void* q,
     const void* sig, const void* seps, const void* gid, const void* ew,
@@ -416,15 +429,17 @@ extern "C" int chunk_sweep_forces(
     const void* tab_z, void* frames, void* f, const int* plan, int lx,
     int ly, int lz, int cap, int n_off, float cutoff2, float alpha,
     float coulomb_scale, int excl_window, int n_words, int coulomb,
-    float krf, float crf, int scaled, void* stream) {
+    float krf, float crf, int use_switch, float r_on, float sw_width,
+    int scaled, void* stream) {
   Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
             (const float*)q,   (const float*)sig,  (const float*)seps,
             (const int*)gid,   (const int*)ew,     (const int*)count};
-  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words, krf, crf};
+  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words,
+           krf,     crf,   r_on,          sw_width};
   cudaStream_t s = (cudaStream_t)stream;
-  int err = launch_kind<false>(coulomb, scaled, fd, offsets, shift,
-                               check_excl, frames, nullptr, plan, cap, n_off,
-                               p, s);
+  int err = launch_kind<false>(coulomb, scaled, use_switch != 0, fd,
+                               offsets, shift, check_excl, frames, nullptr,
+                               plan, cap, n_off, p, s);
   if (err != 0) return err;
   const Plan pl = make_plan(plan);
   const long long n_slots = (long long)pl.gx * pl.gy * pl.gz * cap;
@@ -448,17 +463,19 @@ extern "C" int chunk_sweep_energy(
     const void* check_excl, void* e_part, void* e_out, const void* rows,
     const int* plan, int cap, int n_off, float cutoff2, float alpha,
     float coulomb_scale, int excl_window, int n_words, int coulomb,
-    float krf, float crf, int scaled, int n_rows, int m, void* stream) {
+    float krf, float crf, int use_switch, float r_on, float sw_width,
+    int scaled, int n_rows, int m, void* stream) {
   Fields fd{(const float*)x,   (const float*)y,    (const float*)z,
             (const float*)q,   (const float*)sig,  (const float*)seps,
             (const int*)gid,   (const int*)ew,     (const int*)count};
-  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words, krf, crf};
+  Params p{cutoff2, alpha, coulomb_scale, excl_window, n_words,
+           krf,     crf,   r_on,          sw_width};
   cudaStream_t s = (cudaStream_t)stream;
   if (scaled && (n_rows < 1 || m < 1 || rows == nullptr))
     return (int)cudaErrorInvalidValue;
-  int err = launch_kind<true>(coulomb, scaled, fd, offsets, shift,
-                              check_excl, nullptr, e_part, plan, cap, n_off,
-                              p, s);
+  int err = launch_kind<true>(coulomb, scaled, use_switch != 0, fd, offsets,
+                              shift, check_excl, nullptr, e_part, plan, cap,
+                              n_off, p, s);
   if (err != 0) return err;
   const Plan pl = make_plan(plan);
   if (scaled) {

@@ -88,9 +88,11 @@ def repartition(system, topology):
             system.setParticleMass(i, 0.4)
 
 
-def build(ffxml, pdb_path, cutoff=1.0, rigid_water=True):
+def build(ffxml, pdb_path, cutoff=1.0, rigid_water=True,
+          switch_distance=None):
     """(system, modeller, host seconds of each stage): the PDB read,
-    Modeller.addExtraParticles and createSystem, then the repartition."""
+    Modeller.addExtraParticles and createSystem (the LJ switched from
+    switch_distance where given), then the repartition."""
     t = time.perf_counter()
     pdb = PDBFile(pdb_path)
     t_pdb = time.perf_counter()
@@ -98,10 +100,12 @@ def build(ffxml, pdb_path, cutoff=1.0, rigid_water=True):
     modeller = Modeller(pdb.topology, pdb.positions)
     modeller.addExtraParticles(forcefield)
     t_mod = time.perf_counter()
+    switch = ({} if switch_distance is None
+              else {"switchDistance": switch_distance})
     system = forcefield.createSystem(modeller.topology, nonbondedMethod=PME,
                                      nonbondedCutoff=cutoff,
                                      constraints=HBonds,
-                                     rigidWater=rigid_water)
+                                     rigidWater=rigid_water, **switch)
     t_sys = time.perf_counter()
     repartition(system, modeller.topology)
     return system, modeller, {"pdb": t_pdb - t, "modeller": t_mod - t_pdb,

@@ -518,13 +518,27 @@ def erfc_approx(x):
     return poly * torch.exp(-x * x)
 
 
+def switch(r2, inv_r, r_on: float, r_off: float):
+    """OpenMM's LJ switch, the JAX package's _switch (forces/cellpair.py:
+    587-596 there): S(t) = 1 - 10 t^3 + 15 t^4 - 6 t^5 with t = (r - r_on)
+    / (r_off - r_on) clamped to [0, 1], and dS/dr^2."""
+    r = r2 * inv_r
+    t = torch.clamp((r - r_on) / (r_off - r_on), 0.0, 1.0)
+    s = 1.0 + t * t * t * (-10.0 + t * (15.0 - 6.0 * t))
+    ds_dt = t * t * (-30.0 + t * (60.0 - 30.0 * t))
+    return s, ds_dt / (r_off - r_on) * 0.5 * inv_r
+
+
 def make_pair_eg(method: str, alpha: float = 0.0, krf: float = 0.0,
-                 crf: float = 0.0, erfc_fn=None):
+                 crf: float = 0.0, erfc_fn=None, r_switch=None,
+                 cutoff: float = 0.0):
     """The JAX package's make_pair_eg (forces/cellpair.py:606-660 there)
-    without the switch and the exclusion flag: f(qq, sig, eps, r2, inv_r,
-    inv_r2) -> (e, dE/dr^2) of LJ plus one Coulomb kind: "ewald"
-    (erfc(alpha r) / r, erfc_fn defaulting to the exact erfc), "rf" (the
-    reaction field qq (1/r + krf r^2 - crf)) or "none" (plain qq / r)."""
+    without the exclusion flag: f(qq, sig, eps, r2, inv_r, inv_r2) ->
+    (e, dE/dr^2) of LJ plus one Coulomb kind: "ewald" (erfc(alpha r) / r,
+    erfc_fn defaulting to the exact erfc), "rf" (the reaction field qq
+    (1/r + krf r^2 - crf)) or "none" (plain qq / r).  r_switch (None: no
+    switch): the LJ is switched from r_switch to `cutoff`, g = g_lj S +
+    e_lj dS/dr^2, e = e_lj S, as the JAX function does."""
     if method not in ("ewald", "rf", "none"):
         raise ValueError(f"unknown Coulomb kind {method!r}")
     erfc = erfc_fn or torch.special.erfc
@@ -534,6 +548,10 @@ def make_pair_eg(method: str, alpha: float = 0.0, krf: float = 0.0,
         x6 = (sig * sig * inv_r2) ** 3
         e_lj = 4.0 * eps * x6 * (x6 - 1.0)
         g_lj = -4.0 * eps * (6.0 * x6 * x6 - 3.0 * x6) * inv_r2
+        if r_switch is not None:
+            s, ds = switch(r2, inv_r, r_switch, cutoff)
+            g_lj = g_lj * s + e_lj * ds
+            e_lj = e_lj * s
         if method == "ewald":
             ar = alpha * r2 * inv_r
             erfc_ar = erfc(ar)
@@ -565,7 +583,8 @@ TILE_ELEMS = 1 << 19
 def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
                coulomb_scale: float, with_energy: bool = True,
                excl_skip: bool = False, erfc_fn=None, method: str = "ewald",
-               krf: float = 0.0, crf: float = 0.0, cell_energy=False):
+               krf: float = 0.0, crf: float = 0.0, cell_energy=False,
+               r_switch=None):
     """The half-stencil pair sum, one chunk of offsets at a time.
 
     Yields (ob, b, g2, d, e) per chunk: the offset indices `ob` (the self
@@ -579,8 +598,9 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
     reaction on the neighbour slot -g2 * d.  excl_skip drops the exclusion test at offsets
     with any |o| >= 2, as the kernels do (sound while the cell sort's
     excl-span latch stays clear).  method, krf, crf: the Coulomb kind
-    (make_pair_eg).  erfc_fn defaults to the exact erfc; the kernels'
-    plain versions pass erfc_approx."""
+    (make_pair_eg); r_switch: the LJ switch's start (None: no switch),
+    ending at the cutoff.  erfc_fn defaults to the exact erfc; the
+    kernels' plain versions pass erfc_approx."""
     nc, C = cfg.n_cells, cfg.capacity
     x, y, z = (fields[k].reshape(nc, C) for k in "xyz")
     dtype = x.dtype
@@ -594,7 +614,8 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
     ew = fields["ew"].reshape(nc, C, -1).to(torch.int64)
     W = cfg.excl_window
     cutoff2 = cfg.cutoff * cfg.cutoff
-    pair_eg = make_pair_eg(method, alpha, krf, crf, erfc_fn)
+    pair_eg = make_pair_eg(method, alpha, krf, crf, erfc_fn, r_switch,
+                           cfg.cutoff)
     nbr = torch.as_tensor(cfg.nbr_map, device=dev)
     qa = coulomb_scale * q
     far = np.max(np.abs(cfg.offsets), axis=1) >= 2
@@ -660,7 +681,8 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
 def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
           coulomb_scale: float, with_energy: bool = True,
           excl_skip: bool = False, erfc_fn=None, method: str = "ewald",
-          krf: float = 0.0, crf: float = 0.0, per_replica: bool = False):
+          krf: float = 0.0, crf: float = 0.0, per_replica: bool = False,
+          r_switch=None):
     """Plain direct-space sum over the half stencil (pair_tiles), each
     reaction added straight onto its neighbour slot.
 
@@ -676,7 +698,8 @@ def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
     for ob, b, g2, d, e in pair_tiles(fields, cfg, shifts, alpha,
                                       coulomb_scale, with_energy,
                                       excl_skip, erfc_fn, method, krf, crf,
-                                      cell_energy=per_replica):
+                                      cell_energy=per_replica,
+                                      r_switch=r_switch):
         if e is not None:
             energy = energy + e
         fa = [torch.sum(g2 * dc, dim=2) for dc in d]

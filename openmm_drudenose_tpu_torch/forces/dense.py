@@ -13,7 +13,8 @@ TPU kernel to port.
 The pair function is the cell-pair sweep's (cellpair.make_pair_eg: LJ +
 Ewald real space, with the A&S erfc in float32 and the exact erfc in
 float64, as the JAX package's make_pair_eg chooses by type; or the
-reaction field; or plain Coulomb), with the JAX dense sweep's two flags:
+reaction field; or plain Coulomb; LJ switched where the force has a
+switch), with the JAX dense sweep's two flags:
 `periodic` (minimum image: per component for a (3,) diagonal box, the
 sequential c -> b -> a rounding of forces/boxutils.py for a (3, 3)
 triclinic one, as forces/dense.py:87 there) and `use_cutoff` (the
@@ -29,30 +30,44 @@ import torch
 
 from . import boxutils, cellpair
 
-# elements of one (rows, N) block: bounds each temporary
+# elements of one (R, rows, N) block: bounds each temporary (on the card a
+# replica ensemble takes larger blocks, fewer launches a pass: one force
+# pass of 64 x 4,000 atoms in 343 ms against 709 with BLOCK_ELEMS on an
+# NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py phase 16)
 BLOCK_ELEMS = 1 << 21
+BLOCK_ELEMS_ENSEMBLE_CUDA = 1 << 25
 
 
 def pair_energy_forces(params, positions, box, pair_mask, cutoff,
                        alpha, coulomb_scale, with_energy=True, exact=None,
                        periodic=True, use_cutoff=True, method="ewald",
-                       krf=0.0, crf=0.0):
+                       krf=0.0, crf=0.0, r_switch=None, n_replicas=1):
     """(energy, forces (N, 3)) of the direct-space sum over all ordered
-    pairs not masked out; energy None without with_energy."""
-    n = positions.shape[0]
+    pairs not masked out; energy None without with_energy.  r_switch:
+    the LJ switch's start (None: no switch), ending at the cutoff.
+    n_replicas = R: R replica-major copies of one n0-atom system, each
+    summed over its own (n0, n0) block (pair_mask is one replica's), all
+    in one batched pass: the block-diagonal sum of a replica ensemble
+    (the energy is the replicas' total)."""
+    N = positions.shape[0]
+    R = int(n_replicas)
+    n = N // R
     dtype = positions.dtype
     erfc = (cellpair.erfc_approx if dtype == torch.float32
             else torch.special.erfc)
-    pair_eg = cellpair.make_pair_eg(method, alpha, krf, crf, erfc)
-    q = params["charge"]
-    sig = params["sigma"]
-    seps = torch.sqrt(params["eps"])
+    pair_eg = cellpair.make_pair_eg(method, alpha, krf, crf, erfc, r_switch,
+                                    cutoff)
+    q = params["charge"].reshape(R, n)
+    sig = params["sigma"].reshape(R, n)
+    seps = torch.sqrt(params["eps"]).reshape(R, n)
     qa = coulomb_scale * q
-    src = positions if exact is None else exact
+    src = (positions if exact is None else exact).reshape(R, n, 3)
     box = box.to(src.dtype)
     triclinic = box.dim() == 2
     cutoff2 = cutoff * cutoff
-    rows = max(1, min(n, BLOCK_ELEMS // max(n, 1)))
+    elems = (BLOCK_ELEMS_ENSEMBLE_CUDA
+             if R > 1 and positions.device.type == "cuda" else BLOCK_ELEMS)
+    rows = max(1, min(n, elems // max(R * n, 1)))
     energy = positions.new_zeros(()) if with_energy else None
     forces = []
     zero = torch.zeros((), dtype=dtype, device=positions.device)
@@ -60,7 +75,7 @@ def pair_energy_forces(params, positions, box, pair_mask, cutoff,
         sl = slice(o, min(o + rows, n))
         d = []
         for c in range(3):
-            dc = src[sl, c][:, None] - src[:, c][None, :]
+            dc = src[:, sl, c][:, :, None] - src[:, :, c][:, None, :]
             if periodic and not triclinic:
                 dc = dc - box[c] * torch.round(dc / box[c])
             d.append(dc)
@@ -68,19 +83,19 @@ def pair_energy_forces(params, positions, box, pair_mask, cutoff,
             d = boxutils.min_image(torch.stack(d, dim=-1), box).unbind(-1)
         d = [dc.to(dtype) for dc in d]
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        valid = pair_mask[sl] & (r2 < cutoff2) if use_cutoff \
-            else pair_mask[sl]
+        valid = pair_mask[sl][None] & (r2 < cutoff2) if use_cutoff \
+            else pair_mask[sl][None]
         r2s = torch.where(valid, torch.clamp(r2, min=1e-6),
                           torch.ones_like(r2))
         inv_r = torch.rsqrt(r2s)
         inv_r2 = inv_r * inv_r
-        qq = qa[sl, None] * q[None, :]
-        sg = 0.5 * (sig[sl, None] + sig[None, :])
-        ep = seps[sl, None] * seps[None, :]
+        qq = qa[:, sl, None] * q[:, None, :]
+        sg = 0.5 * (sig[:, sl, None] + sig[:, None, :])
+        ep = seps[:, sl, None] * seps[:, None, :]
         e, g = pair_eg(qq, sg, ep, r2s, inv_r, inv_r2)
         g2 = torch.where(valid, -2.0 * g, zero)
         if with_energy:
             energy = energy + 0.5 * torch.sum(torch.where(valid, e, zero))
-        forces.append(torch.stack([torch.sum(g2 * dc, dim=1) for dc in d],
-                                  dim=1))
-    return energy, torch.cat(forces, dim=0)
+        forces.append(torch.stack([torch.sum(g2 * dc, dim=2) for dc in d],
+                                  dim=2))
+    return energy, torch.cat(forces, dim=1).reshape(N, 3)

@@ -1,10 +1,13 @@
 """NonbondedForce: Lennard-Jones + Coulomb with exclusions and exceptions.
 
 The builder half mirrors OpenMM's API (as the JAX package's
-forces/nonbonded.py does).  `compile` takes every method but switched LJ
-on one of the JAX package's two fast strategies, chosen by its "auto"
-rule (`choose_strategy`): the dense all-pairs sum (forces/dense.py) for
-n <= 4096 atoms or a non-periodic method, else the cell-pair sweep.  The
+forces/nonbonded.py does).  `compile` takes every method, with or
+without the LJ switch, on one of the JAX package's two fast strategies,
+chosen by its "auto" rule (`choose_strategy`): the dense all-pairs sum
+(forces/dense.py) for n <= 4096 atoms or a non-periodic method, else
+the cell-pair sweep; or, asked for by name, on its neighbour-list
+strategy "cell" (forces/neighborlist.py; orthorhombic periodic boxes).
+The
 Coulomb kinds are the JAX package's (forces/nonbonded.py:202-210,
 :384-389 there): Ewald/PME (erfc real space plus the PME reciprocal
 sum), CutoffPeriodic and CutoffNonPeriodic (the reaction field,
@@ -12,7 +15,7 @@ krf = (eps_rf - 1) / ((2 eps_rf + 1) rc^3), crf = 3 eps_rf / ((2 eps_rf
 + 1) rc), no PME and no exclusion correction) and NoCutoff (plain
 Coulomb over every pair, no minimum image).  The compiled term splits
 the work as the JAX force-only step does (forces/nonbonded.py:823-898
-there):
+there; the list sum of strategy "cell" in place of the sweep):
 
   sweep_forces : direct-space forces; on the cell-pair strategy in
                  float32 a hand-written kernel, B1 (ops/sweep.py) or the
@@ -35,12 +38,25 @@ cell-pair plan takes the full (3, 3) box, and the PME grid keeps OpenMM's
 choice (it is not rounded to the cell grid); every term then takes the
 (3, 3) box where the Context passes it (boxutils.mi_box).
 
+OpenMM's LJ switch (setUseSwitchingFunction, setSwitchingDistance; the
+JAX gate at forces/nonbonded.py:213 there: a cutoff method and r_switch
+>= 0) multiplies the LJ of every pair sum by S(t), t = (r - r_switch) /
+(cutoff - r_switch): the dense and list sums and the plain sweep
+(cellpair.make_pair_eg), the kernels' switched instantiations (their
+launches take `r_switch` with the Coulomb kind: `coulomb`), the NBFIX
+overrides (pairterms.lj_override_eg), and the dispersion tail adds back
+the switching window by the JAX package's 256-point trapezoid.
+
 Exceptions are excluded from the main pair sum and added back as explicit
 pair terms (plain Coulomb chargeProd/r + LJ, no cutoff), as in OpenMM.
 NBFIX overrides (addLJPairOverride) replace the combined LJ of their
 pairs inside the cutoff by a correction term over those pairs.
 
-nb_options={"ensemble": (R, rx, rz)} compiles a flattened replica
+nb_options={"ensemble": (R, rx, rz)} on the dense or the "cell"
+strategy compiles R independent replicas in one box (parallel/
+ensemble.py): each replica's block of the all-pairs sum, or its own
+lists, with the PME sums, the tail and the pair terms per replica as
+below.  On the cell-pair strategy it compiles a flattened replica
 ensemble (parallel/flatrep.py; the JAX package's branch at
 forces/nonbonded.py:499-560): the System holds R replica-major copies of
 one replica in one orthorhombic box; the cell-pair plan embeds them in
@@ -74,7 +90,8 @@ import torch
 
 from ..ops import sweep, sweep_chunked
 from ..units import ONE_4PI_EPS0
-from . import boxutils, cellpair, dense, pairterms, pme as pme_mod
+from . import (boxutils, cellpair, dense, neighborlist, pairterms,
+               pme as pme_mod)
 
 # the JAX package's "auto" rule: at most this many atoms go to the dense
 # strategy (forces/nonbonded.py:188-190 there)
@@ -208,9 +225,6 @@ class NonbondedForce:
         if self._method not in (self.NoCutoff, self.CutoffNonPeriodic,
                                 self.CutoffPeriodic, self.Ewald, self.PME):
             raise ValueError(f"unknown nonbonded method {self._method}")
-        if (self._use_switching and self._switching_distance >= 0
-                and self._method != self.NoCutoff):
-            raise NotImplementedError("switched LJ is not ported yet")
         opts = dict(nb_options or {})
         if self.triclinic(system):
             box = np.array(system.getDefaultPeriodicBoxVectors(), np.float64)
@@ -222,18 +236,25 @@ class NonbondedForce:
                     "the sequential minimum-image reduction would miss "
                     "images")
         if strategy == "dense":
-            if opts.get("ensemble"):
-                raise ValueError("a flattened replica ensemble runs on the "
-                                 "cell-pair strategy (its replicas share "
-                                 "one box)")
-            return DenseTerm(self, system, dtype, device)
+            return DenseTerm(self, system, dtype, device, opts)
         if strategy == "cellpair":
             if not self.usesPeriodicBoundaryConditions():
                 raise ValueError("the cell-pair strategy takes periodic "
                                  "methods (CutoffPeriodic, Ewald, PME)")
             return CellPairTerm(self, system, dtype, device, opts)
+        if strategy == "cell":
+            if self.triclinic(system):
+                raise ValueError(
+                    "triclinic periodic boxes are not supported by the "
+                    "legacy neighbor-list strategy; use 'dense', "
+                    "'cellpair', or 'auto'")
+            if not self.usesPeriodicBoundaryConditions():
+                raise ValueError("the neighbour-list strategy takes "
+                                 "periodic methods (CutoffPeriodic, Ewald, "
+                                 "PME)")
+            return CellListTerm(self, system, dtype, device, opts)
         raise ValueError(f"unknown strategy {strategy!r}; the port has "
-                         "'auto', 'dense' and 'cellpair'")
+                         "'auto', 'dense', 'cellpair' and 'cell'")
 
     def triclinic(self, system) -> bool:
         """Whether the force runs in a triclinic box: a periodic cutoff
@@ -274,9 +295,11 @@ def override_pairs(force, exc_i, exc_j):
             arr[:, 2], arr[:, 3])
 
 
-def dispersion_coefficient(sigma, eps, cutoff):
+def dispersion_coefficient(sigma, eps, cutoff, r_switch=None):
     """C with E_disp = C / V: the mean LJ pair tail beyond the cutoff under
-    Lorentz-Berthelot mixing (O(N) via the binomial expansion)."""
+    Lorentz-Berthelot mixing (O(N) via the binomial expansion), plus the
+    part the switch takes off in [r_switch, cutoff] (the JAX package's
+    256-point trapezoid, forces/nonbonded.py:1003-1008 there)."""
     n = len(sigma)
     sqrt_eps = np.sqrt(eps)
 
@@ -289,6 +312,12 @@ def dispersion_coefficient(sigma, eps, cutoff):
     sig12 = pair_mean(12)
     integral = 16.0 * np.pi * (sig12 / (9.0 * cutoff ** 9)
                                - sig6 / (3.0 * cutoff ** 3))
+    if r_switch is not None and r_switch < cutoff:
+        r = np.linspace(r_switch, cutoff, 256)
+        t = (r - r_switch) / (cutoff - r_switch)
+        s = 1.0 + t ** 3 * (-10.0 + t * (15.0 - 6.0 * t))
+        u = 4.0 * (sig12 / r ** 12 - sig6 / r ** 6)
+        integral += 4.0 * np.pi * np.trapezoid((1.0 - s) * u * r ** 2, r)
     return 0.5 * n * n * integral
 
 
@@ -321,6 +350,11 @@ class NonbondedTerm:
         ewald = method in (force.Ewald, force.PME)
         self.periodic = force.usesPeriodicBoundaryConditions()
         self.use_cutoff = method != force.NoCutoff
+        # the LJ switch's start, or None (the JAX gate,
+        # forces/nonbonded.py:213 there)
+        self.r_switch = (force._switching_distance
+                         if force._use_switching and self.use_cutoff
+                         and force._switching_distance >= 0 else None)
         self.n_atoms = n
         self.dtype = dtype
         self.device = device
@@ -361,7 +395,11 @@ class NonbondedTerm:
                 / (2.0 * eps_rf + 1.0)}
         else:
             self.coulomb = {"method": "none"}
-        self.disp = (dispersion_coefficient(sigma, eps, cutoff)
+        if self.r_switch is not None:
+            # every pair sum takes the switch with the Coulomb kind
+            self.coulomb["r_switch"] = self.r_switch
+        self.disp = (dispersion_coefficient(sigma, eps, cutoff,
+                                            self.r_switch)
                      if force._use_dispersion_correction and self.periodic
                      else None)
         if self.disp is not None and self.n_replicas > 1:
@@ -391,7 +429,8 @@ class NonbondedTerm:
                         t(sig_o), t(eps_o),
                         t(0.5 * (sigma[oi] + sigma[oj])),
                         t(np.sqrt(eps[oi] * eps[oj])),
-                        cutoff if self.use_cutoff else math.inf), device,
+                        cutoff if self.use_cutoff else math.inf,
+                        self.r_switch), device,
                     self.periodic)
                 self.pair_terms.append(self.override_term)
                 R = self.n_replicas
@@ -501,21 +540,49 @@ class NonbondedTerm:
         return e
 
 
+def _replicas(opts, n: int, exc_i, exc_j) -> int:
+    """The replica count R of nb_options' "ensemble" ([R, rx, rz]; 1
+    without it), checked: n divisible by R and the exclusions R
+    replica-major copies of replica 0's (parallel/flatrep.py::
+    replicate_system builds them so)."""
+    ens = opts.get("ensemble")
+    if not ens:
+        return 1
+    R = int(ens[0])
+    if n % R:
+        raise ValueError("ensemble atom count not divisible by the "
+                         "replica count")
+    n0 = n // R
+    first = (exc_i < n0) & (exc_j < n0)
+    want = np.concatenate([np.stack([exc_i[first], exc_j[first]]) + r * n0
+                           for r in range(R)], axis=1)
+    if not np.array_equal(want, np.stack([exc_i, exc_j])):
+        raise ValueError("a replica ensemble needs R replica-major copies "
+                         "of one replica's exclusions")
+    return R
+
+
 class DenseTerm(NonbondedTerm):
     """The dense strategy: the all-pairs direct-space sum of
     forces/dense.py over a static (N, N) exclusion mask; no neighbour
-    structure."""
+    structure.  With nb_options {"ensemble": [R, ...]} (a replica
+    ensemble, parallel/ensemble.py) the sum is block-diagonal: each
+    replica's (n0, n0) block in one batched pass, one replica's mask."""
 
     strategy = "dense"
 
-    def __init__(self, force, system, dtype, device):
+    def __init__(self, force, system, dtype, device, opts=None):
+        exc_i = np.array([e[0] for e in force._exceptions], np.int64)
+        exc_j = np.array([e[1] for e in force._exceptions], np.int64)
+        self.n_replicas = _replicas(opts or {}, len(force._particles),
+                                    exc_i, exc_j)
         super().__init__(force, system, dtype, device)
-        n = self.n_atoms
-        exc_i, exc_j = self._exc
+        n = self.n_atoms // self.n_replicas
+        first = (exc_i < n) & (exc_j < n)
         mask = np.ones((n, n), dtype=bool)
         np.fill_diagonal(mask, False)
-        mask[exc_i, exc_j] = False
-        mask[exc_j, exc_i] = False
+        mask[exc_i[first], exc_j[first]] = False
+        mask[exc_j[first], exc_i[first]] = False
         self.pair_mask = torch.as_tensor(mask, device=device)
 
     def _sweep(self, positions, box, exact, with_energy):
@@ -523,7 +590,7 @@ class DenseTerm(NonbondedTerm):
             self.params, positions, box, self.pair_mask, self.cutoff,
             self.alpha, ONE_4PI_EPS0, with_energy=with_energy, exact=exact,
             periodic=self.periodic, use_cutoff=self.use_cutoff,
-            **self.coulomb)
+            n_replicas=self.n_replicas, **self.coulomb)
 
     def sweep_forces(self, positions, box, neighbors=None, exact=None,
                      rep_scale=None):
@@ -536,6 +603,65 @@ class DenseTerm(NonbondedTerm):
                      rep_scale=None):
         assert rep_scale is None
         return self._sweep(positions, box, exact, True)[0]
+
+
+class CellListTerm(NonbondedTerm):
+    """The neighbour-list strategy ("cell"; the JAX package's
+    forces/neighborlist.py and its cell-list energy, forces/
+    nonbonded.py:936-975 there): (N, K) lists built from a cell list at
+    every rebuild (`cellsort`, the name the Context calls every
+    neighbour structure by) and the list sum of neighborlist.
+    pair_energy_forces, in plain PyTorch (the JAX package computes both
+    in XLA).  nb_options: "skin", "rebuild_interval", "max_neighbors",
+    "density_margin" as the JAX Context passes them; "ensemble" (a
+    replica ensemble): the lists per replica, sized for one replica."""
+
+    strategy = "cell"
+
+    def __init__(self, force, system, dtype, device, opts):
+        exc_i = np.array([e[0] for e in force._exceptions], np.int64)
+        exc_j = np.array([e[1] for e in force._exceptions], np.int64)
+        n = len(force._particles)
+        self.n_replicas = _replicas(opts, n, exc_i, exc_j)
+        super().__init__(force, system, dtype, device)
+        box0 = np.diagonal(np.array(system.getDefaultPeriodicBoxVectors(),
+                                    np.float64)).copy()
+        self.cfg = neighborlist.make_config(
+            force._cutoff, box0, n // self.n_replicas,
+            **{k: v for k, v in opts.items()
+               if k in ("skin", "rebuild_interval", "max_neighbors",
+                        "density_margin")})
+        self.excl_table = neighborlist.build_exclusion_table(
+            n, exc_i, exc_j, device=device)
+
+    def cellsort(self, positions, box, rep_scale=None):
+        """Fresh lists at `positions` (rep_scale: None, per-replica
+        scales are a cell-pair ensemble's)."""
+        assert rep_scale is None
+        return neighborlist.build_neighbors(positions, box, self.cfg,
+                                            self.excl_table,
+                                            self.n_replicas)
+
+    def grow(self) -> None:
+        """Larger cell and neighbour capacities (after an overflow)."""
+        self.cfg = neighborlist.grow(self.cfg,
+                                     self.n_atoms // self.n_replicas)
+
+    def _sweep(self, positions, box, neighbors, exact, with_energy):
+        return neighborlist.pair_energy_forces(
+            self.params, positions, box, neighbors.idx, self.cutoff,
+            self.alpha, ONE_4PI_EPS0, with_energy=with_energy, exact=exact,
+            **self.coulomb)
+
+    def sweep_forces(self, positions, box, neighbors, exact=None,
+                     rep_scale=None):
+        assert rep_scale is None
+        return self._sweep(positions, box, neighbors, exact, False)[1]
+
+    def sweep_energy(self, positions, box, neighbors, exact=None,
+                     rep_scale=None):
+        assert rep_scale is None
+        return self._sweep(positions, box, neighbors, exact, True)[0]
 
 
 class CellPairTerm(NonbondedTerm):

@@ -19,6 +19,7 @@ import torch
 
 from ..ops import scatter
 from .boxutils import min_image
+from .cellpair import switch
 
 
 def make_pair_list_term(i_idx, j_idx, eg_fn, device, periodic: bool = True):
@@ -83,11 +84,13 @@ def exception_eg(qq, sigma, eps):
     return eg
 
 
-def lj_override_eg(sig_new, eps_new, sig_old, eps_old, cutoff: float):
+def lj_override_eg(sig_new, eps_new, sig_old, eps_old, cutoff: float,
+                   r_switch=None):
     """NBFIX correction: LJ(new parameters) - LJ(combination-rule
-    parameters) inside the cutoff, zero beyond it, so the override
+    parameters) inside the cutoff, zero beyond it, switched from r_switch
+    (None: no switch) as the main sum is (the JAX package's
+    lj_override_eg, forces/pairterms.py:229-260 there), so the override
     replaces the combined interaction that the main sum holds."""
-
     def lj(sig, eps, inv_r2):
         x6 = (sig * sig * inv_r2) ** 3
         return (4.0 * eps * x6 * (x6 - 1.0),
@@ -98,10 +101,14 @@ def lj_override_eg(sig_new, eps_new, sig_old, eps_old, cutoff: float):
         inv_r2 = inv_r * inv_r
         e_n, g_n = lj(sig_new, eps_new, inv_r2)
         e_o, g_o = lj(sig_old, eps_old, inv_r2)
+        e, g = e_n - e_o, g_n - g_o
+        if r_switch is not None:
+            s, ds = switch(r2s, inv_r, r_switch, cutoff)
+            g = g * s + e * ds
+            e = e * s
         inside = r2 < cutoff * cutoff
-        zero = torch.zeros_like(e_n)
-        return (torch.where(inside, e_n - e_o, zero),
-                torch.where(inside, g_n - g_o, zero))
+        zero = torch.zeros_like(e)
+        return torch.where(inside, e, zero), torch.where(inside, g, zero)
 
     return eg
 

@@ -34,6 +34,11 @@ home cell's replica, and the energy comes back per replica, (R,) in
 float64, each replica's work-unit partials summed in a fixed order.
 Launches count under the "_scaled" keys.
 
+Switched LJ (createSystem(switchDistance=...), the JAX package's XLA
+route): instantiations of their own (a compile-time flag, kSwitch:
+csrc/pair_tile.cuh), so the unswitched ones compile to the code they
+were; launches of them count under the "_sw" keys.
+
 `pair_forces` is the entry point.  For a CPU tensor it runs the plain
 version (`pair_forces_plain`); for a CUDA tensor it launches the kernel or
 raises.  The kernels of csrc/ build at first use, one nvcc per source, all
@@ -73,10 +78,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches of each kernel, counted where it is launched and nowhere else
 # (the force and the energy instantiations apart, each Coulomb kind apart:
 # "_rf" for the reaction field; launches on a grid of replica bands
-# apart: "_bands", and those with per-replica scales: "_scaled")
-launches = {f"{k}_{i}{c}{b}": 0 for k in ("b1", "b2")
+# apart: "_bands", and those with per-replica scales: "_scaled"; switched
+# LJ apart: "_sw")
+launches = {f"{k}_{i}{c}{b}{w}": 0 for k in ("b1", "b2")
             for i in ("sweep", "energy") for c in ("", "_rf")
-            for b in ("", "_bands", "_scaled")}
+            for b in ("", "_bands", "_scaled") for w in ("", "_sw")}
 INT32_MAX = 2 ** 31 - 1
 
 # the kernels' Coulomb kinds (csrc/pair_tile.cuh::Coulomb)
@@ -98,14 +104,28 @@ def coulomb_kind(method: str, alpha: float, krf: float, crf: float) -> int:
 
 
 def launch_key(kernel: str, energy: bool, method: str, cfg=None,
-               scaled: bool = False) -> str:
+               scaled: bool = False, switched: bool = False) -> str:
     """The `launches` key of a kernel's instantiation (on `cfg`'s grid:
     "_bands" where it embeds replica bands; "_scaled" with per-replica
-    scales)."""
+    scales; "_sw" with the LJ switch)."""
     geometry = ("_scaled" if scaled else "_bands"
                 if cfg is not None and cfg.n_replicas > 1 else "")
     return (f"{kernel}_{'energy' if energy else 'sweep'}"
-            + ("_rf" if method == "rf" else "") + geometry)
+            + ("_rf" if method == "rf" else "") + geometry
+            + ("_sw" if switched else ""))
+
+
+def switch_args(cfg, r_switch) -> tuple:
+    """(use_switch, r_on, sw_width) of a launch: the LJ switch from
+    r_switch to the cutoff (csrc/pair_tile.cuh::lj_switch), or none for
+    r_switch None; raises unless 0 <= r_switch < cutoff."""
+    if r_switch is None:
+        return 0, 0.0, 1.0
+    r_on = float(r_switch)
+    if not (np.isfinite(r_on) and 0.0 <= r_on < cfg.cutoff):
+        raise ValueError(f"the LJ switch needs 0 <= r_switch < cutoff "
+                         f"{cfg.cutoff}, got {r_switch}")
+    return 1, r_on, float(cfg.cutoff - r_on)
 
 _libs = {}
 build_log = ""
@@ -184,14 +204,15 @@ def load(name: str, declare):
 def _declare(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.sweep_forces.argtypes = [vp] * 18 + [ci, ci, ci, cf, cf, cf, ci, ci,
-                                             ci, cf, cf, ci, vp]
+                                             ci, cf, cf, ci, cf, cf, ci, vp]
     lib.sweep_forces.restype = ci
     lib.sweep_energy.argtypes = [vp] * 17 + [ci, ci, ci, cf, cf, cf, ci, ci,
-                                             ci, cf, cf, ci, ci, ci, vp]
+                                             ci, cf, cf, ci, cf, cf, ci, ci,
+                                             ci, vp]
     lib.sweep_energy.restype = ci
-    lib.sweep_attributes.argtypes = [vp, ci, ci, ci]
+    lib.sweep_attributes.argtypes = [vp, ci, ci, ci, ci]
     lib.sweep_attributes.restype = ci
-    lib.sweep_occupancy.argtypes = [vp, ci, ci, ci]
+    lib.sweep_occupancy.argtypes = [vp, ci, ci, ci, ci]
     lib.sweep_occupancy.restype = ci
     lib.sweep_units.argtypes = [ci, ci, ci]
     lib.sweep_units.restype = ci
@@ -199,15 +220,16 @@ def _declare(lib):
 
 
 def kernel_attributes(lib, fn: str, energy: bool = False,
-                      method: str = "ewald", scaled: bool = False) -> dict:
+                      method: str = "ewald", scaled: bool = False,
+                      switched: bool = False) -> dict:
     """Registers a thread, static shared memory, the most threads a CTA
     may have and local (spill) bytes a thread of a kernel's force (or
     energy) instantiation of one Coulomb kind (with per-replica scales
-    where `scaled`), read from the card with cudaFuncGetAttributes by the
-    library's function `fn`."""
+    where `scaled`, with the LJ switch where `switched`), read from the
+    card with cudaFuncGetAttributes by the library's function `fn`."""
     out = (ctypes.c_int * 4)()
     err = getattr(lib, fn)(ctypes.cast(out, ctypes.c_void_p), int(energy),
-                           COULOMB[method], int(scaled))
+                           COULOMB[method], int(scaled), int(switched))
     if err != 0:
         raise RuntimeError(f"{fn} failed: CUDA error {err}")
     return {"regs": out[0], "static_smem": out[1], "max_threads": out[2],
@@ -215,25 +237,26 @@ def kernel_attributes(lib, fn: str, energy: bool = False,
 
 
 def attributes(energy: bool = False, method: str = "ewald",
-               scaled: bool = False) -> dict:
+               scaled: bool = False, switched: bool = False) -> dict:
     """B1's kernel_attributes."""
     return kernel_attributes(load("sweep", _declare), "sweep_attributes",
-                             energy, method, scaled)
+                             energy, method, scaled, switched)
 
 
 _occupancy = {}
 
 
 def occupancy(device, energy: bool = False, method: str = "ewald",
-              scaled: bool = False) -> tuple:
+              scaled: bool = False, switched: bool = False) -> tuple:
     """(SMs, CTAs of B1's force or energy instantiation of a Coulomb kind
-    (scaled or not) resident an SM) of a card, read once from it
+    (scaled or not, switched or not) resident an SM) of a card, read
+    once from it
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); B1 launches as many
     CTAs as the card holds at once."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    key = (device.index, bool(energy), method, bool(scaled))
+    key = (device.index, bool(energy), method, bool(scaled), bool(switched))
     hit = _occupancy.get(key)
     if hit is None:
         lib = load("sweep", _declare)
@@ -241,7 +264,7 @@ def occupancy(device, energy: bool = False, method: str = "ewald",
         with torch.cuda.device(device):
             err = lib.sweep_occupancy(ctypes.cast(out, ctypes.c_void_p),
                                       int(energy), COULOMB[method],
-                                      int(scaled))
+                                      int(scaled), int(switched))
         if err != 0:
             raise RuntimeError(f"sweep_occupancy failed: CUDA error {err}")
         hit = _occupancy[key] = (out[0], max(out[1], 1))
@@ -464,12 +487,13 @@ def check_fields(fields, cfg):
 
 
 def pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
-                      excl_skip=True, method="ewald", krf=0.0, crf=0.0):
+                      excl_skip=True, method="ewald", krf=0.0, crf=0.0,
+                      r_switch=None):
     """The plain PyTorch version: slot forces (n_cells * C, 3)."""
     _, f = cellpair.sweep(fields, cfg, shifts, alpha, coulomb_scale,
                           with_energy=False, excl_skip=excl_skip,
                           erfc_fn=cellpair.erfc_approx, method=method,
-                          krf=krf, crf=crf)
+                          krf=krf, crf=crf, r_switch=r_switch)
     return f
 
 
@@ -487,21 +511,24 @@ def _card_args(fields, cfg):
 
 
 def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
-                excl_skip=True, method="ewald", krf=0.0, crf=0.0):
+                excl_skip=True, method="ewald", krf=0.0, crf=0.0,
+                r_switch=None):
     """Slot forces (n_cells * C, 3) of the direct-space sum, the same bits
     at every launch.
 
     fields: cellpair.sorted_fields output; shifts: (n_off, 3) per-offset
     image shift, or (R, n_off, 3) per replica (flat-ensemble NPT: the
     scaled instantiation); method: the Coulomb kind, "ewald" (alpha) or
-    "rf" (krf, crf).  CPU tensors run the plain version; CUDA tensors
-    launch the kernel (float32 only) or raise."""
+    "rf" (krf, crf); r_switch: the LJ switch's start (None: no switch),
+    ending at the cutoff.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel (float32 only) or raise."""
     check_config(cfg)
     kind = coulomb_kind(method, alpha, krf, crf)
     scaled = check_shifts(shifts, cfg)
+    sw = switch_args(cfg, r_switch)
     if fields["x"].device.type == "cpu":
         return pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
-                                 excl_skip, method, krf, crf)
+                                 excl_skip, method, krf, crf, r_switch)
     dev = _card_args(fields, cfg)
     lib = load("sweep", _declare)
     nbr, rnbr, chk = _device_tables(cfg, excl_skip, dev)
@@ -518,7 +545,7 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
                          dtype=torch.float32, device=dev)
     # the work-unit counter of the launch (sweep_forces sets it to 0)
     counter = torch.empty(1, dtype=torch.int32, device=dev)
-    sms, per_sm = occupancy(dev, False, method, scaled)
+    sms, per_sm = occupancy(dev, False, method, scaled, bool(sw[0]))
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     err = lib.sweep_forces(
@@ -527,15 +554,16 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
         p(hframe), p(f), p(counter), nc, C, n_off,
         float(cfg.cutoff * cfg.cutoff), float(alpha), float(coulomb_scale),
         cfg.excl_window, cfg.excl_words, kind, float(krf), float(crf),
-        sms * per_sm, ctypes.c_void_p(stream))
+        *sw, sms * per_sm, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
-    launches[launch_key("b1", False, method, cfg, scaled)] += 1
+    launches[launch_key("b1", False, method, cfg, scaled, sw[0])] += 1
     return f
 
 
 def pair_energy_plain(fields, cfg, shifts, alpha, coulomb_scale,
-                      excl_skip=True, method="ewald", krf=0.0, crf=0.0):
+                      excl_skip=True, method="ewald", krf=0.0, crf=0.0,
+                      r_switch=None):
     """The energy instantiation's plain PyTorch version: the direct-space
     energy with the exact erfc or the reaction field (forces/cellpair.py::
     sweep), a 0-d tensor in the fields' type; with per-replica shifts
@@ -543,7 +571,8 @@ def pair_energy_plain(fields, cfg, shifts, alpha, coulomb_scale,
     e, _ = cellpair.sweep(fields, cfg, shifts, alpha, coulomb_scale,
                           with_energy=True, excl_skip=excl_skip,
                           method=method, krf=krf, crf=crf,
-                          per_replica=check_shifts(shifts, cfg))
+                          per_replica=check_shifts(shifts, cfg),
+                          r_switch=r_switch)
     return e
 
 
@@ -555,7 +584,7 @@ def field_ptrs(fields):
 
 
 def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
-                method="ewald", krf=0.0, crf=0.0):
+                method="ewald", krf=0.0, crf=0.0, r_switch=None):
     """The direct-space energy (0-d) by B1's energy instantiation: float64
     on the card, summed in an order fixed by the data (the same bits at
     every launch); with per-replica shifts (R, n_off, 3) the scaled
@@ -565,9 +594,10 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
     check_config(cfg)
     kind = coulomb_kind(method, alpha, krf, crf)
     scaled = check_shifts(shifts, cfg)
+    sw = switch_args(cfg, r_switch)
     if fields["x"].device.type == "cpu":
         return pair_energy_plain(fields, cfg, shifts, alpha, coulomb_scale,
-                                 excl_skip, method, krf, crf)
+                                 excl_skip, method, krf, crf, r_switch)
     dev = _card_args(fields, cfg)
     lib = load("sweep", _declare)
     nbr, _, chk = _device_tables(cfg, excl_skip, dev)
@@ -579,7 +609,7 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
     e = torch.empty((cfg.n_replicas,) if scaled else (),
                     dtype=torch.float64, device=dev)
     counter = torch.empty(1, dtype=torch.int32, device=dev)
-    sms, per_sm = occupancy(dev, True, method, scaled)
+    sms, per_sm = occupancy(dev, True, method, scaled, bool(sw[0]))
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = lambda t: ctypes.c_void_p(t.data_ptr())
     opt = lambda t: None if t is None else p(t)
@@ -588,10 +618,10 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
         p(e), p(counter), opt(rows), cfg.n_cells, cfg.capacity,
         cfg.n_offsets, float(cfg.cutoff * cfg.cutoff), float(alpha),
         float(coulomb_scale), cfg.excl_window, cfg.excl_words, kind,
-        float(krf), float(crf), sms * per_sm,
+        float(krf), float(crf), *sw, sms * per_sm,
         rows.shape[0] if scaled else 0, rows.shape[1] if scaled else 0,
         ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sweep energy launch failed: CUDA error {err}")
-    launches[launch_key("b1", True, method, cfg, scaled)] += 1
+    launches[launch_key("b1", True, method, cfg, scaled, sw[0])] += 1
     return e

@@ -106,14 +106,14 @@ _card_limits = {}
 
 
 def attributes(energy: bool = False, method: str = "ewald",
-               scaled: bool = False) -> dict:
+               scaled: bool = False, switched: bool = False) -> dict:
     """B2's registers, static shared memory, most threads a CTA and
     local bytes a thread (of its force or energy instantiation of a
-    Coulomb kind, scaled or not), read from the card
+    Coulomb kind, scaled or not, switched or not), read from the card
     (sweep.kernel_attributes)."""
     return sweep.kernel_attributes(sweep.load("sweep_chunked", _declare),
                                    "chunk_sweep_attributes", energy, method,
-                                   scaled)
+                                   scaled, switched)
 
 
 def card_limits(device):
@@ -315,7 +315,7 @@ def plan_for(cfg, brick=None, limits=None) -> ChunkPlan:
 
 def pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
                       excl_skip=True, brick=None, method="ewald", krf=0.0,
-                      crf=0.0):
+                      crf=0.0, r_switch=None):
     """The plain PyTorch version: slot forces (n_cells * C, 3), summed
     through per-chunk frames and the fixed-order overlap-add of the
     kernel's plan."""
@@ -330,7 +330,7 @@ def pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
     for ob, b, g2, d, _ in cellpair.pair_tiles(
             fields, cfg, shifts, alpha, coulomb_scale, with_energy=False,
             excl_skip=excl_skip, erfc_fn=cellpair.erfc_approx,
-            method=method, krf=krf, crf=crf):
+            method=method, krf=krf, crf=crf, r_switch=r_switch):
         own += torch.stack([torch.sum(g2 * dc, dim=2) for dc in d], dim=2)
         if ob != [0]:
             react = -torch.stack([torch.sum(g2 * dc, dim=1) for dc in d],
@@ -348,12 +348,12 @@ def pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
 def _declare(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.chunk_sweep_forces.argtypes = [vp] * 18 + [ci] * 5 + [cf] * 3 \
-        + [ci, ci, ci, cf, cf, ci, vp]
+        + [ci, ci, ci, cf, cf, ci, cf, cf, ci, vp]
     lib.chunk_sweep_forces.restype = ci
     lib.chunk_sweep_energy.argtypes = [vp] * 16 + [ci] * 2 + [cf] * 3 \
-        + [ci, ci, ci, cf, cf, ci, ci, ci, vp]
+        + [ci, ci, ci, cf, cf, ci, cf, cf, ci, ci, ci, vp]
     lib.chunk_sweep_energy.restype = ci
-    lib.chunk_sweep_attributes.argtypes = [vp, ci, ci, ci]
+    lib.chunk_sweep_attributes.argtypes = [vp, ci, ci, ci, ci]
     lib.chunk_sweep_attributes.restype = ci
     lib.chunk_sweep_device.argtypes = [vp]
     lib.chunk_sweep_device.restype = ci
@@ -434,7 +434,7 @@ def _launch_plan(lib, fields, cfg, brick):
 
 def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
                 excl_skip=True, brick=None, method="ewald", krf=0.0,
-                crf=0.0):
+                crf=0.0, r_switch=None):
     """Slot forces (n_cells * C, 3) of the direct-space sum, as
     sweep.pair_forces; brick None takes choose_brick from the card's
     limits.  CPU tensors run the plain version; CUDA tensors launch the
@@ -442,10 +442,12 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
     sweep.check_config(cfg)
     kind = sweep.coulomb_kind(method, alpha, krf, crf)
     scaled = sweep.check_shifts(shifts, cfg)
+    sw = sweep.switch_args(cfg, r_switch)
     x = fields["x"]
     if x.device.type == "cpu":
         return pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
-                                 excl_skip, brick, method, krf, crf)
+                                 excl_skip, brick, method, krf, crf,
+                                 r_switch)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     lib = sweep.load("sweep_chunked", _declare)
@@ -465,16 +467,17 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
         tx.shape[1], ty.shape[1], tz.shape[1], C, cfg.n_offsets,
         float(cfg.cutoff * cfg.cutoff), float(alpha), float(coulomb_scale),
         cfg.excl_window, cfg.excl_words, kind, float(krf), float(crf),
-        int(scaled), ctypes.c_void_p(stream))
+        *sw, int(scaled), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"chunked sweep kernel launch failed: CUDA "
                            f"error {err}")
-    sweep.launches[sweep.launch_key("b2", False, method, cfg, scaled)] += 1
+    sweep.launches[sweep.launch_key("b2", False, method, cfg, scaled,
+                                    sw[0])] += 1
     return f
 
 
 def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
-                brick=None, method="ewald", krf=0.0, crf=0.0):
+                brick=None, method="ewald", krf=0.0, crf=0.0, r_switch=None):
     """The direct-space energy (0-d) by B2's energy instantiation, as
     sweep.pair_energy: float64 on the card, one partial a home cell,
     summed in a fixed order; with per-replica shifts (R, n_off, 3) the
@@ -484,11 +487,12 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
     sweep.check_config(cfg)
     kind = sweep.coulomb_kind(method, alpha, krf, crf)
     scaled = sweep.check_shifts(shifts, cfg)
+    sw = sweep.switch_args(cfg, r_switch)
     x = fields["x"]
     if x.device.type == "cpu":
         return sweep.pair_energy_plain(fields, cfg, shifts, alpha,
                                        coulomb_scale, excl_skip, method, krf,
-                                       crf)
+                                       crf, r_switch)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     lib = sweep.load("sweep_chunked", _declare)
@@ -509,11 +513,12 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
         ctypes.cast(plan_c, ctypes.c_void_p), cfg.capacity, cfg.n_offsets,
         float(cfg.cutoff * cfg.cutoff),
         float(alpha), float(coulomb_scale), cfg.excl_window,
-        cfg.excl_words, kind, float(krf), float(crf), int(scaled),
+        cfg.excl_words, kind, float(krf), float(crf), *sw, int(scaled),
         rows.shape[0] if scaled else 0, rows.shape[1] if scaled else 0,
         ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"chunked sweep energy launch failed: CUDA "
                            f"error {err}")
-    sweep.launches[sweep.launch_key("b2", True, method, cfg, scaled)] += 1
+    sweep.launches[sweep.launch_key("b2", True, method, cfg, scaled,
+                                    sw[0])] += 1
     return e

@@ -232,14 +232,31 @@ class FlatReplicaEnsemble:
     ensemble with extra replicas (rx * rz >= R); pad replicas are real,
     independent trajectories that no accessor reports.  Positions
     default to R copies of the template's current positions; pad
-    replicas take copies of replica 0's positions and velocities."""
+    replicas take copies of replica 0's positions and velocities.
+
+    strategy: the extended Context's pair strategy.  "cellpair" runs the
+    replica bands above; "dense" (each replica's (n0, n0) block of the
+    all-pairs sum in one batched pass, forces/dense.py) and "cell" (the
+    neighbour lists built per replica in one pass, forces/
+    neighborlist.py) take no layout and no pad replicas.  A template
+    with a MonteCarloBarostat runs on "cellpair" only."""
 
     def __init__(self, context, n_replicas: int, rx: int | None = None,
                  rz: int | None = None, seed: int = 0,
-                 nb_options: dict | None = None, pad_replicas: bool = True):
+                 nb_options: dict | None = None, pad_replicas: bool = True,
+                 strategy: str = "cellpair"):
         from ..app.context import Context
         R = int(n_replicas)
-        if rx is None and rz is None:
+        npt = any(type(f).__name__ == "MonteCarloBarostat"
+                  for f in context._system.getForces())
+        if strategy != "cellpair":
+            if npt:
+                raise NotImplementedError(
+                    "a replica ensemble with a MonteCarloBarostat runs on "
+                    "the cell-pair strategy (per-replica boxes, "
+                    "flat-ensemble NPT)")
+            rx, rz = 1, R
+        elif rx is None and rz is None:
             rx, rz = self._auto_layout(context, R, nb_options, pad_replicas)
         elif rz is None:
             if R % rx:
@@ -263,11 +280,10 @@ class FlatReplicaEnsemble:
         self.context = Context(
             replicate_system(context._system, R_int),
             _clone_integrator(context._integrator, R_int),
-            precision=context._prec, strategy="cellpair", seed=seed,
+            precision=context._prec, strategy=strategy, seed=seed,
             hardwall_strict=context._hardwall_strict, nb_options=nb,
             device=context._device, ensemble_r=R_int)
-        if any(type(f).__name__ == "MonteCarloBarostat"
-               for f in context._system.getForces()):
+        if npt:
             # per-replica NPT: unit scales, each replica's own move size
             # and counters (the JAX flatrep.py:290-303)
             self.context._state = self.context._state.replace(
@@ -378,7 +394,8 @@ class FlatReplicaEnsemble:
         step has run."""
         ctx = self.context
         if ctx._ke_valid:
-            return ctx._state.ke_sum.double().numpy()[:self._n_replicas]
+            return ctx._state.ke_sum.double().numpy()[
+                :self._n_replicas].copy()
         m = ctx._spec.mass.double().cpu().numpy()
         v = ctx._state.velocities.double().cpu().numpy()
         ke = 0.5 * m * np.sum(v * v, axis=-1)

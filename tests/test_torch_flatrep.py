@@ -470,9 +470,12 @@ def test_flat_npt_and_unported_forces_raise():
 
     with pytest.raises(ValueError, match="cannot replicate"):
         flatrep._replicate_force(CustomNonbondedForce(), 2, 10)
-    # the dense strategy does not take an ensemble
+    # the dense strategy takes an ensemble of R replica-major copies
+    # (parallel/ensemble.py's block-diagonal sum), not a system whose
+    # atoms do not split into R replicas
     nbf = next(f for f in system.getForces()
                if type(f).__name__ == "NonbondedForce")
-    with pytest.raises(ValueError, match="cell-pair"):
+    assert system.getNumParticles() % 3
+    with pytest.raises(ValueError, match="not divisible"):
         nbf.compile(system, torch.float64, "cpu",
-                    nb_options={"ensemble": [1, 1, 1]}, strategy="dense")
+                    nb_options={"ensemble": [3, 1, 3]}, strategy="dense")

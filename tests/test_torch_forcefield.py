@@ -371,10 +371,10 @@ def test_ff_system_matches_hand_built(tmp_path):
     np.testing.assert_allclose(f_f, f_h, rtol=1e-8, atol=1e-8)
 
 
-def test_switched_lj_surfaces_at_context_creation(tmp_path):
+def test_switched_lj_deck_runs_in_a_context(tmp_path):
     """createSystem(switchDistance=...) builds the System as the JAX one
-    does; the port's NonbondedForce refuses switched LJ when the Context
-    compiles it (ROADMAP.md: switched LJ is the next slice's)."""
+    does, and a Context of it compiles the switch and matches the JAX
+    Context's f64 energy (1e-10) and forces (1e-8 of max|F|)."""
     _, bare = jtf._make_nacl_files(tmp_path)
     systems = []
     for pk in (JAX, PORT):
@@ -390,9 +390,12 @@ def test_switched_lj_surfaces_at_context_creation(tmp_path):
     nb = next(f for f in systems[1].getForces()
               if isinstance(f, dt.NonbondedForce))
     assert nb.getUseSwitchingFunction() and nb.getSwitchingDistance() == 0.8
-    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
-    with pytest.raises(NotImplementedError, match="switched LJ"):
-        dt.Context(systems[1], integ, precision="double", device="cpu")
+    pos = np.asarray(m.positions, np.float64)
+    e_j, f_j = _energy_forces(JAX, systems[0], pos)
+    e_t, f_t = _energy_forces(PORT, systems[1], pos)
+    assert e_t == pytest.approx(e_j, rel=1e-10)
+    np.testing.assert_allclose(f_t, f_j, rtol=0,
+                               atol=1e-8 * np.abs(f_j).max())
 
 
 def test_errors_as_jax(tmp_path):

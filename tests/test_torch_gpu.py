@@ -806,3 +806,165 @@ def test_plain_terms_on_card_match_cpu(cuda):
         assert e <= 1e-10 and f <= 1e-8, name
     pos, pe = term_checks.custom_dynamics(cuda, 200, "single")
     assert np.isfinite(pe) and np.all(np.isfinite(pos))
+
+
+# -- switched LJ, and the replica ensemble (chip_smoke.py phases 15-16) --
+
+R_ON = 0.5   # the switch's start at the 216-water box's 0.6 nm cutoff
+
+
+def _jitter(ctx, amount=0.02, seed=2):
+    """Move every atom by up to `amount` nm: on the lattice start the
+    pairs of the switching window (0.5-0.6 nm) cancel by symmetry."""
+    p = ctx._state.positions.double().cpu().numpy()
+    rng = np.random.default_rng(seed)
+    ctx.setPositions(p + rng.uniform(-amount, amount, p.shape))
+    ctx._ensure_neighbors()
+    return ctx
+
+
+def _switched_check(kernel, args, kw, name, geometry):
+    """kernel with the switch on these fields against its plain version
+    (forces 2e-5 of max|F|; energy 1e-6 of |E| against the plain energy
+    under Ewald, 2e-2 kJ/mol against the plain energy in f64 under the
+    reaction field, test_rf_kernels_match_plain_on_card's bound), each
+    the same bits twice, counted under the "_sw" keys alone; the switch
+    changes the forces (more than 1e-4 of max|F| from the unswitched
+    plain version), and the switch's own effect on the LJ alone (the
+    charges zeroed: switched minus unswitched kernel) is the plain
+    version's in f64 to 2e-2 of that effect's max."""
+    before = dict(sweep.launches)
+    f1 = kernel.pair_forces(*args, **kw, r_switch=R_ON)
+    f2 = kernel.pair_forces(*args, **kw, r_switch=R_ON)
+    e1 = kernel.pair_energy(*args, **kw, r_switch=R_ON)
+    e2 = kernel.pair_energy(*args, **kw, r_switch=R_ON)
+    torch.cuda.synchronize()
+    assert torch.equal(f1, f2) and torch.equal(e1, e2)
+    f_p = kernel.pair_forces_plain(*args, **kw, r_switch=R_ON)
+    f_u = kernel.pair_forces_plain(*args, **kw)
+    fmax = float(torch.max(torch.abs(f_p)))
+    assert float(torch.max(torch.abs(f1 - f_p))) <= 2e-5 * fmax
+    assert float(torch.max(torch.abs(f_u - f_p))) > 1e-4 * fmax
+    if kw.get("method") == "rf":
+        fields, cfg, shifts, alpha, scale = args
+        f64 = {k: (v.double() if v.is_floating_point() else v)
+               for k, v in fields.items()}
+        e_p = sweep.pair_energy_plain(f64, cfg, shifts.double(), alpha,
+                                      scale, **kw, r_switch=R_ON)
+        tol = 2e-2
+    else:
+        e_p = sweep.pair_energy_plain(*args, **kw, r_switch=R_ON).double()
+        tol = 1e-6 * float(torch.sum(torch.abs(e_p)))
+    assert float(torch.max(torch.abs(e1 - e_p))) <= tol
+    rf = "_rf" if kw.get("method") == "rf" else ""
+    for kind in ("sweep", "energy"):
+        key = f"{name}_{kind}{rf}{geometry}"
+        assert sweep.launches[key + "_sw"] - before[key + "_sw"] == 2
+        assert sweep.launches[key] == before[key]
+    fields, cfg, shifts, alpha, scale = args
+    lj = dict(fields, q=torch.zeros_like(fields["q"]))
+    lj_args = (lj, cfg, shifts, alpha, scale)
+    d_k = (kernel.pair_forces(*lj_args, **kw, r_switch=R_ON)
+           - kernel.pair_forces(*lj_args, **kw)).double()
+    lj64 = {k: (v.double() if v.is_floating_point() else v)
+            for k, v in lj.items()}
+    a64 = (lj64, cfg, shifts.double(), alpha, scale)
+    d_p = (kernel.pair_forces_plain(*a64, **kw, r_switch=R_ON)
+           - kernel.pair_forces_plain(*a64, **kw))
+    assert float(torch.max(torch.abs(d_k - d_p))) \
+        <= 2e-2 * float(torch.max(torch.abs(d_p)))
+
+
+@KERNELS
+@GEOMETRIES
+@pytest.mark.parametrize("method", ["ewald", "rf"])
+def test_switched_kernels_match_plain_on_card(cuda, version, triclinic,
+                                              method):
+    ctx, _ = (_ctx(cuda, triclinic=triclinic) if method == "ewald"
+              else _rf_ctx(cuda, triclinic=triclinic))
+    kernel = sweep if version == "b1" else sweep_chunked
+    _switched_check(kernel, _fields(_jitter(ctx)), ctx._nb.coulomb, version,
+                    "")
+
+
+@KERNELS
+def test_switched_band_and_scaled_kernels_match_plain_on_card(cuda,
+                                                              version):
+    kernel = sweep if version == "b1" else sweep_chunked
+    ens = _flat(cuda)
+    _switched_check(kernel, _fields(_jitter(ens.context)), {}, version,
+                    "_bands")
+    ens = _flat(cuda, barostat=25)
+    args, _ = _scaled_args(_jitter(ens.context), SCALES4)
+    _switched_check(kernel, args, {}, version, "_scaled")
+
+
+@pytest.mark.parametrize("use_pallas", [None, 3], ids=["b1", "b2"])
+def test_switched_context_steps_through_the_switch(cuda, use_pallas):
+    """A switched Context steps through the routed kernel's switched
+    launches and reads its energy there; the unswitched keys stay as
+    they were and no plain sweep runs on the card."""
+    system, pos = builders.build_water_box(216, cutoff=0.6)
+    nbf = next(f for f in system.getForces()
+               if type(f).__name__ == "NonbondedForce")
+    nbf.setUseSwitchingFunction(True)
+    nbf.setSwitchingDistance(R_ON)
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    integ.setMaxDrudeDistance(0.02)
+    ctx = dt.Context(system, integ, precision="single", device=cuda,
+                     strategy="cellpair", nb_options={"use_pallas":
+                                                      use_pallas})
+    ctx.setPositions(pos)
+    ctx.setVelocitiesToTemperature(300.0, seed=1)
+    name = "b2" if use_pallas == 3 else "b1"
+    before = dict(sweep.launches)
+    plain = cellpair.plain_sweeps["cuda"]
+    integ.step(20)
+    st = ctx.getState(positions=True, energy=True)
+    torch.cuda.synchronize()
+    assert sweep.launches[f"{name}_sweep_sw"] - before[f"{name}_sweep_sw"] \
+        >= 20
+    assert sweep.launches[f"{name}_energy_sw"] \
+        == before[f"{name}_energy_sw"] + 1
+    assert sweep.launches[f"{name}_sweep"] == before[f"{name}_sweep"]
+    assert cellpair.plain_sweeps["cuda"] == plain
+    assert np.all(np.isfinite(st.getPositions()))
+    assert np.isfinite(st.getPotentialEnergy())
+
+
+@pytest.mark.parametrize("strategy", ["dense", "cellpair"])
+def test_replica_ensemble_replica_matches_context_on_card(cuda, strategy):
+    """A ReplicaEnsemble in f64 on the card: replica 2 against its
+    template Context stepped with the same velocities (positions to
+    1e-10 nm); on the cell-pair strategy in f32 the ensemble's steps go
+    through B1's band instantiation, one launch a step for all replicas,
+    and the replicas stay isolated bit for bit."""
+    from openmm_drudenose_tpu_torch.parallel import ensemble
+    system, pos = builders.build_water_box(216, cutoff=0.6)
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    integ.setMaxDrudeDistance(0.02)
+    ctx = dt.Context(system, integ, precision="double", device=cuda,
+                     strategy=strategy)
+    ctx.setPositions(pos)
+    ens = dt.ReplicaEnsemble(ctx, 3)
+    ens.setVelocitiesToTemperature(300.0, seed=4)
+    v = ens.velocities()
+    ens.step(10)
+    ctx.setVelocities(v[2])
+    integ.step(10)
+    np.testing.assert_allclose(ens.positions()[2], ctx.getPositions(),
+                               atol=1e-10)
+    if strategy == "cellpair":
+        integ32 = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+        integ32.setMaxDrudeDistance(0.02)
+        tpl = dt.Context(system, integ32, precision="single", device=cuda,
+                         strategy="cellpair")
+        tpl.setPositions(pos)
+        ens32 = dt.ReplicaEnsemble(tpl, 4)
+        ens32.setVelocitiesToTemperature(300.0, seed=4)
+        before = sweep.launches["b1_sweep_bands"]
+        ens32.step(16)
+        torch.cuda.synchronize()
+        # 16 steps, and the force pass the first step starts from
+        assert 16 <= sweep.launches["b1_sweep_bands"] - before <= 17
+        assert ensemble.check_isolated(ens32, 0) == 0.0

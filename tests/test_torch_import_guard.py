@@ -18,13 +18,14 @@ from openmm_drudenose_tpu_torch.app import (context, forcefield,
 from openmm_drudenose_tpu_torch.constraints import shake, vsites
 from openmm_drudenose_tpu_torch.examples import nacl_tg, nacl_tg_ff
 from openmm_drudenose_tpu_torch.forces import (bonded, boxutils, cmap,
-                                              custom, dense)
-from openmm_drudenose_tpu_torch.utils import expr
+                                              custom, dense, neighborlist)
+from openmm_drudenose_tpu_torch.utils import expr, native, profiling
 from openmm_drudenose_tpu_torch.integrators import barostat
-from openmm_drudenose_tpu_torch.io import (builders, ionic_liquid, nacl,
-                                           pdbfile, polymer)
+from openmm_drudenose_tpu_torch.io import (builders, dcd, ionic_liquid,
+                                           nacl, pdbfile, polymer)
 from openmm_drudenose_tpu_torch.ops import scatter, sweep, sweep_chunked
-from openmm_drudenose_tpu_torch.parallel import flatrep
+from openmm_drudenose_tpu_torch.parallel import ensemble, flatrep
+native.get_lib()
 from openmm_drudenose_tpu_torch.tools import (nacl_wall, term_checks, time_nvt,
                                          walk_model)
 bad = sorted(m for m in sys.modules
@@ -42,9 +43,15 @@ def test_import_leaves_jax_out():
     assert out.stdout.strip() == "", f"imported: {out.stdout.strip()}"
 
 
-@pytest.mark.parametrize("name", ["chip_smoke.py"])
+@pytest.mark.parametrize("name", [
+    "chip_smoke.py", "openmm_drudenose_tpu_torch/utils/native.py",
+    "openmm_drudenose_tpu_torch/utils/profiling.py",
+    "openmm_drudenose_tpu_torch/parallel/ensemble.py",
+    "openmm_drudenose_tpu_torch/forces/neighborlist.py",
+    "openmm_drudenose_tpu_torch/io/dcd.py"])
 def test_script_imports_no_jax(name):
-    """The chip script names neither JAX nor the JAX package in an import."""
+    """The chip script and the modules of the port's tenth slice name
+    neither JAX nor the JAX package in an import."""
     src = open(os.path.join(REPO, name)).read()
     for line in src.splitlines():
         s = line.strip()
@@ -67,3 +74,16 @@ def test_context_without_cuda_raises():
         with pytest.raises(RuntimeError):
             default_device()
     assert default_device("cpu").type == "cpu"
+
+
+def test_native_loader_builds_its_own_copy():
+    """The host runtime's loader builds the port's copy of the C++ source
+    (inside the port's package) into build/torch_native/, apart from the
+    JAX package's native/ library and its hash sidecar."""
+    from openmm_drudenose_tpu_torch.utils import native
+    pkg = os.path.join(REPO, "openmm_drudenose_tpu_torch")
+    assert str(native.SOURCE).startswith(pkg + os.sep)
+    lib = str(native.library_path())
+    assert lib.startswith(os.path.join(REPO, "build", "torch_native")
+                          + os.sep)
+    assert not lib.startswith(os.path.join(REPO, "native"))

@@ -5,8 +5,9 @@ CutoffNonPeriodic, NoCutoff) and the cell-pair plain sweep
 relative, forces 1e-8 of max|F|); the reaction-field plain versions of
 kernels B1 and B2 in f32 against the JAX TPU kernel with method "rf"
 (_make_pair_g's formula), run in interpret mode (2e-5 of max|F|); the
-wrappers' refusals; and the JAX package's dropped LJ switch on its
-Pallas route (ROADMAP.md Queue C14)."""
+wrappers' refusals; the switched LJ against the JAX XLA route; and the
+JAX package's dropped LJ switch on its Pallas route (ROADMAP.md Queue
+C14)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,17 +30,21 @@ N_MOL, CUTOFF = 125, 0.5
 
 
 def _contexts(method, strategy, precision="double", n_mol=N_MOL,
-              cutoff=CUTOFF, eps_rf=None):
-    """The JAX and the port's Context on the same water box."""
+              cutoff=CUTOFF, eps_rf=None, switch=None):
+    """The JAX and the port's Context on the same water box (LJ switched
+    from `switch` where given)."""
     out = []
     for pkg, build, kw in ((dn, jbuilders, {}),
                            (dt, tbuilders, {"device": "cpu"})):
         system, pos = build.build_water_box(n_mol, method=method,
                                             cutoff=cutoff)
+        nbf = next(f for f in system.getForces()
+                   if type(f).__name__ == "NonbondedForce")
         if eps_rf is not None:
-            next(f for f in system.getForces()
-                 if type(f).__name__ == "NonbondedForce"
-                 ).setReactionFieldDielectric(eps_rf)
+            nbf.setReactionFieldDielectric(eps_rf)
+        if switch is not None:
+            nbf.setUseSwitchingFunction(True)
+            nbf.setSwitchingDistance(switch)
         integ = pkg.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
         ctx = pkg.Context(system, integ, precision=precision,
                           strategy=strategy, **kw)
@@ -163,15 +168,16 @@ def test_cellpair_refuses_non_periodic_methods():
         nb.compile(system, torch.float64, "cpu", strategy="cellpair")
 
 
-def test_switched_lj_stays_refused():
-    system, _ = tbuilders.build_water_box(27, method=NB.CutoffPeriodic,
-                                          cutoff=0.4)
-    nb = next(f for f in system.getForces()
-              if type(f).__name__ == "NonbondedForce")
-    nb.setUseSwitchingFunction(True)
-    nb.setSwitchingDistance(0.3)
-    with pytest.raises(NotImplementedError):
-        nb.compile(system, torch.float64, "cpu")
+@pytest.mark.parametrize("strategy", ["dense", "cellpair"])
+def test_switched_lj_rf_matches_jax(strategy):
+    """The reaction field with the LJ switched from 0.4 nm to the 0.5 nm
+    cutoff compiles on both strategies and matches the JAX XLA route in
+    f64 (the switched pair sum, the NBFIX-free tail with the switch's
+    window)."""
+    jctx, tctx = _contexts(NB.CutoffPeriodic, strategy, switch=0.4)
+    assert tctx._nb.strategy == strategy
+    assert tctx._nb.coulomb["r_switch"] == 0.4
+    _assert_match(jctx, tctx)
 
 
 def test_jax_pallas_route_drops_the_lj_switch(rf32):

@@ -303,9 +303,9 @@ def test_cutoff_beyond_half_width_raises():
                                  0.9)
     with pytest.raises(ValueError, match="regular"):
         nb.compile(system, torch.float64, "cpu", strategy="cellpair")
-    # the legacy neighbour-list strategy, which the JAX package refuses
-    # for triclinic boxes, is not in the port
-    with pytest.raises(ValueError, match="unknown strategy"):
+    # the legacy neighbour-list strategy refuses triclinic boxes, as the
+    # JAX package's does (forces/nonbonded.py:191 there)
+    with pytest.raises(ValueError, match="triclinic periodic boxes are not"):
         nb.compile(system, torch.float64, "cpu", strategy="cell")
 
 
@@ -522,8 +522,9 @@ def test_rf_forces_match_finite_differences_and_jax():
     """The reaction field with LJ on the dense strategy in TRI_BOX: the
     analytic forces against central differences of the energy (the twin
     of tests/test_triclinic.py::test_triclinic_lj_rf_forces_finite_diff,
-    without its LJ switch, which the port refuses: no pair lies within
-    the step of the cutoff), and energy and forces against JAX."""
+    without its LJ switch, which tests/test_torch_switch.py holds in a
+    triclinic box: no pair lies within the step of the cutoff), and
+    energy and forces against JAX."""
     rng = np.random.default_rng(11)
     frac = np.stack(np.meshgrid(*[np.arange(3)] * 3),
                     axis=-1).reshape(-1, 3) / 3.0
