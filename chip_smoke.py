@@ -264,10 +264,39 @@ seconds):
      union-find's molecule ids of the 100k water equal to the Python
      labels' (core/topology.py), each timed on the same edges;
      utils/profiling.step_breakdown of the 100k Context
- 18. the seconds of each phase, the `kernels` JSON line (each kernel's
+ 18. the multi-rank paths (parallel/comm.py, sharded.py, distfft.py,
+     domain.py, ensemble.py's mesh half) at phase 3's width, driven
+     through parallel/comm.py::launch: MR_RANKS gloo ranks time-sharing
+     cuda:0 (NCCL refuses two ranks on one device), then NCCL at world
+     size 1.  (a) B1 with a home-slab range on phase 3's fields: each of
+     the MR_RANKS x-slabs of the 15^3 grid against its plain version
+     (2e-5 of max|F|) and bit-identical on a second launch, the full
+     range the bits of a launch without one, the slabs summed against
+     the whole (2e-5 of max|F|; their energies 1e-6 of |E|), one slab
+     timed with its plain version and bound, the registers; (b) the
+     100k Context's force pass through ShardedContext against the single
+     f32 Context's (phase 2's floors), MR_STEPS steps with the counts
+     reset just before and read just after (B1's slab launches on every
+     rank, one a step and no more but for the reruns of a capacity
+     growth, its whole-grid ones never, no plain sweep), the ranks'
+     positions bit-identical, rank 0's after MR_REF_STEPS within
+     MR_REF_TOL nm of a single-rank f64 Context; (c) distributed_fft
+     (the 75^3 PME grid in x-slabs and y-pencils): the PME energy against
+     the replicated FFT's (1e-5 of |E|) and the force pass (2e-5 of
+     max|F|); (d) the halo-exchange sweep (parallel/domain.py) against
+     B1's whole-grid sweep on the same fields (forces 2e-5 of max|F|,
+     energy 1e-6); (e) NCCL at world size 1: MR_REF_STEPS steps of a
+     ShardedContext against the single f32 Context (phase 2's floors on
+     the force pass, MR_REF_TOL nm), whether the bits match logged; (f)
+     ReplicaEnsemble on a (MR_RANKS,) replica mesh of flat sub-ensembles
+     (MR_FLAT_R x phase 10's 4k box, cell pairs, one a rank),
+     MR_FLAT_STEPS steps, each member bit for bit against a standalone
+     flat ensemble run from the same velocities.  ms/step of (b) and (f)
+     are of ranks time-sharing one card, not a scaling figure
+ 19. the seconds of each phase, the `kernels` JSON line (each kernel's
      force and energy instantiations, Ewald and reaction field, the
-     triclinic runs, the replica bands, the per-replica scales and the
-     switched LJ), then the result line.
+     triclinic runs, the replica bands, the per-replica scales, the
+     switched LJ and B1's home-slab range), then the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -529,33 +558,36 @@ def offset_shift(shifts, cfg, o, d):
     return shifts[rep, o, d][:, None]
 
 
-def pair_counts(fields, cfg, shifts, r_on=None):
+def pair_counts(fields, cfg, shifts, r_on=None, cells=None):
     """(pair tests, pairs inside the cutoff, pairs inside the cutoff and
     beyond r_on (0 without r_on: the LJ switch's window)) that this
     run's slot data gives the sweep: occupied-slot products over the
-    half stencil."""
+    half stencil (of the home cells in `cells`, all by default)."""
     import torch
     nc, C = cfg.n_cells, cfg.capacity
+    lo, hi = (0, nc) if cells is None else cells
     dev = fields["x"].device
     count = fields["count"].long()
-    nbr = torch.as_tensor(cfg.nbr_map, device=dev)
+    nbr = torch.as_tensor(cfg.nbr_map, device=dev)[lo:hi]
     occ = torch.arange(C, device=dev)[None, :] < count[:, None]
     xyz = [fields[k].reshape(nc, C) for k in "xyz"]
-    n_tests = int(torch.sum(count * (count - 1)))
+    n_tests = int(torch.sum(count[lo:hi] * (count[lo:hi] - 1)))
     n_cut = n_win = 0
     cut2 = cfg.cutoff * cfg.cutoff
     for o in range(cfg.n_offsets):
         b = nbr[:, o]
         r2 = 0
         for d in range(3):
-            diff = xyz[d][:, :, None] - (
-                xyz[d][b] + offset_shift(shifts, cfg, o, d))[:, None, :]
+            sh = offset_shift(shifts, cfg, o, d)
+            if torch.is_tensor(sh) and sh.dim() == 2:
+                sh = sh[lo:hi]
+            diff = xyz[d][lo:hi, :, None] - (xyz[d][b] + sh)[:, None, :]
             r2 = r2 + diff * diff
-        ok = (r2 < cut2) & occ[:, :, None] & occ[b][:, None, :]
+        ok = (r2 < cut2) & occ[lo:hi, :, None] & occ[b][:, None, :]
         if o == 0:
             ok = ok & ~torch.eye(C, dtype=torch.bool, device=dev)
         else:
-            n_tests += int(torch.sum(count * count[b]))
+            n_tests += int(torch.sum(count[lo:hi] * count[b]))
         n_cut += int(torch.sum(ok))
         if r_on is not None:
             n_win += int(torch.sum(ok & (r2 > r_on * r_on)))
@@ -563,7 +595,7 @@ def pair_counts(fields, cfg, shifts, r_on=None):
 
 
 def sweep_bound(fields, cfg, shifts, energy=False, method="ewald",
-                r_switch=None):
+                r_switch=None, cells=None):
     """(bound ms, "operations" or "bytes", pair tests, pairs inside the
     cutoff, bytes) of the direct-space sweep on these fields: the larger
     of its FP32 operations over the card's peak and the bytes it must
@@ -571,11 +603,16 @@ def sweep_bound(fields, cfg, shifts, energy=False, method="ewald",
     over the memory rate.  B1 and B2 compute the same function, so both
     are held to this one bound (one for each instantiation and Coulomb
     kind; with r_switch, the switch's operations on the pairs of its
-    window added)."""
-    n_tests, n_cut, n_win = pair_counts(fields, cfg, shifts, r_switch)
+    window added).  cells: a home-slab range (B1's), whose stencils are
+    counted: the fields of the cells they reach are read, every slot's
+    force written."""
+    n_tests, n_cut, n_win = pair_counts(fields, cfg, shifts, r_switch,
+                                        cells)
+    lo, hi = (0, cfg.n_cells) if cells is None else cells
+    n_read = int(np.unique(cfg.nbr_map[lo:hi]).size)
     n_slots = cfg.n_cells * cfg.capacity
-    n_bytes = (n_slots * 8 * 4 + cfg.n_cells * 4
-               + cfg.n_cells * cfg.n_offsets * 4 + shifts.numel() * 4
+    n_bytes = (n_read * cfg.capacity * 8 * 4 + n_read * 4
+               + (hi - lo) * cfg.n_offsets * 4 + shifts.numel() * 4
                + cfg.n_offsets * 4
                + (8 * cfg.n_replicas if energy and shifts.dim() == 3
                   else 8 if energy else n_slots * 3 * 4))
@@ -3808,6 +3845,376 @@ def phase_rest(card, bench_system, snapshot, settled):
     torch.cuda.empty_cache()
 
 
+# phase 18: the multi-rank paths.  MR_RANKS gloo ranks time-share
+# cuda:0 (NCCL refuses two ranks on one device; it runs at world size
+# 1); MR_STEPS ShardedContext steps (two rebuild blocks), MR_REF_STEPS
+# of them held against a single-rank f64 Context (phase 16's gate,
+# MR_REF_TOL nm); flat sub-ensembles of MR_FLAT_R replicas of the 4k box
+# (phase 10's settled template), one a rank, MR_FLAT_STEPS steps; the
+# collectives' timeout of the ranks, and the f32 floors of phase 2
+MR_RANKS, MR_STEPS, MR_REF_STEPS, MR_REF_TOL = 3, 32, 16, 1e-4
+MR_FLAT_R, MR_FLAT_STEPS = 8, 16
+MR_TIMEOUT_S = 300.0
+MR_F32_MAX, MR_F32_RMS = 1e-4, 5e-6
+
+
+def _bench_context(snap_path, cap, precision, device, gxm=1):
+    """The 100k bench Context of phase 3 from its snapshot, on `device`
+    (x-slabs for gxm ranks)."""
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.io import builders
+    snap = np.load(snap_path)
+    system, _ = builders.build_water_box(int(snap["n_atoms"]) // 5)
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    integ.setMaxDrudeDistance(0.02)
+    ctx = dt.Context(system, integ, precision=precision, device=device,
+                     nb_options={"capacity": cap, "grid_x_multiple": gxm})
+    ctx.setPositions(snap["positions"])
+    ctx.setVelocities(snap["velocities"])
+    return ctx, integ
+
+
+def _exact(ctx):
+    """The positions the integrator carries, in float64 (with the float32
+    compensation where the Context has one)."""
+    st = ctx._state
+    p = st.positions.double()
+    return (p if st.pos_err is None else p + st.pos_err.double()).cpu(
+    ).numpy()
+
+
+def _floor(got, ref):
+    import torch
+    d = (got.double() - ref.double())
+    scale = float(torch.max(torch.abs(ref)))
+    return (float(torch.max(torch.abs(d))) / scale,
+            float(torch.sqrt(torch.mean(d * d))) / scale)
+
+
+def multirank_rank(snap_path, cap, tpl_pos, tpl_vel, flat_vel):
+    """18 (b)-(d), (f) on each of MR_RANKS gloo ranks on cuda:0 (run by
+    parallel/comm.py::launch)."""
+    import torch
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.constraints.vsites import apply_vsites
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.io import builders
+    from openmm_drudenose_tpu_torch.ops import sweep
+    from openmm_drudenose_tpu_torch.parallel import comm, domain, sharded
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    mesh = comm.Mesh(("atom",))
+    n, rank = mesh.size("atom"), mesh.rank
+    out = {}
+    ctx, _ = _bench_context(snap_path, cap, "single", mesh.device, n)
+    ctx._ensure_neighbors()
+    nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
+    box = torch.diagonal(st.box)
+    kw = dict(excl_skip=nb.excl_skip, **nb.coulomb)
+    # (d) the halo-exchange sweep against B1's whole-grid sweep
+    fields = nb.fields(st.positions, box, st.neighbors)
+    window = domain.stencil_window(cfg, box.double().cpu().numpy())
+    halo = domain.make_sharded_pair_sweep(mesh, "atom", cfg, window,
+                                          nb.alpha, ONE_4PI_EPS0, **kw)
+    e_h, f_loc = halo(domain.slab_fields(fields, cfg, mesh, "atom"), box)
+    f_h = comm.all_gather(mesh, "atom", f_loc).reshape(-1, 3)
+    shifts = cellpair.offset_shifts(cfg, box)
+    f_w = sweep.pair_forces(fields, cfg, shifts, nb.alpha, ONE_4PI_EPS0,
+                            **kw)
+    e_w = sweep.pair_energy(fields, cfg, shifts, nb.alpha, ONE_4PI_EPS0,
+                            **kw)
+    out["d"] = {"window": list(window), "f_err": _floor(f_h, f_w)[0],
+                "e_rel": abs(float(e_h) - float(e_w)) / abs(float(e_w))}
+    del fields, f_h, f_w
+    # (c) the distributed FFT against the replicated one
+    exact = ctx._exact_positions(st.positions, st.pos_err)
+    posv = apply_vsites(ctx._spec, ctx._static, st.positions)
+    rep = sharded.ShardedForcePass(ctx, mesh)
+    dfft = sharded.ShardedForcePass(ctx, mesh, distributed_fft=True)
+    e_r = float(rep._pme(nb, posv, box, exact, None, False)[0])
+    e_f = float(dfft._pme(nb, posv, box, exact, None, False)[0])
+    args = (st.positions, st.box, st.neighbors, st.pos_err)
+    f_rep = rep.forces(*args)
+    f_dfft = dfft.forces(*args)
+    out["c"] = {"e_pme": e_r, "e_rel": abs(e_f - e_r) / abs(e_r),
+                "f_err": _floor(f_dfft, f_rep)[0],
+                "pme_grid": list(nb.pme.grid)}
+    # (b) the sharded force pass against the single Context's, then the
+    # steps with the counts reset just before and read just after
+    f1 = ctx._forces_only(*args)
+    out["b_pass"] = _floor(f_rep, f1)
+    del f_rep, f_dfft, f1
+    sctx = sharded.ShardedContext(ctx, mesh)
+    # the capacity growths, each of which reruns a chunk of steps
+    grows = [0]
+    grow_fn = ctx._grow_pair_capacity
+
+    def counting_grow(*a, **k):
+        grows[0] += 1
+        return grow_fn(*a, **k)
+
+    ctx._grow_pair_capacity = counting_grow
+    for k in sweep.launches:
+        sweep.launches[k] = 0
+    cellpair.plain_sweeps["cuda"] = 0
+    torch.cuda.synchronize()
+    comm.all_reduce_sum(mesh, "atom", torch.zeros(1))
+    t = time.time()
+    sctx.step(MR_REF_STEPS)
+    out["b_at_ref"] = _exact(ctx) if rank == 0 else None
+    sctx.step(MR_STEPS - MR_REF_STEPS)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    out["b_launches"] = dict(sweep.launches)
+    out["b_plain"] = cellpair.plain_sweeps["cuda"]
+    out["b_grows"] = grows[0]
+    out["b_rebuild_interval"] = ctx._rebuild_interval
+    out["b_ms_step"] = wall / MR_STEPS * 1e3
+    pos = ctx._state.positions
+    every = comm.all_gather(mesh, "atom", pos)
+    out["b_identical"] = bool(all(torch.equal(every[0], p) for p in every))
+    out["b_finite"] = bool(torch.all(torch.isfinite(pos)))
+    nbl = ctx._state.neighbors
+    out["b_latches"] = bool(nbl.overflow) or bool(nbl.drift_exceeded) \
+        or ctx.hardwallRunaway
+    out["grid"] = list(cfg.grid)
+    del sctx, ctx, every
+    torch.cuda.empty_cache()
+    # (f) flat sub-ensembles over a ("replica",) mesh, one a rank
+    rmesh = comm.Mesh(("replica",))
+    system, _ = builders.build_water_box(FLAT_MOL)
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    integ.setMaxDrudeDistance(0.02)
+    tpl = dt.Context(system, integ, precision="single", device=mesh.device)
+    tpl.setPositions(tpl_pos)
+    tpl.setVelocities(tpl_vel)
+    flat = dt.FlatReplicaEnsemble(tpl, MR_FLAT_R)
+    rens = dt.ReplicaEnsemble(flat.context, n_replicas=n, mesh=rmesh,
+                              seed=5)
+    rens.setVelocities(flat_vel)
+    for k in sweep.launches:
+        sweep.launches[k] = 0
+    torch.cuda.synchronize()
+    comm.all_reduce_sum(rmesh, "replica", torch.zeros(1))
+    t = time.time()
+    rens.step(MR_FLAT_STEPS)
+    torch.cuda.synchronize()
+    out["f_ms_step"] = (time.time() - t) / MR_FLAT_STEPS * 1e3
+    out["f_launches"] = dict(sweep.launches)
+    member = rens.members[0].context._state.positions.clone()
+    gathered = rens.positions()
+    flat.context.setVelocities(flat_vel[rank])
+    flat.step(MR_FLAT_STEPS)
+    alone = flat.context._state.positions
+    out["f_identical"] = bool(torch.equal(member, alone))
+    out["f_gathered"] = bool(np.array_equal(
+        gathered[rank], member.double().cpu().numpy()))
+    out["f_layout"] = list(flat.layout)
+    out["f_dx"] = float(torch.max(torch.abs(member - alone)))
+    return out
+
+
+def nccl_rank(snap_path, cap):
+    """18 (e): NCCL at world size 1: MR_REF_STEPS ShardedContext steps
+    against the single f32 Context's."""
+    import torch
+    from openmm_drudenose_tpu_torch.parallel import comm, sharded
+    mesh = comm.Mesh(("atom",))
+    one, integ = _bench_context(snap_path, cap, "single", mesh.device)
+    one._ensure_forces()
+    f1 = one._state.forces
+    integ.step(MR_REF_STEPS)
+    ctx, _ = _bench_context(snap_path, cap, "single", mesh.device)
+    sctx = sharded.ShardedContext(ctx, mesh)
+    f_s = ctx._state.forces
+    torch.cuda.synchronize()
+    t = time.time()
+    sctx.step(MR_REF_STEPS)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    return {"backend": mesh.backend, "world": mesh.size("atom"),
+            "pass": _floor(f_s, f1),
+            "pass_bits": bool(torch.equal(f_s, f1)),
+            "dx": float(np.max(np.abs(_exact(ctx) - _exact(one)))),
+            "bits": bool(torch.equal(ctx._state.positions,
+                                     one._state.positions)),
+            "ms_step": wall / MR_REF_STEPS * 1e3}
+
+
+def phase_multirank(card, bench_args, cap, settled, regs):
+    """18. The multi-rank paths: (a) B1's home-slab range on phase 3's
+    fields; (b)-(d) and (f) on MR_RANKS gloo ranks on cuda:0, (e) NCCL
+    at world size 1 (see the module docstring).  Returns B1's slab entry
+    of the `kernels` line."""
+    import torch
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.ops import sweep
+    from openmm_drudenose_tpu_torch.parallel import comm
+    from openmm_drudenose_tpu_torch.units import BOLTZ
+    fields, cfg, shifts, alpha, scale_c = bench_args
+    args = (fields, cfg, shifts, alpha, scale_c)
+    nc = cfg.n_cells
+    m = nc // MR_RANKS
+    slabs = [(d * m, (d + 1) * m) for d in range(MR_RANKS)]
+    # (a) B1's home-slab range
+    f = sweep.pair_forces(*args)
+    e = sweep.pair_energy(*args)
+    full_bits = bool(torch.equal(sweep.pair_forces(*args, cells=(0, nc)), f)
+                     and torch.equal(sweep.pair_energy(*args,
+                                                       cells=(0, nc)), e))
+    scale = float(torch.max(torch.abs(f)))
+    total = torch.zeros_like(f)
+    e_sum, errs, ident, max_abs = 0.0, [], True, 0.0
+    for c in slabs:
+        fk = sweep.pair_forces(*args, cells=c)
+        ident = ident and bool(torch.equal(sweep.pair_forces(*args,
+                                                             cells=c), fk))
+        fp = sweep.pair_forces_plain(*args, cells=c)
+        errs.append(float(torch.max(torch.abs(fk - fp))) / scale)
+        max_abs = max(max_abs, float(torch.max(torch.abs(fk - fp))))
+        total += fk
+        e_sum += float(sweep.pair_energy(*args, cells=c))
+        del fp
+    sum_err = float(torch.max(torch.abs(total - f))) / scale
+    e_rel = abs(e_sum - float(e)) / abs(float(e))
+    c0 = slabs[0]
+    ms = cuda_time_ms(lambda: sweep.pair_forces(*args, cells=c0), 20)
+    ms_full = cuda_time_ms(lambda: sweep.pair_forces(*args), 20)
+    plain_ms = cuda_time_ms(
+        lambda: sweep.pair_forces_plain(*args, cells=c0), 3)
+    bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(
+        fields, cfg, shifts, cells=c0)
+    a = sweep.attributes()
+    log(f"18 (a) B1 with a home-slab range on phase 3's fields ({nc} "
+        f"cells, {MR_RANKS} x-slabs of {m}): each against its plain "
+        f"version {', '.join(f'{x:.3e}' for x in errs)} of max|F|, two "
+        f"launches bit-identical {ident}; the full range the bits of a "
+        f"launch without one {full_bits}; the slabs summed against the "
+        f"whole {sum_err:.3e} of max|F|, their energies {e_rel:.3e} of "
+        f"|E|; one slab {ms:.4f} ms (the whole grid {ms_full:.4f} ms), "
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{n_tests} pair tests, {n_cut} inside the cutoff, {n_bytes} "
+        f"bytes); {a['regs']} registers (forces; the parent's 77), "
+        f"{regs['b1_energy']} (energy; the parent's 53), {a['local_bytes']} "
+        f"B local, on {card}")
+    if not (max(errs) <= 2e-5 and ident and full_bits and sum_err <= 2e-5
+            and e_rel <= 1e-6):
+        fail("18 (a) B1's home-slab range")
+    del total, f
+    torch.cuda.empty_cache()
+
+    # (b)-(d), (f): MR_RANKS gloo ranks time-sharing cuda:0
+    snap_path = os.path.join(HERE, "data", "bench_equil_100k.npz")
+    tpl_pos, tpl_vel = settled
+    n0 = tpl_pos.shape[0]
+    inv_m = np.array([0.0 if mm == 0 else 1.0 / mm for mm in
+                      _masses(FLAT_MOL)] * MR_FLAT_R)
+    rng = np.random.default_rng(18)
+    flat_vel = rng.normal(size=(MR_RANKS, MR_FLAT_R * n0, 3)) * np.sqrt(
+        BOLTZ * 300.0 * inv_m)[None, :, None]
+    t = time.time()
+    res = comm.launch(multirank_rank, MR_RANKS, "gloo", "cuda:0",
+                      MR_TIMEOUT_S, args=(snap_path, cap, tpl_pos, tpl_vel,
+                                          flat_vel))
+    wall = time.time() - t
+    r0 = res[0]
+    d, c = r0["d"], r0["c"]
+    log(f"18 gloo, world {MR_RANKS}, ranks time-sharing cuda:0: launched "
+        f"and joined in {wall:.1f} s")
+    log(f"18 (d) gloo, world {MR_RANKS}: the halo-exchange sweep (window "
+        f"{d['window']}, slabs of {r0['grid'][0] // MR_RANKS} planes) "
+        f"against B1's whole-grid sweep: forces {d['f_err']:.3e} of "
+        f"max|F|, energy {d['e_rel']:.3e} of |E|")
+    if not (all(r["d"]["f_err"] <= 2e-5 and r["d"]["e_rel"] <= 1e-6
+                for r in res)):
+        fail("18 (d) the halo-exchange sweep")
+    log(f"18 (c) gloo, world {MR_RANKS}: distributed_fft (PME grid "
+        f"{c['pme_grid']}) against the replicated FFT: PME energy "
+        f"{c['e_pme']:.6f} kJ/mol, |dE|/|E| {c['e_rel']:.3e}; forces "
+        f"{c['f_err']:.3e} of max|F|")
+    if not all(r["c"]["e_rel"] <= 1e-5 and r["c"]["f_err"] <= 2e-5
+               for r in res):
+        fail("18 (c) the distributed FFT")
+    bmax, brms = r0["b_pass"]
+    launches = r0["b_launches"]
+    used = {k: v for k, v in launches.items() if v}
+    log(f"18 (b) gloo, world {MR_RANKS}: ShardedContext force pass against "
+        f"the single f32 Context's: max {bmax:.3e}, rms {brms:.3e} of "
+        f"max|F|; {MR_STEPS} steps at {r0['b_ms_step']:.2f} ms/step "
+        f"(ranks time-sharing one card, not a scaling figure) on {card}; "
+        f"rank 0's launches {used}, plain sweeps on the card "
+        f"{r0['b_plain']}; capacity growths "
+        f"{[r['b_grows'] for r in res]}; the ranks' positions bit-identical "
+        f"{all(r['b_identical'] for r in res)}; latches "
+        f"{any(r['b_latches'] for r in res)}")
+    # one slab launch a step, and after each capacity growth the rerun
+    # of a chunk (8 rebuild intervals) and one more force pass
+    slab_ok = all(MR_STEPS <= r["b_launches"]["b1_sweep_slab"]
+                  <= MR_STEPS + r["b_grows"]
+                  * (8 * r["b_rebuild_interval"] + 1)
+                  and r["b_launches"]["b1_sweep"] == 0 and not r["b_plain"]
+                  for r in res)
+    if not (bmax <= MR_F32_MAX and brms <= MR_F32_RMS and slab_ok
+            and all(r["b_identical"] and r["b_finite"]
+                    and not r["b_latches"] for r in res)):
+        fail("18 (b) the ShardedContext: floors, the slab launches, the "
+             "ranks' bits or a latch")
+    log(f"18 (f) gloo, world {MR_RANKS}: ReplicaEnsemble of flat "
+        f"sub-ensembles ({MR_FLAT_R} x the 4k box, layout "
+        f"{r0['f_layout']}) on a ({MR_RANKS},) replica mesh: "
+        f"{MR_FLAT_STEPS} steps at {r0['f_ms_step']:.2f} ms/step (ranks "
+        f"time-sharing one card) on {card}; each member against its "
+        f"standalone flat ensemble bit for bit "
+        f"{[r['f_identical'] for r in res]} (max |dx| "
+        f"{max(r['f_dx'] for r in res):.3e}), gathered rows "
+        f"{[r['f_gathered'] for r in res]}; launches "
+        f"{ {k: v for k, v in r0['f_launches'].items() if v} }")
+    if not all(r["f_identical"] and r["f_gathered"]
+               and r["f_launches"]["b1_sweep_bands"] >= MR_FLAT_STEPS
+               for r in res):
+        fail("18 (f) the flat sub-ensembles over the replica mesh")
+    # (b) against a single-rank f64 Context after MR_REF_STEPS
+    ctx64, integ64 = _bench_context(snap_path, cap, "double", "cuda")
+    integ64.step(MR_REF_STEPS)
+    dx = float(np.max(np.abs(r0["b_at_ref"] - _exact(ctx64))))
+    del ctx64, integ64
+    torch.cuda.empty_cache()
+    log(f"18 (b) gloo, world {MR_RANKS}: after {MR_REF_STEPS} steps rank "
+        f"0's positions against a single-rank f64 Context: max |dx| "
+        f"{dx:.3e} nm")
+    if not dx <= MR_REF_TOL:
+        fail("18 (b) the sharded trajectory left the f64 Context")
+    # (e) NCCL at world size 1
+    t = time.time()
+    e_res = comm.launch(nccl_rank, 1, "nccl", "cuda:0", MR_TIMEOUT_S,
+                        args=(snap_path, cap))[0]
+    emax, erms = e_res["pass"]
+    log(f"18 (e) {e_res['backend']}, world {e_res['world']}: ShardedContext "
+        f"against the single f32 Context: force pass max {emax:.3e}, rms "
+        f"{erms:.3e} of max|F| (the same bits: {e_res['pass_bits']}); after "
+        f"{MR_REF_STEPS} steps max |dx| {e_res['dx']:.3e} nm (the same "
+        f"bits: {e_res['bits']}); {e_res['ms_step']:.2f} ms/step; "
+        f"{time.time() - t:.1f} s with the launch")
+    if not (emax <= MR_F32_MAX and erms <= MR_F32_RMS
+            and e_res["dx"] <= MR_REF_TOL):
+        fail("18 (e) NCCL at world size 1")
+    return {"name": "b1_sweep_slab", "instantiation": "forces, home-slab "
+            f"range (1 of {MR_RANKS} x-slabs)", "route": "cuda",
+            "source": "openmm_drudenose_tpu_torch/csrc/sweep.cu",
+            "replaces": "openmm_drudenose_tpu/ops/pallas_sweep.py:440",
+            "launches": launches["b1_sweep_slab"],
+            "launches_per_step": launches["b1_sweep_slab"] / MR_STEPS,
+            "capacity": cfg.capacity, "registers": a["regs"],
+            "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _masses(n_molecules):
+    from openmm_drudenose_tpu_torch.io import builders
+    system, _ = builders.build_water_box(n_molecules)
+    return [system.getParticleMass(i)
+            for i in range(system.getNumParticles())]
+
+
 def main():
     # ---- 0. device --------------------------------------------------------
     import torch
@@ -4064,7 +4471,11 @@ def main():
     phase_rest(card, system, (pos, vel, cap), settled)
     phase_seconds["17 the rest"] = phase_mark()
 
-    # ---- 18. kernel summary -------------------------------------------------
+    # ---- 18. the multi-rank paths ------------------------------------------
+    slab_entry = phase_multirank(card, bench_args, cap, settled, regs)
+    phase_seconds["18 the multi-rank paths"] = phase_mark()
+
+    # ---- 19. kernel summary -------------------------------------------------
     log("seconds per phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_seconds.items()))
     src, tpu = ("openmm_drudenose_tpu_torch/csrc/sweep.cu",
@@ -4083,7 +4494,7 @@ def main():
         "source": src, "replaces": tpu, "registers": regs["b1_energy"],
         **b1_energy, "library_ms": None,
     }, *b2_entries, *rf_entries, *tri_entries, *flat_entries,
-        *npt_entries, *sw_entries]
+        *npt_entries, *sw_entries, slab_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,10 @@ forces (kernel B1 or B2 in float32 on the cell-pair strategy, the dense
 sum on the dense one), the analytic PME reciprocal forces (Ewald/PME), the
 exception/correction/NBFIX terms and the Drude forces at the
 virtual-site-composed positions, then moves site forces onto their
-parents.  `_potential` is the energy (the kernels' energy instantiation
+parents.  The pair and reciprocal sums of the nonbonded term come from
+the Context's `_pair_sum` (`PairSum`, this process's whole sums; parallel/
+sharded.py swaps in one split over torch.distributed ranks), the rest of
+the pass is the same whichever it is.  `_potential` is the energy (the kernels' energy instantiation
 for the direct space in float32 on the cell-pair strategy), summed in
 float64.  `step` (:564 there) alternates a cell-sort rebuild with a
 block of `rebuild_interval` fused steps and reads the overflow and
@@ -81,6 +84,30 @@ def default_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+class PairSum:
+    """The nonbonded term's direct-space sweep and PME reciprocal sum, in
+    this process: a Context's default `_pair_sum`.  parallel/sharded.py::
+    ShardedForcePass takes its place where the ranks of a torch.
+    distributed mesh split the two sums; every other term of the force
+    pass stays the Context's."""
+
+    def pair_forces(self, nb, pos, box_t, neighbors, exact, s):
+        """The sweep's and the reciprocal sum's forces (N, 3)."""
+        f = nb.sweep_forces(pos, box_t, neighbors, exact, rep_scale=s)
+        if nb.pme is not None:
+            f = f + nb.recip(pos, box_t, exact, rep_scale=s)[1]
+        return f
+
+    def pair_energy(self, nb, pos, box_t, neighbors, exact, s):
+        """Their energy, each part in the positions' type summed in
+        float64."""
+        e = nb.sweep_energy(pos, box_t, neighbors, exact,
+                            rep_scale=s).double()
+        if nb.pme is not None:
+            e = e + nb.recip_energy(pos, box_t, exact, rep_scale=s).double()
+        return e
+
+
 class State:
     """Snapshot of simulation data, OpenMM State-shaped."""
 
@@ -139,7 +166,9 @@ class Context:
         the hard wall (the Reference platform's throw) instead of
         bouncing it, warning once and latching hardwallRunaway.
         nb_options: {"capacity": C} pins the cell capacity (the bench
-        pins the one its snapshot was measured with); {"use_pallas": 3}
+        pins the one its snapshot was measured with); {"grid_x_multiple":
+        D} rounds the cell grid's x down to a multiple of D (x-slabs over
+        D ranks, parallel/sharded.py); {"use_pallas": 3}
         sends the float32 sweep to the chunked kernel B2 whatever the
         gates say (the JAX option of that name); "skin",
         "rebuild_interval", "max_neighbors", "density_margin" size the
@@ -174,6 +203,9 @@ class Context:
         # (host scales, their device copy) of the last few rep_scale
         # tensors (the current, a move's trial and its outcome)
         self._scale_cache = []
+        # the nonbonded pair and reciprocal sums (a parallel/sharded.py
+        # ShardedForcePass over ranks)
+        self._pair_sum = PairSum()
         self._state = None
         self._init_spec_and_state()
 
@@ -284,9 +316,10 @@ class Context:
         return boxutils.mi_box(box, self._triclinic)
 
     def _forces_only(self, positions, box, neighbors, pos_err,
-                     rep_scale=None):
+                     rep_scale=None, pair_sum=None):
         """Total force on the particles (no energy); rep_scale: the host
-        per-replica scales of flat-ensemble NPT."""
+        per-replica scales of flat-ensemble NPT; pair_sum: the nonbonded
+        pair and reciprocal sums (None: the Context's `_pair_sum`)."""
         spec, static = self._spec, self._static
         box_t = self._box_arg(box)
         pos = apply_vsites(spec, static, positions)
@@ -297,9 +330,8 @@ class Context:
         atom_s = None if s is None else cellpair.atom_scales(
             s, pos.shape[0])
         if nb is not None:
-            f = nb.sweep_forces(pos, box_t, neighbors, exact, rep_scale=s)
-            if nb.pme is not None:
-                f = f + nb.recip(pos, box_t, exact, rep_scale=s)[1]
+            f = (pair_sum or self._pair_sum).pair_forces(
+                nb, pos, box_t, neighbors, exact, s)
             f = f + nb.extras(pos, box_t, exact, rep_scale=s)[1]
         for term in self._terms:
             f = f + term.energy_forces(pos, box_t,
@@ -316,14 +348,14 @@ class Context:
         return {"pos_err": pos_err}
 
     def _potential(self, positions, box, neighbors, pos_err,
-                   rep_scale=None):
+                   rep_scale=None, pair_sum=None):
         """Total potential energy, a float64 0-d tensor: each part in the
         positions' type (the direct space by the kernels' energy
         instantiation on the cell-pair strategy in float32, in float64
         there) and the parts summed in float64, so that the barostat's
         Metropolis test sees no float32 rounding of |E| (~1e6 kJ/mol at
-        100k atoms, where a float32 ulp is 0.06-0.12 kJ/mol).  rep_scale:
-        as _forces_only."""
+        100k atoms, where a float32 ulp is 0.06-0.12 kJ/mol).  rep_scale,
+        pair_sum: as _forces_only."""
         box_t = self._box_arg(box)
         pos = apply_vsites(self._spec, self._static, positions)
         e = torch.zeros((), dtype=torch.float64, device=pos.device)
@@ -333,11 +365,8 @@ class Context:
         atom_s = None if s is None else cellpair.atom_scales(
             s, pos.shape[0])
         if nb is not None:
-            e = e + nb.sweep_energy(pos, box_t, neighbors, exact,
-                                    rep_scale=s).double()
-            if nb.pme is not None:
-                e = e + nb.recip_energy(pos, box_t, exact,
-                                        rep_scale=s).double()
+            e = e + (pair_sum or self._pair_sum).pair_energy(
+                nb, pos, box_t, neighbors, exact, s)
             e = e + nb.extras(pos, box_t, exact, with_forces=False,
                               rep_scale=s)[0].double()
         for term in self._terms:

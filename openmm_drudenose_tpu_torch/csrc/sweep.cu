@@ -95,8 +95,17 @@ constexpr int kOffsetsPerUnit = 8;  // stencil offsets a work unit
 // A work unit is (home cell, 32-slot part, group of kOffsetsPerUnit
 // offsets); warps take units in order from the counter *next_unit until
 // none is left, so the card stays busy to the end (a unit whose part is
-// empty is skipped at once).  The force instantiation writes the
-// reactions of offset o >= 1 on neighbour slot b into
+// empty is skipped at once).  Units are numbered cell-major, so a
+// home-slab range of cells [cell_lo, cell_hi) is the unit range
+// [unit_lo, unit_hi): the launch takes only those (an x-slab of the grid
+// on one rank, parallel/sharded.py); their reactions still land in any
+// cell the half stencil reaches.  The counter starts at unit_lo
+// (set_counter; a memset for the whole grid) and the loop ends at
+// cell_hi's first unit, so the kernel is the whole-grid launch's to the
+// instruction (that launch passes cell_lo = 0, cell_hi = n_cells): the
+// range costs no register.
+// The force instantiation writes the reactions of offset o >= 1 on
+// neighbour slot b into
 // rframe[entry(cell, part, o)][component][b] for every slot b of the
 // neighbour (zeros where the tile lies beyond the cutoff), and the unit's
 // row forces into hframe[(cell, part, group)][component][lane].  With
@@ -112,13 +121,13 @@ __global__ void __launch_bounds__(kWarps * 32)
                  const int* __restrict__ check_excl,
                  float* __restrict__ rframe, float* __restrict__ hframe,
                  double* __restrict__ e_part, int* __restrict__ next_unit,
-                 int n_cells, int cap, int parts, int n_off, int n_groups,
+                 int cell_hi, int cap, int parts, int n_off, int n_groups,
                  Params p) {
   __shared__ Tile tiles[kWarps][2];
   __shared__ pair_tile::Partials partials[kWarps];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int n_units = n_cells * parts * n_groups;
+  const int unit_hi = cell_hi * parts * n_groups;
   Tile& t = tiles[warp][0];   // the neighbour tile
   Tile& th = tiles[warp][1];  // the home part
   pair_tile::Partials& part = partials[warp];
@@ -126,7 +135,7 @@ __global__ void __launch_bounds__(kWarps * 32)
     int unit = 0;
     if (lane == 0) unit = atomicAdd(next_unit, 1);
     unit = __shfl_sync(0xffffffffu, unit, 0);
-    if (unit >= n_units) break;
+    if (unit >= unit_hi) break;
     const int cp = unit / n_groups;
     const int o0 = (unit - cp * n_groups) * kOffsetsPerUnit;
     const int cell = cp / parts;
@@ -194,30 +203,42 @@ __global__ void __launch_bounds__(kWarps * 32)
 // cell's home entries (one a group of offsets) in group order, then the
 // reactions written by the cells rnbr[cell, o] (whose offset-o neighbour
 // is this cell), part by part and, within a part, in offset order.
-// Entries of an empty home part were never written and are not read.
-// Slots past the cell's count get zero.  Each reaction costs a chain of
+// Entries of an empty home part were never written and are not read,
+// nor are those of a home cell outside the launch's range [cell_lo,
+// cell_hi) (kRange; the whole grid's launch runs the instantiation
+// without the range tests).  Slots past the cell's
+// count get zero.  Each reaction costs a chain of
 // three dependent loads (rnbr, count, the entry); the offset loop is
 // unrolled so that the chains of several offsets are in flight at once
 // (one at a time, the gather took 0.11 ms at 100k atoms on an NVIDIA H100
 // 80GB HBM3 at 700 W).
+// The work-unit counter's start: the first unit of the launch's range.
+__global__ void set_counter(int* __restrict__ next_unit, int unit_lo) {
+  *next_unit = unit_lo;
+}
+
+template <bool kRange>
 __global__ void gather_kernel(const float* __restrict__ rframe,
                               const float* __restrict__ hframe,
                               const int* __restrict__ count,
                               const int* __restrict__ rnbr, int n_cells,
-                              int cap, int parts, int n_off, int n_groups,
+                              int cell_lo, int cell_hi, int cap, int parts,
+                              int n_off, int n_groups,
                               float* __restrict__ f) {
   const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= (long long)n_cells * cap) return;
   const int cell = (int)(s / cap), a = (int)(s - (long long)cell * cap);
   float fx = 0.f, fy = 0.f, fz = 0.f;
   if (a < count[cell]) {
-    const float* fh = hframe +
-                      ((size_t)(cell * parts + (a >> 5)) * n_groups) * 96 +
-                      (a & 31);
-    for (int g = 0; g < n_groups; ++g) {
-      fx += fh[96 * g];
-      fy += fh[96 * g + 32];
-      fz += fh[96 * g + 64];
+    if (!kRange || (cell >= cell_lo && cell < cell_hi)) {
+      const float* fh = hframe +
+                        ((size_t)(cell * parts + (a >> 5)) * n_groups) * 96 +
+                        (a & 31);
+      for (int g = 0; g < n_groups; ++g) {
+        fx += fh[96 * g];
+        fy += fh[96 * g + 32];
+        fz += fh[96 * g + 64];
+      }
     }
     const int* rn = rnbr + (size_t)cell * n_off;
     const size_t entry = 3 * (size_t)cap;
@@ -225,7 +246,8 @@ __global__ void gather_kernel(const float* __restrict__ rframe,
 #pragma unroll 8
       for (int o = 1; o < n_off; ++o) {
         const int hc = rn[o];
-        if (count[hc] > 32 * pt) {
+        if ((!kRange || (hc >= cell_lo && hc < cell_hi)) &&
+            count[hc] > 32 * pt) {
           const float* fr =
               rframe +
               ((size_t)(hc * parts + pt) * (n_off - 1) + (o - 1)) * entry +
@@ -252,33 +274,46 @@ int launch(const Fields& fd, const void* nbr, const void* rnbr,
            const void* shift, const void* rep_cell, const void* check_excl,
            void* rframe, void* hframe, void* f, void* e_part, void* e_out,
            void* next_unit, const void* rows, int n_rows, int m,
-           int n_cells, int cap, int n_off, const Params& p, int max_ctas,
-           void* stream) {
+           int n_cells, int cell_lo, int cell_hi, int cap, int n_off,
+           const Params& p, int max_ctas, void* stream) {
   const long long parts = (cap + 31) / 32;
   const long long n_groups = (n_off + kOffsetsPerUnit - 1) / kOffsetsPerUnit;
   const long long units = (long long)n_cells * parts * n_groups;
+  const long long unit_lo = (long long)cell_lo * parts * n_groups;
+  const long long unit_hi = (long long)cell_hi * parts * n_groups;
   if (cap < 1 || n_cells < 1 || n_off < 1 || p.n_words < 1 ||
+      cell_lo < 0 || cell_lo > cell_hi || cell_hi > n_cells ||
       max_ctas < 1 || 3LL * n_cells * cap > INT32_MAX ||
       (long long)n_cells * cap * p.n_words > INT32_MAX ||
       (long long)n_cells * n_off > INT32_MAX || units > INT32_MAX ||
       (kScaled && kEnergy && (n_rows < 1 || m < 1 || rows == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(next_unit, 0, sizeof(int), s);
+  const bool whole = cell_lo == 0 && cell_hi == n_cells;
+  cudaError_t err;
+  if (whole) {
+    err = cudaMemsetAsync(next_unit, 0, sizeof(int), s);
+  } else {
+    set_counter<<<1, 1, 0, s>>>((int*)next_unit, (int)unit_lo);
+    err = cudaGetLastError();
+  }
   if (err == cudaSuccess && kEnergy)
     err = cudaMemsetAsync(e_part, 0, units * sizeof(double), s);
   if (err != cudaSuccess) return (int)err;
-  // as many CTAs as the card holds at once (they loop over the units)
+  // as many CTAs as the card holds at once (they loop over the units);
+  // an empty range launches no sweep
   const int blocks = (int)std::min<long long>(
-      (units + kWarps - 1) / kWarps, (long long)max_ctas);
-  sweep_kernel<kEnergy, kCoul, kScaled, kSwitch>
-      <<<blocks, kWarps * 32, 0, s>>>(
-      fd, (const int*)nbr, (const float*)shift, (const int*)rep_cell,
-      (const int*)check_excl, (float*)rframe, (float*)hframe,
-      (double*)e_part, (int*)next_unit, n_cells, cap, (int)parts, n_off,
-      (int)n_groups, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+      (unit_hi - unit_lo + kWarps - 1) / kWarps, (long long)max_ctas);
+  if (blocks > 0) {
+    sweep_kernel<kEnergy, kCoul, kScaled, kSwitch>
+        <<<blocks, kWarps * 32, 0, s>>>(
+        fd, (const int*)nbr, (const float*)shift, (const int*)rep_cell,
+        (const int*)check_excl, (float*)rframe, (float*)hframe,
+        (double*)e_part, (int*)next_unit, cell_hi, cap, (int)parts, n_off,
+        (int)n_groups, p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
   if constexpr (kEnergy && kScaled) {
     pair_tile::sum_rows_fixed_order<<<n_rows, pair_tile::kSumThreads, 0,
                                       s>>>((const double*)e_part,
@@ -289,10 +324,17 @@ int launch(const Fields& fd, const void* nbr, const void* rnbr,
         (const double*)e_part, (int)units, (double*)e_out);
   } else {
     const long long n_slots = (long long)n_cells * cap;
-    gather_kernel<<<(int)((n_slots + 255) / 256), 256, 0, s>>>(
-        (const float*)rframe, (const float*)hframe, fd.count,
-        (const int*)rnbr, n_cells, cap, (int)parts, n_off, (int)n_groups,
-        (float*)f);
+    const int gblocks = (int)((n_slots + 255) / 256);
+    if (whole)
+      gather_kernel<false><<<gblocks, 256, 0, s>>>(
+          (const float*)rframe, (const float*)hframe, fd.count,
+          (const int*)rnbr, n_cells, cell_lo, cell_hi, cap, (int)parts,
+          n_off, (int)n_groups, (float*)f);
+    else
+      gather_kernel<true><<<gblocks, 256, 0, s>>>(
+          (const float*)rframe, (const float*)hframe, fd.count,
+          (const int*)rnbr, n_cells, cell_lo, cell_hi, cap, (int)parts,
+          n_off, (int)n_groups, (float*)f);
   }
   return (int)cudaGetLastError();
 }
@@ -305,13 +347,14 @@ int launch_kind(int coulomb, bool switched, const Fields& fd,
                 const void* rep_cell, const void* check_excl, void* rframe,
                 void* hframe, void* f, void* e_part, void* e_out,
                 void* next_unit, const void* rows, int n_rows, int m,
-                int n_cells, int cap, int n_off, const Params& p,
-                int max_ctas, void* stream) {
+                int n_cells, int cell_lo, int cell_hi, int cap, int n_off,
+                const Params& p, int max_ctas, void* stream) {
 #define SWEEP_LAUNCH(COUL, SCALED, SW)                                      \
   launch<kEnergy, COUL, SCALED, SW>(fd, nbr, rnbr, shift, rep_cell,        \
                                     check_excl, rframe, hframe, f, e_part, \
                                     e_out, next_unit, rows, n_rows, m,     \
-                                    n_cells, cap, n_off, p, max_ctas, stream)
+                                    n_cells, cell_lo, cell_hi, cap, n_off, \
+                                    p, max_ctas, stream)
 #define SWEEP_LAUNCH_SW(COUL, SCALED)                                     \
   (switched ? SWEEP_LAUNCH(COUL, SCALED, true)                            \
             : SWEEP_LAUNCH(COUL, SCALED, false))
@@ -408,11 +451,14 @@ extern "C" int sweep_occupancy(int* out, int energy, int coulomb,
 // each cell's replica (null: no per-replica scales); rframe: n_cells *
 // parts * (n_off - 1) * 3 * cap floats and hframe: sweep_units() * 96
 // floats of work space (written before they are read); next_unit: one
-// int of work space on the card (set to 0 here); coulomb:
-// pair_tile::Coulomb (krf and crf read for the reaction field only);
+// int of work space on the card (set to the range's first unit here);
+// coulomb: pair_tile::Coulomb (krf and crf read for the reaction field
+// only);
 // use_switch: the switched instantiation, the LJ switch from r_on over
 // sw_width = r_off - r_on (both read only with it); max_ctas: the CTAs
-// the card holds at once (sweep_occupancy of the same instantiation).
+// the card holds at once (sweep_occupancy of the same instantiation);
+// [cell_lo, cell_hi): the home cells whose stencils are summed (0 and
+// n_cells for the whole grid), every slot of f written all the same.
 extern "C" int sweep_forces(const void* x, const void* y, const void* z,
                             const void* q, const void* sig, const void* seps,
                             const void* gid, const void* ew,
@@ -420,8 +466,9 @@ extern "C" int sweep_forces(const void* x, const void* y, const void* z,
                             const void* rnbr, const void* shift,
                             const void* rep_cell, const void* check_excl,
                             void* rframe, void* hframe, void* f,
-                            void* next_unit, int n_cells, int cap,
-                            int n_off, float cutoff2, float alpha,
+                            void* next_unit, int n_cells, int cell_lo,
+                            int cell_hi, int cap, int n_off, float cutoff2,
+                            float alpha,
                             float coulomb_scale, int excl_window,
                             int n_words, int coulomb, float krf, float crf,
                             int use_switch, float r_on, float sw_width,
@@ -433,8 +480,9 @@ extern "C" int sweep_forces(const void* x, const void* y, const void* z,
            krf,     crf,   r_on,          sw_width};
   return launch_kind<false>(coulomb, use_switch != 0, fd, nbr, rnbr, shift,
                             rep_cell, check_excl, rframe, hframe, f, nullptr,
-                            nullptr, next_unit, nullptr, 0, 0, n_cells, cap,
-                            n_off, p, max_ctas, stream);
+                            nullptr, next_unit, nullptr, 0, 0, n_cells,
+                            cell_lo, cell_hi, cap, n_off, p, max_ctas,
+                            stream);
 }
 
 // The direct-space energy into e_out on the card: e_part: sweep_units()
@@ -450,7 +498,8 @@ extern "C" int sweep_energy(const void* x, const void* y, const void* z,
                             const void* shift, const void* rep_cell,
                             const void* check_excl, void* e_part,
                             void* e_out, void* next_unit, const void* rows,
-                            int n_cells, int cap, int n_off, float cutoff2,
+                            int n_cells, int cell_lo, int cell_hi, int cap,
+                            int n_off, float cutoff2,
                             float alpha, float coulomb_scale,
                             int excl_window, int n_words, int coulomb,
                             float krf, float crf, int use_switch,
@@ -464,5 +513,6 @@ extern "C" int sweep_energy(const void* x, const void* y, const void* z,
   return launch_kind<true>(coulomb, use_switch != 0, fd, nbr, nullptr,
                            shift, rep_cell, check_excl, nullptr, nullptr,
                            nullptr, e_part, e_out, next_unit, rows, n_rows, m,
-                           n_cells, cap, n_off, p, max_ctas, stream);
+                           n_cells, cell_lo, cell_hi, cap, n_off, p, max_ctas,
+                           stream);
 }

@@ -92,6 +92,10 @@ class CellPairConfig:
     n_replicas: int = 1
     x_period: int = 0
     z_period: int = 0
+    # the reverse neighbour map (the cell whose neighbour at offset o is
+    # the row's cell), where it is not the periodic one: a slab block
+    # open in x (parallel/domain.py)
+    rev_map: np.ndarray | None = None
 
     @property
     def r_list(self) -> float:
@@ -191,11 +195,16 @@ def _auto_capacity(per_cell: float) -> int:
 def make_config(cutoff: float, box, n_atoms: int, exc_i, exc_j,
                 skin: float = 0.1, rebuild_interval: int = 16,
                 cells_per_cutoff: int = 2, density_margin: float = 1.35,
-                capacity: int | None = None) -> CellPairConfig:
+                capacity: int | None = None,
+                grid_x_multiple: int = 1) -> CellPairConfig:
     """Plan the cell grid, capacity and half stencil for a box given as
     its (3,) diagonal (orthorhombic) or its (3, 3) reduced matrix
     (triclinic: planned in the plane-width metric).  The port needs a
-    regular grid (>= 2w+1 cells per dimension)."""
+    regular grid (>= 2w+1 cells per dimension).  grid_x_multiple: the
+    x cell count rounded down to a multiple of it (at least one
+    multiple), so that x-slabs split it evenly over that many ranks
+    (the JAX make_config's option, forces/cellpair.py:169-174 there);
+    larger cells keep the window covering r_list."""
     box_in = np.asarray(box, np.float64)
     triclinic = box_in.ndim == 2
     if triclinic:
@@ -207,6 +216,9 @@ def make_config(cutoff: float, box, n_atoms: int, exc_i, exc_j,
     r_list = cutoff + skin
     target = r_list / cells_per_cutoff
     grid = tuple(max(int(np.floor(L / target)), 1) for L in widths)
+    m = int(grid_x_multiple)
+    if m > 1:
+        grid = (max(grid[0] // m * m, m), grid[1], grid[2])
     cell_size = widths / np.array(grid)
     window = tuple(int(np.ceil(r_list / cell_size[d])) for d in range(3))
     if capacity is None:
@@ -580,20 +592,34 @@ plain_sweeps = {"cuda": 0}
 TILE_ELEMS = 1 << 19
 
 
+def check_cells(cfg: CellPairConfig, cells) -> tuple:
+    """(lo, hi) of a home-slab range of x-major cell indices, all the
+    cells for None; raises unless 0 <= lo <= hi <= n_cells."""
+    if cells is None:
+        return 0, cfg.n_cells
+    lo, hi = (int(c) for c in cells)
+    if not 0 <= lo <= hi <= cfg.n_cells:
+        raise ValueError(f"cell range {cells} outside [0, {cfg.n_cells}]")
+    return lo, hi
+
+
 def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
                coulomb_scale: float, with_energy: bool = True,
                excl_skip: bool = False, erfc_fn=None, method: str = "ewald",
                krf: float = 0.0, crf: float = 0.0, cell_energy=False,
-               r_switch=None):
+               r_switch=None, cells=None):
     """The half-stencil pair sum, one chunk of offsets at a time.
 
     Yields (ob, b, g2, d, e) per chunk: the offset indices `ob` (the self
-    offset alone first), the neighbour cell of every cell at each of them
-    `b` (nc, P), the pair factor g2 = -2 dE/dr^2 with excluded and
-    out-of-range pairs zeroed (nc, C, P*C), the displacements d = a - b
+    offset alone first), the neighbour cell of every home cell at each of
+    them `b` (nh, P), the pair factor g2 = -2 dE/dr^2 with excluded and
+    out-of-range pairs zeroed (nh, C, P*C), the displacements d = a - b
     per component and the chunk's energy (None without with_energy; with
-    cell_energy each home cell's, (nc,)).  shifts: (n_off, 3), or
-    (R, n_off, 3) per replica (flat-ensemble NPT), read at each home
+    cell_energy each home cell's, (nh,)).  cells: the home-slab range
+    (lo, hi) of x-major cell indices whose stencils are summed (an
+    x-slab of the grid, parallel/sharded.py), all nc cells by default;
+    nh = hi - lo, and the neighbours b may lie anywhere.  shifts:
+    (n_off, 3), or (R, n_off, 3) per replica (flat-ensemble NPT), read at each home
     cell's replica.  A pair's force on the home slot is g2 * d, its
     reaction on the neighbour slot -g2 * d.  excl_skip drops the exclusion test at offsets
     with any |o| >= 2, as the kernels do (sound while the cell sort's
@@ -602,6 +628,8 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
     ending at the cutoff.  erfc_fn defaults to the exact erfc; the
     kernels' plain versions pass erfc_approx."""
     nc, C = cfg.n_cells, cfg.capacity
+    lo, hi = check_cells(cfg, cells)
+    nh = hi - lo
     x, y, z = (fields[k].reshape(nc, C) for k in "xyz")
     dtype = x.dtype
     dev = x.device
@@ -611,19 +639,24 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
     sig = fields["sig"].reshape(nc, C)
     seps = fields["seps"].reshape(nc, C)
     gid = fields["gid"].reshape(nc, C).to(torch.int64)
-    ew = fields["ew"].reshape(nc, C, -1).to(torch.int64)
+    ew = fields["ew"][lo * C:hi * C].reshape(
+        nh, C, fields["ew"].shape[-1]).to(torch.int64)
     W = cfg.excl_window
     cutoff2 = cfg.cutoff * cfg.cutoff
     pair_eg = make_pair_eg(method, alpha, krf, crf, erfc_fn, r_switch,
                            cfg.cutoff)
-    nbr = torch.as_tensor(cfg.nbr_map, device=dev)
-    qa = coulomb_scale * q
+    nbr = torch.as_tensor(cfg.nbr_map[lo:hi], device=dev)
+    # the home cells' rows (all of them for the full range)
+    xh, yh, zh, qh, sigh, sepsh, gidh = (
+        a[lo:hi] for a in (x, y, z, q, sig, seps, gid))
+    qa = coulomb_scale * qh
     far = np.max(np.abs(cfg.offsets), axis=1) >= 2
     if shifts.dim() == 3:
-        # each home cell's replica's table: (nc, n_off, 3)
-        shifts = shifts[torch.as_tensor(rep_of_cell(cfg), device=dev)]
+        # each home cell's replica's table: (nh, n_off, 3)
+        shifts = shifts[torch.as_tensor(rep_of_cell(cfg)[lo:hi],
+                                        device=dev)]
 
-    P_max = max(1, TILE_ELEMS // (nc * C * C))
+    P_max = max(1, TILE_ELEMS // (max(nh, 1) * C * C))
     chunks = [[0]]
     rest = list(range(1, cfg.n_offsets))
     chunks += [rest[i:i + P_max] for i in range(0, len(rest), P_max)]
@@ -631,20 +664,20 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
         self_block = ob == [0]
         P = len(ob)
         obt = torch.as_tensor(ob, device=dev)
-        b = nbr[:, obt]                                       # (nc, P)
-        # (1, P, 3), or (nc, P, 3) per home cell
+        b = nbr[:, obt]                                       # (nh, P)
+        # (1, P, 3), or (nh, P, 3) per home cell
         t = shifts[obt][None] if shifts.dim() == 2 else shifts[:, obt]
         d = []
-        for comp, src in enumerate((x, y, z)):
-            bv = (src[b] + t[:, :, comp:comp + 1]).reshape(nc, P * C)
-            d.append(src[:, :, None] - bv[:, None, :])        # (nc, C, P*C)
+        for comp, (src, home) in enumerate(((x, xh), (y, yh), (z, zh))):
+            bv = (src[b] + t[:, :, comp:comp + 1]).reshape(nh, P * C)
+            d.append(home[:, :, None] - bv[:, None, :])       # (nh, C, P*C)
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
         valid = r2 < cutoff2
         if self_block:
             valid = valid & ~torch.eye(C, dtype=torch.bool, device=dev)
         check = [not (excl_skip and far[o]) for o in ob]
         if W > 0 and any(check):
-            dg = gid[b].reshape(nc, P * C)[:, None, :] - gid[:, :, None]
+            dg = gid[b].reshape(nh, P * C)[:, None, :] - gidh[:, :, None]
             in_win = torch.abs(dg) <= W
             bit = torch.where(in_win, dg + W, torch.zeros_like(dg))
             # bit dg + W of the home slot's mask: bit % 31 of word bit // 31
@@ -663,9 +696,9 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
                           torch.ones_like(r2))
         inv_r = torch.rsqrt(r2s)
         inv_r2 = inv_r * inv_r
-        qq = qa[:, :, None] * q[b].reshape(nc, P * C)[:, None, :]
-        sg = 0.5 * (sig[:, :, None] + sig[b].reshape(nc, P * C)[:, None, :])
-        ep = seps[:, :, None] * seps[b].reshape(nc, P * C)[:, None, :]
+        qq = qa[:, :, None] * q[b].reshape(nh, P * C)[:, None, :]
+        sg = 0.5 * (sigh[:, :, None] + sig[b].reshape(nh, P * C)[:, None, :])
+        ep = sepsh[:, :, None] * seps[b].reshape(nh, P * C)[:, None, :]
         e, g = pair_eg(qq, sg, ep, r2s, inv_r, inv_r2)
         zero = torch.zeros((), dtype=dtype, device=dev)
         g2 = torch.where(keep, -2.0 * g, zero)
@@ -682,14 +715,18 @@ def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
           coulomb_scale: float, with_energy: bool = True,
           excl_skip: bool = False, erfc_fn=None, method: str = "ewald",
           krf: float = 0.0, crf: float = 0.0, per_replica: bool = False,
-          r_switch=None):
+          r_switch=None, cells=None):
     """Plain direct-space sum over the half stencil (pair_tiles), each
     reaction added straight onto its neighbour slot.
 
     Returns (energy, slot forces (n_cells * C, 3)); with per_replica the
     energy is (R,), each replica's cells summed in ascending order
-    (`replica_cells`).  shifts: as pair_tiles."""
+    (`replica_cells`).  shifts: as pair_tiles.  cells: the home-slab
+    range (lo, hi) (pair_tiles): only its cells' stencils are summed,
+    and their reactions land wherever the stencil reaches; the slabs of
+    a partition of the cells sum to the whole."""
     nc, C = cfg.n_cells, cfg.capacity
+    lo, hi = check_cells(cfg, cells)
     dtype, dev = fields["x"].dtype, fields["x"].device
     fx, fy, fz = (torch.zeros((nc, C), dtype=dtype, device=dev)
                   for _ in range(3))
@@ -699,15 +736,19 @@ def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
                                       coulomb_scale, with_energy,
                                       excl_skip, erfc_fn, method, krf, crf,
                                       cell_energy=per_replica,
-                                      r_switch=r_switch):
+                                      r_switch=r_switch, cells=(lo, hi)):
         if e is not None:
-            energy = energy + e
+            if per_replica:
+                energy[lo:hi] += e
+            else:
+                energy = energy + e
         fa = [torch.sum(g2 * dc, dim=2) for dc in d]
-        fx, fy, fz = fx + fa[0], fy + fa[1], fz + fa[2]
+        for fc, f in zip((fx, fy, fz), fa):
+            fc[lo:hi] += f
         if ob != [0]:
             for comp, fc in enumerate((fx, fy, fz)):
                 react = -torch.sum(g2 * d[comp], dim=1).reshape(
-                    nc, len(ob), C)
+                    hi - lo, len(ob), C)
                 for p in range(len(ob)):
                     scatter.index_add_(fc, b[:, p], react[:, p])
     f_slots = torch.stack([fx.reshape(-1), fy.reshape(-1), fz.reshape(-1)],

@@ -41,14 +41,18 @@ BLOCK_ELEMS_ENSEMBLE_CUDA = 1 << 25
 def pair_energy_forces(params, positions, box, pair_mask, cutoff,
                        alpha, coulomb_scale, with_energy=True, exact=None,
                        periodic=True, use_cutoff=True, method="ewald",
-                       krf=0.0, crf=0.0, r_switch=None, n_replicas=1):
+                       krf=0.0, crf=0.0, r_switch=None, n_replicas=1,
+                       row_range=None):
     """(energy, forces (N, 3)) of the direct-space sum over all ordered
     pairs not masked out; energy None without with_energy.  r_switch:
     the LJ switch's start (None: no switch), ending at the cutoff.
     n_replicas = R: R replica-major copies of one n0-atom system, each
     summed over its own (n0, n0) block (pair_mask is one replica's), all
     in one batched pass: the block-diagonal sum of a replica ensemble
-    (the energy is the replicas' total)."""
+    (the energy is the replicas' total).  row_range: (lo, hi), the rows
+    of each replica's block summed (one rank's share, parallel/
+    sharded.py): their forces, the other rows' zero, and half their
+    pairs' energy; all rows by default."""
     N = positions.shape[0]
     R = int(n_replicas)
     n = N // R
@@ -68,11 +72,14 @@ def pair_energy_forces(params, positions, box, pair_mask, cutoff,
     elems = (BLOCK_ELEMS_ENSEMBLE_CUDA
              if R > 1 and positions.device.type == "cuda" else BLOCK_ELEMS)
     rows = max(1, min(n, elems // max(R * n, 1)))
+    lo, hi = (0, n) if row_range is None else (int(v) for v in row_range)
+    if not 0 <= lo <= hi <= n:
+        raise ValueError(f"row range {row_range} outside [0, {n}]")
     energy = positions.new_zeros(()) if with_energy else None
-    forces = []
+    forces = torch.zeros((R, n, 3), dtype=dtype, device=positions.device)
     zero = torch.zeros((), dtype=dtype, device=positions.device)
-    for o in range(0, n, rows):
-        sl = slice(o, min(o + rows, n))
+    for o in range(lo, hi, rows):
+        sl = slice(o, min(o + rows, hi))
         d = []
         for c in range(3):
             dc = src[:, sl, c][:, :, None] - src[:, :, c][:, None, :]
@@ -96,6 +103,6 @@ def pair_energy_forces(params, positions, box, pair_mask, cutoff,
         g2 = torch.where(valid, -2.0 * g, zero)
         if with_energy:
             energy = energy + 0.5 * torch.sum(torch.where(valid, e, zero))
-        forces.append(torch.stack([torch.sum(g2 * dc, dim=2) for dc in d],
-                                  dim=2))
-    return energy, torch.cat(forces, dim=1).reshape(N, 3)
+        forces[:, sl] = torch.stack([torch.sum(g2 * dc, dim=2) for dc in d],
+                                    dim=2)
+    return energy, forces.reshape(N, 3)

@@ -585,24 +585,26 @@ class DenseTerm(NonbondedTerm):
         mask[exc_j[first], exc_i[first]] = False
         self.pair_mask = torch.as_tensor(mask, device=device)
 
-    def _sweep(self, positions, box, exact, with_energy):
+    def _sweep(self, positions, box, exact, with_energy, row_range=None):
         return dense.pair_energy_forces(
             self.params, positions, box, self.pair_mask, self.cutoff,
             self.alpha, ONE_4PI_EPS0, with_energy=with_energy, exact=exact,
             periodic=self.periodic, use_cutoff=self.use_cutoff,
-            n_replicas=self.n_replicas, **self.coulomb)
+            n_replicas=self.n_replicas, row_range=row_range,
+            **self.coulomb)
 
     def sweep_forces(self, positions, box, neighbors=None, exact=None,
-                     rep_scale=None):
+                     rep_scale=None, row_range=None):
         """rep_scale: None (per-replica scales are a cell-pair
-        ensemble's)."""
+        ensemble's); row_range: one rank's rows of each replica's block
+        (dense.pair_energy_forces)."""
         assert rep_scale is None
-        return self._sweep(positions, box, exact, False)[1]
+        return self._sweep(positions, box, exact, False, row_range)[1]
 
     def sweep_energy(self, positions, box, neighbors=None, exact=None,
-                     rep_scale=None):
+                     rep_scale=None, row_range=None):
         assert rep_scale is None
-        return self._sweep(positions, box, exact, True)[0]
+        return self._sweep(positions, box, exact, True, row_range)[0]
 
 
 class CellListTerm(NonbondedTerm):
@@ -694,9 +696,10 @@ class CellPairTerm(NonbondedTerm):
                 force._cutoff, box0, n // R, R, exc_i, exc_j, rx=rx, rz=rz,
                 capacity=opts.get("capacity"))
         else:
-            self.cfg = cellpair.make_config(force._cutoff, box0, n, exc_i,
-                                            exc_j,
-                                            capacity=opts.get("capacity"))
+            self.cfg = cellpair.make_config(
+                force._cutoff, box0, n, exc_i, exc_j,
+                capacity=opts.get("capacity"),
+                grid_x_multiple=opts.get("grid_x_multiple", 1))
         super().__init__(force, system, dtype, device,
                          cell_grid=self.cfg.phys_grid)
         self.params["excl_words"] = torch.as_tensor(
@@ -731,42 +734,55 @@ class CellPairTerm(NonbondedTerm):
     def _kernel(self):
         return sweep_chunked if self.sweep_kernel == "b2" else sweep
 
+    def _kernel_call(self, name, cells, *args, **kw):
+        """The kernel wrapper `name` (pair_forces, pair_energy) of the
+        routed kernel, or of B1 on a home-slab range `cells` (B2 has no
+        slab form; B1 takes every config b1_takes accepts)."""
+        if cells is None:
+            return getattr(self._kernel(), name)(*args, **kw)
+        if not sweep.b1_takes(self.cfg):
+            raise ValueError("kernel B1 does not take the config, and only "
+                             "B1 sweeps a home-slab range")
+        return getattr(sweep, name)(*args, cells=cells, **kw)
+
     def sweep_forces(self, positions, box, cellsort, exact=None,
-                     rep_scale=None):
+                     rep_scale=None, cells=None):
         """Direct-space forces (N, 3), atom order; physical with
-        rep_scale (the kernels' scaled instantiations)."""
+        rep_scale (the kernels' scaled instantiations).  cells: a
+        home-slab range (lo, hi) of the cells (one rank's x-slab,
+        parallel/sharded.py): only their stencils are summed, by B1 in
+        float32."""
         fields = self.fields(positions, box, cellsort, exact, rep_scale)
         shifts = cellpair.offset_shifts(self.cfg, box, rep_scale)
         if self.use_kernel:
-            f = self._kernel().pair_forces(fields, self.cfg, shifts,
-                                           self.alpha, ONE_4PI_EPS0,
-                                           excl_skip=self.excl_skip,
-                                           **self.coulomb)
+            f = self._kernel_call("pair_forces", cells, fields, self.cfg,
+                                  shifts, self.alpha, ONE_4PI_EPS0,
+                                  excl_skip=self.excl_skip, **self.coulomb)
         else:
             _, f = cellpair.sweep(fields, self.cfg, shifts, self.alpha,
                                   ONE_4PI_EPS0, with_energy=False,
-                                  **self.coulomb)
+                                  cells=cells, **self.coulomb)
         return f[cellsort.inv_slot]
 
     def sweep_energy(self, positions, box, cellsort, exact=None,
-                     rep_scale=None, per_replica=False):
+                     rep_scale=None, per_replica=False, cells=None):
         """Direct-space energy (exact erfc): in float32 the energy
         instantiation of the kernel that `route` chose (float64 on the
         card; its plain version on the CPU), else the plain sweep.  With
         rep_scale the scaled instantiation: the (R,) per-replica energies
-        with per_replica, else their sum."""
+        with per_replica, else their sum.  cells: a home-slab range, as
+        sweep_forces."""
         fields = self.fields(positions, box, cellsort, exact, rep_scale)
         shifts = cellpair.offset_shifts(self.cfg, box, rep_scale)
         if self.use_kernel:
-            e = self._kernel().pair_energy(fields, self.cfg, shifts,
-                                           self.alpha, ONE_4PI_EPS0,
-                                           excl_skip=self.excl_skip,
-                                           **self.coulomb)
+            e = self._kernel_call("pair_energy", cells, fields, self.cfg,
+                                  shifts, self.alpha, ONE_4PI_EPS0,
+                                  excl_skip=self.excl_skip, **self.coulomb)
         else:
             e, _ = cellpair.sweep(fields, self.cfg, shifts, self.alpha,
                                   ONE_4PI_EPS0, with_energy=True,
                                   per_replica=rep_scale is not None,
-                                  **self.coulomb)
+                                  cells=cells, **self.coulomb)
         if rep_scale is not None and not per_replica:
             e = torch.sum(e.double())
         return e

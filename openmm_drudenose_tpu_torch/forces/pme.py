@@ -241,15 +241,45 @@ def _grid_shape(setup: PmeSetup, n_replicas: int) -> tuple:
         else (n_replicas,) + tuple(setup.grid)
 
 
-def _yz_index(setup: PmeSetup, idx, n: int, n_replicas: int):
+def _yz_index(setup: PmeSetup, idx, n: int, n_replicas: int, rep=None):
     """(N, order^2) flat (y, z) tap indices, offset by each atom's
-    replica's grid (replica-major atoms) where n_replicas > 1."""
+    replica's grid (replica-major atoms) where n_replicas > 1; `rep`:
+    each atom's replica where the atoms are a chunk of the system's (by
+    default atom // (n / n_replicas))."""
     K1, K2, K3 = setup.grid
     yz = (idx[1][:, :, None] * K3 + idx[2][:, None, :]).reshape(n, -1)
     if n_replicas > 1:
-        rep = torch.arange(n, device=yz.device) // (n // n_replicas)
+        if rep is None:
+            rep = torch.arange(n, device=yz.device) // (n // n_replicas)
         yz = yz + (rep * (K1 * K2 * K3))[:, None]
     return yz
+
+
+def spread_fixed(setup: PmeSetup, charges, idx, wts, charge_bound=None,
+                 n_replicas: int = 1, rep=None):
+    """The charge grid as `spread` sums it: (the flat int64 fixed-point
+    grid, its shift).  Grids of disjoint chunks of the atoms spread with
+    one charge_bound (the whole system's) add exactly, in any order, to
+    the whole's (parallel/sharded.py all-reduces them so); `rep` as in
+    _yz_index."""
+    K1, K2, K3 = setup.grid
+    n = charges.shape[0]
+    if charge_bound is None:
+        q = torch.abs(charges)
+        charge_bound = float(torch.sum(q) if n_replicas == 1 else
+                             torch.max(torch.sum(q.reshape(n_replicas, -1),
+                                                 dim=1)))
+    shift = scatter.fixed_point_shift(charge_bound)
+    acc = torch.zeros(n_replicas * K1 * K2 * K3, dtype=torch.int64,
+                      device=charges.device)
+    yz = _yz_index(setup, idx, n, n_replicas, rep)
+    wyz = (wts[1][:, :, None] * wts[2][:, None, :]).reshape(n, -1)
+    for t in range(PME_ORDER):
+        flat = idx[0][:, t:t + 1] * (K2 * K3) + yz
+        val = (charges * wts[0][:, t])[:, None] * wyz
+        scatter.fixed_point_add_(acc, flat.reshape(-1), val.reshape(-1),
+                                 shift)
+    return acc, shift
 
 
 def spread(setup: PmeSetup, charges, idx, wts, charge_bound=None,
@@ -261,23 +291,8 @@ def spread(setup: PmeSetup, charges, idx, wts, charge_bound=None,
     is bounded by sum |q| (the taps' weights are >= 0 and sum to 1; one
     replica's sum for R replicas); `charge_bound` passes it in, else it
     is read from `charges` (one host read)."""
-    K1, K2, K3 = setup.grid
-    n = charges.shape[0]
-    if charge_bound is None:
-        q = torch.abs(charges)
-        charge_bound = float(torch.sum(q) if n_replicas == 1 else
-                             torch.max(torch.sum(q.reshape(n_replicas, -1),
-                                                 dim=1)))
-    shift = scatter.fixed_point_shift(charge_bound)
-    acc = torch.zeros(n_replicas * K1 * K2 * K3, dtype=torch.int64,
-                      device=charges.device)
-    yz = _yz_index(setup, idx, n, n_replicas)
-    wyz = (wts[1][:, :, None] * wts[2][:, None, :]).reshape(n, -1)
-    for t in range(PME_ORDER):
-        flat = idx[0][:, t:t + 1] * (K2 * K3) + yz
-        val = (charges * wts[0][:, t])[:, None] * wyz
-        scatter.fixed_point_add_(acc, flat.reshape(-1), val.reshape(-1),
-                                 shift)
+    acc, shift = spread_fixed(setup, charges, idx, wts, charge_bound,
+                              n_replicas)
     return scatter.from_fixed_point(acc, shift, charges.dtype).reshape(
         _grid_shape(setup, n_replicas))
 
@@ -359,7 +374,6 @@ def recip_energy_forces(setup: PmeSetup, charges, positions, box,
     `exact` as in _taps.  For n_replicas = R the R replicas' sums in one
     batched pass: (per-replica energies (R,), forces); rep_scale and
     eterm as reciprocal_energy (the forces then times 1 / s_r)."""
-    K1, K2, K3 = setup.grid
     n = positions.shape[0]
     positions, exact = _stored(positions, exact, rep_scale)
     idx, wts, dwts = _taps(setup, positions, box, exact)
@@ -367,8 +381,24 @@ def recip_energy_forces(setup: PmeSetup, charges, positions, box,
     if rep_scale is not None and eterm is None:
         eterm = scaled_eterm(setup, box, rep_scale, Q.dtype)
     energy, phi = grid_energy_and_potential(setup, Q, box, eterm, rep_scale)
+    inv_s = (None if rep_scale is None else 1.0 / cellpair.atom_scales(
+        rep_scale.to(positions.device), n))
+    return energy, interpolate_forces(setup, charges, positions, box, idx,
+                                      wts, dwts, phi, n_replicas, inv_s)
+
+
+def interpolate_forces(setup: PmeSetup, charges, positions, box, idx, wts,
+                       dwts, phi, n_replicas: int = 1, inv_scale=None,
+                       rep=None):
+    """The analytic interpolation forces (N, 3) of the atoms whose taps
+    are (idx, wts, dwts), from the potential grid phi = dE/dQ (any shape
+    of K1 K2 K3 values a replica); inv_scale: each atom's 1 / s_r
+    (float64) with per-replica scales; rep as in _yz_index (the atoms
+    may be a chunk of the system's)."""
+    K1, K2, K3 = setup.grid
+    n = positions.shape[0]
     phi = phi.reshape(-1)
-    yz = _yz_index(setup, idx, n, n_replicas)
+    yz = _yz_index(setup, idx, n, n_replicas, rep)
     w_yz = (wts[1][:, :, None] * wts[2][:, None, :]).reshape(n, -1)
     dy_z = (dwts[1][:, :, None] * wts[2][:, None, :]).reshape(n, -1)
     y_dz = (wts[1][:, :, None] * dwts[2][:, None, :]).reshape(n, -1)
@@ -389,10 +419,9 @@ def recip_energy_forces(setup: PmeSetup, charges, positions, box,
                             ux * ib[1, 0] + uy * ib[1, 1],
                             ux * ib[2, 0] + uy * ib[2, 1] + uz * ib[2, 2]],
                            dim=1)
-        return energy, -charges[:, None] * grad
+        return -charges[:, None] * grad
     scale = K / box
     forces = -charges[:, None] * torch.stack([gx, gy, gz], dim=1) * scale
-    if rep_scale is not None:
-        inv_s = 1.0 / cellpair.atom_scales(rep_scale.to(positions.device), n)
-        forces = forces * inv_s.to(positions.dtype)[:, None]
-    return energy, forces
+    if inv_scale is not None:
+        forces = forces * inv_scale.to(positions.dtype)[:, None]
+    return forces

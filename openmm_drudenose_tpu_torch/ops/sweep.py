@@ -79,10 +79,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (the force and the energy instantiations apart, each Coulomb kind apart:
 # "_rf" for the reaction field; launches on a grid of replica bands
 # apart: "_bands", and those with per-replica scales: "_scaled"; switched
-# LJ apart: "_sw")
-launches = {f"{k}_{i}{c}{b}{w}": 0 for k in ("b1", "b2")
+# LJ apart: "_sw"; B1's launches on a home-slab range of the cells apart:
+# "_slab", parallel/sharded.py and parallel/domain.py)
+launches = {f"{k}_{i}{c}{b}{w}{h}": 0 for k in ("b1", "b2")
             for i in ("sweep", "energy") for c in ("", "_rf")
-            for b in ("", "_bands", "_scaled") for w in ("", "_sw")}
+            for b in ("", "_bands", "_scaled") for w in ("", "_sw")
+            for h in (("", "_slab") if k == "b1" else ("",))}
 INT32_MAX = 2 ** 31 - 1
 
 # the kernels' Coulomb kinds (csrc/pair_tile.cuh::Coulomb)
@@ -104,15 +106,17 @@ def coulomb_kind(method: str, alpha: float, krf: float, crf: float) -> int:
 
 
 def launch_key(kernel: str, energy: bool, method: str, cfg=None,
-               scaled: bool = False, switched: bool = False) -> str:
+               scaled: bool = False, switched: bool = False,
+               slab: bool = False) -> str:
     """The `launches` key of a kernel's instantiation (on `cfg`'s grid:
     "_bands" where it embeds replica bands; "_scaled" with per-replica
-    scales; "_sw" with the LJ switch)."""
+    scales; "_sw" with the LJ switch; "_slab" on a home-slab range of
+    the cells, not all of them)."""
     geometry = ("_scaled" if scaled else "_bands"
                 if cfg is not None and cfg.n_replicas > 1 else "")
     return (f"{kernel}_{'energy' if energy else 'sweep'}"
             + ("_rf" if method == "rf" else "") + geometry
-            + ("_sw" if switched else ""))
+            + ("_sw" if switched else "") + ("_slab" if slab else ""))
 
 
 def switch_args(cfg, r_switch) -> tuple:
@@ -203,12 +207,11 @@ def load(name: str, declare):
 
 def _declare(lib):
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.sweep_forces.argtypes = [vp] * 18 + [ci, ci, ci, cf, cf, cf, ci, ci,
-                                             ci, cf, cf, ci, cf, cf, ci, vp]
+    lib.sweep_forces.argtypes = [vp] * 18 + [ci] * 5 + [
+        cf, cf, cf, ci, ci, ci, cf, cf, ci, cf, cf, ci, vp]
     lib.sweep_forces.restype = ci
-    lib.sweep_energy.argtypes = [vp] * 17 + [ci, ci, ci, cf, cf, cf, ci, ci,
-                                             ci, cf, cf, ci, cf, cf, ci, ci,
-                                             ci, vp]
+    lib.sweep_energy.argtypes = [vp] * 17 + [ci] * 5 + [
+        cf, cf, cf, ci, ci, ci, cf, cf, ci, cf, cf, ci, ci, ci, vp]
     lib.sweep_energy.restype = ci
     lib.sweep_attributes.argtypes = [vp, ci, ci, ci, ci]
     lib.sweep_attributes.restype = ci
@@ -394,7 +397,10 @@ _tables = {}
 def reverse_neighbors(cfg) -> np.ndarray:
     """(n_cells, n_off): the cell whose neighbour at offset o is the row's
     cell (cell - o, wrapped inside the cell's replica bands), as the
-    fixed-order gather reads it."""
+    fixed-order gather reads it; a config's own rev_map where it has
+    one)."""
+    if cfg.rev_map is not None:
+        return cfg.rev_map
     return cellpair.neighbor_map(cfg.grid, cfg.phys_grid, cfg.offsets, -1)
 
 
@@ -488,12 +494,13 @@ def check_fields(fields, cfg):
 
 def pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
                       excl_skip=True, method="ewald", krf=0.0, crf=0.0,
-                      r_switch=None):
-    """The plain PyTorch version: slot forces (n_cells * C, 3)."""
+                      r_switch=None, cells=None):
+    """The plain PyTorch version: slot forces (n_cells * C, 3); cells: the
+    home-slab range, as pair_forces."""
     _, f = cellpair.sweep(fields, cfg, shifts, alpha, coulomb_scale,
                           with_energy=False, excl_skip=excl_skip,
                           erfc_fn=cellpair.erfc_approx, method=method,
-                          krf=krf, crf=crf, r_switch=r_switch)
+                          krf=krf, crf=crf, r_switch=r_switch, cells=cells)
     return f
 
 
@@ -512,7 +519,7 @@ def _card_args(fields, cfg):
 
 def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
                 excl_skip=True, method="ewald", krf=0.0, crf=0.0,
-                r_switch=None):
+                r_switch=None, cells=None):
     """Slot forces (n_cells * C, 3) of the direct-space sum, the same bits
     at every launch.
 
@@ -520,15 +527,21 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
     image shift, or (R, n_off, 3) per replica (flat-ensemble NPT: the
     scaled instantiation); method: the Coulomb kind, "ewald" (alpha) or
     "rf" (krf, crf); r_switch: the LJ switch's start (None: no switch),
-    ending at the cutoff.  CPU tensors run the plain version; CUDA
+    ending at the cutoff; cells: the home-slab range (lo, hi) of x-major
+    cell indices (None: every cell), whose stencils alone are summed,
+    their reactions landing wherever the stencil reaches (the slabs of a
+    partition sum to the whole; the full range gives the bits of a
+    launch without one).  CPU tensors run the plain version; CUDA
     tensors launch the kernel (float32 only) or raise."""
     check_config(cfg)
     kind = coulomb_kind(method, alpha, krf, crf)
     scaled = check_shifts(shifts, cfg)
     sw = switch_args(cfg, r_switch)
+    lo, hi = cellpair.check_cells(cfg, cells)
     if fields["x"].device.type == "cpu":
         return pair_forces_plain(fields, cfg, shifts, alpha, coulomb_scale,
-                                 excl_skip, method, krf, crf, r_switch)
+                                 excl_skip, method, krf, crf, r_switch,
+                                 (lo, hi))
     dev = _card_args(fields, cfg)
     lib = load("sweep", _declare)
     nbr, rnbr, chk = _device_tables(cfg, excl_skip, dev)
@@ -551,28 +564,30 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
     err = lib.sweep_forces(
         *field_ptrs(fields), p(nbr), p(rnbr), p(sh),
         None if rep_cell is None else p(rep_cell), p(chk), p(rframe),
-        p(hframe), p(f), p(counter), nc, C, n_off,
+        p(hframe), p(f), p(counter), nc, lo, hi, C, n_off,
         float(cfg.cutoff * cfg.cutoff), float(alpha), float(coulomb_scale),
         cfg.excl_window, cfg.excl_words, kind, float(krf), float(crf),
         *sw, sms * per_sm, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
-    launches[launch_key("b1", False, method, cfg, scaled, sw[0])] += 1
+    launches[launch_key("b1", False, method, cfg, scaled, sw[0],
+                        (lo, hi) != (0, nc))] += 1
     return f
 
 
 def pair_energy_plain(fields, cfg, shifts, alpha, coulomb_scale,
                       excl_skip=True, method="ewald", krf=0.0, crf=0.0,
-                      r_switch=None):
+                      r_switch=None, cells=None):
     """The energy instantiation's plain PyTorch version: the direct-space
     energy with the exact erfc or the reaction field (forces/cellpair.py::
     sweep), a 0-d tensor in the fields' type; with per-replica shifts
-    (R, n_off, 3) the (R,) per-replica energies."""
+    (R, n_off, 3) the (R,) per-replica energies; cells: the home-slab
+    range, as pair_forces."""
     e, _ = cellpair.sweep(fields, cfg, shifts, alpha, coulomb_scale,
                           with_energy=True, excl_skip=excl_skip,
                           method=method, krf=krf, crf=crf,
                           per_replica=check_shifts(shifts, cfg),
-                          r_switch=r_switch)
+                          r_switch=r_switch, cells=cells)
     return e
 
 
@@ -584,20 +599,24 @@ def field_ptrs(fields):
 
 
 def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
-                method="ewald", krf=0.0, crf=0.0, r_switch=None):
+                method="ewald", krf=0.0, crf=0.0, r_switch=None,
+                cells=None):
     """The direct-space energy (0-d) by B1's energy instantiation: float64
     on the card, summed in an order fixed by the data (the same bits at
     every launch); with per-replica shifts (R, n_off, 3) the scaled
-    instantiation's (R,) per-replica energies.  CPU tensors run the plain
-    version; CUDA tensors launch the kernel (float32 fields only) or
-    raise."""
+    instantiation's (R,) per-replica energies; cells: the home-slab range
+    (lo, hi), as pair_forces (the energy of its cells' stencils).  CPU
+    tensors run the plain version; CUDA tensors launch the kernel
+    (float32 fields only) or raise."""
     check_config(cfg)
     kind = coulomb_kind(method, alpha, krf, crf)
     scaled = check_shifts(shifts, cfg)
     sw = switch_args(cfg, r_switch)
+    lo, hi = cellpair.check_cells(cfg, cells)
     if fields["x"].device.type == "cpu":
         return pair_energy_plain(fields, cfg, shifts, alpha, coulomb_scale,
-                                 excl_skip, method, krf, crf, r_switch)
+                                 excl_skip, method, krf, crf, r_switch,
+                                 (lo, hi))
     dev = _card_args(fields, cfg)
     lib = load("sweep", _declare)
     nbr, _, chk = _device_tables(cfg, excl_skip, dev)
@@ -615,7 +634,7 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
     opt = lambda t: None if t is None else p(t)
     err = lib.sweep_energy(
         *field_ptrs(fields), p(nbr), p(sh), opt(rep_cell), p(chk), p(part),
-        p(e), p(counter), opt(rows), cfg.n_cells, cfg.capacity,
+        p(e), p(counter), opt(rows), cfg.n_cells, lo, hi, cfg.capacity,
         cfg.n_offsets, float(cfg.cutoff * cfg.cutoff), float(alpha),
         float(coulomb_scale), cfg.excl_window, cfg.excl_words, kind,
         float(krf), float(crf), *sw, sms * per_sm,
@@ -623,5 +642,6 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
         ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"sweep energy launch failed: CUDA error {err}")
-    launches[launch_key("b1", True, method, cfg, scaled, sw[0])] += 1
+    launches[launch_key("b1", True, method, cfg, scaled, sw[0],
+                        (lo, hi) != (0, cfg.n_cells))] += 1
     return e

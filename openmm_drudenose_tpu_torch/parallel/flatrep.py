@@ -276,14 +276,16 @@ class FlatReplicaEnsemble:
         self._template = context
         nb = dict(context._nb_options)
         nb.update(nb_options or {})
-        nb["ensemble"] = [R_int, int(rx), int(rz)]
+        if R_int > 1:
+            # (one replica is the template's own system and Context)
+            nb["ensemble"] = [R_int, int(rx), int(rz)]
         self.context = Context(
             replicate_system(context._system, R_int),
             _clone_integrator(context._integrator, R_int),
             precision=context._prec, strategy=strategy, seed=seed,
             hardwall_strict=context._hardwall_strict, nb_options=nb,
             device=context._device, ensemble_r=R_int)
-        if npt:
+        if npt and R_int > 1:
             # per-replica NPT: unit scales, each replica's own move size
             # and counters (the JAX flatrep.py:290-303)
             self.context._state = self.context._state.replace(
@@ -362,7 +364,7 @@ class FlatReplicaEnsemble:
             pad = np.broadcast_to(
                 x[0], (self._r_int - self._n_replicas,) + x.shape[1:])
             x = np.concatenate([x, pad], axis=0)
-        return x.reshape(-1, 3)
+        return np.array(x.reshape(-1, 3))
 
     def setPositions(self, positions) -> None:
         """(R, N0, 3) per-replica positions (or (N0, 3), broadcast)."""
@@ -394,7 +396,7 @@ class FlatReplicaEnsemble:
         step has run."""
         ctx = self.context
         if ctx._ke_valid:
-            return ctx._state.ke_sum.double().numpy()[
+            return np.atleast_1d(ctx._state.ke_sum.double().numpy())[
                 :self._n_replicas].copy()
         m = ctx._spec.mass.double().cpu().numpy()
         v = ctx._state.velocities.double().cpu().numpy()
@@ -405,8 +407,8 @@ class FlatReplicaEnsemble:
     def group_temperatures(self) -> np.ndarray:
         """(R, G+2) per-replica per-bath temperatures (K)."""
         st = self.context.getState(energy=True, groups=True)
-        return np.asarray(st.getGroupTemperatures(),
-                          np.float64)[:self._n_replicas]
+        return np.asarray(st.getGroupTemperatures(), np.float64).reshape(
+            self._r_int, -1)[:self._n_replicas]
 
     def potential_energies(self) -> np.ndarray:
         """(R,) per-replica potential energies: the template Context's

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Time the port's two NVT cells on one CUDA card, from any tree of the
 repository: the 100k water step of chip_smoke.py phase 3 and the 64 x 4k
-flat ensemble of phase 10, by their own protocols.
+flat ensemble of phase 10, by their own protocols, and kernel B1's
+whole-grid launches on phase 3's fields.
 
     python3 openmm_drudenose_tpu_torch/tools/time_nvt.py --root TREE \\
-        [--cells 100k,flat] [--label NAME] [--out DIR]
+        [--cells 100k,flat,b1] [--label NAME] [--out DIR]
 
 TREE is a checkout of the repository (an unpacked `git archive` of
 another commit, say): its own package is imported and its own kernels
@@ -26,6 +27,11 @@ line (the card's name and power limit, ms/step of each timed run); with
         FlatReplicaEnsemble(tpl, 64, seed=7), fresh 300 K velocities,
         128 settling steps, then 3 runs of 128 (phase 10's protocol; it
         reports the best).
+  b1:   the 100k cell's Context after one force pass and 16 steps; B1's
+        force and energy instantiations on its fields over the whole
+        grid (the chip_smoke.py phase 3 arguments), device ms a call by
+        CUDA events over B1_REPS calls, B1_REPEATS times each (ms a
+        call, not a step).
 """
 
 import argparse
@@ -40,6 +46,7 @@ import numpy as np
 STEPS_100K, REPEATS_100K = 100, 3
 FLAT_MOL, FLAT_REPLICAS, FLAT_SETTLE = 800, 64, 500
 FLAT_WARM, FLAT_STEPS, FLAT_REPEATS = 128, 128, 3
+B1_REPS, B1_REPEATS = 50, 5
 
 
 def card_line() -> str:
@@ -68,7 +75,7 @@ def timed(torch, fn, n_steps, repeats):
     return out
 
 
-def cell_100k(root, dt, torch):
+def context_100k(root, dt):
     from openmm_drudenose_tpu_torch.io import builders
     snap = np.load(os.path.join(root, "data", "bench_equil_100k.npz"))
     n = int(snap["n_atoms"])
@@ -81,7 +88,43 @@ def cell_100k(root, dt, torch):
     ctx.setVelocities(np.asarray(snap["velocities"], np.float64))
     ctx._ensure_forces()
     integ.step(16)
+    return ctx, integ
+
+
+def cell_100k(root, dt, torch):
+    _, integ = context_100k(root, dt)
     return timed(torch, integ.step, STEPS_100K, REPEATS_100K)
+
+
+def events_ms(torch, fn, reps):
+    """Mean device ms of fn() over `reps` calls, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cell_b1(root, dt, torch):
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.ops import sweep
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    ctx, _ = context_100k(root, dt)
+    st, nb, cfg = ctx._state, ctx._nb, ctx._cp_cfg
+    box = torch.diagonal(st.box)
+    args = (nb.fields(st.positions, box, st.neighbors), cfg,
+            cellpair.offset_shifts(cfg, box), nb.alpha, ONE_4PI_EPS0)
+    out = {}
+    for name, fn in (("b1_forces", sweep.pair_forces),
+                     ("b1_energy", sweep.pair_energy)):
+        out[name] = [events_ms(torch, lambda: fn(*args), B1_REPS)
+                     for _ in range(B1_REPEATS)]
+    return out
 
 
 def cell_flat(dt, torch):
@@ -122,9 +165,18 @@ def main():
         sys.exit(f"time_nvt: imported {pkg}, not the tree's own package")
     label = args.label or os.path.basename(root)
     result = {"label": label, "root": root, "card": card_line(),
-              "ms_per_step": {}}
+              "ms_per_step": {}, "ms_per_call": {}}
     for cell in args.cells.split(","):
         t0 = time.time()
+        if cell == "b1":
+            calls = cell_b1(root, dt, torch)
+            result["ms_per_call"].update(calls)
+            for name, ms in calls.items():
+                print(f"[time_nvt {label}] {name}: "
+                      + ", ".join(f"{v:.4f}" for v in ms)
+                      + f" ms/call (best {min(ms):.4f}) on "
+                      f"{result['card']}", flush=True)
+            continue
         if cell == "100k":
             ms = cell_100k(root, dt, torch)
         elif cell == "flat":

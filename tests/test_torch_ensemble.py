@@ -11,8 +11,8 @@ the same strategy (its XLA route) stepped from that replica's
 velocities.  The JAX package's swm4_water_box(grid_size=2) (1.8 nm,
 cutoff 1.0) has no regular cell grid, which the port's cell-pair sweep
 needs, so the cell-pair case runs at grid_size=4 (3.0 nm).  Also: the
-replicas' isolation, stack_states / replicate_state, and the mesh
-refused (ROADMAP.md A19)."""
+replicas' isolation, stack_states / replicate_state, and a mesh that is
+not a parallel/comm.py Mesh refused."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -107,7 +107,9 @@ def test_replica_ensemble_api():
     assert np.all(np.isfinite(ke))
     assert not np.allclose(ens.positions()[0], ens.positions()[1])
     assert ens.group_temperatures().shape == (3, ctx._static.n_baths)
-    with pytest.raises(NotImplementedError, match="A19"):
+    # a mesh is a parallel/comm.py Mesh of torch.distributed ranks
+    # (tests/test_torch_mesh_ensemble.py runs them)
+    with pytest.raises(TypeError, match="Mesh"):
         ensemble.ReplicaEnsemble(ctx, 2, mesh=object())
 
 

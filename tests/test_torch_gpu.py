@@ -968,3 +968,48 @@ def test_replica_ensemble_replica_matches_context_on_card(cuda, strategy):
         # 16 steps, and the force pass the first step starts from
         assert 16 <= sweep.launches["b1_sweep_bands"] - before <= 17
         assert ensemble.check_isolated(ens32, 0) == 0.0
+
+
+def test_b1_slab_range_on_card(cuda):
+    """B1 with a home-slab range (parallel/sharded.py's x-slabs): each
+    slab against its plain version (2e-5 of max|F|), bit-identical on a
+    second launch; the full range the bits of a launch without one; the
+    slabs summed against the whole (2e-5) and their energies against the
+    whole energy (1e-6 of |E|); launches counted under "_slab"."""
+    ctx, _ = _ctx(cuda)
+    args = _fields(ctx)
+    nc = args[1].n_cells
+    f = sweep.pair_forces(*args)
+    e = sweep.pair_energy(*args)
+    assert torch.equal(sweep.pair_forces(*args, cells=(0, nc)), f)
+    assert torch.equal(sweep.pair_energy(*args, cells=(0, nc)), e)
+    scale = float(torch.max(torch.abs(f)))
+    before = sweep.launches["b1_sweep_slab"]
+    total, e_total = torch.zeros_like(f), 0.0
+    for cells in ((0, 25), (25, 75), (75, nc)):
+        fk = sweep.pair_forces(*args, cells=cells)
+        assert torch.equal(sweep.pair_forces(*args, cells=cells), fk)
+        fp = sweep.pair_forces_plain(*args, cells=cells)
+        assert float(torch.max(torch.abs(fk - fp))) <= 2e-5 * scale
+        total += fk
+        e_total += float(sweep.pair_energy(*args, cells=cells))
+    torch.cuda.synchronize()
+    assert sweep.launches["b1_sweep_slab"] - before == 6
+    assert float(torch.max(torch.abs(total - f))) <= 2e-5 * scale
+    assert abs(e_total - float(e)) <= 1e-6 * abs(float(e))
+
+
+def test_sharded_force_pass_two_ranks_on_card(cuda):
+    """Two gloo ranks on cuda:0: the sharded force pass against the
+    single float32 Context's (phase 2's floor, 1e-4 of max|F|; the pass
+    differs only in the order of the sums), the ranks' forces the same
+    bits, B1 launched on each rank's slab."""
+    import torch_ranks
+    from openmm_drudenose_tpu_torch.parallel import comm
+    got = comm.launch(torch_ranks.sharded_card, 2, "gloo", "cuda:0", 300.0,
+                      args=(512, 0.6))
+    for out in got:
+        assert out["grid"][0] % 2 == 0
+        assert out["err"] <= 1e-4
+        assert out["identical"]
+        assert out["slab_launches"] >= 1

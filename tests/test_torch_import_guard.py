@@ -24,10 +24,14 @@ from openmm_drudenose_tpu_torch.integrators import barostat
 from openmm_drudenose_tpu_torch.io import (builders, dcd, ionic_liquid,
                                            nacl, pdbfile, polymer)
 from openmm_drudenose_tpu_torch.ops import scatter, sweep, sweep_chunked
-from openmm_drudenose_tpu_torch.parallel import ensemble, flatrep
+from openmm_drudenose_tpu_torch.parallel import (comm, distfft, domain,
+                                                 ensemble, flatrep, sharded)
 native.get_lib()
-from openmm_drudenose_tpu_torch.tools import (nacl_wall, term_checks, time_nvt,
-                                         walk_model)
+from openmm_drudenose_tpu_torch.tools import (dryrun_multichip, nacl_wall,
+                                             term_checks, time_nvt,
+                                             walk_model)
+sys.path.insert(0, "tests")
+import torch_ranks
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "openmm_drudenose_tpu"
@@ -48,9 +52,16 @@ def test_import_leaves_jax_out():
     "openmm_drudenose_tpu_torch/utils/profiling.py",
     "openmm_drudenose_tpu_torch/parallel/ensemble.py",
     "openmm_drudenose_tpu_torch/forces/neighborlist.py",
-    "openmm_drudenose_tpu_torch/io/dcd.py"])
+    "openmm_drudenose_tpu_torch/io/dcd.py",
+    "openmm_drudenose_tpu_torch/parallel/comm.py",
+    "openmm_drudenose_tpu_torch/parallel/sharded.py",
+    "openmm_drudenose_tpu_torch/parallel/distfft.py",
+    "openmm_drudenose_tpu_torch/parallel/domain.py",
+    "openmm_drudenose_tpu_torch/tools/dryrun_multichip.py",
+    "tests/torch_ranks.py"])
 def test_script_imports_no_jax(name):
-    """The chip script and the modules of the port's tenth slice name
+    """The chip script, the modules of the port's tenth and eleventh
+    slices and the rank functions that spawned test ranks import name
     neither JAX nor the JAX package in an import."""
     src = open(os.path.join(REPO, name)).read()
     for line in src.splitlines():
