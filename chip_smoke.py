@@ -293,15 +293,40 @@ seconds):
      MR_FLAT_STEPS steps, each member bit for bit against a standalone
      flat ensemble run from the same velocities.  ms/step of (b) and (f)
      are of ranks time-sharing one card, not a scaling figure
- 19. the seconds of each phase, the `kernels` JSON line (each kernel's
+ 19. the state-resident decomposition (parallel/resident.py) on the
+     100k box of phases 2-3: RES_RANKS gloo ranks time-sharing cuda:0,
+     each owning an x-slab of molecules (15 planes, 5 a slab, the
+     w + 2 = 4 plane halo), f32 with compensated positions: (a) the
+     resident force pass against the single f32 Context's (phase 2's
+     floors), the energies' difference logged; B1's resident-block
+     instantiation against its plain version on the same block (<= 2e-5
+     of max|F|), two launches bit-identical, timed on rank 0 while the
+     others wait, its bound (the function's: the grid's stencil over
+     the slab's home cells, as phase 18's slab row; the block's own
+     stencil's pair tests logged beside it); (b) RES_STEPS steps (two rebuild blocks)
+     against a single-rank f64 Context (MR_REF_TOL nm); (c) the ranks'
+     eta and box bit-identical, the global molecule count conserved;
+     (d) a forced migration (every position moved by box_x / 4, a
+     rebuild) that relabels bit for bit; (e) the steps' resident-block
+     launches on each rank (one a step), no other sweep launch and no
+     plain sweep on the card; (f) NCCL at world size 1 against the
+     single f32 Context (phase 2's floors), the two stepped on that rank
+     (ms/step; `phase_resident(..., profile=True)` adds a torch.profiler
+     table of each); (g) tools/dryrun_multichip.py's part 1b on the same
+     ranks.  Each rank's peak memory and ms/step printed beside phase
+     18's ShardedContext ranks' (not gated: the ranks time-share one
+     card)
+ 20. the seconds of each phase, the `kernels` JSON line (each kernel's
      force and energy instantiations, Ewald and reaction field, the
      triclinic runs, the replica bands, the per-replica scales, the
-     switched LJ and B1's home-slab range), then the result line.
+     switched LJ, B1's home-slab range and its resident block), then the
+     result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -3957,6 +3982,8 @@ def multirank_rank(snap_path, cap, tpl_pos, tpl_vel, flat_vel):
         sweep.launches[k] = 0
     cellpair.plain_sweeps["cuda"] = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["b_mem_before"] = torch.cuda.memory_allocated()
     comm.all_reduce_sum(mesh, "atom", torch.zeros(1))
     t = time.time()
     sctx.step(MR_REF_STEPS)
@@ -3964,6 +3991,7 @@ def multirank_rank(snap_path, cap, tpl_pos, tpl_vel, flat_vel):
     sctx.step(MR_STEPS - MR_REF_STEPS)
     torch.cuda.synchronize()
     wall = time.time() - t
+    out["b_mem_peak"] = torch.cuda.max_memory_allocated()
     out["b_launches"] = dict(sweep.launches)
     out["b_plain"] = cellpair.plain_sweeps["cuda"]
     out["b_grows"] = grows[0]
@@ -4197,6 +4225,8 @@ def phase_multirank(card, bench_args, cap, settled, regs):
     if not (emax <= MR_F32_MAX and erms <= MR_F32_RMS
             and e_res["dx"] <= MR_REF_TOL):
         fail("18 (e) NCCL at world size 1")
+    mem = {"sharded": [(r["b_mem_before"], r["b_mem_peak"]) for r in res],
+           "sharded_ms_step": r0["b_ms_step"]}
     return {"name": "b1_sweep_slab", "instantiation": "forces, home-slab "
             f"range (1 of {MR_RANKS} x-slabs)", "route": "cuda",
             "source": "openmm_drudenose_tpu_torch/csrc/sweep.cu",
@@ -4205,7 +4235,372 @@ def phase_multirank(card, bench_args, cap, settled, regs):
             "launches_per_step": launches["b1_sweep_slab"] / MR_STEPS,
             "capacity": cfg.capacity, "registers": a["regs"],
             "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}, mem
+
+
+# phase 19: the state-resident decomposition.  RES_RANKS gloo ranks
+# time-share cuda:0, each owning an x-slab of molecules of the 100k box
+# (phase 16's gate MR_REF_TOL nm against a single-rank f64 Context after
+# RES_STEPS steps, two rebuild blocks; phase 2's floors on the force
+# pass)
+RES_RANKS, RES_STEPS = 3, 32
+
+
+def _mib(n_bytes):
+    return n_bytes / 2 ** 20
+
+
+def resident_rank(snap_path, cap):
+    """19 (a)-(e), (g) on one of RES_RANKS gloo ranks (see phase 19)."""
+    import torch
+    import torch.distributed as dist
+    from openmm_drudenose_tpu_torch.constraints.vsites import apply_vsites
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.ops import sweep
+    from openmm_drudenose_tpu_torch.parallel import comm, resident
+    from openmm_drudenose_tpu_torch.tools import dryrun_multichip
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    mesh = comm.Mesh(("atom",))
+    n, rank = mesh.size("atom"), mesh.rank
+    out = {}
+    ctx, integ = _bench_context(snap_path, cap, "single", mesh.device, n)
+    ctx._ensure_forces()
+    st = ctx._state
+    f1 = st.forces.clone()
+    e1 = float(ctx._potential(st.positions, st.box, st.neighbors,
+                              st.pos_err))
+    torch.cuda.synchronize()
+    out["mem_context"] = torch.cuda.max_memory_allocated()
+    t = time.time()
+    rctx = resident.ResidentContext(ctx, mesh)
+    rctx._rebuild()
+    out["setup_s"] = time.time() - t
+    rs = rctx._state
+    lay = rctx._layout
+    out["layout"] = {"Rc": lay.Rc, "Ec": lay.Ec, "K": lay.K,
+                     "n_loc": lay.n_loc, "loc_x": lay.loc_x,
+                     "block": list(rctx._bcfg.grid),
+                     "offsets": rctx._bcfg.n_offsets,
+                     "grid_offsets": ctx._cp_cfg.n_offsets,
+                     "n_mol": int(rctx.state["n_mol"])}
+    # (a) the resident force pass against the single Context's
+    f = rctx._forces_only(rs.positions, rs.box, None, rs.pos_err)
+    fg = torch.as_tensor(rctx._gathered(f.double()), device=mesh.device)
+    out["a"] = _floor(fg, f1)
+    e = float(rctx._potential(rs.positions, rs.box, None, rs.pos_err))
+    out["a_e"] = (e, e1)
+    del fg, f
+    # B1 on the resident block against its plain version; timed on rank
+    # 0 alone while the other ranks wait
+    box_d = torch.diagonal(rs.box)
+    block, bcfg, shifts, kw = rctx.block_inputs(rs.positions, rs.pos_err,
+                                                box_d)
+    args = (block, bcfg, shifts, ctx._nb.alpha, ONE_4PI_EPS0)
+    f_k = sweep.pair_forces(*args, resident=True, **kw)
+    f_k2 = sweep.pair_forces(*args, resident=True, **kw)
+    f_p = sweep.pair_forces_plain(*args, **kw)
+    scale = float(torch.max(torch.abs(f_p)))
+    out["kernel"] = {"err": float(torch.max(torch.abs(f_k - f_p))) / scale,
+                     "max_abs": float(torch.max(torch.abs(f_k - f_p))),
+                     "bits": bool(torch.equal(f_k, f_k2))}
+    del f_k, f_k2, f_p
+    dist.barrier()
+    if rank == 0:
+        out["kernel"]["ms"] = cuda_time_ms(
+            lambda: sweep.pair_forces(*args, resident=True, **kw), 20)
+        out["kernel"]["plain_ms"] = cuda_time_ms(
+            lambda: sweep.pair_forces_plain(*args, **kw), 3)
+        # the function's bound: the grid's half stencil over the slab's
+        # home cells (phase 18's slab row) at the same positions, from
+        # the single Context's fields; the resident block's own stencil
+        # (clamped binning's w + 2 reach, untrimmed) tests more pairs, a
+        # cost of the scheme, logged beside it
+        cfg, st = ctx._cp_cfg, ctx._state
+        box_t = ctx._box_arg(st.box)
+        fields = ctx._nb.fields(
+            apply_vsites(ctx._spec, ctx._static, st.positions), box_t,
+            st.neighbors, ctx._exact_positions(st.positions, st.pos_err))
+        (out["kernel"]["bound_ms"], out["kernel"]["bound_by"], n_tests,
+         n_cut, n_bytes) = sweep_bound(fields, cfg,
+                                       cellpair.offset_shifts(cfg, box_t),
+                                       cells=(0, rctx._halo.n_loc))
+        out["kernel"]["work"] = (n_tests, n_cut, n_bytes)
+        s_ms, s_by, s_tests, s_cut, _ = sweep_bound(block, bcfg, shifts,
+                                                    cells=kw["cells"])
+        out["kernel"]["scheme"] = (s_ms, s_by, s_tests, s_cut)
+        del fields
+        out["kernel"]["regs"] = sweep.attributes()["regs"]
+    dist.barrier()
+    # the set-up Context is freed: the rank holds its molecules alone
+    del block, args, ctx, integ, st
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b), (c), (e): the steps, the counts set to 0 just before them
+    rctx._loc = None
+    for k in sweep.launches:
+        sweep.launches[k] = 0
+    cellpair.plain_sweeps["cuda"] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out["mem_before"] = torch.cuda.memory_allocated()
+    comm.all_reduce_sum(mesh, "atom", torch.zeros(1))
+    t = time.time()
+    rctx.step(RES_STEPS)
+    torch.cuda.synchronize()
+    out["ms_step"] = (time.time() - t) / RES_STEPS * 1e3
+    out["mem_peak"] = torch.cuda.max_memory_allocated()
+    out["launches"] = dict(sweep.launches)
+    out["plain"] = cellpair.plain_sweeps["cuda"]
+    at_ref = rctx.positions(compensated=True)      # a gather: every rank
+    out["at_ref"] = at_ref if rank == 0 else None
+    stt = rctx.state
+    out["replicated"] = np.concatenate([
+        stt["eta"].numpy().reshape(-1), stt["box"].double().cpu().numpy()
+        .reshape(-1)])
+    out["n_mol"] = int(stt["n_mol"])
+    out["latches"] = [k for k in ("mig_overflow", "cs_overflow",
+                                  "stencil", "stray", "excl_span", "drift")
+                      if bool(stt[k])]
+    # (d) a forced migration: every position moved by box_x / 4 (3.75
+    # of a slab's 5 planes: three quarters of each rank's molecules
+    # move, so the emigrant buffers take Rc)
+    rctx._layout = dataclasses.replace(rctx._layout, Ec=rctx._layout.Rc)
+    owned = set(rctx._mol_base[:out["n_mol"]].tolist())
+    p0 = rctx._gathered(rctx._state.positions.double())
+    v0 = rctx._gathered(rctx._state.velocities.double())
+    shift = torch.zeros(3, dtype=rctx._state.positions.dtype,
+                        device=mesh.device)
+    shift[0] = rctx._state.box[0, 0] / 4
+    rctx._state = rctx._state.replace(
+        positions=rctx._state.positions + shift)
+    rctx._rebuild()
+    p1 = rctx._gathered(rctx._state.positions.double())
+    want = (torch.as_tensor(p0, dtype=torch.float32)
+            + shift.cpu()).double().numpy()
+    out["d"] = {"bits": bool(np.array_equal(p1, want)),
+                "vel_bits": bool(np.array_equal(
+                    rctx._gathered(rctx._state.velocities.double()), v0)),
+                "moved": len(set(rctx._mol_base[:int(rctx.state[
+                    "n_mol"])].tolist()) - owned),
+                "n_mol": int(rctx.state["n_mol"]),
+                "overflow": bool(rctx.state["mig_overflow"])}
+    del rctx
+    torch.cuda.empty_cache()
+    # (g) the dryrun's part 1b on the same ranks
+    t = time.time()
+    out["g"] = dryrun_multichip._part1b(mesh, n)
+    out["g"]["seconds"] = time.time() - t
+    return out
+
+
+def _profiled(fn, n_steps):
+    """(host ms, device-busy ms, CUDA kernel launches) a step of fn(),
+    which runs n_steps steps, under torch.profiler; and the five host
+    operators and the six kernels of most self time (ms a step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = (time.time() - t) / n_steps * 1e3
+    dev = launches = 0
+    host, kern = [], []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev += e.self_device_time_total
+            launches += e.count
+            kern.append((e.self_device_time_total, e.key[:60], e.count))
+        else:
+            host.append((e.self_cpu_time_total, e.key, e.count))
+    top = [(k, round(us / n_steps / 1e3, 3), c // n_steps)
+           for us, k, c in sorted(host, reverse=True)[:5]
+           + sorted(kern, reverse=True)[:6]]
+    return wall, dev / n_steps / 1e3, launches // n_steps, top
+
+
+def resident_nccl_rank(snap_path, cap, profile=False):
+    """19 (f): NCCL at world size 1: the resident force pass against the
+    single f32 Context's, then RES_STEPS steps of each; with `profile`
+    16 more of each (one rebuild block) under torch.profiler."""
+    import torch
+    from openmm_drudenose_tpu_torch.parallel import comm, resident
+    mesh = comm.Mesh(("atom",))
+    ctx, integ = _bench_context(snap_path, cap, "single", mesh.device)
+    ctx._ensure_forces()
+    f1 = ctx._state.forces.clone()
+    rctx = resident.ResidentContext(ctx, mesh)
+    rctx._rebuild()
+    rs = rctx._state
+    f = rctx._forces_only(rs.positions, rs.box, None, rs.pos_err)
+    fg = torch.as_tensor(rctx._gathered(f.double()), device=mesh.device)
+    rctx._loc = None
+    torch.cuda.synchronize()
+    t = time.time()
+    rctx.step(RES_STEPS)
+    torch.cuda.synchronize()
+    ms_step = (time.time() - t) / RES_STEPS * 1e3
+    integ.step(16)
+    torch.cuda.synchronize()
+    t = time.time()
+    integ.step(RES_STEPS)
+    torch.cuda.synchronize()
+    single_ms = (time.time() - t) / RES_STEPS * 1e3
+    prof = {} if not profile else {
+        "resident": _profiled(lambda: rctx.step(16), 16),
+        "single": _profiled(lambda: integ.step(16), 16)}
+    return {"backend": mesh.backend, "world": mesh.size("atom"),
+            "pass": _floor(fg, f1), "ms_step": ms_step,
+            "single_ms_step": single_ms, "prof": prof,
+            "finite": bool(np.all(np.isfinite(rctx.positions())))}
+
+
+def phase_resident(card, cap, mem18=None, profile=False):
+    """19. The state-resident decomposition on RES_RANKS gloo ranks on
+    cuda:0 and NCCL at world size 1 (see the module docstring).  mem18:
+    phase 18's ShardedContext ranks' memory and ms/step, printed beside.
+    profile: (f) also profiles 16 steps of the resident and the single
+    Context at world 1 (torch.profiler: host and card time, launches,
+    the heaviest operators and kernels; ~30 s more, so off in the whole
+    run).  Returns B1's resident-block entry of the `kernels` line."""
+    import torch
+    from openmm_drudenose_tpu_torch.parallel import comm
+    snap_path = os.path.join(HERE, "data", "bench_equil_100k.npz")
+    t = time.time()
+    res = comm.launch(resident_rank, RES_RANKS, "gloo", "cuda:0",
+                      MR_TIMEOUT_S, args=(snap_path, cap))
+    wall = time.time() - t
+    r0 = res[0]
+    lay, k = r0["layout"], r0["kernel"]
+    log(f"19 gloo, world {RES_RANKS}, ranks time-sharing cuda:0: launched "
+        f"and joined in {wall:.1f} s; rank 0: Rc {lay['Rc']} molecule "
+        f"slots ({lay['n_mol']} owned), Ec {lay['Ec']}, {lay['n_loc']} "
+        f"local atom rows, slabs of {lay['loc_x']} planes, the block "
+        f"{tuple(lay['block'])} with {lay['offsets']} stencil offsets "
+        f"(the grid's {lay['grid_offsets']}); set-up "
+        f"{max(r['setup_s'] for r in res):.1f} s")
+    amax, arms = max(r["a"][0] for r in res), max(r["a"][1] for r in res)
+    e, e1 = r0["a_e"]
+    log(f"19 (a) the resident force pass against the single f32 Context's:"
+        f" max {amax:.3e}, rms {arms:.3e} of max|F|; energy {e:.6f} "
+        f"against {e1:.6f} kJ/mol ({abs(e - e1) / abs(e1):.3e} of |E|)")
+    sch = k["scheme"]
+    log(f"19 (a) B1 on the resident block against its plain version: "
+        f"{max(r['kernel']['err'] for r in res):.3e} of max|F| (max |dF| "
+        f"{k['max_abs']:.3e}), two launches bit-identical "
+        f"{all(r['kernel']['bits'] for r in res)}; rank 0's block "
+        f"{k['ms']:.4f} ms alone (plain {k['plain_ms']:.3f} ms, bound "
+        f"{k['bound_ms']:.4f} ms ({k['bound_by']}: the grid's "
+        f"{lay['grid_offsets']}-offset stencil over the slab's home cells,"
+        f" {k['work'][0]} pair tests, {k['work'][1]} inside the cutoff, "
+        f"{k['work'][2]} bytes); the block's own {lay['offsets']}-offset "
+        f"stencil {sch[2]} pair tests ({sch[2] / k['work'][0]:.2f}x), "
+        f"{sch[3]} inside the cutoff, its bound {sch[0]:.4f} ms "
+        f"({sch[1]})), {k['regs']} registers, on {card}")
+    if not (amax <= MR_F32_MAX and arms <= MR_F32_RMS
+            and all(r["kernel"]["err"] <= 2e-5 and r["kernel"]["bits"]
+                    for r in res)):
+        fail("19 (a) the resident force pass or B1 on the resident block")
+    # (b) against a single-rank f64 Context after RES_STEPS; its energy
+    # at the start beside (a)'s two f32 ones
+    ctx64, integ64 = _bench_context(snap_path, cap, "double", "cuda")
+    ctx64._ensure_forces()
+    s64 = ctx64._state
+    e64 = float(ctx64._potential(s64.positions, s64.box, s64.neighbors,
+                                 s64.pos_err))
+    log(f"19 (a) the energies against the single f64 Context's "
+        f"{e64:.6f} kJ/mol: resident {abs(e - e64) / abs(e64):.3e}, single "
+        f"f32 {abs(e1 - e64) / abs(e64):.3e} of |E|")
+    integ64.step(RES_STEPS)
+    dx = float(np.max(np.abs(r0["at_ref"] - _exact(ctx64))))
+    del ctx64, integ64
+    torch.cuda.empty_cache()
+    log(f"19 (b) {RES_STEPS} resident steps at {r0['ms_step']:.2f} ms/step "
+        f"(ranks time-sharing one card, not a scaling figure) on {card}: "
+        f"rank 0's gathered positions against a single-rank f64 Context: "
+        f"max |dx| {dx:.3e} nm; latches "
+        f"{sorted(set(sum((r['latches'] for r in res), [])))}")
+    identical = all(np.array_equal(r["replicated"], r0["replicated"])
+                    for r in res)
+    total = sum(r["n_mol"] for r in res)
+    log(f"19 (c) the ranks' eta and box bit-identical {identical}; "
+        f"molecules {[r['n_mol'] for r in res]}, {total} in all")
+    d = [r["d"] for r in res]
+    log(f"19 (d) a forced migration (positions + box_x / 4, a rebuild): "
+        f"molecules moved in {[x['moved'] for x in d]}, now "
+        f"{[x['n_mol'] for x in d]}; the gathered positions p0 + shift bit"
+        f" for bit {all(x['bits'] for x in d)}, velocities "
+        f"{all(x['vel_bits'] for x in d)}")
+    res_launch = [r["launches"]["b1_sweep_res"] for r in res]
+    others = [sum(v for kk, v in r["launches"].items()
+                  if kk != "b1_sweep_res") for r in res]
+    log(f"19 (e) each rank's resident-block launches in the {RES_STEPS} "
+        f"steps {res_launch}, other sweep launches {others}, plain sweeps "
+        f"on the card {[r['plain'] for r in res]}")
+    mem = ", ".join(f"rank {i}: {_mib(r['mem_before']):.1f} MiB held, "
+                    f"peak {_mib(r['mem_peak']):.1f} MiB"
+                    for i, r in enumerate(res))
+    line = (f"19 memory in the steps (torch.cuda.max_memory_allocated, each "
+            f"rank's own, its set-up Context freed): resident {mem}; "
+            f"the single f32 Context's force pass "
+            f"{_mib(r0['mem_context']):.1f} MiB")
+    if mem18:
+        line += "; phase 18's ShardedContext ranks " + ", ".join(
+            f"{_mib(a):.1f} held, peak {_mib(b):.1f} MiB"
+            for a, b in mem18["sharded"]) + (
+            f" at {mem18['sharded_ms_step']:.2f} ms/step")
+    log(line + f", on {card}")
+    g = r0["g"]
+    log(f"19 (g) dryrun part 1b on {RES_RANKS} ranks: {g['atoms']} atoms, "
+        f"{g['planes']} x-planes, {g['molecules']} molecules owned, finite "
+        f"{g['finite']}, ranks' chains and box bit-identical "
+        f"{g['ranks_identical']}; {g['seconds']:.1f} s")
+    if not (dx <= MR_REF_TOL and identical and total == 20000
+            and sum(x["n_mol"] for x in d) == 20000
+            and not any(r["latches"] for r in res)):
+        fail("19 (b)/(c) the resident trajectory, the ranks' bits, the "
+             "molecule count or a latch")
+    if not all(x["bits"] and x["vel_bits"] and not x["overflow"]
+               for x in d) or not any(x["moved"] for x in d):
+        fail("19 (d) the forced migration did not relabel bit for bit")
+    if not (all(n_l == RES_STEPS for n_l in res_launch)
+            and not any(others) and not any(r["plain"] for r in res)):
+        fail("19 (e) the resident-block launches")
+    if not (g["finite"] and g["ranks_identical"] and g["molecules"] == 216):
+        fail("19 (g) the dryrun's part 1b")
+    # (f) NCCL at world size 1
+    t = time.time()
+    f_res = comm.launch(resident_nccl_rank, 1, "nccl", "cuda:0",
+                        MR_TIMEOUT_S, args=(snap_path, cap, profile))[0]
+    fmax, frms = f_res["pass"]
+    log(f"19 (f) {f_res['backend']}, world {f_res['world']}: the resident "
+        f"force pass against the single f32 Context's: max {fmax:.3e}, rms "
+        f"{frms:.3e} of max|F|; {RES_STEPS} steps at "
+        f"{f_res['ms_step']:.2f} ms/step (the single Context's on that "
+        f"rank {f_res['single_ms_step']:.2f}); {time.time() - t:.1f} s "
+        f"with the launch")
+    for name, (wall, dev, n_k, top) in f_res["prof"].items():
+        log(f"19 (f) {name} at world 1, 16 steps under torch.profiler: "
+            f"{wall:.2f} ms/step host, the card busy {dev:.2f} ms/step, "
+            f"{n_k} kernel launches a step; most self time, host then "
+            f"card (ms, calls a step): {top}")
+    if not (fmax <= MR_F32_MAX and frms <= MR_F32_RMS and f_res["finite"]):
+        fail("19 (f) NCCL at world size 1")
+    return {"name": "b1_sweep_res", "instantiation": "forces, resident "
+            f"block (slab + w + 2 halo planes), 1 of {RES_RANKS} ranks at "
+            "100k", "route": "cuda",
+            "source": "openmm_drudenose_tpu_torch/csrc/sweep.cu",
+            "replaces": "openmm_drudenose_tpu/ops/pallas_sweep.py:440",
+            "launches": res_launch[0],
+            "launches_per_step": res_launch[0] / RES_STEPS,
+            "capacity": cap, "registers": k["regs"],
+            "max_abs_err": k["max_abs"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "scheme_bound_ms": sch[0],
+            "library_ms": None}
 
 
 def _masses(n_molecules):
@@ -4472,10 +4867,15 @@ def main():
     phase_seconds["17 the rest"] = phase_mark()
 
     # ---- 18. the multi-rank paths ------------------------------------------
-    slab_entry = phase_multirank(card, bench_args, cap, settled, regs)
+    slab_entry, mem18 = phase_multirank(card, bench_args, cap, settled,
+                                        regs)
     phase_seconds["18 the multi-rank paths"] = phase_mark()
 
-    # ---- 19. kernel summary -------------------------------------------------
+    # ---- 19. the state-resident decomposition -----------------------------
+    res_entry = phase_resident(card, cap, mem18)
+    phase_seconds["19 the resident decomposition"] = phase_mark()
+
+    # ---- 20. kernel summary -------------------------------------------------
     log("seconds per phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_seconds.items()))
     src, tpu = ("openmm_drudenose_tpu_torch/csrc/sweep.cu",
@@ -4494,7 +4894,7 @@ def main():
         "source": src, "replaces": tpu, "registers": regs["b1_energy"],
         **b1_energy, "library_ms": None,
     }, *b2_entries, *rf_entries, *tri_entries, *flat_entries,
-        *npt_entries, *sw_entries, slab_entry]
+        *npt_entries, *sw_entries, slab_entry, res_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

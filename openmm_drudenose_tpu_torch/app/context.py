@@ -84,6 +84,54 @@ def default_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def exact_positions(spec, static, positions, pos_err):
+    """Float64 positions with the virtual sites, at positions + pos_err:
+    the positions the integrator carries, before rounding to float32
+    (None without pos_err).  The nonbonded terms take their distances
+    from them: an SWM4-NDP core and its Drude carry +-1.7 e about
+    0.01 nm apart, and the independent float32 rounding of the two
+    (~1e-6 nm at 16 nm from the origin) shows in the field of that
+    dipole at ~1e-4 of max|F|."""
+    if pos_err is None:
+        return None
+    return apply_vsites_relative(spec, static,
+                                 positions.double() + pos_err.double())
+
+
+def compensation(term, pos_err, exact) -> dict:
+    """The compensation a term reads: the float64 positions (`exact`)
+    for the bonded terms, pos_err for the Drude springs."""
+    if getattr(term, "takes_exact", False):
+        return {"exact": exact}
+    return {"pos_err": pos_err}
+
+
+def force_pass(spec, static, positions, pos_err, box_t, pair, terms,
+               with_forces=True, exact_fn=None, term_kw=None):
+    """The force pass over one set of rows: the total force, or with
+    with_forces off the potential energy (float64, 0-d, each part in the
+    positions' type summed in float64).  The virtual sites are composed
+    and their float64 form taken (`exact_fn(positions, pos_err)`, by
+    default exact_positions); pair(pos, exact) gives the nonbonded sums'
+    forces or energy; each term adds its own, reading its `compensation`
+    and term_kw(term); the forces on the sites are spread onto their
+    parents.  A Context runs it on its whole system; parallel/resident.py
+    on a rank's molecules."""
+    pos = apply_vsites(spec, static, positions)
+    exact = (exact_fn(positions, pos_err) if exact_fn is not None
+             else exact_positions(spec, static, positions, pos_err))
+    out = pair(pos, exact)
+    for term in terms:
+        kw = compensation(term, pos_err, exact)
+        if term_kw is not None:
+            kw.update(term_kw(term))
+        r = term.energy_forces(pos, box_t, with_forces=with_forces, **kw)
+        out = out + (r[1] if with_forces else r[0].double())
+    if not with_forces:
+        return out
+    return spread_vsite_forces(spec, static, out, pos)
+
+
 class PairSum:
     """The nonbonded term's direct-space sweep and PME reciprocal sum, in
     this process: a Context's default `_pair_sum`.  parallel/sharded.py::
@@ -298,17 +346,9 @@ class Context:
         return {"scale": scale}
 
     def _exact_positions(self, positions, pos_err):
-        """Float64 positions with the virtual sites, at positions + pos_err:
-        the positions the integrator carries, before rounding to float32
-        (None without pos_err).  The nonbonded terms take their distances
-        from them: an SWM4-NDP core and its Drude carry +-1.7 e about
-        0.01 nm apart, and the independent float32 rounding of the two
-        (~1e-6 nm at 16 nm from the origin) shows in the field of that
-        dipole at ~1e-4 of max|F|."""
-        if pos_err is None:
-            return None
-        return apply_vsites_relative(self._spec, self._static,
-                                     positions.double() + pos_err.double())
+        """exact_positions on the Context's system."""
+        return exact_positions(self._spec, self._static, positions,
+                               pos_err)
 
     def _box_arg(self, box):
         """The box the terms take: the (3, 3) matrix when the system is
@@ -320,32 +360,8 @@ class Context:
         """Total force on the particles (no energy); rep_scale: the host
         per-replica scales of flat-ensemble NPT; pair_sum: the nonbonded
         pair and reciprocal sums (None: the Context's `_pair_sum`)."""
-        spec, static = self._spec, self._static
-        box_t = self._box_arg(box)
-        pos = apply_vsites(spec, static, positions)
-        f = torch.zeros_like(pos)
-        nb = self._nb
-        exact = self._exact_positions(positions, pos_err)
-        s = self._dev_scale(rep_scale)
-        atom_s = None if s is None else cellpair.atom_scales(
-            s, pos.shape[0])
-        if nb is not None:
-            f = (pair_sum or self._pair_sum).pair_forces(
-                nb, pos, box_t, neighbors, exact, s)
-            f = f + nb.extras(pos, box_t, exact, rep_scale=s)[1]
-        for term in self._terms:
-            f = f + term.energy_forces(pos, box_t,
-                                       **self._term_kw(term, pos_err, exact),
-                                       **self._scale_kw(term, atom_s))[1]
-        return spread_vsite_forces(spec, static, f, pos)
-
-    @staticmethod
-    def _term_kw(term, pos_err, exact):
-        """The compensation a term reads: the float64 positions (`exact`)
-        for the bonded terms, pos_err for the Drude springs."""
-        if getattr(term, "takes_exact", False):
-            return {"exact": exact}
-        return {"pos_err": pos_err}
+        return self._pass(positions, box, neighbors, pos_err, rep_scale,
+                          pair_sum, True)
 
     def _potential(self, positions, box, neighbors, pos_err,
                    rep_scale=None, pair_sum=None):
@@ -356,25 +372,35 @@ class Context:
         Metropolis test sees no float32 rounding of |E| (~1e6 kJ/mol at
         100k atoms, where a float32 ulp is 0.06-0.12 kJ/mol).  rep_scale,
         pair_sum: as _forces_only."""
+        return self._pass(positions, box, neighbors, pos_err, rep_scale,
+                          pair_sum, False)
+
+    def _pass(self, positions, box, neighbors, pos_err, rep_scale,
+              pair_sum, with_forces):
+        """force_pass on the Context's terms."""
         box_t = self._box_arg(box)
-        pos = apply_vsites(self._spec, self._static, positions)
-        e = torch.zeros((), dtype=torch.float64, device=pos.device)
         nb = self._nb
-        exact = self._exact_positions(positions, pos_err)
         s = self._dev_scale(rep_scale)
         atom_s = None if s is None else cellpair.atom_scales(
-            s, pos.shape[0])
-        if nb is not None:
-            e = e + (pair_sum or self._pair_sum).pair_energy(
-                nb, pos, box_t, neighbors, exact, s)
-            e = e + nb.extras(pos, box_t, exact, with_forces=False,
-                              rep_scale=s)[0].double()
-        for term in self._terms:
-            e = e + term.energy_forces(pos, box_t, with_forces=False,
-                                       **self._term_kw(term, pos_err, exact),
-                                       **self._scale_kw(term, atom_s)
-                                       )[0].double()
-        return e
+            s, positions.shape[0])
+        sums = pair_sum or self._pair_sum
+
+        def pair(pos, exact):
+            if nb is None:
+                return (torch.zeros_like(pos) if with_forces else
+                        torch.zeros((), dtype=torch.float64,
+                                    device=pos.device))
+            if with_forces:
+                f = sums.pair_forces(nb, pos, box_t, neighbors, exact, s)
+                return f + nb.extras(pos, box_t, exact, rep_scale=s)[1]
+            e = sums.pair_energy(nb, pos, box_t, neighbors, exact, s)
+            return e + nb.extras(pos, box_t, exact, with_forces=False,
+                                 rep_scale=s)[0].double()
+
+        return force_pass(self._spec, self._static, positions, pos_err,
+                          box_t, pair, self._terms, with_forces,
+                          self._exact_positions,
+                          lambda term: self._scale_kw(term, atom_s))
 
     def _mc_energies(self, positions, box, neighbors, pos_err, rep_scale):
         """(R,) float64 per-replica energies of every term a molecule-COM

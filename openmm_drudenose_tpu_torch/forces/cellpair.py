@@ -424,7 +424,8 @@ def build_cellsort(positions, box, cfg: CellPairConfig,
 
 
 def sorted_fields(params, positions, box, cellsort: CellSort,
-                  cfg: CellPairConfig, exact=None, rep_scale=None) -> dict:
+                  cfg: CellPairConfig, exact=None, rep_scale=None,
+                  cells=None, gid=None) -> dict:
     """Per-slot fields in cell-major order, each (n_cells * C,): cell-local
     coordinates x/y/z (box-frame position minus cell centre), charge q,
     sigma `sig`, sqrt(epsilon) `seps`, atom index `gid` (negative and
@@ -442,7 +443,12 @@ def sorted_fields(params, positions, box, cellsort: CellSort,
 
     rep_scale ((R,) float64, flat-ensemble NPT): replica r's image and
     centres are s_r times the template's, so the fields are physical
-    (p - s_r (image @ box + centre), in float64, rounded once)."""
+    (p - s_r (image @ box + centre), in float64, rounded once).
+
+    cells: the range (lo, hi) of the grid's x-major cells the sort's slots
+    fill (None: every cell), an x-slab; gid: (n,) each atom's id in the
+    `gid` field (None: its index), as parallel/resident.py sorts a rank's
+    molecules into its slab's cells under their global ids."""
     n = positions.shape[0]
     sa = cellsort.slot_atom
     pad = sa >= n
@@ -454,7 +460,8 @@ def sorted_fields(params, positions, box, cellsort: CellSort,
     if rep_scale is not None:
         wrap = wrap * atom_scales(rep_scale.to(dev), n)[:, None]
     pos = (positions.double() if exact is None else exact) - wrap
-    c3 = torch.as_tensor(local_c3(cfg), dtype=torch.float64,
+    lo, hi = (0, cfg.n_cells) if cells is None else cells
+    c3 = torch.as_tensor(local_c3(cfg)[lo:hi], dtype=torch.float64,
                          device=dev) + 0.5
     if cfg.triclinic:
         centers = boxutils.rows_combo(c3 * _grid_inv(cfg, dev), box64)
@@ -477,11 +484,12 @@ def sorted_fields(params, positions, box, cellsort: CellSort,
     out["seps"] = torch.where(pad, zero,
                               torch.sqrt(params["eps"][safe])).contiguous()
     slots = torch.arange(sa.shape[0], device=dev)
-    out["gid"] = torch.where(pad, -1 - slots, sa).to(torch.int32).contiguous()
+    ids = sa if gid is None else gid[safe]
+    out["gid"] = torch.where(pad, -1 - slots, ids).to(torch.int32).contiguous()
     words = params["excl_words"][safe]                      # (S, n_words)
     out["ew"] = torch.where(pad[:, None], torch.zeros_like(words),
                             words).to(torch.int32).contiguous()
-    out["count"] = torch.sum((~pad).reshape(cfg.n_cells, cfg.capacity),
+    out["count"] = torch.sum((~pad).reshape(hi - lo, cfg.capacity),
                              dim=1).to(torch.int32).contiguous()
     return out
 

@@ -31,9 +31,11 @@ def make_pair_list_term(i_idx, j_idx, eg_fn, device, periodic: bool = True):
     NPT): each pair is minimum-imaged in its replica's box, the diagonal
     times its first atom's scale.  n_replicas = R > 0: the energy as
     (R,) per-replica sums (the pairs replica-major, P / R a replica; no
-    forces)."""
-    ii = torch.as_tensor(np.asarray(i_idx, np.int64), device=device)
-    jj = torch.as_tensor(np.asarray(j_idx, np.int64), device=device)
+    forces).  The indices: host arrays, or index tensors (used as they
+    are)."""
+    ii, jj = (torch.as_tensor(np.asarray(x, np.int64), device=device)
+              if not isinstance(x, torch.Tensor) else x
+              for x in (i_idx, j_idx))
 
     def term(positions, box, exact=None, with_forces=True, scale=None,
              n_replicas=0):

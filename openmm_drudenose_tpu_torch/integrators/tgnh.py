@@ -320,21 +320,35 @@ class Stepper:
     forces_fn(positions, box, neighbors, pos_err[, rep_scale]) -> forces
     (N, 3) (rep_scale passed where the state has it) and, with a
     MonteCarloBarostat, its move barostat_fn(spec, state) -> state
-    (velocity-independent; the JAX package's apply_barostat)."""
+    (velocity-independent; the JAX package's apply_barostat).
 
-    def __init__(self, static, forces_fn, barostat_fn=None):
+    reduce (the JAX make_step's reduce_axis, :494-572 there): for a
+    state that holds one rank's atoms (parallel/resident.py),
+    reduce(host ndarray) -> its sum over the ranks.  The per-bath KE
+    vector, and with CM removal the CM momentum and the total mass, pass
+    through it on their way to the host, one call a measurement, so the
+    NH chains (one on each rank's host) advance on the global sums."""
+
+    def __init__(self, static, forces_fn, barostat_fn=None, reduce=None):
         self.static = static
         self.forces_fn = forces_fn
         self.barostat_fn = barostat_fn
+        self.reduce = reduce
         # constraints/shake.ShakeStats to count SHAKE/RATTLE sweeps
         self.shake_stats = None
+
+    def _to_host(self, x):
+        """A device tensor as a host array, summed over the ranks where
+        the Stepper has a reduce."""
+        h = x.cpu().numpy()
+        return h if self.reduce is None else self.reduce(h)
 
     def nh_half(self, spec, state, v):
         static = self.static
         accum = state.eta.dtype
         ke, com_vel, norm_vel = group_kinetic_energies(spec, static, v,
                                                        accum)
-        ke_h = ke.cpu().numpy()
+        ke_h = self._to_host(ke)
         vscale, eta, ed, edd = propagate_nh_chain(
             spec, static, ke_h, state.eta, state.eta_dot,
             state.eta_dot_dot, spec.dt)
@@ -361,6 +375,14 @@ class Stepper:
                 mom = torch.sum(mv, dim=1)
                 total = torch.sum(spec.mass.reshape(E, -1), dim=1)
                 v_cm = _per_replica_atoms(static, mom / total[:, None])
+            elif self.reduce is not None:
+                # the global CM: momentum and mass summed over the ranks
+                acc = state.eta.dtype
+                mom = torch.sum((spec.mass[:, None] * v).to(acc), dim=0)
+                h = self._to_host(torch.cat([
+                    mom, torch.sum(spec.mass).to(acc).reshape(1)]))
+                v_cm = torch.as_tensor(h[:3] / h[3], device=v.device).to(
+                    v.dtype)
             else:
                 mom = torch.sum(spec.mass[:, None] * v, dim=0)
                 v_cm = mom / torch.sum(spec.mass)
@@ -449,14 +471,14 @@ class Stepper:
             else:
                 mom = torch.sum(mv, dim=0)
                 total_mass = torch.sum(spec.mass).to(accum)
-            host = torch.cat([ke.reshape(-1), mom.reshape(-1),
-                              total_mass.reshape(-1)]).cpu().numpy()
+            host = self._to_host(torch.cat([ke.reshape(-1), mom.reshape(-1),
+                                            total_mass.reshape(-1)]))
             nk = ke.numel()
             ke_h = host[:nk].reshape(ke.shape)
             mom_h = host[nk:nk + 3 * E].reshape(mom.shape)
             tm_h = host[nk + 3 * E:].reshape(total_mass.shape)
         else:
-            ke_h = ke.cpu().numpy()
+            ke_h = self._to_host(ke)
         vs_a, eta, ed, edd, ke_a = propagate_nh_chain(
             spec, static, ke_h, state.eta, state.eta_dot,
             state.eta_dot_dot, spec.dt, return_final_ke=True)

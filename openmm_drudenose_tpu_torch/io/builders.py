@@ -79,33 +79,47 @@ def swm4_molecule_positions(origin: np.ndarray) -> np.ndarray:
 def build_water_box(n_molecules: int, method: int = NonbondedForce.PME,
                     cutoff: float = 1.0, ewald_tol: float = 5e-4,
                     add_cm_motion: bool = True,
-                    density: float = WATER_NUMBER_DENSITY):
+                    density: float = WATER_NUMBER_DENSITY,
+                    shape=(1, 1, 1)):
     """SWM4-NDP water in a cubic box at the given number density, on a
     uniform random subset of lattice sites with random orientations.
     Returns (system, positions); 20000 molecules give the 100k-atom
-    benchmark system."""
-    grid = int(np.ceil(n_molecules ** (1.0 / 3.0)))
-    box = (n_molecules / density) ** (1.0 / 3.0)
-    spacing = box / grid
+    benchmark system.  `shape` elongates the box: edge lengths
+    proportional to it at the same density (the JAX package's option:
+    (8, 1, 1) gives the dryrun's resident slabs many x-planes from few
+    molecules); the cubic box's formula is unchanged."""
+    s = np.asarray(shape, np.int64)
+    if tuple(s) == (1, 1, 1):
+        grid = int(np.ceil(n_molecules ** (1.0 / 3.0)))
+        box = (n_molecules / density) ** (1.0 / 3.0)
+        spacing = box / grid
+        grid3, box3 = (grid,) * 3, (box,) * 3
+    else:
+        g = int(np.ceil((n_molecules / float(s.prod())) ** (1.0 / 3.0)))
+        grid3 = tuple(int(g * v) for v in s)
+        spacing = (n_molecules
+                   / (density * float(np.prod(grid3)))) ** (1.0 / 3.0)
+        box3 = tuple(gi * spacing for gi in grid3)
 
     system = System()
     nonbonded = NonbondedForce()
     drude = DrudeForce()
     system.addForce(nonbonded)
     system.addForce(drude)
-    system.setDefaultPeriodicBoxVectors((box, 0, 0), (0, box, 0),
-                                        (0, 0, box))
+    system.setDefaultPeriodicBoxVectors((box3[0], 0, 0), (0, box3[1], 0),
+                                        (0, 0, box3[2]))
     nonbonded.setNonbondedMethod(method)
     nonbonded.setCutoffDistance(cutoff)
     nonbonded.setEwaldErrorTolerance(ewald_tol)
 
     positions = []
     rng = np.random.default_rng(1234)
-    sites = np.sort(rng.choice(grid ** 3, size=n_molecules, replace=False))
+    sites = np.sort(rng.choice(int(np.prod(grid3)), size=n_molecules,
+                               replace=False))
     for site in sites:
-        i = site // (grid * grid)
-        j = (site // grid) % grid
-        k = site % grid
+        i = site // (grid3[1] * grid3[2])
+        j = (site // grid3[2]) % grid3[1]
+        k = site % grid3[2]
         origin = (np.array([i, j, k]) + 0.5) * spacing
         mol = swm4_molecule_positions(origin)
         q = rng.normal(size=4)

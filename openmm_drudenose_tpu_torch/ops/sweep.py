@@ -80,11 +80,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # "_rf" for the reaction field; launches on a grid of replica bands
 # apart: "_bands", and those with per-replica scales: "_scaled"; switched
 # LJ apart: "_sw"; B1's launches on a home-slab range of the cells apart:
-# "_slab", parallel/sharded.py and parallel/domain.py)
+# "_slab", parallel/sharded.py and parallel/domain.py, and on a resident
+# block, a rank's molecule-owned slab and its halo: "_res",
+# parallel/resident.py)
 launches = {f"{k}_{i}{c}{b}{w}{h}": 0 for k in ("b1", "b2")
             for i in ("sweep", "energy") for c in ("", "_rf")
             for b in ("", "_bands", "_scaled") for w in ("", "_sw")
-            for h in (("", "_slab") if k == "b1" else ("",))}
+            for h in (("", "_slab", "_res") if k == "b1" else ("",))}
 INT32_MAX = 2 ** 31 - 1
 
 # the kernels' Coulomb kinds (csrc/pair_tile.cuh::Coulomb)
@@ -107,16 +109,17 @@ def coulomb_kind(method: str, alpha: float, krf: float, crf: float) -> int:
 
 def launch_key(kernel: str, energy: bool, method: str, cfg=None,
                scaled: bool = False, switched: bool = False,
-               slab: bool = False) -> str:
+               slab: bool = False, resident: bool = False) -> str:
     """The `launches` key of a kernel's instantiation (on `cfg`'s grid:
     "_bands" where it embeds replica bands; "_scaled" with per-replica
     scales; "_sw" with the LJ switch; "_slab" on a home-slab range of
-    the cells, not all of them)."""
+    the cells, not all of them; "_res" on a resident block)."""
     geometry = ("_scaled" if scaled else "_bands"
                 if cfg is not None and cfg.n_replicas > 1 else "")
+    home = "_res" if resident else "_slab" if slab else ""
     return (f"{kernel}_{'energy' if energy else 'sweep'}"
             + ("_rf" if method == "rf" else "") + geometry
-            + ("_sw" if switched else "") + ("_slab" if slab else ""))
+            + ("_sw" if switched else "") + home)
 
 
 def switch_args(cfg, r_switch) -> tuple:
@@ -519,7 +522,7 @@ def _card_args(fields, cfg):
 
 def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
                 excl_skip=True, method="ewald", krf=0.0, crf=0.0,
-                r_switch=None, cells=None):
+                r_switch=None, cells=None, resident=False):
     """Slot forces (n_cells * C, 3) of the direct-space sum, the same bits
     at every launch.
 
@@ -531,8 +534,10 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
     cell indices (None: every cell), whose stencils alone are summed,
     their reactions landing wherever the stencil reaches (the slabs of a
     partition sum to the whole; the full range gives the bits of a
-    launch without one).  CPU tensors run the plain version; CUDA
-    tensors launch the kernel (float32 only) or raise."""
+    launch without one); resident: the launch is a resident block's
+    (parallel/resident.py), counted under the "_res" keys.  CPU tensors
+    run the plain version; CUDA tensors launch the kernel (float32 only)
+    or raise."""
     check_config(cfg)
     kind = coulomb_kind(method, alpha, krf, crf)
     scaled = check_shifts(shifts, cfg)
@@ -571,7 +576,7 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
     if err != 0:
         raise RuntimeError(f"sweep kernel launch failed: CUDA error {err}")
     launches[launch_key("b1", False, method, cfg, scaled, sw[0],
-                        (lo, hi) != (0, nc))] += 1
+                        (lo, hi) != (0, nc), resident)] += 1
     return f
 
 
@@ -600,12 +605,13 @@ def field_ptrs(fields):
 
 def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
                 method="ewald", krf=0.0, crf=0.0, r_switch=None,
-                cells=None):
+                cells=None, resident=False):
     """The direct-space energy (0-d) by B1's energy instantiation: float64
     on the card, summed in an order fixed by the data (the same bits at
     every launch); with per-replica shifts (R, n_off, 3) the scaled
     instantiation's (R,) per-replica energies; cells: the home-slab range
-    (lo, hi), as pair_forces (the energy of its cells' stencils).  CPU
+    (lo, hi), as pair_forces (the energy of its cells' stencils);
+    resident: as pair_forces.  CPU
     tensors run the plain version; CUDA tensors launch the kernel
     (float32 fields only) or raise."""
     check_config(cfg)
@@ -643,5 +649,5 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
     if err != 0:
         raise RuntimeError(f"sweep energy launch failed: CUDA error {err}")
     launches[launch_key("b1", True, method, cfg, scaled, sw[0],
-                        (lo, hi) != (0, cfg.n_cells))] += 1
+                        (lo, hi) != (0, cfg.n_cells), resident)] += 1
     return e

@@ -18,6 +18,12 @@ outside the home range, so the gather reads nothing there.  The
 reactions that fall in the halo are the next rank's: they go back on
 the ring and are added to its first planes.  The result is the
 whole-grid sweep's, each pair summed once, on the card's kernel.
+
+The block's stencil and its x reach are the caller's: the grid's half
+stencil and `window[0]` planes by default; the state-resident engine
+(parallel/resident.py::resident_sweep) sweeps through this module too,
+with the untrimmed half stencil of window (w + 2, w_y, w_z) and a halo
+of w + 2 planes, the reach its clamped binning needs.
 """
 
 from __future__ import annotations
@@ -41,10 +47,13 @@ def stencil_window(cfg, box) -> tuple:
     return tuple(int(np.ceil(cfg.r_list / cell[d])) for d in range(3))
 
 
-def block_config(cfg, n_ranks: int, window: tuple):
+def block_config(cfg, n_ranks: int, window: tuple, offsets=None):
     """The local config of one rank: its slab of gx / n_ranks planes and
     the window[0] halo planes after it, (loc_x + w, gy, gz) cells, open
-    in x (neighbour and reverse maps as the module docstring says)."""
+    in x (neighbour and reverse maps as the module docstring says).
+    offsets: the block's half stencil, self first (None: the grid's);
+    given, the block's window is `window` and nothing is trimmed.  The
+    halo must reach as far in x as the stencil does."""
     gx, gy, gz = cfg.grid
     if cfg.n_replicas > 1 or cfg.triclinic:
         raise ValueError("the halo-exchange sweep takes one orthorhombic "
@@ -56,9 +65,12 @@ def block_config(cfg, n_ranks: int, window: tuple):
     w = int(window[0])
     if loc_x < w:
         raise ValueError(f"shard x-extent {loc_x} smaller than halo {w}")
-    offs = np.asarray(cfg.offsets)
+    offs = np.asarray(cfg.offsets if offsets is None else offsets)
     if offs[:, 0].min() < 0 or offs[:, 0].max() > w:
         raise ValueError("the halo does not cover the half stencil in x")
+    own = {} if offsets is None else {
+        "offsets": offs, "window": tuple(int(v) for v in window),
+        "trimmed": ()}
     grid = (loc_x + w, gy, gz)
     c3 = cellpair.cell_coords(grid)
     plane = gy * gz
@@ -74,7 +86,7 @@ def block_config(cfg, n_ranks: int, window: tuple):
 
     # the cells and their shifts are the grid's (offset_shifts(cfg, box))
     return dataclasses.replace(cfg, grid=grid, nbr_map=cells(1),
-                               rev_map=cells(-1))
+                               rev_map=cells(-1), **own)
 
 
 def _pack(fields, lo: int, hi: int, C: int):
@@ -99,47 +111,126 @@ def _block_fields(local, halo_fl, halo_it, n_halo: int, C: int, words: int):
     return out
 
 
+def _block_shifts(cfg, bcfg, box):
+    """(n_off, 3) image shifts of the block's offsets on the whole grid's
+    cells: o * h with h = box / cfg.grid (forces/cellpair.py::
+    offset_shifts)."""
+    return cellpair.offset_shifts(
+        dataclasses.replace(cfg, offsets=bcfg.offsets), box)
+
+
+def _halo_block(mesh, axis: str, local, n_halo: int, C: int,
+                words: int) -> dict:
+    """The block's fields: this rank's slab `local` and, after it, the
+    next rank's first n_halo cells (its right halo), received on the
+    ring."""
+    fl, it = _pack(local, 0, n_halo, C)
+    _, halo_fl = comm.ring_exchange(mesh, axis, send_left=fl)
+    _, halo_it = comm.ring_exchange(mesh, axis, send_left=it)
+    return _block_fields(local, halo_fl, halo_it, n_halo, C, words)
+
+
+def _return_reactions(mesh, axis: str, f, n_loc: int, n_halo: int,
+                      C: int):
+    """The slab's slot forces (n_loc C, 3) from the block's: the
+    reactions on the halo go back on the ring to the next rank, and
+    those the previous rank sends are added to the slab's first n_halo
+    cells."""
+    back, _ = comm.ring_exchange(mesh, axis,
+                                 send_right=f[n_loc * C:].contiguous())
+    f = f[:n_loc * C].clone()
+    f[:n_halo * C] += back
+    return f
+
+
+class HaloSweep:
+    """The halo-exchange sweep of one rank (make_sharded_pair_sweep):
+    `forces`, this rank's `energy` share, or both at one exchange
+    (calling it); `block` gives the block's inputs as B1 takes them."""
+
+    def __init__(self, mesh, axis, cfg, window, alpha, coulomb_scale,
+                 excl_skip, kw, offsets, resident, use_kernel):
+        n = mesh.size(axis)
+        self.mesh, self.axis, self.cfg = mesh, axis, cfg
+        self.bcfg = block_config(cfg, n, window, offsets)
+        plane = cfg.grid[1] * cfg.grid[2]
+        self.n_loc = cfg.grid[0] // n * plane
+        self.n_halo = int(window[0]) * plane
+        self.alpha, self.coulomb_scale = alpha, coulomb_scale
+        self.kw = dict(excl_skip=excl_skip, cells=(0, self.n_loc), **kw)
+        self.resident, self.use_kernel = resident, use_kernel
+
+    def block(self, local, box):
+        """(block fields, block config, shifts, B1's keyword arguments)
+        of this rank's slab fields `local`: a ring exchange, so every
+        rank calls it."""
+        cfg = self.cfg
+        block = _halo_block(self.mesh, self.axis, local, self.n_halo,
+                            cfg.capacity, cfg.excl_words)
+        return (block, self.bcfg, _block_shifts(cfg, self.bcfg, box),
+                dict(self.kw))
+
+    def _sum(self, block, shifts, energy: bool):
+        """The block's energy (float64) or slot forces: B1 (its plain
+        version on the CPU), or with use_kernel off the plain sweep with
+        the exact erfc (float64, forces/nonbonded.py::CellPairTerm)."""
+        args = (block, self.bcfg, shifts, self.alpha, self.coulomb_scale)
+        if self.use_kernel:
+            fn = sweep.pair_energy if energy else sweep.pair_forces
+            out = fn(*args, resident=self.resident, **self.kw)
+            return out.double() if energy else out
+        kw = {k: v for k, v in self.kw.items() if k != "excl_skip"}
+        e, f = cellpair.sweep(*args, with_energy=energy, **kw)
+        return e.double() if energy else f
+
+    def _slab(self, f):
+        return _return_reactions(self.mesh, self.axis, f, self.n_loc,
+                                 self.n_halo, self.cfg.capacity)
+
+    def forces(self, local, box):
+        """This rank's slab slot forces (n_loc C, 3)."""
+        block, _, shifts, _ = self.block(local, box)
+        return self._slab(self._sum(block, shifts, False))
+
+    def energy(self, local, box):
+        """This rank's share of the energy (float64, 0-d): its home
+        cells' stencils."""
+        block, _, shifts, _ = self.block(local, box)
+        return self._sum(block, shifts, True)
+
+    def __call__(self, local, box):
+        """(the whole sweep's energy, all-reduced; this rank's slab slot
+        forces)."""
+        block, _, shifts, _ = self.block(local, box)
+        f = self._sum(block, shifts, False)
+        e = self._sum(block, shifts, True)
+        f = self._slab(f)
+        return comm.all_reduce_sum(self.mesh, self.axis, e), f
+
+
 def make_sharded_pair_sweep(mesh, axis: str, cfg, window: tuple,
                             alpha: float, coulomb_scale: float,
                             excl_skip: bool = False, method: str = "ewald",
                             krf: float = 0.0, crf: float = 0.0,
-                            r_switch=None):
-    """f(local_fields, box) -> (energy, local slot forces (n_loc C, 3)):
-    the direct-space sweep with the sorted fields held as x-slabs over
+                            r_switch=None, offsets=None,
+                            resident: bool = False,
+                            use_kernel: bool = True) -> HaloSweep:
+    """The direct-space sweep with the sorted fields held as x-slabs over
     `mesh[axis]` (this rank's: `slab_fields`), on B1 in float32 (its plain
-    version on the CPU and in float64).  The energy is the whole sweep's
-    (all-reduced); the forces are this rank's slab's slots.  window: from
-    stencil_window; the Coulomb kind and the switch as ops/sweep.py::
-    pair_forces.  Refuses what the JAX function refuses: a grid x that
-    does not divide into the ranks, a slab narrower than the halo."""
-    n = mesh.size(axis)
-    bcfg = block_config(cfg, n, window)
-    C, words = cfg.capacity, cfg.excl_words
-    plane = cfg.grid[1] * cfg.grid[2]
-    n_loc = cfg.grid[0] // n * plane
-    n_halo = int(window[0]) * plane
-    kw = dict(excl_skip=excl_skip, method=method, krf=krf, crf=crf,
-              r_switch=r_switch, cells=(0, n_loc))
-
-    def apply(local, box):
-        # the next rank's first window planes are this rank's right halo
-        fl, it = _pack(local, 0, n_halo, C)
-        _, halo_fl = comm.ring_exchange(mesh, axis, send_left=fl)
-        _, halo_it = comm.ring_exchange(mesh, axis, send_left=it)
-        block = _block_fields(local, halo_fl, halo_it, n_halo, C, words)
-        shifts = cellpair.offset_shifts(cfg, box)    # the grid's cells
-        f = sweep.pair_forces(block, bcfg, shifts, alpha, coulomb_scale,
-                              **kw)
-        e = sweep.pair_energy(block, bcfg, shifts, alpha, coulomb_scale,
-                              **kw)
-        # the reactions on the halo are the next rank's first planes'
-        back, _ = comm.ring_exchange(mesh, axis,
-                                     send_right=f[n_loc * C:].contiguous())
-        f = f[:n_loc * C].clone()
-        f[:n_halo * C] += back
-        return comm.all_reduce_sum(mesh, axis, e.double()), f
-
-    return apply
+    version on the CPU and in float64): f(local_fields, box) -> (the
+    whole sweep's energy, all-reduced; this rank's slab slot forces
+    (n_loc C, 3)), and f.forces / f.energy for one of the two.  window:
+    from stencil_window, its x the halo's planes; offsets: the block's
+    half stencil (block_config; None: the grid's); the Coulomb kind and
+    the switch as ops/sweep.py::pair_forces; resident: B1's launches
+    count under the resident block's keys (parallel/resident.py);
+    use_kernel False: the plain sweep with the exact erfc.  Refuses what
+    the JAX function refuses: a grid x that does not divide into the
+    ranks, a slab narrower than the halo."""
+    return HaloSweep(mesh, axis, cfg, window, alpha, coulomb_scale,
+                     excl_skip, dict(method=method, krf=krf, crf=crf,
+                                     r_switch=r_switch),
+                     offsets, resident, use_kernel)
 
 
 def sorted_blocks_from_cellsort(params, positions, box, cellsort, cfg,

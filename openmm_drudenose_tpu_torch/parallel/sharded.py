@@ -80,6 +80,54 @@ def make_slab_sweep(mesh, axis: str = "atom"):
     return sweep
 
 
+def reduced_reciprocal(mesh, axis: str, setup, q, p, ex, box_t,
+                       charge_bound: float, with_forces: bool,
+                       dfft: bool = False, n_replicas: int = 1, rep=None,
+                       s=None, eterm=None, inv_s=None):
+    """(energy, forces on these atoms (n, 3) or None) of the PME
+    reciprocal sum over the atoms of every rank along `mesh[axis]`: each
+    rank spreads its atoms (charges q, stored positions p, their float64
+    form ex or None) into the int64 fixed-point grid of `charge_bound`
+    (forces/pme.py::spread_fixed); the grids are all-reduced before
+    conversion, so the grid is the one-rank grid bit for bit whatever
+    the rank count (with dfft reduce-scattered into x-slabs for the
+    distributed FFT, parallel/distfft.py).  Every rank gets the energy;
+    the forces are interpolated at this rank's atoms.  n_replicas, rep,
+    s, eterm, inv_s: a flattened ensemble's replicas, each atom's
+    replica, the per-replica scales, their eterm and each atom's
+    inverse scale (None for one system)."""
+    R = n_replicas
+    idx, wts, dwts = pme._taps(setup, p, box_t, ex, derivs=with_forces)
+    acc, shift = pme.spread_fixed(setup, q, idx, wts, charge_bound, R, rep)
+    if dfft:
+        K1 = setup.grid[0]
+        n = mesh.size(axis)
+        acc = comm.reduce_scatter(mesh, axis, acc.reshape(K1, -1))
+        Q = scatter.from_fixed_point(acc, shift, p.dtype).reshape(
+            (K1 // n,) + tuple(setup.grid[1:]))
+        e, phi = distfft.energy_and_potential(setup, Q, box_t, mesh, axis,
+                                              with_forces)
+        if with_forces:
+            phi = comm.all_gather(mesh, axis, phi)
+    else:
+        acc = comm.all_reduce_sum(mesh, axis, acc)
+        Q = scatter.from_fixed_point(acc, shift, p.dtype).reshape(
+            pme._grid_shape(setup, R))
+        if with_forces:
+            e, phi = pme.grid_energy_and_potential(setup, Q, box_t, eterm,
+                                                   s)
+        else:
+            if eterm is None:
+                eterm = pme._eterm(setup, box_t, Q.dtype, Q.device)
+            e = pme._grid_energy(setup, torch.fft.rfftn(
+                Q, dim=pme._FFT_DIMS), eterm, box_t, s)[0]
+        e = e if R == 1 else torch.sum(e)
+    if not with_forces:
+        return e, None
+    return e, pme.interpolate_forces(setup, q, p, box_t, idx, wts, dwts,
+                                     phi, R, inv_s, rep)
+
+
 class ShardedForcePass:
     """A Context's nonbonded pair and reciprocal sums split over the ranks
     of `mesh[axis]`: the counterpart of app/context.py::PairSum that
@@ -149,49 +197,20 @@ class ShardedForcePass:
     def _pme(self, nb, pos, box_t, exact, s, with_forces):
         """(energy, this rank's chunk's forces (hi - lo, 3) or None, (lo,
         hi)) of the reciprocal sum from the reduced int64 grid."""
-        setup = nb.pme
         N = pos.shape[0]
         R = nb.n_replicas
         lo, hi = _span(N, self.ranks, self.mesh.index(self.axis))
         p_all, e_all = pme._stored(pos, exact, s)
-        p = p_all[lo:hi]
-        ex = None if e_all is None else e_all[lo:hi]
-        q = nb.params["charge"][lo:hi]
         rep = (None if R == 1 else
                torch.arange(lo, hi, device=pos.device) // (N // R))
-        idx, wts, dwts = pme._taps(setup, p, box_t, ex, derivs=with_forces)
-        acc, shift = pme.spread_fixed(setup, q, idx, wts, nb.charge_bound,
-                                      R, rep)
-        if self.dfft:
-            K1 = setup.grid[0]
-            acc = comm.reduce_scatter(self.mesh, self.axis,
-                                      acc.reshape(K1, -1))
-            Q = scatter.from_fixed_point(acc, shift, pos.dtype).reshape(
-                (K1 // self.ranks,) + tuple(setup.grid[1:]))
-            e, phi = distfft.energy_and_potential(
-                setup, Q, box_t, self.mesh, self.axis, with_forces)
-            if with_forces:
-                phi = comm.all_gather(self.mesh, self.axis, phi)
-        else:
-            acc = self._reduce(acc)
-            Q = scatter.from_fixed_point(acc, shift, pos.dtype).reshape(
-                pme._grid_shape(setup, R))
-            eterm = None if s is None else nb._eterm(box_t, s, pos.dtype)
-            if with_forces:
-                e, phi = pme.grid_energy_and_potential(setup, Q, box_t,
-                                                       eterm, s)
-            else:
-                if eterm is None:
-                    eterm = pme._eterm(setup, box_t, Q.dtype, Q.device)
-                e = pme._grid_energy(setup, torch.fft.rfftn(
-                    Q, dim=pme._FFT_DIMS), eterm, box_t, s)[0]
-            e = e if R == 1 else torch.sum(e)
-        if not with_forces:
-            return e, None, (lo, hi)
         inv_s = (None if s is None else 1.0 / cellpair.atom_scales(
             s.to(pos.device), N)[lo:hi])
-        f = pme.interpolate_forces(setup, q, p, box_t, idx, wts, dwts, phi,
-                                   R, inv_s, rep)
+        eterm = None if s is None else nb._eterm(box_t, s, pos.dtype)
+        e, f = reduced_reciprocal(
+            self.mesh, self.axis, nb.pme, nb.params["charge"][lo:hi],
+            p_all[lo:hi], None if e_all is None else e_all[lo:hi], box_t,
+            nb.charge_bound, with_forces, self.dfft, R, rep, s, eterm,
+            inv_s)
         return e, f, (lo, hi)
 
     def pair_forces(self, nb, pos, box_t, neighbors, exact, s):

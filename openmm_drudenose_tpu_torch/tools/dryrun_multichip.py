@@ -13,8 +13,13 @@ dryrun_multichip (:38, :80-191).
            no regular cell grid at that cutoff, which the port's sweep
            needs, so the box is the smallest whose grid splits into N
            x-slabs (nb_options grid_x_multiple = N);
-  part 1b  the state-resident decomposition (parallel/resident.py) is
-           ROADMAP.md A19b, not ported: the part says so and is not run;
+  part 1b  the state-resident decomposition (parallel/resident.py::
+           ResidentContext) at the JAX dryrun's sizes: 216 waters in the
+           elongated (8, 1, 1) box at density 3.375 (40 x-planes at
+           cutoff 0.7, PME), single precision, grid_x_multiple N, two
+           steps: each rank owns an x-slab of molecules, sweeps it and
+           its halo on B1, migrates at the rebuild; the ranks' NH chains
+           and box the same bits;
   part 2   a replica x atom mesh (2 x N/2, or 1 x N for odd N): a
            ReplicaEnsemble of 32 molecules (CutoffPeriodic, cutoff 0.9,
            the dense strategy), each replica group's force pass split over
@@ -29,7 +34,7 @@ and fails where there is no card; --device cpu runs the ranks on the
 CPU, asked for explicitly.  Several ranks
 share one card over gloo only (NCCL refuses two ranks on one device, so
 NCCL runs one rank a card).  The last line is a JSON summary; the exit
-code is 0 when parts 1, 2 and 2b passed.
+code is 0 when parts 1, 1b, 2 and 2b passed.
 """
 
 from __future__ import annotations
@@ -87,6 +92,35 @@ def _part1(mesh, n_ranks):
                                         for p in same))}
 
 
+def _part1b(mesh, n_ranks):
+    import openmm_drudenose_tpu_torch as dt
+    from ..io import builders
+    from ..parallel import resident
+    system, positions = builders.build_water_box(
+        216, method=dt.NonbondedForce.PME, cutoff=0.7, density=3.375,
+        shape=(8, 1, 1))
+    ctx = dt.Context(system, _integrator(0.05), precision="single",
+                     strategy="cellpair", hardwall_strict=False,
+                     nb_options={"grid_x_multiple": n_ranks},
+                     device=mesh.device)
+    ctx.setPositions(positions)
+    ctx.applyConstraints(1e-5)
+    ctx.setVelocitiesToTemperature(300.0, seed=0)
+    rctx = resident.ResidentContext(ctx, mesh)
+    rctx.step(2)
+    pos = rctx.positions()
+    st = rctx.state
+    rep = torch.cat([st["eta"].reshape(-1).double(),
+                     st["box"].reshape(-1).double().cpu()])
+    same = comm.all_gather(mesh, "atom", rep.to(mesh.device))
+    return {"atoms": ctx._static.n_atoms, "planes": ctx._cp_cfg.grid[0],
+            "molecules": int(comm.all_reduce_sum(
+                mesh, "atom", st["n_mol"].reshape(1))[0]),
+            "finite": bool(np.all(np.isfinite(pos))),
+            "ranks_identical": bool(all(torch.equal(same[0], x)
+                                        for x in same))}
+
+
 def _part2(n_ranks):
     import openmm_drudenose_tpu_torch as dt
     from ..io import builders
@@ -129,10 +163,12 @@ def _part2b(n_ranks):
 
 
 def dryrun_rank(n_ranks: int):
-    """One rank's parts 1, 2 and 2b, each timed."""
+    """One rank's parts 1, 1b, 2 and 2b, each timed."""
     out = {}
     for name, part in (("1", lambda: _part1(comm.Mesh(("atom",)),
                                             n_ranks)),
+                       ("1b", lambda: _part1b(comm.Mesh(("atom",)),
+                                              n_ranks)),
                        ("2", lambda: _part2(n_ranks)),
                        ("2b", lambda: _part2b(n_ranks))):
         t = time.time()
@@ -163,15 +199,21 @@ def main(argv=None) -> int:
                       threads=1 if args.device == "cpu" else None)
     r0 = res[0]
     ok = {"1": r0["1"]["finite"] and r0["1"]["ranks_identical"],
+          "1b": r0["1b"]["finite"] and r0["1b"]["ranks_identical"]
+          and r0["1b"]["molecules"] == 216,
           "2": r0["2"]["finite"], "2b": r0["2b"]["finite"]
           and r0["2b"]["ke_shape"] == [n, 2]}
-    p1, p2, p2b = r0["1"], r0["2"], r0["2b"]
+    p1, p1b, p2, p2b = r0["1"], r0["1b"], r0["2"], r0["2b"]
     print(f"dryrun part 1 {'OK' if ok['1'] else 'FAILED'}: work-sharded "
           f"TGNH step over {n} ranks ({p1['atoms']} atoms, {p1['cells']} "
           f"cells {tuple(p1['grid'])} as x-slabs, sharded PME spreading; "
           f"ranks bit-identical {p1['ranks_identical']})", flush=True)
-    print("dryrun part 1b NOT RUN: the state-resident decomposition "
-          "(parallel/resident.py) waits for ROADMAP.md A19b", flush=True)
+    print(f"dryrun part 1b {'OK' if ok['1b'] else 'FAILED'}: "
+          f"state-resident TGNH steps over {n} ranks ({p1b['atoms']} "
+          f"atoms, {p1b['planes']} x-planes as {n} slabs of molecules, "
+          f"{p1b['molecules']} owned in all; molecule migration + "
+          f"halo-exchange sweep; ranks' chains and box bit-identical "
+          f"{p1b['ranks_identical']})", flush=True)
     print(f"dryrun part 2 {'OK' if ok['2'] else 'FAILED'}: mesh "
           f"{tuple(p2['mesh'])} (replica x atom), {p2['atoms']} atoms, the "
           f"dense rows split over the atom ranks, 1 TGNH step", flush=True)
@@ -181,7 +223,6 @@ def main(argv=None) -> int:
           f"rank", flush=True)
     print(json.dumps({"ranks": n, "backend": args.backend,
                       "device": args.device, "parts": ok,
-                      "part_1b": "not run (A19b)",
                       "seconds": time.time() - t,
                       "part_seconds": {k: r0[k]["seconds"] for k in ok}}),
           flush=True)

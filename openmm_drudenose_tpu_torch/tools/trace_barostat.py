@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .. import MonteCarloBarostat, Context, DrudeTGNHIntegrator
+from ..app.context import compensation
 from ..constraints.vsites import apply_vsites
 from ..forces import cellpair
 from ..integrators import barostat
@@ -185,7 +186,7 @@ def _split_attempt(ctx):
         "  pair-list extras": lambda: nb.extras(pos, box_diag, exact),
         "  other force terms": lambda: [
             term.energy_forces(pos, box_diag,
-                               **ctx._term_kw(term, st.pos_err, exact))
+                               **compensation(term, st.pos_err, exact))
             for term in ctx._terms],
         "force pass (on acceptance)": lambda: ctx._forces_only(
             new_pos, new_box, st.neighbors, st.pos_err),

@@ -78,6 +78,24 @@ def test_sharded_sweep_matches_local():
                                    atol=1e-12 * scale)
 
 
+def test_sharded_sweep_with_the_resident_stencil():
+    """The resident engine's own sweep over 2 ranks (slabs of 4 planes;
+    parallel/resident.py::resident_sweep: the untrimmed half stencil of
+    window (w + 2, w_y, w_z), 113 offsets, a 4-plane halo): the
+    whole-grid sweep's energy and forces to summation order.  The 8-plane
+    grid reaches some cell pairs from both sides across x; the second
+    image lies a box length (2.6 nm) away, past the cutoff."""
+    system, positions, *_ = _setup()
+    got = torch_ranks.launch(torch_ranks.domain_sweep, 2,
+                             jser.serialize_system(system), positions, 32,
+                             True)
+    for out in got:
+        scale = np.abs(out["f_whole"]).max()
+        np.testing.assert_allclose(out["e"], out["e_whole"], rtol=1e-12)
+        np.testing.assert_allclose(out["f"], out["f_whole"],
+                                   atol=1e-12 * scale)
+
+
 def test_block_config_refusals():
     """A grid x that does not divide into the ranks, a slab narrower than
     the halo; and the block's maps: home cells never leave the block,

@@ -1013,3 +1013,25 @@ def test_sharded_force_pass_two_ranks_on_card(cuda):
         assert out["err"] <= 1e-4
         assert out["identical"]
         assert out["slab_launches"] >= 1
+
+
+def test_resident_block_two_ranks_on_card(cuda):
+    """Two gloo ranks on cuda:0, each owning a slab of molecules of a
+    1000-water box (8 x-planes, 4 a slab, the w + 2 = 4 plane halo): the
+    resident block's B1 launch against its plain version on the same
+    block (2e-5 of max|F|, as phase 2), two launches the same bits; the
+    resident force pass against the single float32 Context's (phase 2's
+    floor, 1e-4 of max|F|); 4 steps through B1 alone, one resident
+    launch a step."""
+    import torch_ranks
+    from openmm_drudenose_tpu_torch.parallel import comm
+    got = comm.launch(torch_ranks.resident_card, 2, "gloo", "cuda:0",
+                      300.0, args=(1000, 0.6, 4))
+    for out in got:
+        assert out["grid"][0] == 8
+        assert out["kernel_err"] <= 2e-5
+        assert out["kernel_bits"]
+        assert out["kernel_launches"] == 2
+        assert out["pass_err"] <= 1e-4
+        assert out["step_launches"] == 4 and out["plain"] == 0
+        assert out["finite"]

@@ -25,7 +25,8 @@ from openmm_drudenose_tpu_torch.io import (builders, dcd, ionic_liquid,
                                            nacl, pdbfile, polymer)
 from openmm_drudenose_tpu_torch.ops import scatter, sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.parallel import (comm, distfft, domain,
-                                                 ensemble, flatrep, sharded)
+                                                 ensemble, flatrep, resident,
+                                                 sharded)
 native.get_lib()
 from openmm_drudenose_tpu_torch.tools import (dryrun_multichip, nacl_wall,
                                              term_checks, time_nvt,
@@ -57,10 +58,11 @@ def test_import_leaves_jax_out():
     "openmm_drudenose_tpu_torch/parallel/sharded.py",
     "openmm_drudenose_tpu_torch/parallel/distfft.py",
     "openmm_drudenose_tpu_torch/parallel/domain.py",
+    "openmm_drudenose_tpu_torch/parallel/resident.py",
     "openmm_drudenose_tpu_torch/tools/dryrun_multichip.py",
     "tests/torch_ranks.py"])
 def test_script_imports_no_jax(name):
-    """The chip script, the modules of the port's tenth and eleventh
+    """The chip script, the modules of the port's tenth to twelfth
     slices and the rank functions that spawned test ranks import name
     neither JAX nor the JAX package in an import."""
     src = open(os.path.join(REPO, name)).read()

@@ -126,9 +126,12 @@ def sharded_pass(xml, positions, velocities, nb_options, dfft, steps):
 
 # -- parallel/domain.py ---------------------------------------------------------
 
-def domain_sweep(xml, positions, capacity):
+def domain_sweep(xml, positions, capacity, resident_stencil=False):
     """The halo-exchange sweep's energy and forces (atom order, gathered)
-    and the whole-grid plain sweep's on the same fields."""
+    and the whole-grid plain sweep's on the same fields; with
+    resident_stencil the sweep is the resident engine's own
+    (parallel/resident.py::resident_sweep: the untrimmed half stencil of
+    window (w + 2, w_y, w_z), a w + 2 plane halo)."""
     from openmm_drudenose_tpu_torch.forces import cellpair
     from openmm_drudenose_tpu_torch.parallel import domain
     from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
@@ -143,9 +146,13 @@ def domain_sweep(xml, positions, capacity):
     box = torch.diagonal(st.box)
     fields = domain.sorted_blocks_from_cellsort(nb.params, st.positions,
                                                 box, st.neighbors, cfg)
-    window = domain.stencil_window(cfg, box.numpy())
-    fn = domain.make_sharded_pair_sweep(m, "atom", cfg, window, nb.alpha,
-                                        ONE_4PI_EPS0, **nb.coulomb)
+    if resident_stencil:
+        from openmm_drudenose_tpu_torch.parallel import resident
+        fn = resident.resident_sweep(m, "atom", nb)
+    else:
+        fn = domain.make_sharded_pair_sweep(
+            m, "atom", cfg, domain.stencil_window(cfg, box.numpy()),
+            nb.alpha, ONE_4PI_EPS0, **nb.coulomb)
     e, f_loc = fn(domain.slab_fields(fields, cfg, m, "atom"), box)
     f_slots = comm.all_gather(m, "atom", f_loc).reshape(-1, 3)
     e0, f0 = cellpair.sweep(fields, cfg, cellpair.offset_shifts(cfg, box),
@@ -309,3 +316,168 @@ def sharded_growth_npt(xml, positions, velocities, steps):
                                 == ctx._forces_only),
             "positions": ctx._state.positions.numpy()}
     return out
+
+
+# -- parallel/resident.py --------------------------------------------------------
+
+def _resident_context(case):
+    """A float64 CPU Context of a resident case: the System XML, its
+    positions and velocities, and the integrator the case names (the
+    ionic liquid's four baths, or the water decks' tuple)."""
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.app import serialization as tser
+    from openmm_drudenose_tpu_torch.io import ionic_liquid
+    if "ions" not in case:
+        return _context(case["xml"], case["pos"], case["vel"], "cellpair",
+                        case.get("nb_options"))
+    system = tser.deserialize_system(case["xml"])
+    cations, anions = case["ions"]
+    integ = ionic_liquid.make_tgnh_integrator(
+        cations, anions, system.getNumParticles(), temperature=400.0,
+        step_size=0.0005)
+    integ.setMaxDrudeDistance(0.05)
+    ctx = dt.Context(system, integ, precision="double", strategy="cellpair",
+                     device="cpu")
+    ctx.setPositions(case["pos"])
+    ctx.setVelocities(case["vel"])
+    return ctx
+
+
+def _fed_draws(draws):
+    """Make integrators/barostat.py's move take its two uniforms from
+    `draws` in turn (tests/test_torch_barostat.py's `draws`), so that the
+    one-rank Context and the resident ranks see the same numbers;
+    returns the restore function."""
+    from openmm_drudenose_tpu_torch.integrators import barostat
+    real = barostat.maybe_attempt_mc_move
+    seq = iter(list(draws))
+
+    def fed(spec, static, state, energy_fn, forces_fn, n_mol=None,
+            draws=None):
+        if static.baro_freq <= 0 or state.step % static.baro_freq:
+            return state
+        return real(spec, static, state, energy_fn, forces_fn, n_mol,
+                    next(seq))
+
+    barostat.maybe_attempt_mc_move = fed
+
+    def restore():
+        barostat.maybe_attempt_mc_move = real
+    return restore
+
+
+def resident_suite(cases):
+    """The resident cases of tests/test_torch_resident.py on every rank,
+    one after the other: "traj" (steps in rebuild blocks of `interval`:
+    the gathered positions, the rank's eta and box, its molecule count),
+    "migrate" (a rebuild, every position moved by `shift` in x, another
+    rebuild: the gathered positions and velocities before and after and
+    the molecule counts), "npt" (a MonteCarloBarostat run from fed draws,
+    beside the one-rank Context's from the same draws: positions, box,
+    counters) and "nbthole"."""
+    from openmm_drudenose_tpu_torch.parallel import resident
+    m = comm.Mesh(("atom",))
+    out = {}
+    for case in cases:
+        name, kind = case["name"], case["kind"]
+        r = {}
+        if kind == "npt":
+            restore = _fed_draws(case["draws"])
+            try:
+                one = _resident_context(case)
+                one.step(case["steps"])
+            finally:
+                restore()
+            r["one_pos"] = one.getPositions()
+            r["one_box"] = one._state.box.numpy()
+            r["one_counts"] = (one._state.baro_naccept,
+                               one._state.baro_nattempt)
+            restore = _fed_draws(case["draws"])
+            try:
+                ctx = _resident_context(case)
+                rctx = resident.ResidentContext(ctx, m)
+                rctx._rebuild_interval = case["interval"]
+                rctx.step(case["steps"])
+            finally:
+                restore()
+            st = rctx.state
+            r["counts"] = (st["baro_na"], st["baro_nt"])
+        else:
+            ctx = _resident_context(case)
+            rctx = resident.ResidentContext(ctx, m, Rc=case.get("Rc"),
+                                            Ec=case.get("Ec"))
+            rctx._rebuild_interval = case.get("interval",
+                                              rctx._rebuild_interval)
+        if kind == "migrate":
+            rctx._rebuild()
+            r["p0"], r["v0"] = rctx.positions(), rctx.velocities()
+            r["n0"] = int(rctx.state["n_mol"])
+            shift = torch.zeros(3, dtype=rctx._state.positions.dtype)
+            shift[0] = case["shift"]
+            rctx._state = rctx._state.replace(
+                positions=rctx._state.positions + shift)
+            rctx._rebuild()
+            r["overflow"] = bool(rctx.state["mig_overflow"])
+        elif kind != "npt":
+            rctx.step(case["steps"])
+        st = rctx.state
+        r.update(pos=rctx.positions(), vel=rctx.velocities(),
+                 eta=st["eta"].numpy(), box=st["box"].numpy(),
+                 n_mol=int(st["n_mol"]), step=st["step"])
+        out[name] = r
+    return out
+
+
+def resident_card(n_molecules, cutoff, steps):
+    """On a card (each rank on cuda:0 over gloo): the resident block's
+    B1 launch against its plain version on the same block, the resident
+    force pass against the single float32 Context's (max |dF| / max |F|),
+    then `steps` steps: this rank's resident-block launches and the plain
+    sweeps on the card."""
+    import openmm_drudenose_tpu_torch as dt
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.io import builders
+    from openmm_drudenose_tpu_torch.ops import sweep
+    from openmm_drudenose_tpu_torch.parallel import resident
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    m = comm.Mesh(("atom",))
+    system, pos = builders.build_water_box(n_molecules, cutoff=cutoff,
+                                           add_cm_motion=False)
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    integ.setMaxDrudeDistance(0.02)
+    ctx = dt.Context(system, integ, precision="single", device=m.device,
+                     strategy="cellpair",
+                     nb_options={"grid_x_multiple": m.size("atom")})
+    ctx.setPositions(pos)
+    ctx.setVelocitiesToTemperature(300.0, seed=1)
+    ctx._ensure_forces()
+    f1 = ctx._state.forces.clone()
+    rctx = resident.ResidentContext(ctx, m)
+    rctx._rebuild()
+    st = rctx._state
+    block, bcfg, shifts, kw = rctx.block_inputs(st.positions, st.pos_err,
+                                                torch.diagonal(st.box))
+    args = (block, bcfg, shifts, ctx._nb.alpha, ONE_4PI_EPS0)
+    before = sweep.launches["b1_sweep_res"]
+    f_k = sweep.pair_forces(*args, resident=True, **kw)
+    f_k2 = sweep.pair_forces(*args, resident=True, **kw)
+    f_p = sweep.pair_forces_plain(*args, **kw)
+    launched = sweep.launches["b1_sweep_res"] - before
+    f = rctx._forces_only(st.positions, st.box, None, st.pos_err)
+    fg = torch.as_tensor(rctx._gathered(f.double()), device=m.device)
+    for k in sweep.launches:
+        sweep.launches[k] = 0
+    cellpair.plain_sweeps["cuda"] = 0
+    rctx.step(steps)
+    if st.positions.is_cuda:
+        torch.cuda.synchronize()
+    return {"kernel_err": float(torch.max(torch.abs(f_k - f_p))
+                                / torch.max(torch.abs(f_p))),
+            "kernel_bits": bool(torch.equal(f_k, f_k2)),
+            "kernel_launches": launched,
+            "pass_err": float(torch.max(torch.abs(fg - f1.double()))
+                              / torch.max(torch.abs(f1))),
+            "step_launches": sweep.launches["b1_sweep_res"],
+            "plain": cellpair.plain_sweeps["cuda"],
+            "finite": bool(np.all(np.isfinite(rctx.positions()))),
+            "grid": ctx._cp_cfg.grid}
