@@ -316,7 +316,31 @@ seconds):
      ranks.  Each rank's peak memory and ms/step printed beside phase
      18's ShardedContext ranks' (not gated: the ranks time-share one
      card)
- 20. the seconds of each phase, the `kernels` JSON line (each kernel's
+ 20. the long-run tools at full width (tools/measure_drift.py,
+     validate_npt.py, validate_flatnpt.py): (a) the JAX drift run's
+     checkpoint (data/drift_100k_state.npz, read by convert.py::
+     load_jax_checkpoint) in the bench Context (tools/setups.py::
+     bench_context): its step and series position the recorded ones,
+     the group KE reading the JAX CSV's last temperatures (1e-4 K), the
+     f32 force pass there against f64 (phase 2's floors); (b) the drift
+     tool's loop from that state, PHYS_SAMPLES samples of
+     PHYS_SAMPLE_STEPS steps in one Context against half of them, the
+     session's checkpoint, a fresh Context resumed from it in a process
+     of its own (beside this one's second half) and the other half:
+     positions, compensation, velocities, group KE and the CSV bit for
+     bit, B1 launched at every step and no plain sweep, no latch, the
+     wall held; (c) validate_npt's loop at 500 waters (the JAX 4^3
+     grid of window 2, as a half stencil of explicit images) for
+     PHYS_NPT_STEPS steps from its minimized start: density and U finite
+     and plausible, barostat attempts (B1's energy launches), the routed
+     kernel B1 launched at every step, no plain sweep; then B1's force
+     and energy instantiations on that grid against their plain versions
+     in f32 and f64 (phase 2's limits); (d)
+     validate_flatnpt's loop, 8 x 500 waters at 0.7 nm, PHYS_FLAT_PS ps:
+     the layout and pad replicas, finite densities, B1's scaled
+     instantiations with barostat attempts, no plain sweep.  (c) and (d)
+     run in child processes beside (a) and (b)
+ 21. the seconds of each phase, the `kernels` JSON line (each kernel's
      force and energy instantiations, Ewald and reaction field, the
      triclinic runs, the replica bands, the per-replica scales, the
      switched LJ, B1's home-slab range and its resident block), then the
@@ -381,7 +405,7 @@ E_F64_REL = 1e-5
 # the checkpoint replay; phase 6: the NPT steps and barostat interval
 EX_STEPS, EX_BARO, EX_REPORT, EX_REPLAY = 2000, 100, 500, 100
 EX_SAMPLE = 10
-NPT_STEPS, NPT_BARO = 400, 25
+NPT_STEPS, NPT_BARO = 200, 25
 # phase 3: the checkpoint replay through B1
 REPLAY_STEPS = 32
 # phases 7 and 8: the timed steps (in blocks of BLOCK, the rebuild
@@ -437,7 +461,7 @@ TRI_BANDS = {"mean": ((250.0, 350.0), (150.0, 450.0), (0.0, 10.0)),
 # the end of each timed run) in phase 3's bands, each replica's last
 # water temperature in phase 5's wider band
 FLAT_MOL, FLAT_REPLICAS, FLAT_LAYOUT = 800, 64, (7, 10)
-FLAT_TPL_SETTLE, FLAT_SETTLE, FLAT_STEPS, FLAT_REPEATS = 500, 128, 128, 3
+FLAT_TPL_SETTLE, FLAT_SETTLE, FLAT_STEPS, FLAT_REPEATS = 500, 128, 64, 3
 FLAT_B2_STEPS = 16
 FLAT_EDGE_REPLICAS = (0, 9, 10, 69)
 FLAT_BANDS = {"mean": ((250.0, 350.0), (150.0, 450.0), (0.0, 10.0)),
@@ -451,7 +475,7 @@ FLAT_BANDS = {"mean": ((250.0, 350.0), (150.0, 450.0), (0.0, 10.0)),
 # them); the bands of each replica's scale and density, written before
 # the phase's first card run (the bath bands are phase 10's)
 FLAT_NPT_BARO, FLAT_NPT_SETTLE, FLAT_NPT_STEPS, FLAT_NPT_REPEATS = \
-    25, 128, 128, 3
+    25, 128, 64, 3
 FLAT_NPT_B2_STEPS, FLAT_NPT_B2_BARO, FLAT_NPT_REPLAY = 16, 4, 32
 FLAT_NPT_BANDS = {"scale": (0.97, 1.03), "density": (0.95, 1.05)}
 # phase 12: the force-field XML path at 100k: the example's generated
@@ -503,11 +527,11 @@ SW_SETTLE, SW_STEPS, SW_B2_STEPS, SW_IL_STEPS = 64, 208, 16, 16
 # REP_REPEATS x REP_STEPS
 REP_REPLICAS, REP_CHECK_REPLICA, REP_CHECK_STEPS = 64, 37, 20
 REP_CHECK_TOL = 1e-4
-REP_SETTLE, REP_STEPS, REP_REPEATS = 128, 128, 3
+REP_SETTLE, REP_STEPS, REP_REPEATS = 64, 64, 3
 # the dense block term takes ~0.35 s a step at 64 x 4k (NVIDIA H100
 # 80GB HBM3, 700 W; PERF.md): its window is REP_REPEATS x
 # REP_DENSE_STEPS after the check's steps, with no settling of its own
-REP_DENSE_SETTLE, REP_DENSE_STEPS = 0, 16
+REP_DENSE_SETTLE, REP_DENSE_STEPS = 0, 8
 # force passes timed at each of the dense term's two block sizes
 REP_BLOCK_REPS = 2
 # phase 17: float32 steps on the neighbour lists; the reporters' steps
@@ -535,10 +559,13 @@ def fail(msg):
     sys.exit(1)
 
 
-def cuda_time_ms(fn, reps):
-    """Mean device time of fn() over `reps` calls, by CUDA events."""
+def cuda_time_ms(fn, reps, warm=True):
+    """Mean device time of fn() over `reps` calls, by CUDA events, after
+    one call to warm it (warm=False: fn() has just run on these inputs,
+    as a plain version has where it was held against its kernel)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -731,7 +758,8 @@ def energy_check(tag, kernel, fields, cfg, shifts, alpha, card,
     torch.cuda.empty_cache()
     rel, rel64 = abs(ek - ep) / abs(ep), abs(ek - ep64) / abs(ep64)
     ms = cuda_time_ms(lambda: kernel.pair_energy(*args, **kw), 20)
-    plain_ms = cuda_time_ms(lambda: sweep.pair_energy_plain(*args, **kw), 2)
+    plain_ms = cuda_time_ms(lambda: sweep.pair_energy_plain(*args, **kw), 1,
+                            warm=False)
     bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(
         fields, cfg, shifts, energy=True, method=kw["method"],
         r_switch=kw.get("r_switch"))
@@ -1208,7 +1236,7 @@ def phase_big(card, bench_args, bench_system):
     ms = cuda_time_ms(lambda: sweep_chunked.pair_forces(*args), 10)
     ms_b1 = cuda_time_ms(lambda: sweep.pair_forces(*args), 10)
     plain_ms = cuda_time_ms(lambda: sweep_chunked.pair_forces_plain(*args),
-                            2)
+                            1, warm=False)
     bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(fields, cfg,
                                                               shifts)
     # B2's brick (sweep_chunked.BRICK) against its rivals
@@ -1586,7 +1614,7 @@ def kernel_parity(phase, tag, kernel, args, kw, ref=None):
         msg = f"; vs B1 {held(f'{phase} {tag} vs B1', f1, ref, 2e-5):.3e}"
     ms = cuda_time_ms(lambda: kernel.pair_forces(*args, **kw), 20)
     plain_ms = cuda_time_ms(lambda: kernel.pair_forces_plain(*args, **kw),
-                            2)
+                            1, warm=False)
     log(f"{phase} {tag} vs plain f32: max|dF|/max|F| = {err:.3e}; vs plain "
         f"f64: max {err64:.3e} (leaving out {n_flip} cutoff-flipped "
         f"pairs), rms {rms64:.3e} ({rms64_all:.3e} over all){msg}; two "
@@ -2423,7 +2451,8 @@ def energy_check_scaled(tag, kernel, fields, cfg, shifts, alpha, card,
     rel = float(torch.max(torch.abs(e1 - ep) / torch.abs(ep)))
     rel64 = float(torch.max(torch.abs(e1 - ep64) / torch.abs(ep64)))
     ms = cuda_time_ms(lambda: kernel.pair_energy(*args, **kw), 20)
-    plain_ms = cuda_time_ms(lambda: sweep.pair_energy_plain(*args, **kw), 2)
+    plain_ms = cuda_time_ms(lambda: sweep.pair_energy_plain(*args, **kw), 1,
+                            warm=False)
     bound_ms, bound_by, n_tests, n_cut, n_bytes = sweep_bound(
         fields, cfg, shifts, energy=True)
     log(f"{tag} energies of {e1.shape[0]} replicas (sum {float(e1.sum()):.6f}"
@@ -3885,18 +3914,11 @@ MR_F32_MAX, MR_F32_RMS = 1e-4, 5e-6
 
 def _bench_context(snap_path, cap, precision, device, gxm=1):
     """The 100k bench Context of phase 3 from its snapshot, on `device`
-    (x-slabs for gxm ranks)."""
-    import openmm_drudenose_tpu_torch as dt
-    from openmm_drudenose_tpu_torch.io import builders
-    snap = np.load(snap_path)
-    system, _ = builders.build_water_box(int(snap["n_atoms"]) // 5)
-    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
-    integ.setMaxDrudeDistance(0.02)
-    ctx = dt.Context(system, integ, precision=precision, device=device,
-                     nb_options={"capacity": cap, "grid_x_multiple": gxm})
-    ctx.setPositions(snap["positions"])
-    ctx.setVelocities(snap["velocities"])
-    return ctx, integ
+    (x-slabs for gxm ranks): tools/setups.py::bench_context."""
+    from openmm_drudenose_tpu_torch.tools import setups
+    return setups.bench_context(device, precision, capacity=cap,
+                                nb_options={"grid_x_multiple": gxm},
+                                snapshot=snap_path)
 
 
 def _exact(ctx):
@@ -4603,6 +4625,322 @@ def phase_resident(card, cap, mem18=None, profile=False):
             "library_ms": None}
 
 
+# phase 20: the long-run tools (tools/measure_drift.py, validate_npt.py,
+# validate_flatnpt.py) at full width.  The drift run's samples every
+# PHYS_SAMPLE_STEPS steps, PHYS_SAMPLES of them uninterrupted against
+# half of them, a checkpoint, a fresh Context and the other half; the
+# 500-water NPT loop one row of PHYS_NPT_STEPS steps, then B1 against
+# its plain versions on that Context's grid of explicit images (phase
+# 2's limits), and the 8 x 500 flat NPT loop PHYS_FLAT_PS ps (20 chunks
+# of 16 steps), each in a child process beside (a) and (b) (their host
+# work is the step's bottleneck, so the card takes the three)
+PHYS_SAMPLE_STEPS, PHYS_SAMPLES = 128, 2
+PHYS_RESUME_FIELDS = ("positions", "pos_err", "velocities", "group_ke")
+PHYS_NPT_STEPS, PHYS_FLAT_PS = 256, 0.32
+PHYS_CHILD_TIMEOUT_S = 600
+# the JAX drift run's step counter and series position in
+# data/drift_100k_state.npz (its .ps marker): it began 5,000 steps into
+# the bench snapshot's trajectory
+PHYS_JAX_STEP, PHYS_JAX_PS = 331000, 326
+
+
+def physics_child(kind):
+    """20 (b)'s resumed half, (c) or (d) in its own process: the tool's
+    loop with the counts set to 0 just before and read just after; one
+    JSON line."""
+    sys.path.insert(0, HERE)
+    from openmm_drudenose_tpu_torch.ops import sweep
+    from openmm_drudenose_tpu_torch.tools import measure_drift as md
+    sweep.build()
+    out_dir = os.path.join(HERE, "build", "chip_smoke", "phase20", kind)
+    if kind == "resume":
+        # the parent writes the copy of its checkpoint, then this
+        t_wait = time.time()
+        while not os.path.exists(os.path.join(out_dir, "args.json")):
+            if time.time() - t_wait > PHYS_CHILD_TIMEOUT_S:
+                fail("20 (b) no checkpoint to resume from")
+            time.sleep(0.2)
+        with open(os.path.join(out_dir, "args.json")) as f:
+            split = md.parse_args(json.load(f))
+        ctx, integ, rows, first = md.open_run(split, "cuda",
+                                              log=lambda m: None)
+        t = time.time()
+        rows, launches, plain = counted(lambda: md.session(
+            ctx, integ, rows, first, split, log=lambda m: None))
+        st = ctx._state
+        np.savez(os.path.join(out_dir, "state.npz"), **{
+            k: getattr(st, k).cpu().numpy() for k in PHYS_RESUME_FIELDS})
+        res = {"rows": rows.tolist()}
+        ctx_l = ctx
+    elif kind == "npt":
+        from openmm_drudenose_tpu_torch.tools import validate_npt as vn
+        args = vn.parse_args([
+            "--equil-ps", "0", "--sample-ps", "1",
+            "--csv", os.path.join(out_dir, "npt.csv"),
+            "--state", os.path.join(out_dir, "npt.npz"),
+            "--commit", "chip_smoke"])
+        ctx, integ, n_mol, mass, rows = vn.open_run(args, "cuda",
+                                                     log=lambda m: None)
+        cfg = ctx._cp_cfg
+        t = time.time()
+        rows, launches, plain = counted(lambda: vn.session(
+            ctx, integ, n_mol, mass, rows, args, steps=PHYS_NPT_STEPS,
+            log=lambda m: None))
+        res = {"rows": rows.tolist(), "grid": list(cfg.grid),
+               "offsets": cfg.n_offsets, "regular": cfg.regular,
+               "route": sweep.route(cfg)[0], "baro_scale":
+               float(ctx._state.baro_scale)}
+        ctx_l = ctx
+        res["seconds"] = time.time() - t
+        physics_b1_parity(ctx, md.card_line())
+    else:
+        from openmm_drudenose_tpu_torch.tools import validate_flatnpt as vf
+        ens, _ = vf.build(8, 500, "cuda")
+        t = time.time()
+        dens, launches, plain = counted(lambda: vf.run(
+            ens, 0, PHYS_FLAT_PS, log=lambda m: None))
+        res = {"densities": dens.tolist(), **vf.layout(ens),
+               "scales": ens.context._state.rep_scale.tolist()}
+        ctx_l = ens.context
+    res.setdefault("seconds", time.time() - t)
+    res.update(launches={k: v for k, v in launches.items() if v},
+               plain=plain, latches=md.latches(ctx_l))
+    print("PHYSICS_CHILD " + json.dumps(res), flush=True)
+
+
+def physics_b1_parity(ctx, card):
+    """20 (c): B1's force and energy instantiations on the 500-water
+    Context's fields, its 4^3 grid of explicit images (offsets o and
+    o - 4 reaching one cell through two images), against their plain
+    versions in f32 and f64 at phase 2's limits (a sweep that drops or
+    doubles one image misses them by over ten times: tests/
+    test_torch_small_grid.py).  Not counted: the loop's counts were read
+    before."""
+    import torch
+    from openmm_drudenose_tpu_torch.forces import cellpair
+    from openmm_drudenose_tpu_torch.ops import sweep
+    from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+    nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
+    if cfg.regular or sweep.route(cfg)[0] != "b1":
+        fail(f"20 (c) the 500-water grid {cfg.grid} is not the non-regular "
+             f"plan routed to B1")
+    box_diag = torch.diagonal(st.box)
+    fields = nb.fields(st.positions, box_diag, st.neighbors)
+    shifts = cellpair.offset_shifts(cfg, box_diag)
+    args = (fields, cfg, shifts, nb.alpha, ONE_4PI_EPS0)
+    kw = dict(nb.coulomb, excl_skip=nb.excl_skip)
+    tag = f"B1 on the {cfg.grid} grid of explicit images"
+    kernel_parity("20 (c)", tag, sweep, args, kw)
+    energy_check(f"20 (c) {tag}", sweep, fields, cfg, shifts, nb.alpha,
+                 card, nb.coulomb, nb.excl_skip)
+
+
+def _physics_child(kind):
+    """Start physics_child(kind) in a process of its own."""
+    return subprocess.Popen(
+        [sys.executable, "-c", f"import sys; sys.path.insert(0, {HERE!r}); "
+         f"import chip_smoke; chip_smoke.physics_child({kind!r})"],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def _child_result(kind, proc):
+    try:
+        out, _ = proc.communicate(timeout=PHYS_CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"20 the {kind} child took over {PHYS_CHILD_TIMEOUT_S} s")
+    lines = [ln for ln in out.splitlines()
+             if ln.startswith("PHYSICS_CHILD ")]
+    for ln in out.splitlines():
+        if ln.startswith("[chip_smoke"):
+            log(f"({kind} child) {ln.split('] ', 1)[-1]}")
+    if proc.returncode != 0 or not lines:
+        fail(f"20 the {kind} child failed (rc {proc.returncode}): "
+             f"{out[-3000:]}")
+    return json.loads(lines[-1][len("PHYSICS_CHILD "):])
+
+
+def phase_physics(card):
+    """20: (a) the JAX drift checkpoint in the bench Context, its force
+    pass against f64; (b) the drift tool's loop, uninterrupted against
+    checkpointed and resumed in a fresh Context, bit for bit; (c), (d)
+    the NPT tools' loops (children started first, read last; (b)'s
+    resumed half in a child that waits for its checkpoint)."""
+    import shutil
+    from openmm_drudenose_tpu_torch import convert
+    from openmm_drudenose_tpu_torch.tools import measure_drift as md
+    from openmm_drudenose_tpu_torch.tools import setups
+    out_dir = os.path.join(HERE, "build", "chip_smoke", "phase20")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    children = {kind: _physics_child(kind)
+                for kind in ("resume", "npt", "flat")}
+    try:
+        physics_checkpoint(convert, md, setups)
+        physics_resume(out_dir, md, children["resume"])
+        res = {kind: _child_result(kind, children[kind])
+               for kind in ("npt", "flat")}
+    finally:
+        for p in children.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+    # (c) the 500-water NPT loop
+    r = res["npt"]
+    rho, u = r["rows"][-1][1], r["rows"][-1][2]
+    log(f"20 (c) validate_npt's loop, 500 waters, {PHYS_NPT_STEPS} steps: "
+        f"grid {r['grid']} ({r['offsets']} offsets, regular "
+        f"{r['regular']}: the half stencil of explicit images), route "
+        f"{r['route']}; rho "
+        f"{rho:.4f} g/mL, U {u:.3f} kJ/mol a molecule, bath temperatures "
+        f"{np.round(r['rows'][-1][3:6], 3).tolist()} K; launches "
+        f"{r['launches']}, plain sweeps {r['plain']}; latches "
+        f"{r['latches']}; {r['seconds']:.1f} s")
+    n_att = r["launches"].get("b1_energy", 0) // 2
+    if not (np.isfinite(rho) and np.isfinite(u) and 0.9 < rho < 1.1):
+        fail(f"20 (c) density {rho} or U {u} not finite and plausible")
+    if r["route"] != "b1" or r["launches"].get("b1_sweep", 0) \
+            < PHYS_NPT_STEPS or r["plain"]:
+        fail("20 (c) the NPT loop did not run through its routed kernel")
+    if n_att < 1 or not r["baro_scale"] > 0:
+        fail("20 (c) the barostat was not attempted")
+    # (d) the 8 x 500 flat NPT loop
+    r = res["flat"]
+    dens = np.asarray(r["densities"])
+    log(f"20 (d) validate_flatnpt's loop, {r['replicas']} x 500 waters, "
+        f"{PHYS_FLAT_PS} ps: layout {r['layout']} ({r['internal']} "
+        f"internal replicas, {r['pad']} pad), grid {r['grid']}; densities "
+        f"at the end {np.round(dens[-1], 4).tolist()} g/mL, scales "
+        f"{np.round(r['scales'], 4).tolist()}; launches {r['launches']}, "
+        f"plain sweeps {r['plain']}; latches {r['latches']}; "
+        f"{r['seconds']:.1f} s")
+    if not (dens.shape == (20, r["replicas"]) and np.all(np.isfinite(dens))
+            and np.all((0.9 < dens) & (dens < 1.1))):
+        fail("20 (d) flat-ensemble densities not finite and plausible")
+    if r["launches"].get("b1_sweep_scaled", 0) < round(PHYS_FLAT_PS * 1000) \
+            or r["launches"].get("b1_energy_scaled", 0) < 2 or r["plain"]:
+        fail("20 (d) the flat NPT loop did not run through B1's scaled "
+             "instantiations with barostat attempts")
+
+
+def physics_checkpoint(convert, md, setups):
+    """20 (a): the JAX checkpoint in the bench Context, against f64."""
+    import torch
+    ctx, _ = setups.bench_context("cuda")
+    ctx64, _ = setups.bench_context("cuda", precision="double")
+    for c in (ctx, ctx64):
+        convert.load_jax_checkpoint(md.JAX_STATE, c)
+    with open(md.JAX_STATE + ".ps") as f:
+        at_ps = int(f.read().strip())
+    jax_rows = md.read_csv(md.JAX_CSV)
+    temps = md.temperatures(ctx)
+    st = ctx._state
+    log(f"20 (a) {md.JAX_STATE} in the bench Context: step {st.step}, "
+        f"time {st.time:.4f} ps (the JAX run's float32 clock), the series "
+        f"at {at_ps} ps; bath temperatures {np.round(temps, 6).tolist()} K "
+        f"against the JAX CSV's {np.round(jax_rows[-1, 1:], 6).tolist()}")
+    if st.step != PHYS_JAX_STEP or at_ps != PHYS_JAX_PS \
+            or int(jax_rows[-1, 0]) != at_ps:
+        fail("20 (a) the JAX checkpoint is not at its recorded step and ps")
+    if not np.allclose(temps, jax_rows[-1, 1:], rtol=0, atol=1e-4):
+        fail("20 (a) the loaded group KE does not read the JAX series' "
+             "last temperatures")
+    jax_forces = ctx._state.forces.clone()
+    for c in (ctx, ctx64):
+        c._forces_valid = False
+    ferr, ferr_all, frms, n_flip, fs, _ = force_pass_floor(ctx, ctx64)
+    jerr, jrms = f32_floor(jax_forces, ctx64._state.forces)
+    log(f"20 (a) force pass f32 vs f64 at the JAX state: max {ferr:.3e} "
+        f"({ferr_all:.3e} with the atoms of {n_flip} cutoff-flipped pairs),"
+        f" rms {frms:.3e} (max|F| {fs:.1f}); the JAX run's cached float32 "
+        f"forces vs the port's f64: max {jerr:.3e}, rms {jrms:.3e}")
+    if not (ferr <= 1e-4 and frms <= 5e-6):
+        fail("20 (a) the f32 force pass at the JAX state misses the f32 "
+             "floor against f64")
+    del ctx, ctx64, jax_forces
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def physics_resume(out_dir, md, child):
+    """20 (b): the drift tool's loop from the JAX state (--snapshot),
+    PHYS_SAMPLES samples in one Context, checkpointed as a session ends
+    half way; the copy resumed in a fresh Context by `child` (a process
+    of its own, started before and waiting for the copy) beside this
+    one's second half."""
+    import shutil
+    import torch
+    argv = ["--snapshot", "--ns", str(PHYS_SAMPLES / 1000),
+            "--sample-steps", str(PHYS_SAMPLE_STEPS),
+            "--ckpt-every", str(PHYS_SAMPLES), "--commit", "chip_smoke"]
+    half = PHYS_SAMPLES // 2
+    quiet = lambda m: None  # noqa: E731
+    whole = md.parse_args(argv + [
+        "--csv", os.path.join(out_dir, "whole.csv"),
+        "--state", os.path.join(out_dir, "whole.npz"),
+        "--max-new-ps", str(half)])
+    t = time.time()
+    ctx, integ, rows, first = md.open_run(whole, "cuda", log=quiet)
+    rows, l1, p1 = counted(lambda: md.session(ctx, integ, rows, first,
+                                              whole, log=quiet))
+    res_dir = os.path.join(out_dir, "resume")
+    os.makedirs(res_dir, exist_ok=True)
+    split = argv + ["--csv", os.path.join(res_dir, "split.csv"),
+                    "--state", os.path.join(res_dir, "split.npz")]
+    for src, dst in ((whole.csv, split[-3]), (whole.state, split[-1]),
+                     (whole.state + ".ps", split[-1] + ".ps")):
+        shutil.copyfile(src, dst)
+    with open(os.path.join(res_dir, "args.json.tmp"), "w") as f:
+        json.dump(split, f)
+    os.replace(os.path.join(res_dir, "args.json.tmp"),
+               os.path.join(res_dir, "args.json"))
+    whole.max_new_ps = None
+    rows, l2, p2 = counted(lambda: md.session(ctx, integ, rows, first,
+                                              whole, log=quiet))
+    ms_step = ((time.time() - t) / (PHYS_SAMPLES * PHYS_SAMPLE_STEPS)
+               * 1e3)
+    r = _child_result("resume", child)
+    rows2 = np.asarray(r["rows"])
+    st = ctx._state
+    with np.load(os.path.join(res_dir, "state.npz")) as z:
+        got = {k: z[k] for k in PHYS_RESUME_FIELDS}
+    dx = float(np.max(np.abs(st.positions.cpu().numpy()
+                             - got["positions"])))
+    same = all(np.array_equal(getattr(st, k).cpu().numpy(), got[k])
+               for k in PHYS_RESUME_FIELDS)
+    with open(whole.csv) as f1, open(split[-3]) as f2:
+        csv_same = f1.read() == f2.read()
+    launches = {k: l1[k] + l2[k] for k in l1 if l1[k] + l2[k]}
+    log(f"20 (b) the drift loop, {PHYS_SAMPLES} x {PHYS_SAMPLE_STEPS} "
+        f"steps from the JAX state ({ms_step:.2f} ms/step with the "
+        f"samples, beside (c) and (d)): samples "
+        f"{[int(x) for x in rows[:, 0]]}, last temperatures "
+        f"{np.round(rows[-1, 1:], 4).tolist()} K; resumed at sample "
+        f"{int(rows2[half - 1, 0])} in a fresh Context in another process: "
+        f"max |dx| {dx:.3e} nm, positions, compensation, velocities and "
+        f"group KE bit for bit {same}, CSV files equal {csv_same}; "
+        f"launches {launches} and, resumed, {r['launches']}; plain "
+        f"sweeps {p1 + p2 + r['plain']}")
+    n = PHYS_SAMPLES * PHYS_SAMPLE_STEPS
+    if not (same and dx == 0.0 and csv_same
+            and np.array_equal(rows2, rows)):
+        fail("20 (b) the resumed drift run is not the uninterrupted one "
+             "bit for bit")
+    if launches.get("b1_sweep", 0) < n \
+            or r["launches"].get("b1_sweep", 0) < n // 2 \
+            or p1 + p2 + r["plain"]:
+        fail("20 (b) the drift loop did not run through B1 alone")
+    if any(r["latches"].values()):
+        fail(f"20 (b) a latch is set in the resumed run: {r['latches']}")
+    check_after_steps(ctx, "20 (b)")
+    del ctx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _masses(n_molecules):
     from openmm_drudenose_tpu_torch.io import builders
     system, _ = builders.build_water_box(n_molecules)
@@ -4875,7 +5213,11 @@ def main():
     res_entry = phase_resident(card, cap, mem18)
     phase_seconds["19 the resident decomposition"] = phase_mark()
 
-    # ---- 20. kernel summary -------------------------------------------------
+    # ---- 20. the long-run tools ---------------------------------------------
+    phase_physics(card)
+    phase_seconds["20 the long-run tools"] = phase_mark()
+
+    # ---- 21. kernel summary -------------------------------------------------
     log("seconds per phase: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_seconds.items()))
     src, tpu = ("openmm_drudenose_tpu_torch/csrc/sweep.cu",

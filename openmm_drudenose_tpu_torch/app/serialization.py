@@ -546,8 +546,9 @@ _SORT = ("slot_atom", "inv_slot", "overflow", "ref_positions", "image",
          "stencil_invalid", "drift_exceeded", "excl_span_exceeded")
 
 
-def save_checkpoint(path: str, context) -> None:
-    """Write the Context's full state to `path` (.npz)."""
+def save_checkpoint(path: str, context, compressed: bool = False) -> None:
+    """Write the Context's full state to `path` (.npz; zip-deflated with
+    `compressed`, which load_checkpoint reads alike)."""
     st = context._state
     arrays = {"format": np.asarray(FORMAT)}
     for name in _TENSORS:
@@ -574,7 +575,7 @@ def save_checkpoint(path: str, context) -> None:
             if v is not None:
                 arrays[f"sort.{name}"] = v.detach().cpu().numpy()
     with open(path, "wb") as f:
-        np.savez(f, **arrays)
+        (np.savez_compressed if compressed else np.savez)(f, **arrays)
 
 
 def load_checkpoint(path: str, context) -> None:

@@ -156,14 +156,19 @@ def neighbor_map(grid, periods, offsets, sign: int = 1) -> np.ndarray:
     return (nb3[..., 0] * g[1] + nb3[..., 1]) * g[2] + nb3[..., 2]
 
 
-def _stencil(grid, window, cell_size, r_list, triclinic):
-    """The half stencil of a regular grid, self offset first, with the
+def _stencil(window, cell_size, r_list, triclinic):
+    """The half stencil of window `window`, self offset first, with the
     offsets whose closest cell-to-cell approach exceeds r_list dropped:
     (offsets, the dropped offsets' gap counts).  Triclinic plane gaps
     are not orthogonal components, so their bound is the largest of
-    them, not the norm."""
-    offsets = _neighbor_offsets(grid, window)
-    sel = [o for o in offsets.tolist() if (o[0], o[1], o[2]) > (0, 0, 0)]
+    them, not the norm.  On a grid of fewer than 2w + 1 cells in a
+    dimension, offsets o and o - g there reach the same cell through
+    different images (shifts o h and (o - g) h); each is kept, and the
+    half stencil still holds every (cell pair, image) once."""
+    wx, wy, wz = window
+    sel = [(a, b, c) for a in range(-wx, wx + 1)
+           for b in range(-wy, wy + 1) for c in range(-wz, wz + 1)
+           if (a, b, c) > (0, 0, 0)]
     offsets = np.array([[0, 0, 0]] + sel, np.int64)
     gap = np.maximum(np.abs(offsets) - 1, 0) * cell_size[None, :]
     reach = (np.max(gap, axis=1) if triclinic
@@ -199,8 +204,16 @@ def make_config(cutoff: float, box, n_atoms: int, exc_i, exc_j,
                 grid_x_multiple: int = 1) -> CellPairConfig:
     """Plan the cell grid, capacity and half stencil for a box given as
     its (3,) diagonal (orthorhombic) or its (3, 3) reduced matrix
-    (triclinic: planned in the plane-width metric).  The port needs a
-    regular grid (>= 2w+1 cells per dimension).  grid_x_multiple: the
+    (triclinic: planned in the plane-width metric, where the grid must be
+    regular, >= 2w+1 cells per dimension, as the JAX make_config says).
+    An orthorhombic grid of fewer cells (a 500-water box at a 1.0 nm
+    cutoff plans 4^3 cells of window 2) keeps the JAX plan; where the
+    JAX package sweeps it with a per-pair minimum image over every
+    wrapped offset (its pair_energy_forces :1037-1073), the port sweeps
+    the half stencil of explicit images (`_stencil`): at most one image
+    of a pair lies inside the cutoff where every box width is at least
+    twice the cutoff, which this asks of such a grid.  grid_x_multiple:
+    the
     x cell count rounded down to a multiple of it (at least one
     multiple), so that x-slabs split it evenly over that many ranks
     (the JAX make_config's option, forces/cellpair.py:169-174 there);
@@ -226,20 +239,27 @@ def make_config(cutoff: float, box, n_atoms: int, exc_i, exc_j,
         capacity = _auto_capacity(density * volume / int(np.prod(grid))
                                   * density_margin)
     regular = all(g >= 2 * w + 1 for g, w in zip(grid, window))
-    if not regular:
+    if (triclinic and not regular) or any(
+            g <= w for g, w in zip(grid, window)):
         raise ValueError(
             f"the cell-pair sweep needs a regular grid (>= 2w+1 cells per "
-            f"dimension); got grid {grid}, window {window} (box too small "
-            "for the cutoff; use strategy='dense')")
-    offsets, trimmed = _stencil(grid, window, cell_size, r_list, triclinic)
+            f"dimension) for a triclinic box and more than w cells per "
+            f"dimension for any box; got grid {grid}, window {window} "
+            "(box too small for the cutoff; use strategy='dense')")
+    if not regular and np.min(widths) < 2.0 * cutoff:
+        # two images of a pair inside the cutoff (a regular grid's box
+        # is wider than 2 r_list by construction)
+        raise ValueError(f"box widths {np.round(widths, 6).tolist()} under "
+                         f"twice the cutoff {cutoff}")
+    offsets, trimmed = _stencil(window, cell_size, r_list, triclinic)
     W, n_words = _exclusion_window(exc_i, exc_j)
     return CellPairConfig(
         cutoff=float(cutoff), skin=float(skin), grid=grid,
         capacity=int(capacity), offsets=offsets,
         nbr_map=neighbor_map(grid, grid, offsets),
         rebuild_interval=int(rebuild_interval), excl_window=W,
-        excl_words=n_words, half_stencil=True, regular=True, window=window,
-        trimmed=trimmed, triclinic=triclinic)
+        excl_words=n_words, half_stencil=True, regular=regular,
+        window=window, trimmed=trimmed, triclinic=triclinic)
 
 
 def make_ensemble_config(cutoff: float, box0, n0: int, n_replicas: int,
@@ -275,7 +295,7 @@ def make_ensemble_config(cutoff: float, box0, n0: int, n_replicas: int,
         density = n0 / float(np.prod(box0))
         capacity = _auto_capacity(density * np.prod(cell_size)
                                   * density_margin)
-    offsets, trimmed = _stencil(pgrid, window, cell_size, r_list, False)
+    offsets, trimmed = _stencil(window, cell_size, r_list, False)
     grid = (rx * pgrid[0], pgrid[1], rz * pgrid[2])
     W, n_words = _exclusion_window(exc_i, exc_j)
     return CellPairConfig(

@@ -467,9 +467,8 @@ def check_shifts(shifts, cfg) -> bool:
 
 def check_config(cfg):
     """Raise unless the kernels take the config's layout."""
-    if not (cfg.half_stencil and cfg.regular):
-        raise ValueError("the sweep kernel takes regular half-stencil "
-                         "grids only")
+    if not cfg.half_stencil:
+        raise ValueError("the sweep kernel takes half-stencil grids only")
     if tuple(cfg.offsets[0]) != (0, 0, 0):
         raise ValueError("the sweep kernel needs the self offset first")
 

@@ -284,13 +284,22 @@ def choose_brick(cfg, limits=None):
     return brick if resident_ctas(brick, cfg.capacity, limits) > 0 else None
 
 
+def check_config(cfg):
+    """Raise unless B2 takes the config's layout: B1's conditions
+    (sweep.check_config) on a regular grid (>= 2w + 1 cells a dimension;
+    a frame of a smaller grid would hold a cell twice)."""
+    sweep.check_config(cfg)
+    if not cfg.regular:
+        raise ValueError("kernel B2 takes regular grids only")
+
+
 def b2_takes(cfg, limits=None) -> bool:
     """Whether kernel B2 takes the config: its brick's CTA launches
     (choose_brick) and its frames and slot and word indices stay in
     int32 (csrc/sweep_chunked.cu::chunk_sweep_forces refuses the
-    rest)."""
+    rest), on a regular grid (check_config)."""
     brick = choose_brick(cfg, limits)
-    if brick is None or not sweep.b1_takes(cfg):
+    if brick is None or not cfg.regular or not sweep.b1_takes(cfg):
         return False
     return make_plan(cfg, brick).frame_floats(cfg.capacity) <= INT32_MAX
 
@@ -439,7 +448,7 @@ def pair_forces(fields, cfg, shifts, alpha, coulomb_scale,
     sweep.pair_forces; brick None takes choose_brick from the card's
     limits.  CPU tensors run the plain version; CUDA tensors launch the
     kernel (float32 only) or raise."""
-    sweep.check_config(cfg)
+    check_config(cfg)
     kind = sweep.coulomb_kind(method, alpha, krf, crf)
     scaled = sweep.check_shifts(shifts, cfg)
     sw = sweep.switch_args(cfg, r_switch)
@@ -484,7 +493,7 @@ def pair_energy(fields, cfg, shifts, alpha, coulomb_scale, excl_skip=True,
     scaled instantiation's (R,) per-replica energies.  CPU tensors run
     the plain version; CUDA tensors launch the kernel (float32 fields
     only) or raise."""
-    sweep.check_config(cfg)
+    check_config(cfg)
     kind = sweep.coulomb_kind(method, alpha, krf, crf)
     scaled = sweep.check_shifts(shifts, cfg)
     sw = sweep.switch_args(cfg, r_switch)

@@ -58,6 +58,10 @@ def block_config(cfg, n_ranks: int, window: tuple, offsets=None):
     if cfg.n_replicas > 1 or cfg.triclinic:
         raise ValueError("the halo-exchange sweep takes one orthorhombic "
                          "system")
+    if not cfg.regular:
+        raise ValueError(
+            f"the halo-exchange sweep takes a regular grid (>= 2w+1 cells "
+            f"per dimension); got grid {cfg.grid}, window {cfg.window}")
     if gx % n_ranks:
         raise ValueError(f"grid x dim {gx} not divisible by {n_ranks} "
                          f"ranks")

@@ -967,6 +967,14 @@ class ResidentContext:
                 "cfg", "alpha", "pme", "charge_bound", "pme_self", "disp",
                 "excl_skip", "use_kernel", "coulomb")})
         cfg = nb.cfg
+        if not cfg.regular:
+            # resident_offsets wraps the stencil as the JAX grid does
+            # (offsets 0..n-1 on a dimension of n < 2w + 1 cells); the
+            # sweep takes each offset as one explicit image
+            raise ValueError(
+                f"the resident decomposition takes a regular grid (>= 2w+1 "
+                f"cells per dimension); got grid {cfg.grid}, window "
+                f"{cfg.window}")
         self._nb, self._cfg = nb, cfg
         self._n_atoms = context._static.n_atoms
         self._hardwall_strict = context._hardwall_strict

@@ -9,9 +9,10 @@ dryrun_multichip (:38, :80-191).
            ShardedContext): SWM4-NDP water, PME at cutoff 0.7, single
            precision, the cell-pair sweep in x-slabs over the ranks, the
            PME spread by atom chunks, one step; the ranks' positions the
-           same bits.  The JAX dryrun's 48 molecules (a 1.13 nm box) have
-           no regular cell grid at that cutoff, which the port's sweep
-           needs, so the box is the smallest whose grid splits into N
+           same bits.  The JAX dryrun's 48 molecules (a 1.13 nm box,
+           under twice that cutoff) have no cell grid the port's sweep
+           takes (2 cells of window 2), so the box is the smallest whose
+           grid splits into N
            x-slabs (nb_options grid_x_multiple = N);
   part 1b  the state-resident decomposition (parallel/resident.py::
            ResidentContext) at the JAX dryrun's sizes: 216 waters in the

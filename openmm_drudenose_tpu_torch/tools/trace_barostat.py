@@ -37,17 +37,16 @@ import subprocess
 import sys
 import time
 
-import numpy as np
 import torch
 
-from .. import MonteCarloBarostat, Context, DrudeTGNHIntegrator
+from .. import MonteCarloBarostat
 from ..app.context import compensation
 from ..constraints.vsites import apply_vsites
 from ..forces import cellpair
 from ..integrators import barostat
-from ..io import builders
 from ..ops import sweep
 from ..units import ONE_4PI_EPS0
+from . import setups
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -81,18 +80,9 @@ def _card() -> str:
 
 
 def _context(npt: bool):
-    snap = np.load(os.path.join(REPO, "data", "bench_equil_100k.npz"))
-    pos = np.asarray(snap["positions"], np.float64)
-    system, _ = builders.build_water_box(pos.shape[0] // 5)
-    if npt:
-        system.addForce(MonteCarloBarostat(1.01325, 300.0, BARO_FREQ))
-    integ = DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
-    integ.setMaxDrudeDistance(0.02)
-    ctx = Context(system, integ, precision="single",
-                  nb_options={"capacity": int(snap["capacity"])},
-                  device="cuda")
-    ctx.setPositions(pos)
-    ctx.setVelocities(np.asarray(snap["velocities"], np.float64))
+    ctx, integ = setups.bench_context(
+        "cuda", barostat=(MonteCarloBarostat(1.01325, 300.0, BARO_FREQ)
+                          if npt else None))
     counts = {"rebuilds": 0, "replans": 0}
     neighbor_fn, replan = ctx._neighbor_fn, ctx._replan_at_box
 

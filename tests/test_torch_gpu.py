@@ -23,6 +23,10 @@ force-field path, SHAKE clusters and the plain-PyTorch terms (phases
 ForceField against io/nacl.py's System and stepped in NPT through B1, its
 flexible-water variant stepped with SHAKE and RATTLE, and
 tools/term_checks.py's systems in f64 on the card against the CPU.
+The long-run tools' pieces: the JAX drift checkpoint read into the
+bench Context on the card, tools/measure_drift.py's loop resumed bit for
+bit through B1, and B1 on the 500-water 4^3 grid of explicit images
+against its plain version.
 Marked `gpu`; each test skips (through the `cuda` fixture) where
 no CUDA card is present.
 On the card (tests/conftest.py imports JAX, which the machine with the
@@ -266,16 +270,20 @@ def test_npt_context_steps_through_b1(cuda):
 
 
 def test_sweep_energy_raises_where_the_kernel_refuses(cuda):
-    """A config the kernels do not take (not a regular grid), and float64
-    fields: the energy wrappers raise on the card and never fall back to
-    the plain sweep."""
+    """A config the kernels do not take (not a half stencil; for B2 also
+    not a regular grid, which B1 takes since it sweeps grids of fewer
+    than 2w + 1 cells), and float64 fields: the energy wrappers raise on
+    the card and never fall back to the plain sweep."""
     import dataclasses
     ctx, _ = _ctx(cuda)
     fields, cfg, shifts, alpha, scale = _fields(ctx)
-    bad = dataclasses.replace(cfg, regular=False)
+    bad = dataclasses.replace(cfg, half_stencil=False)
     f64 = {k: (v.double() if v.is_floating_point() else v)
            for k, v in fields.items()}
     plain = cellpair.plain_sweeps["cuda"]
+    with pytest.raises(ValueError):
+        sweep_chunked.pair_energy(fields, dataclasses.replace(
+            cfg, regular=False), shifts, alpha, scale)
     for kernel in (sweep, sweep_chunked):
         with pytest.raises(ValueError):
             kernel.pair_energy(fields, bad, shifts, alpha, scale)
@@ -1035,3 +1043,108 @@ def test_resident_block_two_ranks_on_card(cuda):
         assert out["pass_err"] <= 1e-4
         assert out["step_launches"] == 4 and out["plain"] == 0
         assert out["finite"]
+
+
+def test_jax_checkpoint_reader_on_card(cuda):
+    """convert.py's reader puts the JAX drift run's 100k checkpoint
+    (data/drift_100k_state.npz) into the bench Context on the card: every
+    carried field the file's bits, the group KE reading the JAX series'
+    last temperatures, and a step through B1 from it."""
+    from openmm_drudenose_tpu_torch import convert
+    from openmm_drudenose_tpu_torch.tools import measure_drift as md
+    from openmm_drudenose_tpu_torch.tools import setups
+    raw = np.load(md.JAX_STATE)
+    ctx, integ = setups.bench_context(cuda)
+    convert.load_jax_checkpoint(md.JAX_STATE, ctx)
+    st = ctx._state
+    for name, leaf in (("positions", 0), ("velocities", 1), ("forces", 2),
+                       ("pos_err", 27)):
+        t = getattr(st, name)
+        assert t.device.type == "cuda"
+        np.testing.assert_array_equal(t.cpu().numpy(), raw[f"leaf_{leaf}"])
+    assert st.step == int(raw["leaf_10"])
+    np.testing.assert_allclose(md.temperatures(ctx),
+                               md.read_csv(md.JAX_CSV)[-1, 1:], rtol=0,
+                               atol=1e-4)
+    for k in sweep.launches:
+        sweep.launches[k] = 0
+    integ.step(16)
+    assert sweep.launches["b1_sweep"] >= 16
+    assert not any(md.latches(ctx).values())
+
+
+def test_drift_tool_resume_is_bit_exact_through_b1(cuda, tmp_path):
+    """tools/measure_drift.py's loop on the card (500 waters, the 4^3
+    grid of explicit images, through B1): 4 samples in one Context
+    against 2, the session's checkpoint, a fresh Context and 2 more: the
+    CSV text and the state bit for bit."""
+    import os
+    import shutil
+    from openmm_drudenose_tpu_torch.tools import measure_drift as md
+
+    def args(name, *extra):
+        return md.parse_args([
+            "--equil-ps", "0", "--sample-steps", "16",
+            "--ns", "0.004", "--ckpt-every", "4", "--commit", "test",
+            "--csv", os.path.join(tmp_path, f"{name}.csv"),
+            "--state", os.path.join(tmp_path, f"{name}.npz"), *extra])
+
+    quiet = lambda m: None  # noqa: E731
+    whole = args("whole", "--max-new-ps", "2")
+    ctx, integ, rows, first = md.open_run(whole, cuda, log=quiet)
+    assert ctx._cp_cfg.grid == (4, 4, 4) and not ctx._cp_cfg.regular
+    rows = md.session(ctx, integ, rows, first, whole, log=quiet)
+    split = args("split")
+    for src, dst in ((whole.csv, split.csv), (whole.state, split.state),
+                     (whole.state + ".ps", split.state + ".ps")):
+        shutil.copyfile(src, dst)
+    whole.max_new_ps = None
+    for k in sweep.launches:
+        sweep.launches[k] = 0
+    rows = md.session(ctx, integ, rows, first, whole, log=quiet)
+    assert sweep.launches["b1_sweep"] >= 32
+    ctx2, integ2, rows2, first2 = md.open_run(split, cuda, log=quiet)
+    rows2 = md.session(ctx2, integ2, rows2, first2, split, log=quiet)
+    np.testing.assert_array_equal(rows2, rows)
+    with open(whole.csv) as f1, open(split.csv) as f2:
+        assert f1.read() == f2.read()
+    for name in ("positions", "pos_err", "velocities", "group_ke"):
+        assert torch.equal(getattr(ctx._state, name),
+                           getattr(ctx2._state, name)), name
+
+
+def test_b1_on_the_small_grid_matches_plain_on_card(cuda):
+    """B1 on the 500-water 4^3 grid (offsets reaching one cell through two
+    images) against its plain version: forces 2e-5 of max|F|, two
+    launches bit-identical; the energy instantiation against the plain
+    energy in f64; B2 refuses the grid."""
+    system, pos = builders.build_water_box(500)
+    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
+    ctx = dt.Context(system, integ, precision="single", device=cuda,
+                     strategy="cellpair")
+    ctx.setPositions(pos)
+    ctx._ensure_neighbors()
+    nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
+    assert cfg.grid == (4, 4, 4) and not cfg.regular
+    box = torch.diagonal(st.box)
+    args = (nb.fields(st.positions, box, st.neighbors), cfg,
+            cellpair.offset_shifts(cfg, box), nb.alpha, ONE_4PI_EPS0)
+    f, f2 = sweep.pair_forces(*args), sweep.pair_forces(*args)
+    assert torch.equal(f, f2)
+    ref = sweep.pair_forces_plain(*args)
+    scale = float(torch.max(torch.abs(ref)))
+    assert float(torch.max(torch.abs(f - ref))) <= 2e-5 * scale
+    # the energy against the plain energy in f64, as
+    # test_energy_kernels_match_plain_on_card holds the 216-water box to
+    # 1e-3 kJ/mol (its |E| ~60 kJ/mol of ~1e4 kJ/mol terms), scaled by the
+    # ~10x more pairs inside this box's 1.0 nm cutoff: 2e-2 kJ/mol (|E|
+    # here ~490 kJ/mol)
+    e = float(sweep.pair_energy(*args))
+    f64 = {k: (v.double() if v.is_floating_point() else v)
+           for k, v in args[0].items()}
+    e_ref = float(sweep.pair_energy_plain(f64, cfg, args[2].double(),
+                                          nb.alpha, ONE_4PI_EPS0))
+    assert abs(e - e_ref) <= 2e-2
+    assert sweep_chunked.b2_takes(cfg) is False
+    with pytest.raises(ValueError, match="regular grids only"):
+        sweep_chunked.pair_forces(*args)

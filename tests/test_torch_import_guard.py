@@ -31,6 +31,8 @@ native.get_lib()
 from openmm_drudenose_tpu_torch.tools import (dryrun_multichip, nacl_wall,
                                              term_checks, time_nvt,
                                              walk_model)
+from openmm_drudenose_tpu_torch.tools import (measure_drift, series, setups,
+                                             validate_flatnpt, validate_npt)
 sys.path.insert(0, "tests")
 import torch_ranks
 bad = sorted(m for m in sys.modules
@@ -60,9 +62,15 @@ def test_import_leaves_jax_out():
     "openmm_drudenose_tpu_torch/parallel/domain.py",
     "openmm_drudenose_tpu_torch/parallel/resident.py",
     "openmm_drudenose_tpu_torch/tools/dryrun_multichip.py",
+    "openmm_drudenose_tpu_torch/convert.py",
+    "openmm_drudenose_tpu_torch/tools/setups.py",
+    "openmm_drudenose_tpu_torch/tools/series.py",
+    "openmm_drudenose_tpu_torch/tools/measure_drift.py",
+    "openmm_drudenose_tpu_torch/tools/validate_npt.py",
+    "openmm_drudenose_tpu_torch/tools/validate_flatnpt.py",
     "tests/torch_ranks.py"])
 def test_script_imports_no_jax(name):
-    """The chip script, the modules of the port's tenth to twelfth
+    """The chip script, the modules of the port's tenth to thirteenth
     slices and the rank functions that spawned test ranks import name
     neither JAX nor the JAX package in an import."""
     src = open(os.path.join(REPO, name)).read()
