@@ -12,6 +12,7 @@ import torch
 
 import openmm_drudenose_tpu as dn
 import openmm_drudenose_tpu_torch as dt
+from torch_threads import _one_thread  # noqa: F401
 
 # (drude, parent, p2, p3, p4, q, alpha, aniso12, aniso34)
 ROWS = {

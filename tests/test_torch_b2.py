@@ -29,21 +29,11 @@ from openmm_drudenose_tpu_torch.io import builders as tbuilders
 from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.system import System
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+from torch_threads import _one_thread  # noqa: F401
 
 N_MOL, CUTOFF = 216, 0.6
 BRICKS = [(1, 1, 1), (2, 2, 2), (3, 3, 3), (4, 4, 4), (5, 5, 5),
           (1, 2, 3), (3, 1, 5), (2, 5, 1)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's small tensors: faster here,
-    and it leaves the cores to the other test workers (several workers
-    each running every core's worth of threads slow down many-fold)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _contexts(precision):

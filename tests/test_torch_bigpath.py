@@ -30,21 +30,10 @@ from openmm_drudenose_tpu_torch.constraints.vsites import (
 from openmm_drudenose_tpu_torch.forces import pairterms as tpt
 from openmm_drudenose_tpu_torch.io import builders as tbuilders
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+from torch_threads import _one_thread  # noqa: F401
 
 ALPHA = 2.628261                      # the bench configuration's alpha
 QQ = ONE_4PI_EPS0 * 1.71636 * -1.71636   # SWM4-NDP core x Drude
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's small tensors: faster here,
-    and it leaves the cores to the other test workers (several workers
-    each running every core's worth of threads slow down many-fold)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
 
 
 def _port_forces(r, dtype):

@@ -13,6 +13,7 @@ import torch
 import openmm_drudenose_tpu as dn
 import openmm_drudenose_tpu_torch as dt
 from openmm_drudenose_tpu.forces import bonded as jb
+from torch_threads import _one_thread  # noqa: F401
 
 N_ATOMS, N_TERMS = 30, 12
 KINDS = ["HarmonicBondForce", "HarmonicAngleForce", "PeriodicTorsionForce",

@@ -22,6 +22,7 @@ from openmm_drudenose_tpu_torch.integrators import tgnh
 from openmm_drudenose_tpu_torch.io import builders as tbuilders
 from openmm_drudenose_tpu_torch.ops import sweep
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+from torch_threads import _one_thread  # noqa: F401
 
 N_MOL, CUTOFF = 216, 0.6
 

@@ -30,6 +30,7 @@ from openmm_drudenose_tpu_torch.io import builders as tbuilders
 from openmm_drudenose_tpu_torch.parallel import flatrep
 from openmm_drudenose_tpu_torch.tools import measure_drift as md
 from openmm_drudenose_tpu_torch.tools import setups
+from torch_threads import _one_thread  # noqa: F401
 
 # steps before the JAX checkpoint and after it in each package (one
 # count, so the JAX package compiles one scan)
@@ -37,14 +38,6 @@ STEPS = 10
 SCALES = (1.03, 0.97)
 FIELDS = ("positions", "velocities", "forces", "potential_energy", "box",
           "eta", "eta_dot", "eta_dot_dot", "ke_sum", "group_ke")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _integrators():

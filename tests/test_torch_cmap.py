@@ -14,6 +14,7 @@ import openmm_drudenose_tpu_torch as dt
 import test_cmap as jcmap
 from openmm_drudenose_tpu.forces import cmap as jcm
 from openmm_drudenose_tpu_torch.forces import cmap as tcm
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _pair(maps, torsions):

@@ -10,16 +10,7 @@ import torch
 
 import torch_ranks
 from openmm_drudenose_tpu_torch.parallel import comm
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread in the test process (the ranks take one each;
-    the test workers share the host's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_thread  # noqa: F401
 
 
 def test_collectives_match_numpy():

@@ -15,6 +15,7 @@ from openmm_drudenose_tpu.io import builders as jbuilders
 from openmm_drudenose_tpu_torch.constraints import settle, vsites
 from openmm_drudenose_tpu_torch.core import spec as tspec
 from openmm_drudenose_tpu_torch.io import builders as tbuilders
+from torch_threads import _one_thread  # noqa: F401
 
 N_MOL = 64
 

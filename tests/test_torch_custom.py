@@ -18,6 +18,7 @@ from openmm_drudenose_tpu.utils import expr as jexpr
 from openmm_drudenose_tpu_torch.forces import boxutils
 from openmm_drudenose_tpu_torch.forces import custom as tcustom
 from openmm_drudenose_tpu_torch.utils import expr as texpr
+from torch_threads import _one_thread  # noqa: F401
 
 F64 = jnp.float64
 

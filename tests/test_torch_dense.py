@@ -15,16 +15,7 @@ import openmm_drudenose_tpu_torch as dt
 from openmm_drudenose_tpu.io import builders as jbuilders
 from openmm_drudenose_tpu_torch.forces import nonbonded
 from openmm_drudenose_tpu_torch.io import builders as tbuilders
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's small tensors (faster here,
-    and it leaves the cores to the other test workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_thread  # noqa: F401
 
 
 BOXES = {

@@ -14,25 +14,15 @@ relative, forces and potentials 1e-8 of their max (ROADMAP.md)."""
 import jax
 import numpy as np
 import pytest
-import torch
 from jax.sharding import Mesh
 
 import openmm_drudenose_tpu as dn
 import torch_ranks
 from openmm_drudenose_tpu.parallel import sharded as jsharded
 from test_torch_sharded import _inputs, _jax_context
+from torch_threads import _one_thread  # noqa: F401
 
 RANKS = 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread in the test process (the ranks take one each;
-    the test workers share the host's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("ranks", [2, 3])

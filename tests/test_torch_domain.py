@@ -13,7 +13,6 @@ sweep on the same fields; the refusals of the JAX function."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 import openmm_drudenose_tpu as dn
 import torch_ranks
@@ -24,18 +23,9 @@ from openmm_drudenose_tpu.units import ONE_4PI_EPS0
 from openmm_drudenose_tpu_torch.app import serialization as tser
 from openmm_drudenose_tpu_torch.forces import cellpair as tcp
 from openmm_drudenose_tpu_torch.parallel import domain
+from torch_threads import _one_thread  # noqa: F401
 
 RANKS = 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread in the test process (the ranks take one each;
-    the test workers share the host's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _setup():

@@ -20,19 +20,12 @@ from openmm_drudenose_tpu_torch.tools import measure_drift as md
 from openmm_drudenose_tpu_torch.tools import series
 from openmm_drudenose_tpu_torch.tools import validate_flatnpt as vf
 from openmm_drudenose_tpu_torch.tools import validate_npt as vn
+from torch_threads import _one_thread  # noqa: F401
 
 # a small run: 100 waters at a 0.45 nm cutoff (tests/test_torch_flatnpt.py's
 # small replica), SAMPLE_STEPS steps a sample, SAMPLES samples
 N_MOL, CUTOFF = 100, 0.45
 SAMPLE_STEPS, SAMPLES = 3, 4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -27,14 +27,7 @@ from openmm_drudenose_tpu.parallel.ensemble import \
     ReplicaEnsemble as JaxEnsemble
 from openmm_drudenose_tpu_torch.app import serialization as tser
 from openmm_drudenose_tpu_torch.parallel import ensemble
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _context(pkg, strategy="auto", grid_size=2):

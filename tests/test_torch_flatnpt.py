@@ -43,21 +43,12 @@ from openmm_drudenose_tpu_torch.io import builders as tbuilders
 from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.parallel import flatrep
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+from torch_threads import _one_thread  # noqa: F401
 
 # tests/test_flatnpt.py's replicas and scales
 N_MOL = 200
 CUTOFF = 0.55
 SCALES = (1.04, 0.95)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's small tensors (it leaves the
-    cores to the other test workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _system(pkg, builders, cutoff=CUTOFF, extras=False, barostat=False,

@@ -35,20 +35,11 @@ from openmm_drudenose_tpu_torch.io import builders as tbuilders
 from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.parallel import flatrep
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+from torch_threads import _one_thread  # noqa: F401
 
 # tests/test_flatrep.py's replica: 96 random LJ particles in a 1.6 nm box
 N0, L, CUTOFF = 96, 1.6, 0.5
 ALPHA = 3.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's small tensors (faster here,
-    and it leaves the cores to the other test workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def lj_ensemble(R, seed=5, box=(L, L, L)):

@@ -19,6 +19,7 @@ from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
 
 from test_torch_flatrep import ALPHA, CUTOFF, L, N0, lj_ensemble
+from torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("version", ["b1", "b2"])

@@ -27,6 +27,7 @@ from openmm_drudenose_tpu.io import pdbfile as jpdb
 from openmm_drudenose_tpu_torch.app import forcefield as tff
 from openmm_drudenose_tpu_torch.app import serialization as tser
 from openmm_drudenose_tpu_torch.io import pdbfile as tpdb
+from torch_threads import _one_thread  # noqa: F401
 
 DATA = jtf.DATA
 JAX = types.SimpleNamespace(ff=jff, pdb=jpdb, pkg=dn, ser=jser,

@@ -14,6 +14,7 @@ import openmm_drudenose_tpu_torch as dt
 from openmm_drudenose_tpu.forces import pairterms as jpt
 from openmm_drudenose_tpu_torch.forces import pairterms as tpt
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _drude_systems(n_pairs, screened):

@@ -12,6 +12,7 @@ import openmm_drudenose_tpu as dn
 import openmm_drudenose_tpu_torch as dt
 from openmm_drudenose_tpu.io import ionic_liquid as jil
 from openmm_drudenose_tpu_torch.io import ionic_liquid as til
+from torch_threads import _one_thread  # noqa: F401
 
 RF = dt.NonbondedForce.CutoffPeriodic
 

@@ -15,6 +15,7 @@ velocities, the port's bit for bit and the JAX package's to 1e-10 nm
 (kinetic energies 1e-10 relative).  A ("replica", "atom") mesh of 2 x 2
 on the JAX test's dense swm4_water_box(grid_size=2): every replica starts
 from the template's state, its force pass split over its two atom ranks
+from torch_threads import _one_thread  # noqa: F401
 (each replica block's rows), positions after the steps against the JAX
 Context's (1e-10 nm) and the atom ranks of a group bit-identical; on
 both meshes setPositions read back through positions() and boxes()
@@ -38,16 +39,6 @@ STEPS = 4
 # the flat sub-ensembles' steps: the port's plain f64 sweep takes ~2 s a
 # force pass of 2 x 1,000 atoms on one CPU thread
 FLAT_STEPS = 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread in the test process (the ranks take one each;
-    the test workers share the host's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

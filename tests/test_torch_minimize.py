@@ -9,24 +9,14 @@ Queue C)."""
 
 import numpy as np
 import pytest
-import torch
 
 import openmm_drudenose_tpu as dn
 import openmm_drudenose_tpu_torch as dt
 from openmm_drudenose_tpu.io import builders as jbuilders
 from openmm_drudenose_tpu_torch.io import builders as tbuilders
+from torch_threads import _one_thread  # noqa: F401
 
 WALL = 0.002
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's small tensors (faster here,
-    and it leaves the cores to the other test workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -25,21 +25,12 @@ from openmm_drudenose_tpu.io import pdbfile as jpdb
 from openmm_drudenose_tpu_torch.examples import nacl_tg
 from openmm_drudenose_tpu_torch.io import builders as tbuilders
 from openmm_drudenose_tpu_torch.io import nacl as tnacl
+from torch_threads import _one_thread  # noqa: F401
 
 # a small solution: 60 waters, 2 Na+, 2 Cl- in a 1.32 nm box
 N_W, N_NA, N_CL, CUTOFF = 60, 2, 2, 0.6
 NBFIX = {("SOD", "CLA"): (3.2, 0.08), ("CLA", "CLA"): (4.4, 0.09)}
 NBTHOLE = {("SOD", "CLA"): 1.3, ("CLA", "CLA"): 1.1}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's small tensors (faster here,
-    and it leaves the cores to the other test workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _system_fields(system):

@@ -15,6 +15,7 @@ from openmm_drudenose_tpu_torch.app import serialization as tser
 from openmm_drudenose_tpu_torch.core import topology
 from openmm_drudenose_tpu_torch.io import pdbfile
 from openmm_drudenose_tpu_torch.utils import native
+from torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -16,6 +16,7 @@ import util
 from openmm_drudenose_tpu.app import serialization as jser
 from openmm_drudenose_tpu_torch.app import serialization as tser
 from openmm_drudenose_tpu_torch.forces import neighborlist
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _systems(grid_size=3):

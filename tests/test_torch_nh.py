@@ -16,6 +16,7 @@ from openmm_drudenose_tpu.integrators import tgnh as jtgnh
 from openmm_drudenose_tpu_torch.core.spec import StaticSpec
 from openmm_drudenose_tpu_torch.integrators import tgnh
 from tests.test_nh_chain import _mini_spec, serial_reference_nh
+from torch_threads import _one_thread  # noqa: F401
 
 
 class _ChainSpec:

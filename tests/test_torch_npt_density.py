@@ -18,6 +18,7 @@ from openmm_drudenose_tpu.io import builders as jbuilders
 from openmm_drudenose_tpu_torch.io import builders
 from openmm_drudenose_tpu_torch.tools import validate_npt
 from openmm_drudenose_tpu_torch.parallel.flatrep import FlatReplicaEnsemble
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _integrator():

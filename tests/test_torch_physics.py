@@ -7,7 +7,6 @@ both packages (rtol 1e-9 a sample)."""
 
 import numpy as np
 import pytest
-import torch
 
 import openmm_drudenose_tpu as dn
 import openmm_drudenose_tpu_torch as dt
@@ -15,14 +14,7 @@ import util
 from openmm_drudenose_tpu.app import serialization as jser
 from openmm_drudenose_tpu_torch.app import serialization as tser
 from openmm_drudenose_tpu_torch.units import BOLTZ
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _water(grid_size):

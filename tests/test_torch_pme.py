@@ -12,6 +12,7 @@ import torch
 
 from openmm_drudenose_tpu.forces import pme as jpme
 from openmm_drudenose_tpu_torch.forces import pme as tpme
+from torch_threads import _one_thread  # noqa: F401
 
 
 def test_setup_matches_jax():

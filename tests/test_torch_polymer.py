@@ -16,6 +16,7 @@ import openmm_drudenose_tpu as dn
 import openmm_drudenose_tpu_torch as dt
 from openmm_drudenose_tpu.io import polymer as jpoly
 from openmm_drudenose_tpu_torch.io import polymer as tpoly
+from torch_threads import _one_thread  # noqa: F401
 
 NB = dt.NonbondedForce
 # the JAX package's own test system (tests/test_polymer.py)

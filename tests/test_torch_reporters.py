@@ -21,6 +21,7 @@ from openmm_drudenose_tpu_torch.app import serialization as tser
 from openmm_drudenose_tpu_torch.io import dcd as tdcd
 from openmm_drudenose_tpu_torch.io import pdbfile as tpdb
 from openmm_drudenose_tpu_torch.utils import profiling
+from torch_threads import _one_thread  # noqa: F401
 
 TRI_BOX = np.array([[3.0, 0.0, 0.0],
                     [0.9, 2.8, 0.0],

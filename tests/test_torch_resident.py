@@ -35,22 +35,13 @@ from openmm_drudenose_tpu.parallel import resident as jres
 from openmm_drudenose_tpu.units import ONE_4PI_EPS0
 from openmm_drudenose_tpu_torch.app import serialization as tser
 from openmm_drudenose_tpu_torch.parallel import comm, resident
+from torch_threads import _one_thread  # noqa: F401
 
 RANKS, STEPS, INTERVAL = 2, 16, 8
 PME, CUT = dn.NonbondedForce.PME, dn.NonbondedForce.CutoffPeriodic
 # the barostat run's (proposal, Metropolis) uniforms: two growths of
 # 0.1 % and 0.2 % of the volume, both accepted
 DRAWS = [(0.55, 1e-12), (0.6, 1e-12), (0.4, 0.5), (0.45, 0.5)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread in the test process (the ranks take one each;
-    the test workers share the host's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _water(method=PME, rigid_hh=True):

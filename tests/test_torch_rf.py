@@ -23,6 +23,7 @@ from openmm_drudenose_tpu_torch.forces import cellpair as tcp
 from openmm_drudenose_tpu_torch.io import builders as tbuilders
 from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+from torch_threads import _one_thread  # noqa: F401
 
 NB = dt.NonbondedForce
 # the smallest water box with a regular cell grid at this cutoff (5^3)

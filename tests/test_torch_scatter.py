@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from openmm_drudenose_tpu_torch.ops import scatter
+from torch_threads import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "openmm_drudenose_tpu_torch")

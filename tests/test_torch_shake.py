@@ -23,6 +23,7 @@ from openmm_drudenose_tpu.io import pdbfile as jpdb
 from openmm_drudenose_tpu_torch.app import forcefield as tff
 from openmm_drudenose_tpu_torch.constraints import shake as tshake
 from openmm_drudenose_tpu_torch.io import pdbfile as tpdb
+from torch_threads import _one_thread  # noqa: F401
 
 
 def test_shake_general_pair():

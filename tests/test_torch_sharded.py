@@ -33,21 +33,12 @@ from openmm_drudenose_tpu_torch.forces import cellpair as tcp
 from openmm_drudenose_tpu_torch.ops import sweep
 from openmm_drudenose_tpu_torch.parallel import sharded
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+from torch_threads import _one_thread  # noqa: F401
 
 CUTOFF = 0.7
 RANKS = 3
 STEPS = 8
 METHODS = (dn.NonbondedForce.PME, dn.NonbondedForce.CutoffPeriodic)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread in the test process (the ranks take one each;
-    the test workers share the host's cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_context(method):

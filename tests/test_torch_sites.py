@@ -17,6 +17,7 @@ from openmm_drudenose_tpu.constraints import vsites as jvs
 from openmm_drudenose_tpu.core import spec as jspec
 from openmm_drudenose_tpu_torch.constraints import vsites as tvs
 from openmm_drudenose_tpu_torch.core import spec as tspec
+from torch_threads import _one_thread  # noqa: F401
 
 # three massive parents a molecule; sites: average2, average3,
 # out-of-plane, local coordinates on 3 and on 4 parents

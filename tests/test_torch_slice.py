@@ -18,6 +18,7 @@ from openmm_drudenose_tpu.io import builders as jbuilders
 from openmm_drudenose_tpu_torch import convert
 from openmm_drudenose_tpu_torch.integrators import tgnh
 from openmm_drudenose_tpu_torch.io import builders as tbuilders
+from torch_threads import _one_thread  # noqa: F401
 
 # ewald_tol 5e-3 gives a 15^3 PME grid, where the JAX package falls back
 # from its packed pencil spread to the generic one: the pencil spread

@@ -15,7 +15,6 @@ the JAX grid does).  B1 itself on this plan is held
 against those plain versions on the card (chip_smoke.py phase 20 (c),
 tests/test_torch_gpu.py)."""
 
-import contextlib
 import dataclasses
 
 import numpy as np
@@ -30,6 +29,7 @@ from openmm_drudenose_tpu_torch.io import builders as tbuilders
 from openmm_drudenose_tpu_torch.ops import sweep
 from openmm_drudenose_tpu_torch.parallel import domain, resident
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+from torch_threads import one_thread
 
 N_MOL = 500
 
@@ -107,18 +107,6 @@ def test_kernel_plain_versions_on_the_plan(pair):
     assert abs(float(e) - float(e64)) <= 1e-6 * abs(float(e64))
 
 
-@contextlib.contextmanager
-def _one_thread():
-    """One intra-op thread: beside the other test workers, a sweep on
-    every core's worth of threads runs many times slower."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def plain_sweep(pair):
     """(plain(cfg) -> (f32 forces, f32 energy) on the plan's fields with
@@ -133,7 +121,7 @@ def plain_sweep(pair):
     def plain(c):
         a = (fields, c, cellpair.offset_shifts(c, box), nb.alpha,
              ONE_4PI_EPS0)
-        with _one_thread():
+        with one_thread():
             return (sweep.pair_forces_plain(*a, **kw),
                     float(sweep.pair_energy_plain(*a, **kw)))
 

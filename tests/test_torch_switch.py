@@ -43,6 +43,7 @@ from openmm_drudenose_tpu_torch.io import pdbfile as tpdb
 from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.parallel import flatrep
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+from torch_threads import _one_thread  # noqa: F401
 
 NB = dt.NonbondedForce
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
@@ -51,15 +52,6 @@ DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 N_MOL, CUTOFF, R_ON = 125, 0.5, 0.4
 SHEAR = (0.2, 0.1, 0.15)
 METHODS = {"ewald": NB.PME, "rf": NB.CutoffPeriodic}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's small tensors."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _switched(system, r_on=R_ON):

@@ -37,6 +37,7 @@ from openmm_drudenose_tpu_torch.integrators import barostat as tbaro
 from openmm_drudenose_tpu_torch.io import builders as tbuilders
 from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+from torch_threads import _one_thread  # noqa: F401
 
 # the JAX package's sheared test cell (tests/test_triclinic.py)
 TRI_BOX = np.array([[2.0, 0.0, 0.0],
@@ -50,16 +51,6 @@ SHEAR = (0.2, 0.1, 0.15)
 def sheared(L):
     return np.array([[L, 0, 0], [SHEAR[0] * L, L, 0],
                      [SHEAR[1] * L, SHEAR[2] * L, L]])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's small tensors (faster here,
-    and it leaves the cores to the other test workers)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # -- boxutils ----------------------------------------------------------------

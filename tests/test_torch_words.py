@@ -23,18 +23,9 @@ from openmm_drudenose_tpu_torch.forces import cellpair as tcp
 from openmm_drudenose_tpu_torch.io import builders as tbuilders
 from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
 from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0
+from torch_threads import _one_thread  # noqa: F401
 
 N_MOL, CUTOFF = 216, 0.6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this file's small tensors (several test
-    workers each running every core's worth of threads slow down)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _contexts(precision, exception=(0, 40)):

@@ -12,6 +12,7 @@ import openmm_drudenose_tpu_torch as dt
 import test_cmap as jcmap
 from openmm_drudenose_tpu.app import serialization as jser
 from openmm_drudenose_tpu_torch.app import serialization as tser
+from torch_threads import _one_thread  # noqa: F401
 
 
 def _sink(pkg, triclinic=False):
