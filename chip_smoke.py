@@ -44,11 +44,14 @@ seconds):
   4. kernel B2 (ops/sweep_chunked.py, csrc/sweep_chunked.cu) and the
      large single-card path: B2 forced at 100k against B1 on the bench
      fields; then the system of the JAX package's 1M-atom single-device
-     run (scripts/bench_1m_single.py: the same water, integrator and
-     wall, single precision, setVelocitiesToTemperature(300, seed=0)),
-     started from the bench snapshot tiled 2x2x2 (800,000 atoms, 30^3
-     cells) because a lattice start latches the drift check in both
-     packages; the gates route its sweep to B2.  64 settling steps; B2
+     run (scripts/bench_1m_single.py: 200,000 molecules in
+     build_water_box's own box, the same integrator and wall, single
+     precision; 33^3 cells), from data/bench_equil_1m.npz, which
+     tools/make_snapshot.py made on the card (a lattice start latches
+     the drift check in both packages), at its capacity
+     (tools/setups.py::bench_context); the gates route its sweep to B2,
+     and the Context's own B2 frame buffer must index in int32.  64
+     settling steps; B2
      on its fields against its plain version (<= 2e-5), the plain
      version in f64 (the f32 floor) and B1 (<= 2e-5), two launches
      bit-identical, B2 (also by brick), B1 and plain timed with their
@@ -58,8 +61,9 @@ seconds):
      two launches bit-identical, timed with its bound; no latch, the wall
      held, everything finite (the state's energy by B2's energy, no plain
      sweep on the card), the f32 force pass against f64 (the f32 floor);
-     ms/step, ns/day, bath temperatures and the breakdown (no temperature
-     window: fresh velocities are not equilibrated)
+     ms/step and ns/day of each timed window and the best of them (as
+     bench_1m_single.py reports it), bath temperatures and the breakdown
+     (no temperature window)
   5. the reference example at its own size (its examples/nacl_tg.py
      workflow through the port's Simulation): the generated NaCl box
      (492 waters, 10 Na+, 10 Cl-: 2,500 atoms, the dense strategy),
@@ -315,7 +319,17 @@ seconds):
      table of each); (g) tools/dryrun_multichip.py's part 1b on the same
      ranks.  Each rank's peak memory and ms/step printed beside phase
      18's ShardedContext ranks' (not gated: the ranks time-share one
-     card)
+     card); (h) the 1M plan's slab layout at world 8 through
+     tools/dryrun_1m.py's rank function on EIGHT_RANKS gloo ranks on
+     cuda:0: build_water_box(EIGHT_MOL, shape (32, 5, 5)) (24,500
+     atoms, 32 x-planes and 5 in y and z at 1.0 nm: 4 planes a slab,
+     the w + 2 the resident slab needs), minimized, 300 K velocities;
+     EIGHT_STEPS steps of the ShardedContext and of the
+     ResidentContext, each held as the tool holds them: B1 on rank 0's
+     slab or resident block against its plain version (2e-5 of max|F|,
+     bit-identical), the slab or resident launches counted, no plain
+     sweep, no latch, the gathered positions finite and within
+     MR_REF_TOL nm of a single f64 Context stepped alike
  20. the long-run tools at full width (tools/measure_drift.py,
      validate_npt.py, validate_flatnpt.py): (a) the JAX drift run's
      checkpoint (data/drift_100k_state.npz, read by convert.py::
@@ -363,36 +377,15 @@ import numpy as np
 
 T0 = time.time()
 HERE = os.path.dirname(os.path.abspath(__file__))
-# the large single-card path: the bench snapshot tiled TILE^3 times
-# (800,000 atoms at TILE = 2), settling and timed steps
-TILE = 2
+# the large single-card path: the JAX package's 1M-atom configuration
+# (scripts/bench_1m_single.py) from the snapshot tools/make_snapshot.py
+# made on the card, settling and timed steps
+SNAPSHOT_1M = os.path.join(HERE, "data", "bench_equil_1m.npz")
 N_SETTLE_BIG = 64
 N_TIMED_BIG = 64
 # B2's bricks timed against the one it runs (sweep_chunked.BRICK)
 RIVAL_BRICKS = ((2, 2, 2), (1, 2, 4), (1, 2, 2))
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): float32 outside the
-# tensor cores, and HBM3 bandwidth
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-# B1 operation count: every pair test is a distance and a compare (~9
-# float32 ops); every pair inside the cutoff adds the LJ + A&S-erfc force
-# and its row/reaction accumulation (~50, counting rsqrt and exp as one)
-OPS_PER_TEST = 9
-OPS_PER_PAIR = 50
-# the energy instantiation: each pair inside the cutoff costs the LJ
-# energy, erfcf (~25 operations: CUDA's rational approximation with its
-# exp) and a float64 add (~45 in all)
-OPS_PER_PAIR_ENERGY = 45
-# the reaction field in place of the erfc: a kept pair's force costs the
-# LJ and qq (krf - 1/(2 r^3)) terms and its row and reaction adds (~33);
-# its energy, LJ and qq (1/r + krf r^2 - crf) and the float64 add (~25)
-OPS_PER_PAIR_RF = 33
-OPS_PER_PAIR_ENERGY_RF = 25
-# the LJ switch on a pair inside the switching window (r_on < r < r_off):
-# r, t, S and dS/dr^2 and the products (~20; ~12 for the energy's S)
-OPS_SWITCH = 20
-OPS_SWITCH_ENERGY = 12
 # the force kernels' times recorded while B1 still added its reactions
 # with atomics (NVIDIA H100 80GB HBM3, 700 W): B1 at 100k, B2 at 800k
 # (C = 56); each run prints its own beside them
@@ -422,8 +415,10 @@ IL_STEPS, IL_B2_STEPS, IL_MIN = 192, 16, 300
 IL_SETTLE = 1024
 POLY_STEPS, POLY_MIN = 96, 300
 # the polymer's chains start overlapping one another (the builder places
-# random walks), so its bath starts hot: settle as the ionic liquid
-POLY_SETTLE = 1024
+# random walks), so its bath starts hot: settle half the ionic liquid's
+# window (the bands of the counted steps held after 512 on the card:
+# polymer 345 K, water 285 K over the run)
+POLY_SETTLE = 512
 BLOCK = 16
 IL_BANDS = {"mean": ((300.0, 500.0), (300.0, 500.0), (0.0, 10.0)),
             "last": ((200.0, 600.0), (200.0, 600.0), (0.0, 20.0))}
@@ -559,22 +554,19 @@ def fail(msg):
     sys.exit(1)
 
 
+# phase 19 (h)'s ranks, started early (start_eight_ranks)
+_EIGHT = {}
+
+
+def _bounds():
+    """tools/bounds.py: the timing and the sweep's bound, shared with the
+    tools (main() has put the package on the path)."""
+    from openmm_drudenose_tpu_torch.tools import bounds
+    return bounds
+
+
 def cuda_time_ms(fn, reps, warm=True):
-    """Mean device time of fn() over `reps` calls, by CUDA events, after
-    one call to warm it (warm=False: fn() has just run on these inputs,
-    as a plain version has where it was held against its kernel)."""
-    import torch
-    if warm:
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return _bounds().cuda_time_ms(fn, reps, warm)
 
 
 def kernel_split(fn, reps=10):
@@ -599,85 +591,15 @@ def kernel_split(fn, reps=10):
 
 
 def offset_shift(shifts, cfg, o, d):
-    """Offset o's shift along d, broadcastable to (n_cells, C): a number
-    for an (n_off, 3) table, each home cell's replica's for a
-    per-replica (R, n_off, 3) one (flat-ensemble NPT)."""
-    import torch
-    from openmm_drudenose_tpu_torch.forces import cellpair
-    if shifts.dim() == 2:
-        return shifts[o, d]
-    rep = torch.as_tensor(cellpair.rep_of_cell(cfg), device=shifts.device)
-    return shifts[rep, o, d][:, None]
+    return _bounds().offset_shift(shifts, cfg, o, d)
 
 
-def pair_counts(fields, cfg, shifts, r_on=None, cells=None):
-    """(pair tests, pairs inside the cutoff, pairs inside the cutoff and
-    beyond r_on (0 without r_on: the LJ switch's window)) that this
-    run's slot data gives the sweep: occupied-slot products over the
-    half stencil (of the home cells in `cells`, all by default)."""
-    import torch
-    nc, C = cfg.n_cells, cfg.capacity
-    lo, hi = (0, nc) if cells is None else cells
-    dev = fields["x"].device
-    count = fields["count"].long()
-    nbr = torch.as_tensor(cfg.nbr_map, device=dev)[lo:hi]
-    occ = torch.arange(C, device=dev)[None, :] < count[:, None]
-    xyz = [fields[k].reshape(nc, C) for k in "xyz"]
-    n_tests = int(torch.sum(count[lo:hi] * (count[lo:hi] - 1)))
-    n_cut = n_win = 0
-    cut2 = cfg.cutoff * cfg.cutoff
-    for o in range(cfg.n_offsets):
-        b = nbr[:, o]
-        r2 = 0
-        for d in range(3):
-            sh = offset_shift(shifts, cfg, o, d)
-            if torch.is_tensor(sh) and sh.dim() == 2:
-                sh = sh[lo:hi]
-            diff = xyz[d][lo:hi, :, None] - (xyz[d][b] + sh)[:, None, :]
-            r2 = r2 + diff * diff
-        ok = (r2 < cut2) & occ[lo:hi, :, None] & occ[b][:, None, :]
-        if o == 0:
-            ok = ok & ~torch.eye(C, dtype=torch.bool, device=dev)
-        else:
-            n_tests += int(torch.sum(count[lo:hi] * count[b]))
-        n_cut += int(torch.sum(ok))
-        if r_on is not None:
-            n_win += int(torch.sum(ok & (r2 > r_on * r_on)))
-    return n_tests, n_cut, n_win
+def pair_counts(*args, **kw):
+    return _bounds().pair_counts(*args, **kw)
 
 
-def sweep_bound(fields, cfg, shifts, energy=False, method="ewald",
-                r_switch=None, cells=None):
-    """(bound ms, "operations" or "bytes", pair tests, pairs inside the
-    cutoff, bytes) of the direct-space sweep on these fields: the larger
-    of its FP32 operations over the card's peak and the bytes it must
-    move (each field read once, the forces, or the energy, written once)
-    over the memory rate.  B1 and B2 compute the same function, so both
-    are held to this one bound (one for each instantiation and Coulomb
-    kind; with r_switch, the switch's operations on the pairs of its
-    window added).  cells: a home-slab range (B1's), whose stencils are
-    counted: the fields of the cells they reach are read, every slot's
-    force written."""
-    n_tests, n_cut, n_win = pair_counts(fields, cfg, shifts, r_switch,
-                                        cells)
-    lo, hi = (0, cfg.n_cells) if cells is None else cells
-    n_read = int(np.unique(cfg.nbr_map[lo:hi]).size)
-    n_slots = cfg.n_cells * cfg.capacity
-    n_bytes = (n_read * cfg.capacity * 8 * 4 + n_read * 4
-               + (hi - lo) * cfg.n_offsets * 4 + shifts.numel() * 4
-               + cfg.n_offsets * 4
-               + (8 * cfg.n_replicas if energy and shifts.dim() == 3
-                  else 8 if energy else n_slots * 3 * 4))
-    per_pair = {("ewald", False): OPS_PER_PAIR,
-                ("ewald", True): OPS_PER_PAIR_ENERGY,
-                ("rf", False): OPS_PER_PAIR_RF,
-                ("rf", True): OPS_PER_PAIR_ENERGY_RF}[(method, energy)]
-    t_ops = (OPS_PER_TEST * n_tests + per_pair * n_cut
-             + (OPS_SWITCH_ENERGY if energy else OPS_SWITCH) * n_win) \
-        / PEAK_FP32_FLOPS * 1e3
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    return max(t_ops, t_bytes), bound_by, n_tests, n_cut, n_bytes
+def sweep_bound(*args, **kw):
+    return _bounds().sweep_bound(*args, **kw)
 
 
 def cutoff_flips(fa, fb, cfg, sha, shb):
@@ -1075,11 +997,12 @@ def force_pass_floor(ctx, ctx64, rms_skip=False, flips_out=None):
     return ferr, ferr_all, frms, n_flip, fs, frms_all
 
 
-def phase_big(card, bench_args, bench_system):
+def phase_big(card, bench_args):
     """4. kernel B2 and the large single-card path: B2 forced at 100k
-    against B1 on the bench fields; the bench snapshot tiled TILE^3
-    times (800,000 atoms, 30^3 cells, where the gates route the sweep to
-    B2), fresh 300 K velocities (seed 0), N_SETTLE_BIG settling steps;
+    against B1 on the bench fields; the JAX package's 1M-atom
+    configuration from data/bench_equil_1m.npz (tools/setups.py::
+    bench_context: 1,000,000 atoms, 33^3 cells, where the gates route the
+    sweep to B2), N_SETTLE_BIG settling steps;
     B2 on its fields against its plain version, the plain version in f64
     and B1, launched twice for bit-identical forces, timed beside B1 and
     plain; N_TIMED_BIG steps with the launch counts reset just before and
@@ -1090,8 +1013,8 @@ def phase_big(card, bench_args, bench_system):
     import torch
     import openmm_drudenose_tpu_torch as dt
     from openmm_drudenose_tpu_torch.forces import cellpair
-    from openmm_drudenose_tpu_torch.io import builders
     from openmm_drudenose_tpu_torch.ops import sweep, sweep_chunked
+    from openmm_drudenose_tpu_torch.tools import setups
     from openmm_drudenose_tpu_torch.units import ONE_4PI_EPS0, ns_per_day
 
     card_lim = sweep_chunked.card_limits("cuda")
@@ -1109,57 +1032,32 @@ def phase_big(card, bench_args, bench_system):
         fail(f"B2 disagrees with B1 at 100k: {err:.3e}")
     del f1, f2
 
-    # a lattice start latches the drift check within 64 steps in both
-    # packages (violently unequilibrated), so the path starts from the
-    # equilibrated 100k snapshot tiled TILE x TILE x TILE
+    # the JAX package's scripts/bench_1m_single.py system (200,000
+    # molecules in build_water_box's own box, the bench integrator and
+    # wall, single precision) from the snapshot tools/make_snapshot.py
+    # made on the card, at its capacity
     t = time.time()
-    snap = np.load(os.path.join(HERE, "data", "bench_equil_100k.npz"))
-    n0 = int(snap["n_atoms"])
-    box0 = np.diagonal(np.array(bench_system.getDefaultPeriodicBoxVectors(),
-                                np.float64))
-    shifts3 = np.array([[i, j, k] for i in range(TILE) for j in range(TILE)
-                        for k in range(TILE)], np.float64) * box0
-    pos = (np.asarray(snap["positions"], np.float64)[None]
-           + shifts3[:, None, :]).reshape(-1, 3)
-    system, _ = builders.build_water_box(TILE ** 3 * n0 // 5)
-    # a box float32 holds exactly: the f32 and f64 contexts then simulate
-    # the same box, and the f32-vs-f64 check compares arithmetic only
-    box = (TILE * box0).astype(np.float32).astype(np.float64)
-    system.setDefaultPeriodicBoxVectors((box[0], 0, 0), (0, box[1], 0),
-                                        (0, 0, box[2]))
-    integ = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
-    integ.setMaxDrudeDistance(0.02)
-    ctx = dt.Context(system, integ, precision="single", device="cuda")
+    ctx, integ = setups.bench_context("cuda", snapshot=SNAPSHOT_1M)
     cap0 = ctx._cp_cfg.capacity
-    ctx.setPositions(pos)
-    ctx.setVelocitiesToTemperature(300.0, seed=0)
     ctx._ensure_neighbors()
     nb, cfg = ctx._nb, ctx._cp_cfg
-    n_atoms = pos.shape[0]
-    tag = f"{n_atoms // 1000}k"
+    n_atoms = ctx._static.n_atoms
+    tag = f"{n_atoms / 1e6:g}M"
     plan = sweep_chunked.plan_for(cfg, limits=card_lim)
-    log(f"4 context in {time.time() - t:.1f} s: {n_atoms} atoms, the 100k "
-        f"snapshot tiled {TILE}x{TILE}x{TILE}, cell grid {cfg.grid}, "
-        f"capacity {cap0} (auto) -> {cfg.capacity}, {cfg.n_offsets} "
-        f"offsets, PME grid {nb.pme.grid}; route {nb.sweep_kernel} (JAX "
-        f"chunk height {nb.pallas_chunk}); B2 brick {plan.brick}, frame "
-        f"{plan.frame}, {plan.total_chunks} chunks, frame buffer "
-        f"{plan.frame_floats(cfg.capacity) * 4} bytes "
+    log(f"4 context in {time.time() - t:.1f} s: {n_atoms} atoms from "
+        f"{os.path.relpath(SNAPSHOT_1M, HERE)}, cell grid {cfg.grid}, "
+        f"capacity {cap0} (the snapshot's) -> {cfg.capacity}, "
+        f"{cfg.n_offsets} offsets, PME grid {nb.pme.grid}; route "
+        f"{nb.sweep_kernel} (JAX chunk height {nb.pallas_chunk}); B2 brick "
+        f"{plan.brick}, frame {plan.frame}, {plan.total_chunks} chunks, "
+        f"frame buffer {plan.frame_floats(cfg.capacity) * 4} bytes "
         f"({plan.frame_floats(cfg.capacity)} floats, int32 max "
-        f"{2 ** 31 - 1})")
+        f"{sweep_chunked.INT32_MAX})")
     if nb.sweep_kernel != "b2":
         fail(f"the {tag} config routes to {nb.sweep_kernel}, not B2")
-    # the frame buffer of the JAX package's 1M-atom configuration (33^3
-    # cells, auto capacity 40, 48 once grown) must index in int32 too
-    for C in (40, 48):
-        c1m = dataclasses.replace(cfg, grid=(33, 33, 33), capacity=C)
-        p1m = sweep_chunked.plan_for(c1m, limits=card_lim)
-        log(f"4 at 1M atoms (33^3 cells, C = {C}): brick {p1m.brick}, "
-            f"{p1m.total_chunks} chunks, frame buffer "
-            f"{p1m.frame_floats(C) * 4} bytes ({p1m.frame_floats(C)} "
-            f"floats)")
-        if p1m.frame_floats(C) > sweep_chunked.INT32_MAX:
-            fail("the 1M frame buffer overflows int32 indices")
+    # the Context's own frame buffer must index in int32
+    if plan.frame_floats(cfg.capacity) > sweep_chunked.INT32_MAX:
+        fail(f"the {tag} frame buffer overflows int32 indices")
     t = time.time()
     integ.step(N_SETTLE_BIG)
     torch.cuda.synchronize()
@@ -1167,6 +1065,7 @@ def phase_big(card, bench_args, bench_system):
         f"capacity {ctx._cp_cfg.capacity}")
     # a window in which a cell overflowed reruns its steps at a grown
     # capacity (two launches a step): time such a window again
+    windows = []
     for _ in range(2):
         cap_before = ctx._cp_cfg.capacity
         for k in sweep.launches:
@@ -1178,6 +1077,7 @@ def phase_big(card, bench_args, bench_system):
         wall = time.time() - t
         launches = dict(sweep.launches)
         ms_step = wall / N_TIMED_BIG * 1e3
+        windows.append(ms_step)
         nsd = ns_per_day(N_TIMED_BIG / wall, integ.getStepSize())
         log(f"4 {N_TIMED_BIG} steps at {tag} in {wall:.2f} s: {ms_step:.2f} "
             f"ms/step, {nsd:.4f} ns/day on {card}; launches {launches}; "
@@ -1190,6 +1090,12 @@ def phase_big(card, bench_args, bench_system):
             break
     else:
         fail("the capacity grew in two timed windows running")
+    # as scripts/bench_1m_single.py reports it: the best timed window
+    best = min(windows)
+    log(f"4 {n_atoms} atoms, 1 device: {best:.2f} ms/step "
+        f"({ns_per_day(1e3 / best, integ.getStepSize()):.4f} ns/day), the "
+        f"best of {len(windows)} timed window(s) of {N_TIMED_BIG} steps, "
+        f"on {card}")
     # the kernels at the state and shapes the counted window ended with
     # (a grown capacity is a new config)
     nb, cfg, st = ctx._nb, ctx._cp_cfg, ctx._state
@@ -1252,8 +1158,8 @@ def phase_big(card, bench_args, bench_system):
     e_entry = energy_check(f"4 B2 at {tag}", sweep_chunked, fields, cfg,
                            shifts, nb.alpha, card)
     del args, fields
-    log(f"4 at {tag}: B2 {ms:.4f} ms (recorded before B1's fixed order: "
-        f"{RECORDED_MS['b2_sweep']} ms on NVIDIA H100 80GB "
+    log(f"4 at {tag}: B2 {ms:.4f} ms (recorded at 800k before B1's fixed "
+        f"order: {RECORDED_MS['b2_sweep']} ms on NVIDIA H100 80GB "
         f"HBM3, 700 W), B1 {ms_b1:.4f} ms, plain "
         f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}: {n_tests} "
         f"pair tests, {n_cut} inside the cutoff, {n_bytes} bytes) on {card}")
@@ -1262,15 +1168,18 @@ def phase_big(card, bench_args, bench_system):
     log(f"4 the state's energy: launches {e_launches}, plain sweeps on the "
         f"card {plain}")
     if e_launches["b2_energy"] < 1 or plain:
-        fail("the 800k state's energy did not come from B2's energy "
+        fail(f"the {tag} state's energy did not come from B2's energy "
              "instantiation alone")
 
     st = ctx._state
-    integ64 = dt.DrudeTGNHIntegrator(300.0, 0.1, 1.0, 0.1, 0.001, 20, 1)
-    integ64.setMaxDrudeDistance(0.02)
-    ctx64 = dt.Context(system, integ64, precision="double",
+    ctx64 = dt.Context(ctx._system, setups.bench_integrator(),
+                       precision="double",
                        nb_options={"capacity": ctx._cp_cfg.capacity},
                        device="cuda")
+    # the f32 Context's box, which float32 holds exactly: the two passes
+    # then see the same box, and the check compares arithmetic only
+    box32 = np.diag(np.diagonal(st.box.double().cpu().numpy()))
+    ctx64.setPeriodicBoxVectors(*box32)
     ctx64.setPositions((st.positions.double() + st.pos_err.double())
                        .cpu().numpy())
     ferr, ferr_all, frms, n_flip, fs, _ = force_pass_floor(ctx, ctx64)
@@ -3924,10 +3833,8 @@ def _bench_context(snap_path, cap, precision, device, gxm=1):
 def _exact(ctx):
     """The positions the integrator carries, in float64 (with the float32
     compensation where the Context has one)."""
-    st = ctx._state
-    p = st.positions.double()
-    return (p if st.pos_err is None else p + st.pos_err.double()).cpu(
-    ).numpy()
+    from openmm_drudenose_tpu_torch.tools import dryrun_1m
+    return dryrun_1m.exact_positions(ctx)
 
 
 def _floor(got, ref):
@@ -4625,6 +4532,106 @@ def phase_resident(card, cap, mem18=None, profile=False):
             "library_ms": None}
 
 
+# phase 19 (h): the 1M plan's slab layout at world 8 (tools/dryrun_1m.py's
+# rank function on an elongated box of 32 x-planes and 5 in y and z),
+# FIRE iterations of its lattice, the steps of each engine; the ranks'
+# timeout (they wait from phase 15 on)
+EIGHT_RANKS, EIGHT_MOL, EIGHT_SHAPE = 8, 4900, (32, 5, 5)
+EIGHT_MIN, EIGHT_STEPS = 300, 16
+EIGHT_TIMEOUT_S = 900.0
+
+
+def start_eight_ranks():
+    """Start 19 (h)'s EIGHT_RANKS gloo ranks on cuda:0 in the background
+    (tools/dryrun_1m.py::rank_run_on_signal): a process takes ~10 s on
+    that machine to reach the card, one after another, so the ranks do
+    it while phases 15-19 run, then wait for 19 (h)'s spec."""
+    import threading
+    from openmm_drudenose_tpu_torch.parallel import comm
+    from openmm_drudenose_tpu_torch.tools import dryrun_1m
+    d = os.path.join(HERE, "build", "chip_smoke", "eight")
+    os.makedirs(d, exist_ok=True)
+    go = os.path.join(d, "go.pt")
+    if os.path.exists(go):
+        os.remove(go)
+    _EIGHT.update(go=go, t=time.time())
+
+    def run():
+        try:
+            _EIGHT["res"] = comm.launch(
+                dryrun_1m.rank_run_on_signal, EIGHT_RANKS, "gloo", "cuda:0",
+                EIGHT_TIMEOUT_S, args=(go,))
+        except BaseException as err:
+            _EIGHT["err"] = err
+
+    _EIGHT["thread"] = threading.Thread(target=run, daemon=True)
+    _EIGHT["thread"].start()
+
+
+def _eight_go(spec):
+    """Hand the waiting ranks their spec (None: no work) and join them;
+    their results."""
+    if "thread" not in _EIGHT or os.path.exists(_EIGHT["go"]):
+        return None
+    import torch
+    tmp = _EIGHT["go"] + ".tmp"
+    torch.save(spec, tmp)
+    os.replace(tmp, _EIGHT["go"])
+    _EIGHT["go_t"] = time.time()
+    _EIGHT["thread"].join()
+    if "err" in _EIGHT:
+        raise _EIGHT["err"]
+    return _EIGHT["res"]
+
+
+def phase_eight_ranks(card):
+    """19 (h): the tool's rank function at world EIGHT_RANKS on gloo,
+    both engines, against a single f64 Context (see the module
+    docstring), on the ranks start_eight_ranks started."""
+    import torch
+    from openmm_drudenose_tpu_torch.tools import dryrun_1m
+    spec = dryrun_1m.make_spec(EIGHT_MOL, EIGHT_SHAPE, steps=EIGHT_STEPS,
+                               engines=("sharded", "resident"))
+    ctx, _ = dryrun_1m.build(spec, "cuda", "single", EIGHT_RANKS)
+    ctx.minimizeEnergy(maxIterations=EIGHT_MIN)
+    ctx.setVelocitiesToTemperature(300.0, seed=0)
+    spec["start"] = (dryrun_1m.exact_positions(ctx),
+                     ctx._state.velocities.double().cpu().numpy())
+    why = {e: dryrun_1m.refusal(EIGHT_MOL, EIGHT_RANKS, e,
+                                shape=EIGHT_SHAPE)
+           for e in spec["engines"]}
+    del ctx
+    torch.cuda.empty_cache()
+    t = time.time()
+    res = _eight_go(spec)
+    wall = time.time() - t
+    t_ref = time.time()
+    ref = dryrun_1m.reference(spec, "cuda")
+    t_ref = time.time() - t_ref
+    r0 = res[0]["sharded"]
+    log(f"19 (h) gloo, world {EIGHT_RANKS}, ranks time-sharing cuda:0: "
+        f"launched {_EIGHT['go_t'] - _EIGHT['t']:.1f} s before the go, "
+        f"the last ready {max(r['ready'] for r in res) - _EIGHT['t']:.1f} "
+        f"s after the launch; the go to the join {wall:.1f} s (rank 0's "
+        f"engines {r0['seconds']:.1f} and "
+        f"{res[0]['resident']['seconds']:.1f} s), the f64 reference "
+        f"{t_ref:.1f} s; {5 * EIGHT_MOL} atoms, grid "
+        f"{tuple(r0['grid'])}, window {tuple(r0['window'])}, "
+        f"{r0['grid'][0] // EIGHT_RANKS} planes a slab; the plans' "
+        f"refusals {why}")
+    for engine in spec["engines"]:
+        rows = [r[engine] for r in res]
+        ok = dryrun_1m.check(rows, ref, spec)
+        dryrun_1m.report(rows[:1], ok, spec, f"on {card}",
+                         log=lambda m: log(f"19 (h) {m}"))
+        log(f"19 (h) {engine}: ms/step of the ranks "
+            f"{[round(r['ms_step'], 2) for r in rows]}, peak MiB "
+            f"{[round(r['mem_peak'] / 2 ** 20, 1) for r in rows]}, "
+            f"molecules owned {[r['owned'] for r in rows]}")
+        if not dryrun_1m.passed(ok):
+            fail(f"19 (h) the {engine} engine at world {EIGHT_RANKS}: {ok}")
+
+
 # phase 20: the long-run tools (tools/measure_drift.py, validate_npt.py,
 # validate_flatnpt.py) at full width.  The drift run's samples every
 # PHYS_SAMPLE_STEPS steps, PHYS_SAMPLES of them uninterrupted against
@@ -4949,6 +4956,14 @@ def _masses(n_molecules):
 
 
 def main():
+    try:
+        _main()
+    finally:
+        # 19 (h)'s ranks, where a failure came before their go, end
+        _eight_go(None)
+
+
+def _main():
     # ---- 0. device --------------------------------------------------------
     import torch
     if not torch.cuda.is_available():
@@ -4987,16 +5002,16 @@ def main():
     log(f"1 build: B1 and B2 built by nvcc in {build_s:.1f} s")
     for ln in ptxas:
         log(f"  {ln}")
-    # the bench configs: 100k (15^3 cells, C = 48) and 800k (30^3, C = 48
-    # and the 56 it grows to)
+    # the bench configs: 100k (15^3 cells, C = 48) and 1M (33^3, C = 48
+    # and 56, a growth)
     from openmm_drudenose_tpu_torch.forces.cellpair import make_config
     c100k = make_config(1.0, [8.0] * 3, 100000, [0], [4], capacity=48)
     c100k = dataclasses.replace(c100k, grid=(15, 15, 15))
     regs = report_limits({
         "100k": c100k,
-        "800k": dataclasses.replace(c100k, grid=(30, 30, 30)),
-        "800k grown": dataclasses.replace(c100k, grid=(30, 30, 30),
-                                          capacity=56)})
+        "1M": dataclasses.replace(c100k, grid=(33, 33, 33)),
+        "1M grown": dataclasses.replace(c100k, grid=(33, 33, 33),
+                                        capacity=56)})
     phase_seconds["1 build"] = phase_mark()
 
     # ---- 2. kernel parity at full size -----------------------------------
@@ -5131,7 +5146,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- 4. B2 and the large path ------------------------------------------
-    b2_entries = phase_big(card, bench_args, system)
+    b2_entries = phase_big(card, bench_args)
     for e in b2_entries:
         e["registers"] = regs[e["name"]]
     phase_seconds["4 B2 and the large path"] = phase_mark()
@@ -5192,6 +5207,7 @@ def main():
     phase_seconds["14 the plain terms"] = phase_mark()
 
     # ---- 15. switched LJ at full width --------------------------------------
+    start_eight_ranks()
     sw_entries = phase_switch(card, final, il_state, bench_args)
     del final, il_state
     phase_seconds["15 switched LJ"] = phase_mark()
@@ -5212,6 +5228,8 @@ def main():
     # ---- 19. the state-resident decomposition -----------------------------
     res_entry = phase_resident(card, cap, mem18)
     phase_seconds["19 the resident decomposition"] = phase_mark()
+    phase_eight_ranks(card)
+    phase_seconds["19 (h) eight ranks"] = phase_mark()
 
     # ---- 20. the long-run tools ---------------------------------------------
     phase_physics(card)

@@ -809,7 +809,9 @@ class Context:
         iteration); the energy is read before and after.  On the
         cell-pair strategy the cells are sorted again whenever an atom
         has moved more than half the skin since the last sort (the JAX
-        loop keeps its first sort throughout, ROADMAP.md Queue C)."""
+        loop keeps its first sort throughout, ROADMAP.md Queue C).  The
+        last call's iterations and sorts are in `_minimize_iterations` and
+        `_minimize_sorts`."""
         spec, static = self._spec, self._static
         self._ensure_neighbors()
         st = self._state
@@ -827,7 +829,9 @@ class Context:
         alpha = torch.tensor(0.1, dtype=pos.dtype, device=pos.device)
         n_pos = 0
         self._minimize_sorts = 1
+        self._minimize_iterations = 0
         for _ in range(int(maxIterations)):
+            self._minimize_iterations += 1
             f = self._forces_only(pos, box, neighbors, None, rs)
             f = torch.where(movable, f, torch.zeros_like(f))
             p = torch.sum(f * vel)

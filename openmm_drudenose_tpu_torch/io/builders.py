@@ -76,6 +76,23 @@ def swm4_molecule_positions(origin: np.ndarray) -> np.ndarray:
     ])
 
 
+def water_box_lattice(n_molecules: int,
+                      density: float = WATER_NUMBER_DENSITY,
+                      shape=(1, 1, 1)):
+    """(lattice sites a dimension, site spacing, box edges) of
+    build_water_box's box of n_molecules at `density` and `shape`."""
+    s = np.asarray(shape, np.int64)
+    if tuple(s) == (1, 1, 1):
+        grid = int(np.ceil(n_molecules ** (1.0 / 3.0)))
+        box = (n_molecules / density) ** (1.0 / 3.0)
+        return (grid,) * 3, box / grid, (box,) * 3
+    g = int(np.ceil((n_molecules / float(s.prod())) ** (1.0 / 3.0)))
+    grid3 = tuple(int(g * v) for v in s)
+    spacing = (n_molecules
+               / (density * float(np.prod(grid3)))) ** (1.0 / 3.0)
+    return grid3, spacing, tuple(gi * spacing for gi in grid3)
+
+
 def build_water_box(n_molecules: int, method: int = NonbondedForce.PME,
                     cutoff: float = 1.0, ewald_tol: float = 5e-4,
                     add_cm_motion: bool = True,
@@ -88,18 +105,7 @@ def build_water_box(n_molecules: int, method: int = NonbondedForce.PME,
     proportional to it at the same density (the JAX package's option:
     (8, 1, 1) gives the dryrun's resident slabs many x-planes from few
     molecules); the cubic box's formula is unchanged."""
-    s = np.asarray(shape, np.int64)
-    if tuple(s) == (1, 1, 1):
-        grid = int(np.ceil(n_molecules ** (1.0 / 3.0)))
-        box = (n_molecules / density) ** (1.0 / 3.0)
-        spacing = box / grid
-        grid3, box3 = (grid,) * 3, (box,) * 3
-    else:
-        g = int(np.ceil((n_molecules / float(s.prod())) ** (1.0 / 3.0)))
-        grid3 = tuple(int(g * v) for v in s)
-        spacing = (n_molecules
-                   / (density * float(np.prod(grid3)))) ** (1.0 / 3.0)
-        box3 = tuple(gi * spacing for gi in grid3)
+    grid3, spacing, box3 = water_box_lattice(n_molecules, density, shape)
 
     system = System()
     nonbonded = NonbondedForce()

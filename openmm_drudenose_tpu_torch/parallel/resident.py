@@ -908,6 +908,32 @@ def resident_offsets(cfg) -> np.ndarray:
     return np.array([[0, 0, 0]] + half, np.int64)
 
 
+def check_plan(cfg, n_dev: int) -> int:
+    """The planes of each rank's x-slab of the cell grid `cfg` over n_dev
+    ranks; raises ValueError where the decomposition refuses the grid:
+    not regular, an x that does not divide, or (over several ranks) a
+    slab of fewer than w + 2 planes, the reach of its clamped binning."""
+    if not cfg.regular:
+        # resident_offsets wraps the stencil as the JAX grid does
+        # (offsets 0..n-1 on a dimension of n < 2w + 1 cells); the
+        # sweep takes each offset as one explicit image
+        raise ValueError(
+            f"the resident decomposition takes a regular grid (>= 2w+1 "
+            f"cells per dimension); got grid {cfg.grid}, window "
+            f"{cfg.window}")
+    gx = cfg.grid[0]
+    if gx % n_dev:
+        raise ValueError(f"cell grid x dim {gx} not divisible by "
+                         f"{n_dev} ranks")
+    loc_x = gx // n_dev
+    w2 = cfg.window[0] + 2
+    if n_dev > 1 and loc_x < w2:
+        raise ValueError(
+            f"slab x-extent {loc_x} planes < halo {w2}; use fewer "
+            f"ranks or a larger box")
+    return loc_x
+
+
 def resident_sweep(mesh, axis: str, nb) -> domain.HaloSweep:
     """The direct-space sum over each rank's resident block: the halo
     sweep of parallel/domain.py with the block's stencil
@@ -967,27 +993,11 @@ class ResidentContext:
                 "cfg", "alpha", "pme", "charge_bound", "pme_self", "disp",
                 "excl_skip", "use_kernel", "coulomb")})
         cfg = nb.cfg
-        if not cfg.regular:
-            # resident_offsets wraps the stencil as the JAX grid does
-            # (offsets 0..n-1 on a dimension of n < 2w + 1 cells); the
-            # sweep takes each offset as one explicit image
-            raise ValueError(
-                f"the resident decomposition takes a regular grid (>= 2w+1 "
-                f"cells per dimension); got grid {cfg.grid}, window "
-                f"{cfg.window}")
+        loc_x = check_plan(cfg, n_dev)
         self._nb, self._cfg = nb, cfg
         self._n_atoms = context._static.n_atoms
         self._hardwall_strict = context._hardwall_strict
         gx = cfg.grid[0]
-        if gx % n_dev:
-            raise ValueError(f"cell grid x dim {gx} not divisible by "
-                             f"{n_dev} ranks")
-        loc_x = gx // n_dev
-        w2 = cfg.window[0] + 2
-        if n_dev > 1 and loc_x < w2:
-            raise ValueError(
-                f"slab x-extent {loc_x} planes < halo {w2}; use fewer "
-                f"ranks or a larger box")
 
         # initial owners (anchor = first atom's x)
         st = context._state

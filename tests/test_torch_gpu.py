@@ -1148,3 +1148,24 @@ def test_b1_on_the_small_grid_matches_plain_on_card(cuda):
     assert sweep_chunked.b2_takes(cfg) is False
     with pytest.raises(ValueError, match="regular grids only"):
         sweep_chunked.pair_forces(*args)
+
+
+def test_1m_snapshot_steps_through_b2(cuda):
+    """data/bench_equil_1m.npz (tools/make_snapshot.py) in the bench
+    Context (tools/setups.py::bench_context: 1,000,000 atoms, 33^3
+    cells): the sweep routed to B2, 16 steps through it, B1 never, no
+    latch, positions finite."""
+    from openmm_drudenose_tpu_torch.tools import measure_drift as md
+    from openmm_drudenose_tpu_torch.tools import setups
+    ctx, integ = setups.bench_context(
+        cuda, snapshot=f"{setups.ROOT}/data/bench_equil_1m.npz")
+    ctx._ensure_neighbors()
+    assert ctx._cp_cfg.grid == (33, 33, 33)
+    assert ctx._nb.sweep_kernel == "b2"
+    for k in sweep.launches:
+        sweep.launches[k] = 0
+    integ.step(16)
+    assert sweep.launches["b2_sweep"] >= 16
+    assert sweep.launches["b1_sweep"] == 0
+    assert not any(md.latches(ctx).values())
+    assert bool(torch.all(torch.isfinite(ctx._state.positions)))

@@ -33,6 +33,8 @@ from openmm_drudenose_tpu_torch.tools import (dryrun_multichip, nacl_wall,
                                              walk_model)
 from openmm_drudenose_tpu_torch.tools import (measure_drift, series, setups,
                                              validate_flatnpt, validate_npt)
+from openmm_drudenose_tpu_torch.tools import (bounds, dryrun_1m,
+                                             make_snapshot)
 sys.path.insert(0, "tests")
 import torch_ranks
 bad = sorted(m for m in sys.modules
@@ -68,9 +70,12 @@ def test_import_leaves_jax_out():
     "openmm_drudenose_tpu_torch/tools/measure_drift.py",
     "openmm_drudenose_tpu_torch/tools/validate_npt.py",
     "openmm_drudenose_tpu_torch/tools/validate_flatnpt.py",
+    "openmm_drudenose_tpu_torch/tools/make_snapshot.py",
+    "openmm_drudenose_tpu_torch/tools/dryrun_1m.py",
+    "openmm_drudenose_tpu_torch/tools/bounds.py",
     "tests/torch_ranks.py"])
 def test_script_imports_no_jax(name):
-    """The chip script, the modules of the port's tenth to thirteenth
+    """The chip script, the modules of the port's tenth to fourteenth
     slices and the rank functions that spawned test ranks import name
     neither JAX nor the JAX package in an import."""
     src = open(os.path.join(REPO, name)).read()
