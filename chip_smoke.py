@@ -270,7 +270,8 @@ seconds):
      utils/profiling.step_breakdown of the 100k Context
  18. the multi-rank paths (parallel/comm.py, sharded.py, distfft.py,
      domain.py, ensemble.py's mesh half) at phase 3's width, driven
-     through parallel/comm.py::launch: MR_RANKS gloo ranks time-sharing
+     through parallel/comm.py (the ranks of phases 18 and 19 started
+     during phase 15, comm.Deferred): MR_RANKS gloo ranks time-sharing
      cuda:0 (NCCL refuses two ranks on one device), then NCCL at world
      size 1.  (a) B1 with a home-slab range on phase 3's fields: each of
      the MR_RANKS x-slabs of the 15^3 grid against its plain version
@@ -554,8 +555,8 @@ def fail(msg):
     sys.exit(1)
 
 
-# phase 19 (h)'s ranks, started early (start_eight_ranks)
-_EIGHT = {}
+# the ranks of phases 18 and 19, started early (start_ranks)
+_RANKS = {}
 
 
 def _bounds():
@@ -4005,7 +4006,6 @@ def phase_multirank(card, bench_args, cap, settled, regs):
     import torch
     from openmm_drudenose_tpu_torch.forces import cellpair
     from openmm_drudenose_tpu_torch.ops import sweep
-    from openmm_drudenose_tpu_torch.parallel import comm
     from openmm_drudenose_tpu_torch.units import BOLTZ
     fields, cfg, shifts, alpha, scale_c = bench_args
     args = (fields, cfg, shifts, alpha, scale_c)
@@ -4069,9 +4069,8 @@ def phase_multirank(card, bench_args, cap, settled, regs):
     flat_vel = rng.normal(size=(MR_RANKS, MR_FLAT_R * n0, 3)) * np.sqrt(
         BOLTZ * 300.0 * inv_m)[None, :, None]
     t = time.time()
-    res = comm.launch(multirank_rank, MR_RANKS, "gloo", "cuda:0",
-                      MR_TIMEOUT_S, args=(snap_path, cap, tpl_pos, tpl_vel,
-                                          flat_vel))
+    res = ranks_run("18", MR_RANKS, "gloo", multirank_rank, snap_path, cap,
+                    tpl_pos, tpl_vel, flat_vel)
     wall = time.time() - t
     r0 = res[0]
     d, c = r0["d"], r0["c"]
@@ -4142,8 +4141,7 @@ def phase_multirank(card, bench_args, cap, settled, regs):
         fail("18 (b) the sharded trajectory left the f64 Context")
     # (e) NCCL at world size 1
     t = time.time()
-    e_res = comm.launch(nccl_rank, 1, "nccl", "cuda:0", MR_TIMEOUT_S,
-                        args=(snap_path, cap))[0]
+    e_res = ranks_run("18 (e)", 1, "nccl", nccl_rank, snap_path, cap)[0]
     emax, erms = e_res["pass"]
     log(f"18 (e) {e_res['backend']}, world {e_res['world']}: ShardedContext "
         f"against the single f32 Context: force pass max {emax:.3e}, rms "
@@ -4396,11 +4394,9 @@ def phase_resident(card, cap, mem18=None, profile=False):
     the heaviest operators and kernels; ~30 s more, so off in the whole
     run).  Returns B1's resident-block entry of the `kernels` line."""
     import torch
-    from openmm_drudenose_tpu_torch.parallel import comm
     snap_path = os.path.join(HERE, "data", "bench_equil_100k.npz")
     t = time.time()
-    res = comm.launch(resident_rank, RES_RANKS, "gloo", "cuda:0",
-                      MR_TIMEOUT_S, args=(snap_path, cap))
+    res = ranks_run("19", RES_RANKS, "gloo", resident_rank, snap_path, cap)
     wall = time.time() - t
     r0 = res[0]
     lay, k = r0["layout"], r0["kernel"]
@@ -4502,8 +4498,8 @@ def phase_resident(card, cap, mem18=None, profile=False):
         fail("19 (g) the dryrun's part 1b")
     # (f) NCCL at world size 1
     t = time.time()
-    f_res = comm.launch(resident_nccl_rank, 1, "nccl", "cuda:0",
-                        MR_TIMEOUT_S, args=(snap_path, cap, profile))[0]
+    f_res = ranks_run("19 (f)", 1, "nccl", resident_nccl_rank, snap_path,
+                      cap, profile)[0]
     fmax, frms = f_res["pass"]
     log(f"19 (f) {f_res['backend']}, world {f_res['world']}: the resident "
         f"force pass against the single f32 Context's: max {fmax:.3e}, rms "
@@ -4534,60 +4530,44 @@ def phase_resident(card, cap, mem18=None, profile=False):
 
 # phase 19 (h): the 1M plan's slab layout at world 8 (tools/dryrun_1m.py's
 # rank function on an elongated box of 32 x-planes and 5 in y and z),
-# FIRE iterations of its lattice, the steps of each engine; the ranks'
-# timeout (they wait from phase 15 on)
+# FIRE iterations of its lattice, the steps of each engine
 EIGHT_RANKS, EIGHT_MOL, EIGHT_SHAPE = 8, 4900, (32, 5, 5)
 EIGHT_MIN, EIGHT_STEPS = 300, 16
-EIGHT_TIMEOUT_S = 900.0
+# the ranks started early wait from phase 15 on: launch's timeout (each
+# collective's and, doubled, the whole run's)
+EARLY_TIMEOUT_S = 900.0
 
 
-def start_eight_ranks():
-    """Start 19 (h)'s EIGHT_RANKS gloo ranks on cuda:0 in the background
-    (tools/dryrun_1m.py::rank_run_on_signal): a process takes ~10 s on
-    that machine to reach the card, one after another, so the ranks do
-    it while phases 15-19 run, then wait for 19 (h)'s spec."""
-    import threading
+def start_ranks():
+    """Start the ranks of phases 18, 19 and 19 (h) in the background
+    (parallel/comm.py::Deferred): a process takes seconds on that
+    machine to reach the card, so they do it while phases 15-17 run, and
+    then wait for their phase's function."""
     from openmm_drudenose_tpu_torch.parallel import comm
-    from openmm_drudenose_tpu_torch.tools import dryrun_1m
-    d = os.path.join(HERE, "build", "chip_smoke", "eight")
-    os.makedirs(d, exist_ok=True)
-    go = os.path.join(d, "go.pt")
-    if os.path.exists(go):
-        os.remove(go)
-    _EIGHT.update(go=go, t=time.time())
-
-    def run():
-        try:
-            _EIGHT["res"] = comm.launch(
-                dryrun_1m.rank_run_on_signal, EIGHT_RANKS, "gloo", "cuda:0",
-                EIGHT_TIMEOUT_S, args=(go,))
-        except BaseException as err:
-            _EIGHT["err"] = err
-
-    _EIGHT["thread"] = threading.Thread(target=run, daemon=True)
-    _EIGHT["thread"].start()
+    for name, world, backend, timeout_s in (
+            ("18", MR_RANKS, "gloo", EARLY_TIMEOUT_S),
+            ("18 (e)", 1, "nccl", EARLY_TIMEOUT_S),
+            ("19", RES_RANKS, "gloo", EARLY_TIMEOUT_S),
+            ("19 (f)", 1, "nccl", EARLY_TIMEOUT_S),
+            ("19 (h)", EIGHT_RANKS, "gloo", EARLY_TIMEOUT_S)):
+        _RANKS[name] = comm.Deferred(world, backend, "cuda:0", timeout_s)
 
 
-def _eight_go(spec):
-    """Hand the waiting ranks their spec (None: no work) and join them;
-    their results."""
-    if "thread" not in _EIGHT or os.path.exists(_EIGHT["go"]):
-        return None
-    import torch
-    tmp = _EIGHT["go"] + ".tmp"
-    torch.save(spec, tmp)
-    os.replace(tmp, _EIGHT["go"])
-    _EIGHT["go_t"] = time.time()
-    _EIGHT["thread"].join()
-    if "err" in _EIGHT:
-        raise _EIGHT["err"]
-    return _EIGHT["res"]
+def ranks_run(name, world, backend, fn, *args):
+    """fn(*args) on the ranks start_ranks started for `name`, or, where
+    the phase runs alone, on ranks launched now; their results."""
+    from openmm_drudenose_tpu_torch.parallel import comm
+    deferred = _RANKS.pop(name, None)
+    if deferred is None:
+        return comm.launch(fn, world, backend, "cuda:0", MR_TIMEOUT_S,
+                           args=args)
+    return deferred.go(fn, *args)
 
 
 def phase_eight_ranks(card):
     """19 (h): the tool's rank function at world EIGHT_RANKS on gloo,
     both engines, against a single f64 Context (see the module
-    docstring), on the ranks start_eight_ranks started."""
+    docstring)."""
     import torch
     from openmm_drudenose_tpu_torch.tools import dryrun_1m
     spec = dryrun_1m.make_spec(EIGHT_MOL, EIGHT_SHAPE, steps=EIGHT_STEPS,
@@ -4603,16 +4583,15 @@ def phase_eight_ranks(card):
     del ctx
     torch.cuda.empty_cache()
     t = time.time()
-    res = _eight_go(spec)
+    res = ranks_run("19 (h)", EIGHT_RANKS, "gloo", dryrun_1m.rank_run, spec)
     wall = time.time() - t
     t_ref = time.time()
     ref = dryrun_1m.reference(spec, "cuda")
     t_ref = time.time() - t_ref
     r0 = res[0]["sharded"]
     log(f"19 (h) gloo, world {EIGHT_RANKS}, ranks time-sharing cuda:0: "
-        f"launched {_EIGHT['go_t'] - _EIGHT['t']:.1f} s before the go, "
-        f"the last ready {max(r['ready'] for r in res) - _EIGHT['t']:.1f} "
-        f"s after the launch; the go to the join {wall:.1f} s (rank 0's "
+        f"the last rank began {max(r['started'] for r in res) - t:.1f} s "
+        f"after the call; the call to the join {wall:.1f} s (rank 0's "
         f"engines {r0['seconds']:.1f} and "
         f"{res[0]['resident']['seconds']:.1f} s), the f64 reference "
         f"{t_ref:.1f} s; {5 * EIGHT_MOL} atoms, grid "
@@ -4959,8 +4938,9 @@ def main():
     try:
         _main()
     finally:
-        # 19 (h)'s ranks, where a failure came before their go, end
-        _eight_go(None)
+        # the ranks started early that a failure left waiting end
+        for deferred in _RANKS.values():
+            deferred.cancel()
 
 
 def _main():
@@ -5207,7 +5187,7 @@ def _main():
     phase_seconds["14 the plain terms"] = phase_mark()
 
     # ---- 15. switched LJ at full width --------------------------------------
-    start_eight_ranks()
+    start_ranks()
     sw_entries = phase_switch(card, final, il_state, bench_args)
     del final, il_state
     phase_seconds["15 switched LJ"] = phase_mark()

@@ -22,13 +22,16 @@ directory (no TCP port, so that concurrent runs never race for one),
 calls fn(mesh_args...) on each, and returns each rank's result.  The
 process group's timeout bounds every collective, so a rank that hangs
 fails the run after `timeout_s`; a rank's exception reaches the caller
-with its traceback.
+with its traceback.  `Deferred(world, backend, device, timeout_s)`
+starts the ranks at once and runs a function given later (`go`), so
+that their start-up overlaps the caller's work.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import shutil
 import tempfile
 import time
 import traceback
@@ -322,3 +325,67 @@ def launch(fn, world: int, backend: str = "gloo", device="cuda",
                                f"written):\n{text}") from err
         return [torch.load(os.path.join(tmp, f"result_{r}.pt"),
                            weights_only=False) for r in range(int(world))]
+
+
+def _run_when_told(go_path):
+    """A deferred rank: wait for the launcher's (fn, args) in `go_path`,
+    then fn(*args); None there ends the rank with no work."""
+    while not os.path.exists(go_path):
+        time.sleep(0.2)
+    job = torch.load(go_path, weights_only=False)
+    return None if job is None else job[0](*job[1])
+
+
+class Deferred:
+    """`world` ranks started now, in a background thread, that run a
+    function given later: `go(fn, *args)` hands it to them and returns
+    their results as `launch` does; `cancel()` ends them with no work
+    (a no-op once they have run).  The ranks start their processes, join
+    their group and reach their device while the caller works on, so
+    their start-up leaves the caller's path.  timeout_s is launch's, and
+    it also bounds the wait for the go."""
+
+    def __init__(self, world, backend="gloo", device="cuda",
+                 timeout_s=300.0, threads=None):
+        import threading
+        self._dir = tempfile.mkdtemp(prefix="dn_deferred_")
+        self._go = os.path.join(self._dir, "go.pt")
+        self._out = {}
+        self._sent = False
+
+        def run():
+            try:
+                self._out["res"] = launch(_run_when_told, world, backend,
+                                          device, timeout_s,
+                                          args=(self._go,), threads=threads)
+            except BaseException as err:
+                self._out["err"] = err
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def _send(self, job):
+        if self._sent:
+            return False
+        self._sent = True
+        tmp = self._go + ".tmp"
+        torch.save(job, tmp)
+        os.replace(tmp, self._go)
+        return True
+
+    def _join(self):
+        self._thread.join()
+        shutil.rmtree(self._dir, ignore_errors=True)
+
+    def go(self, fn, *args):
+        """Run fn(*args) on the ranks; their results, rank by rank."""
+        if not self._send((fn, args)):
+            raise RuntimeError("these ranks already ran")
+        self._join()
+        if "err" in self._out:
+            raise self._out["err"]
+        return self._out["res"]
+
+    def cancel(self):
+        if self._send(None):
+            self._join()

@@ -290,19 +290,6 @@ def rank_run(spec) -> dict:
     return out
 
 
-def rank_run_on_signal(go_path) -> dict:
-    """rank_run(spec) once the launcher has put the spec in `go_path`
-    (torch.save'd, moved into place): the ranks start, join their group
-    and reach the card while the launcher still works.  A go file that
-    holds None ends the ranks with no work.  Adds the host clock when the
-    rank was ready ("ready")."""
-    ready = time.time()
-    while not os.path.exists(go_path):
-        time.sleep(0.2)
-    spec = torch.load(go_path, weights_only=False)
-    return {"ready": ready, **({} if spec is None else rank_run(spec))}
-
-
 def reference(spec, device) -> np.ndarray:
     """The single float64 Context of the spec stepped spec["steps"]
     steps: its compensated positions."""

@@ -31,9 +31,10 @@ it (its positions and velocities, no minimization; the JAX script's
 branch, here for any size) and stores the steps of both.  --tile starts
 instead from a smaller snapshot tiled k x k x k (125,000 atoms tile to
 1,000,000 in the same box), equilibrated alike: the 1M lattice start
-blows up in its first 64 steps, 500 FIRE iterations or 2,500 (FIRE
-scales every atom's move by the largest one's, and at 1M atoms it stalls
-at ~-13.9 kJ/mol a molecule).  --budget-s ends the equilibration at the
+blows up in its first 64 steps after 500 FIRE iterations or 2,500 (FIRE
+scales every atom's move by the largest one's, and stalls at ~-14 kJ/mol
+a molecule), while 125k at the same energy a molecule heats to ~550 K
+and settles.  --budget-s ends the equilibration at the
 chunk boundary before the budget and writes what it reached, so that a
 later call extends it.  The tool refuses to write the JAX package's
 snapshot (data/bench_equil_100k.npz).

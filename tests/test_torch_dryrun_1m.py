@@ -67,3 +67,19 @@ def test_tool_exits_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     assert dryrun_1m.main(["--ranks", "2"]) == 1
+
+
+def test_deferred_ranks_run_what_they_are_given():
+    """parallel/comm.py::Deferred: ranks started before their function
+    run it when given (rank_run with no engine: each rank's clock), and a
+    cancelled set ends with no work and refuses a later go."""
+    from openmm_drudenose_tpu_torch.parallel import comm
+    early = comm.Deferred(2, "gloo", "cpu", torch_ranks.TIMEOUT_S,
+                          threads=torch_ranks.THREADS)
+    res = early.go(dryrun_1m.rank_run, dryrun_1m.make_spec(1, engines=()))
+    assert len(res) == 2 and all(set(r) == {"started"} for r in res)
+    cancelled = comm.Deferred(2, "gloo", "cpu", torch_ranks.TIMEOUT_S,
+                              threads=torch_ranks.THREADS)
+    cancelled.cancel()
+    with pytest.raises(RuntimeError, match="already ran"):
+        cancelled.go(dryrun_1m.rank_run, dryrun_1m.make_spec(1, engines=()))
