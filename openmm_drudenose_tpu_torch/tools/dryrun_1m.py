@@ -148,9 +148,11 @@ def _memory(device):
 
 def _kernel(args, kw, cells, time_it, bound_args):
     """B1 (sweep.pair_forces with kw) against its plain version, twice
-    for the bits; on the card, with time_it, its ms, the plain ms, the
-    bound (bound_args: fields, cfg, shifts of the function's work, the
-    home cells `cells`) and the registers."""
+    for the bits; on the card, on the rank with time_it while the others
+    wait (every rank calls it), its ms, the plain ms, the bound
+    (bound_args: fields, cfg, shifts of the function's work, the home
+    cells `cells`) and the registers."""
+    import torch.distributed as dist
     from openmm_drudenose_tpu_torch.ops import sweep
     from openmm_drudenose_tpu_torch.tools import bounds
     kw_plain = {k: v for k, v in kw.items() if k != "resident"}
@@ -162,6 +164,7 @@ def _kernel(args, kw, cells, time_it, bound_args):
            "max_abs": float(torch.max(torch.abs(f_k - f_p))),
            "bits": bool(torch.equal(f_k, f_k2))}
     del f_k, f_k2, f_p
+    dist.barrier()
     if time_it and args[0]["x"].device.type == "cuda":
         out["ms"] = bounds.cuda_time_ms(
             lambda: sweep.pair_forces(*args, **kw), 20)
@@ -171,6 +174,7 @@ def _kernel(args, kw, cells, time_it, bound_args):
          n_bytes) = bounds.sweep_bound(*bound_args, cells=cells)
         out["work"] = [n_tests, n_cut, n_bytes]
         out["regs"] = sweep.attributes()["regs"]
+    dist.barrier()
     return out
 
 
