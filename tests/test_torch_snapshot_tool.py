@@ -15,7 +15,6 @@ import pytest
 from openmm_drudenose_tpu_torch.io import builders
 from openmm_drudenose_tpu_torch.tools import make_snapshot as ms
 from openmm_drudenose_tpu_torch.tools import setups
-from openmm_drudenose_tpu_torch.units import BOLTZ
 from torch_threads import _one_thread  # noqa: F401
 
 N_MOL, CUTOFF = 216, 0.5
