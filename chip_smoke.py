@@ -14,7 +14,8 @@ seconds):
      CUDA, before printing any result
   1. build: nvcc builds kernels B1 (ops/sweep.py, csrc/sweep.cu) and B2
      (ops/sweep_chunked.py, csrc/sweep_chunked.cu), both on the warp-tile
-     pair loop of csrc/pair_tile.cuh; prints the build seconds and
+     pair loop of csrc/pair_tile.cuh, and the NH chain kernel
+     (ops/nh_chain.py, csrc/nh_chain.cu); prints the build seconds and
      ptxas' register/shared-memory lines, then (c) each kernel's
      registers, static shared memory and local bytes as read from the
      card (cudaFuncGetAttributes), the card's limits, and the warps an SM
@@ -40,7 +41,20 @@ seconds):
      and ns/day, and the stream time of each part of the force pass
      beside the whole step; then a checkpoint of the 100k NVT state
      saved, 32 steps through B1, loaded, 32 steps: positions bit for bit
-     (max |dx| = 0)
+     (max |dx| = 0).  The 100 steps also count the NH chain kernel's
+     launches (a half step's and a fused pair's, 107).  Then (NH) the NH
+     chain kernel against its plain version on the card (the Context's
+     3 baths in f32 and f64, the ionic liquid's 4 and the flat
+     ensemble's (70, 3) rows, each form: a half step, the fused pair with
+     the CM correction, the pair in two launches; 1e-12 of each output's
+     max, two launches bit-identical), timed with its bound (device
+     time by torch.profiler, the host's issue time by CUDA events); one
+     128-step chunk of the main path under set_sync_debug_mode("error"):
+     no synchronising call outside the chunk's one latch read (a chunk
+     that overflows the cells, whose capacity growth reads back by
+     design, is run again without it and the next one taken), the NH
+     chain kernel launched 136 times, its ms/step; the card's busy share
+     of 32 steps (torch.profiler, the card's activity alone)
   4. kernel B2 (ops/sweep_chunked.py, csrc/sweep_chunked.cu) and the
      large single-card path: B2 forced at 100k against B1 on the bench
      fields; then the system of the JAX package's 1M-atom single-device
@@ -373,6 +387,7 @@ import re
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 
@@ -402,6 +417,15 @@ EX_SAMPLE = 10
 NPT_STEPS, NPT_BARO = 200, 25
 # phase 3: the checkpoint replay through B1
 REPLAY_STEPS = 32
+# phase 3 (NH): the NH chain kernel against its plain version on the
+# card (ops/nh_chain.py: both compute in float64 and round to the chain's
+# type at the same points), relative to each output's max; its timed
+# launches; the main path's chunk (8 blocks of the 16-step rebuild
+# interval) counted for synchronising calls and run under
+# set_sync_debug_mode("error"), then timed and profiled
+NH_TOL = 1e-12
+NH_REPS, NH_PROFILE_REPS, NH_PLAIN_REPS = 2000, 200, 50
+CHUNK_STEPS, BUSY_STEPS = 128, 32
 # phases 7 and 8: the timed steps (in blocks of BLOCK, the rebuild
 # interval), the steps counted through B2's RF instantiation, FIRE
 # iterations, and the bath bands (the run's mean, sampled every BLOCK
@@ -639,18 +663,25 @@ def cutoff_flips(fa, fb, cfg, sha, shb):
     return (hits > 0).reshape(-1), n_flip
 
 
+# the NH chain kernel's launches in the last counted() window
+NH_LAUNCHES = [0]
+
+
 def counted(fn):
     """(fn(), launches, plain sweeps on the card) with every count set to
-    0 just before fn() and read just after."""
+    0 just before fn() and read just after: the sweep kernels' in
+    `launches`, the NH chain kernel's in NH_LAUNCHES[0]."""
     import torch
     from openmm_drudenose_tpu_torch.forces import cellpair
-    from openmm_drudenose_tpu_torch.ops import sweep
+    from openmm_drudenose_tpu_torch.ops import nh_chain, sweep
     for k in sweep.launches:
         sweep.launches[k] = 0
+    nh_chain.launches["nh_chain"] = 0
     cellpair.plain_sweeps["cuda"] = 0
     torch.cuda.synchronize()
     out = fn()
     torch.cuda.synchronize()
+    NH_LAUNCHES[0] = nh_chain.launches["nh_chain"]
     return out, dict(sweep.launches), cellpair.plain_sweeps["cuda"]
 
 
@@ -998,6 +1029,197 @@ def force_pass_floor(ctx, ctx64, rms_skip=False, flips_out=None):
     return ferr, ferr_all, frms, n_flip, fs, frms_all
 
 
+def nh_inputs(R, G, M, dtype, seed):
+    """Bath constants (a spec-like namespace) and the chain's inputs of R
+    replicas (R = 0: one set of (G+2,) baths) on the card, made from a
+    seed with numpy: the ionic liquid's and the flat ensemble's shapes."""
+    import types
+    import torch
+    rng = np.random.default_rng(seed)
+    nb = G + 2
+    lead = (R,) if R else ()
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device="cuda")
+    link = np.ones((nb, M), bool)
+    link[nb - 1, 1:] = False
+    spec = types.SimpleNamespace(
+        nh_eta_mass=t(np.abs(rng.normal(5.0, 1.0, (nb, M)))),
+        nh_nkbt=t(np.abs(rng.normal(250.0, 2.5, nb))),
+        nh_kbt_chain=t(np.r_[np.full(nb - 1, 2.494), 0.008314]),
+        nh_link_active=torch.as_tensor(link, device="cuda"))
+    static = types.SimpleNamespace(n_temp_groups=G, n_chains=M,
+                                   drude_steps=20)
+    eta_dot = rng.normal(0, 0.5, lead + (nb, M + 1))
+    eta_dot[..., M] = 0.0
+    chain = (t(np.abs(rng.normal(250.0, 25.0, lead + (nb,)))),
+             t(rng.normal(0, 0.1, lead + (nb, M))), t(eta_dot),
+             t(rng.normal(0, 0.5, lead + (nb, M))))
+    cm = dict(mom=t(rng.normal(0, 5.0, lead + (3,))),
+              total_mass=t(np.abs(rng.normal(1e4, 10.0, lead))), m01=1.0)
+    return spec, static, chain, cm
+
+
+def nh_parity(tag, spec, static, dt_ps, chain, cm):
+    """The NH chain kernel in each form of the main path (a half step,
+    the fused pair with the CM correction in one launch, the pair in two
+    launches around a barostat move) against its plain version on the
+    same card inputs, two launches bit-identical; fails past NH_TOL of
+    each output's max.  Returns the largest |kernel - plain|."""
+    import torch
+    from openmm_drudenose_tpu_torch.ops import nh_chain
+    F, S, C = nh_chain.FIRST, nh_chain.SECOND, nh_chain.CM
+    ke, eta, ed, edd = chain
+    worst_rel, worst_abs = 0.0, 0.0
+
+    def form(mode, ke_in, ch, **kw):
+        nonlocal worst_rel, worst_abs
+        got = nh_chain.run(spec, static, mode, ke_in, *ch, dt_ps, **kw)
+        again = nh_chain.run(spec, static, mode, ke_in, *ch, dt_ps, **kw)
+        ref = nh_chain.run_plain(spec, static, mode, ke_in, *ch, dt_ps,
+                                 **kw)
+        torch.cuda.synchronize()
+        for g, a, r in zip(got, again, ref):
+            if r is None:
+                continue
+            if not torch.equal(g, a):
+                fail(f"{tag}: two NH chain launches differ (mode {mode})")
+            d = float(torch.max(torch.abs(g.double() - r.double())))
+            scale = float(torch.max(torch.abs(r.double())))
+            worst_abs = max(worst_abs, d)
+            worst_rel = max(worst_rel, d / scale if scale > 0 else d)
+        return got
+
+    form(F, ke, (eta, ed, edd))
+    form(F | S | C, ke, (eta, ed, edd), **cm)
+    vs_a, ke_a, _, *mid = form(F | C, ke, (eta, ed, edd), **cm)
+    form(S | C, ke_a, tuple(mid), vs=vs_a, **cm)
+    log(f"{tag}: the NH chain kernel against its plain version, max "
+        f"|d| {worst_abs:.3e} ({worst_rel:.3e} of the max), two launches "
+        f"bit-identical")
+    if not worst_rel <= NH_TOL:
+        fail(f"{tag}: the NH chain kernel disagrees with its plain "
+             f"version: {worst_rel:.3e} of the max")
+    return worst_abs
+
+
+def phase_nh(card, ctx, integ):
+    """Phase 3 (NH): the NH chain kernel against its plain version on the
+    main path's inputs (the 100k Context's state: 3 baths, float32; and
+    in float64), the ionic liquid's 4 baths and the flat ensemble's (70,
+    3) rows; its timed launch beside its bound and the plain version's;
+    then one CHUNK_STEPS-step chunk of the main path under
+    set_sync_debug_mode("error"): none outside the chunk's latch read,
+    its ms/step; then the card's busy share of BUSY_STEPS steps
+    (utils/profiling.py::busy_share).  Returns the kernel's entry of the
+    kernels line (launches filled in by the caller)."""
+    import types
+    import torch
+    from openmm_drudenose_tpu_torch.integrators import tgnh
+    from openmm_drudenose_tpu_torch.ops import nh_chain
+    from openmm_drudenose_tpu_torch.utils import profiling
+    spec, static, st = ctx._spec, ctx._static, ctx._state
+    accum = st.eta.dtype
+    v = st.velocities
+    ke = tgnh.group_kinetic_energies(spec, static, v, accum)[0]
+    mom = torch.sum((spec.mass[:, None] * v).to(accum), dim=0)
+    cm = dict(mom=mom, total_mass=torch.sum(spec.mass).to(accum),
+              m01=1.0)
+    chain = (ke, st.eta, st.eta_dot, st.eta_dot_dot)
+    err = nh_parity("3 NH bench (3 baths, f32)", spec, static, spec.dt,
+                    chain, cm)
+    d64 = lambda t: t.double()
+    spec64 = types.SimpleNamespace(
+        nh_link_active=spec.nh_link_active, **{k: d64(getattr(spec, k)) for
+                                               k in ("nh_eta_mass", "nh_nkbt",
+                                                     "nh_kbt_chain")})
+    nh_parity("3 NH bench (3 baths, f64)", spec64, static, spec.dt,
+              tuple(map(d64, chain)),
+              dict(cm, mom=d64(mom), total_mass=d64(cm["total_mass"])))
+    for tag, R, G in (("ionic liquid (4 baths)", 0, 2),
+                      ("flat ensemble (70, 3)", 70, 1)):
+        for dtype, name in ((torch.float32, "f32"), (torch.float64, "f64")):
+            s_, st_, ch_, cm_ = nh_inputs(R, G, 1, dtype, 11 + R + G)
+            nh_parity(f"3 NH {tag}, {name}", s_, st_, 0.001, ch_, cm_)
+    fused = lambda: nh_chain.run(
+        spec, static, nh_chain.FIRST | nh_chain.SECOND | nh_chain.CM,
+        *chain, spec.dt, **cm)
+    plain = lambda: nh_chain.run_plain(
+        spec, static, nh_chain.FIRST | nh_chain.SECOND | nh_chain.CM,
+        *chain, spec.dt, **cm)
+    host_ms = cuda_time_ms(fused, NH_REPS)
+    ms = kernel_split(fused, reps=NH_PROFILE_REPS).get("nh_chain_kernel")
+    if ms is None:
+        fail("torch.profiler recorded no nh_chain_kernel")
+    plain_ms = cuda_time_ms(plain, NH_PLAIN_REPS)
+    rows, B = ke.numel(), static.n_temp_groups + 2
+    bound_ms, bound_by = _bounds().nh_chain_bound(
+        rows, B, static.n_chains, static.drude_steps, 2,
+        ke.element_size(), True)
+    attrs = nh_chain.attributes(accum == torch.float64)
+    log(f"3 NH chain kernel (the fused pair, {rows} rows, float32): "
+        f"{ms * 1e3:.3f} us of device time a launch (torch.profiler over "
+        f"{NH_PROFILE_REPS}), {host_ms * 1e3:.2f} us a call from the host "
+        f"(CUDA events over {NH_REPS}: the wrapper's issue time), plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.3e} ms ({bound_by}); "
+        f"{attrs['regs']} registers, {attrs['local_bytes']} local bytes "
+        f"on {card}")
+
+    # one chunk under "error": no synchronising call but its latch read.
+    # A chunk whose cell sort overflows is rerun from its start after a
+    # capacity growth, which reads the positions back by design (the JAX
+    # Context reruns such a chunk too): the growth's read raises, the
+    # chunk is run again without the debug mode and the gate takes the
+    # next one.  tools/sync_count.py counts the calls by place.
+    def strict():
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            integ.step(CHUNK_STEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / CHUNK_STEPS * 1e3
+    for _ in range(3):
+        try:
+            ms_steps, launches, plain_n = counted(strict)
+            break
+        except RuntimeError as e:
+            frames = traceback.extract_tb(e.__traceback__)
+            if not any(f.name == "_grow_pair_capacity" for f in frames):
+                fail("a synchronising call under set_sync_debug_mode("
+                     "'error'):\n" + "".join(traceback.format_exception(e)))
+            cap = ctx._cp_cfg.capacity
+            integ.step(CHUNK_STEPS)
+            log(f"3 a {CHUNK_STEPS}-step chunk overflowed the cells under "
+                f"'error' (the growth's read raised); run again without "
+                f"it: capacity {cap} -> {ctx._cp_cfg.capacity}; another "
+                f"chunk")
+    else:
+        fail("three chunks in a row overflowed the cells")
+    want = CHUNK_STEPS + CHUNK_STEPS // BLOCK
+    log(f"3 one {CHUNK_STEPS}-step chunk of the main path under "
+        f"set_sync_debug_mode('error'): 0 synchronising calls outside its "
+        f"latch read, {ms_steps:.3f} ms/step (host clock, synchronized); "
+        f"launches { {k: v for k, v in launches.items() if v} }, NH chain "
+        f"{NH_LAUNCHES[0]} (a half step's and a fused pair's: {want})")
+    if NH_LAUNCHES[0] != want or launches["b1_sweep"] < CHUNK_STEPS \
+            or plain_n:
+        fail("the chunk did not run through the NH chain kernel and B1 "
+             "alone")
+    busy = profiling.busy_share(lambda: integ.step(BUSY_STEPS))
+    log(f"3 the card busy {busy['busy']:.4f} of {BUSY_STEPS} steps "
+        f"({busy['device_ms']:.1f} ms of device time in "
+        f"{busy['wall_ms']:.1f} ms, torch.profiler) on {card}")
+    return {"name": "nh_chain", "route": "cuda",
+            "source": "openmm_drudenose_tpu_torch/csrc/nh_chain.cu",
+            "replaces": "openmm_drudenose_tpu/integrators/tgnh.py:211",
+            "replaces_kind": "XLA code (lax.fori_loop), no pallas_call",
+            "registers": attrs["regs"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "host_us": host_ms * 1e3, "syncs_per_chunk": 0,
+            "busy_share": busy["busy"], "ms_per_step_chunk": ms_steps}
+
+
 def phase_big(card, bench_args):
     """4. kernel B2 and the large single-card path: B2 forced at 100k
     against B1 on the bench fields; the JAX package's 1M-atom
@@ -1252,7 +1474,7 @@ def phase_example(card):
         kineticEnergy=True, temperature=True, density=True,
         groupTemperatures=True, speed=True))
     box0 = ctx.getState().getPeriodicBoxVectors()
-    nkbt = ctx._spec.nh_nkbt.double().numpy()
+    nkbt = ctx._spec.nh_nkbt.double().cpu().numpy()
     targets = np.array([300.0, 300.0, 1.0])
     samples = []
 
@@ -1262,7 +1484,7 @@ def phase_example(card):
         # read from the integrator's host-side chain state
         for _ in range(EX_STEPS // EX_SAMPLE):
             sim.step(EX_SAMPLE)
-            samples.append(ctx._state.group_ke.double().numpy() / nkbt
+            samples.append(ctx._state.group_ke.double().cpu().numpy() / nkbt
                            * targets)
 
     t = time.time()
@@ -1463,13 +1685,13 @@ def run_blocks(ctx, integ, n_steps, targets):
     sweeps on the card, the run's mean bath temperatures)."""
     import torch
     from openmm_drudenose_tpu_torch.units import ns_per_day
-    nkbt = ctx._spec.nh_nkbt.double().numpy()
+    nkbt = ctx._spec.nh_nkbt.double().cpu().numpy()
     samples = []
 
     def drive():
         for _ in range(n_steps // BLOCK):
             integ.step(BLOCK)
-            samples.append(ctx._state.group_ke.double().numpy() / nkbt
+            samples.append(ctx._state.group_ke.double().cpu().numpy() / nkbt
                            * targets)
 
     t = time.time()
@@ -2093,7 +2315,7 @@ def phase_flat(card):
     log(f"10 {FLAT_SETTLE} settling steps in {time.time() - t:.2f} s; "
         f"capacity {ctx._cp_cfg.capacity}")
 
-    nkbt = ctx._spec.nh_nkbt.double().numpy()
+    nkbt = ctx._spec.nh_nkbt.double().cpu().numpy()
     targets = np.array([300.0, 300.0, 1.0])
     samples, walls = [], []
 
@@ -2103,8 +2325,8 @@ def phase_flat(card):
             ens.step(FLAT_STEPS)
             torch.cuda.synchronize()
             walls.append(time.time() - t0)
-            samples.append((ctx._state.group_ke.double().numpy() / nkbt
-                            * targets)[:FLAT_REPLICAS])
+            two_ke = ctx._state.group_ke.double().cpu().numpy()
+            samples.append((two_ke / nkbt * targets)[:FLAT_REPLICAS])
 
     _, launches, plain = counted(drive)
     best = min(walls)
@@ -2461,7 +2683,7 @@ def phase_flat_npt(card, settled):
         torch.cuda.synchronize()
         log(f"11 {FLAT_NPT_SETTLE} settling steps in {time.time() - t:.2f} "
             f"s; capacity {ctx._cp_cfg.capacity}; {len(inside)} attempts")
-        nkbt = ctx._spec.nh_nkbt.double().numpy()
+        nkbt = ctx._spec.nh_nkbt.double().cpu().numpy()
         targets = np.array([300.0, 300.0, 1.0])
         samples, walls, ins = [], [], []
 
@@ -2473,8 +2695,8 @@ def phase_flat_npt(card, settled):
                 torch.cuda.synchronize()
                 walls.append(time.time() - t0)
                 ins.append(inside[n_in:])
-                samples.append((ctx._state.group_ke.double().numpy() / nkbt
-                                * targets)[:FLAT_REPLICAS])
+                two_ke = ctx._state.group_ke.double().cpu().numpy()
+                samples.append((two_ke / nkbt * targets)[:FLAT_REPLICAS])
 
         n_before = len(inside)
         _, launches, plain = counted(drive)
@@ -3122,14 +3344,14 @@ def phase_shake(card, ms_step_nvt, final, modeller):
         fail("13: the flexible deck is not 39,360 SHAKE constraints")
     stats = shake.ShakeStats()
     ctx._stepper.shake_stats = stats
-    nkbt = ctx._spec.nh_nkbt.double().numpy()
+    nkbt = ctx._spec.nh_nkbt.double().cpu().numpy()
     targets = np.array([300.0, 300.0, 1.0])
     samples, worst, runaways = [], [0.0], [0]
 
     def drive():
         for _ in range(SHAKE_STEPS // BLOCK):
             integ.step(BLOCK)
-            samples.append(ctx._state.group_ke.double().numpy() / nkbt
+            samples.append(ctx._state.group_ke.double().cpu().numpy() / nkbt
                            * targets)
             worst[0] = max(worst[0], constraint_errors(ctx)[0])
             # a Drude bounced back from past twice the wall (phase 12's
@@ -4283,8 +4505,8 @@ def resident_rank(snap_path, cap):
     out["at_ref"] = at_ref if rank == 0 else None
     stt = rctx.state
     out["replicated"] = np.concatenate([
-        stt["eta"].numpy().reshape(-1), stt["box"].double().cpu().numpy()
-        .reshape(-1)])
+        stt["eta"].cpu().numpy().reshape(-1),
+        stt["box"].double().cpu().numpy().reshape(-1)])
     out["n_mol"] = int(stt["n_mol"])
     out["latches"] = [k for k in ("mig_overflow", "cs_overflow",
                                   "stencil", "stray", "excl_span", "drift")
@@ -4979,7 +5201,8 @@ def _main():
     ptxas = [ln.strip() for ln in sweep.build_log.splitlines()
              if "registers" in ln or "smem" in ln or "spill" in ln
              or ln.startswith("==")]
-    log(f"1 build: B1 and B2 built by nvcc in {build_s:.1f} s")
+    log(f"1 build: B1, B2 and the NH chain kernel built by nvcc in "
+        f"{build_s:.1f} s")
     for ln in ptxas:
         log(f"  {ln}")
     # the bench configs: 100k (15^3 cells, C = 48) and 1M (33^3, C = 48
@@ -5083,14 +5306,15 @@ def _main():
     t = time.time()
     _, launches, plain = counted(lambda: integ.step(n_steps))
     wall = time.time() - t
+    nh_launches = NH_LAUNCHES[0]
     ms_step = wall / n_steps * 1e3
     nsd = ns_per_day(n_steps / wall, integ.getStepSize())
     log(f"3 {n_steps} steps in {wall:.2f} s: {ms_step:.2f} ms/step, "
-        f"{nsd:.3f} ns/day on {card}; launches {launches}; plain sweeps on "
-        f"the card {plain}")
-    if launches["b1_sweep"] < 1 or plain:
-        fail("the main path never launched kernel B1, or ran the plain "
-             "sweep")
+        f"{nsd:.3f} ns/day on {card}; launches {launches}, NH chain "
+        f"{nh_launches}; plain sweeps on the card {plain}")
+    if launches["b1_sweep"] < 1 or nh_launches < 1 or plain:
+        fail("the main path never launched kernel B1 or the NH chain "
+             "kernel, or ran the plain sweep")
     temps, e_launches, plain = counted(lambda: check_after_steps(ctx, "3"))
     log(f"3 the state's energy: launches {e_launches}, plain sweeps on the "
         f"card {plain}")
@@ -5122,6 +5346,10 @@ def _main():
     if dx != 0.0 or replay_launches["b1_sweep"] < REPLAY_STEPS:
         fail("the 100k checkpoint replay through B1 was not bit for bit")
     phase_seconds["3 the 100k slice"] = phase_mark()
+    nh_entry = phase_nh(card, ctx, integ)
+    nh_entry.update(launches=nh_launches,
+                    launches_per_step=nh_launches / n_steps)
+    phase_seconds["3 NH chain and syncs"] = phase_mark()
     del ctx, integ, first
     torch.cuda.empty_cache()
 
@@ -5234,7 +5462,7 @@ def _main():
         "source": src, "replaces": tpu, "registers": regs["b1_energy"],
         **b1_energy, "library_ms": None,
     }, *b2_entries, *rf_entries, *tri_entries, *flat_entries,
-        *npt_entries, *sw_entries, slab_entry, res_entry]
+        *npt_entries, *sw_entries, slab_entry, res_entry, nh_entry]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

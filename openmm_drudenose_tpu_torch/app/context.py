@@ -73,6 +73,36 @@ from ..integrators import barostat, tgnh
 from ..units import BOLTZ
 
 
+def _latch_read(state) -> dict:
+    """A chunk's latches as Python bools, in one read from the device:
+    the cell sort's overflow, stencil ("short"), drift and excl-span
+    latches and the hard-wall runaway.  The one wait for the card a chunk
+    makes by design: where a caller has set torch.cuda's sync debug mode
+    (chip_smoke.py's sync gate), it is off for this read alone."""
+    nbl = state.neighbors
+    names = ["overflow", "short", "drift"]
+    flags = [nbl.overflow, nbl.stencil_invalid, nbl.drift_exceeded]
+    if nbl.excl_span_exceeded is not None:
+        names.append("excl_span")
+        flags.append(nbl.excl_span_exceeded)
+    if state.hardwall_runaway is not None:
+        names.append("hardwall")
+        flags.append(state.hardwall_runaway)
+    t = torch.stack(flags)
+    mode = torch.cuda.get_sync_debug_mode() if t.is_cuda else 0
+    if mode:
+        torch.cuda.set_sync_debug_mode(0)
+    try:
+        values = t.tolist()
+    finally:
+        if mode:
+            torch.cuda.set_sync_debug_mode(mode)
+    out = dict(zip(names, values))
+    out.setdefault("excl_span", False)
+    out.setdefault("hardwall", False)
+    return out
+
+
 def default_device(device=None) -> torch.device:
     """The device entry points run on: CUDA unless the caller asks for
     another; without CUDA and without a choice this raises."""
@@ -272,8 +302,8 @@ class Context:
         st = zeros_state(self._static.n_atoms, self._static.n_baths,
                          self._static.n_chains, box, r, a, self._device,
                          seed=self._seed, ensemble_r=self._ensemble_r)
-        self._state = st.replace(eta_dot_dot=torch.as_tensor(init_edd,
-                                                             dtype=a))
+        self._state = st.replace(eta_dot_dot=torch.as_tensor(
+            init_edd, dtype=a, device=self._device))
         self._forces_valid = False
         self._pe_valid = False
 
@@ -687,10 +717,14 @@ class Context:
         the grid is planned again before the next.  The 8 x 16 steps of a
         chunk hold a few volume moves of ~1e-3 of a cell width each, so
         the stencil ends such a chunk short of cutoff + skin by a small
-        fraction of the 0.1 nm skin."""
+        fraction of the 0.1 nm skin.  A chunk waits for the card once: one
+        read of all its latches (overflow, stencil, drift, excl-span, hard
+        wall), which the end-of-call checks take too; nothing inside its
+        blocks reads back."""
         self._ensure_forces()
         steps = int(steps)
         spec = self._spec
+        hardwall = None
         if self._cp_cfg is None:
             self._state = self._stepper.multi_step(spec, self._state, steps)
             if self._static.baro_freq:
@@ -702,6 +736,7 @@ class Context:
             interval = self._rebuild_interval
             chunk = 8 * interval
             remaining = steps
+            flags = {}
             while remaining > 0:
                 k_chunk = min(chunk, remaining)
                 self._ensure_neighbors()
@@ -716,9 +751,8 @@ class Context:
                                                     self._cp_cfg.skin)
                         st = self._stepper.multi_step(spec, st, k)
                         r -= k
-                    overflow, short = torch.stack(
-                        [st.neighbors.overflow,
-                         st.neighbors.stencil_invalid]).tolist()
+                    flags = _latch_read(st)
+                    overflow, short = flags["overflow"], flags["short"]
                     if overflow:
                         saved.baro_gen.set_state(gen0)
                         self._state = saved
@@ -734,22 +768,23 @@ class Context:
                                        "after growth")
                 remaining -= k_chunk
                 if short:
-                    self._check_rebuild_drift()
-                    self._check_excl_span()
+                    self._check_rebuild_drift(flags["drift"])
+                    self._check_excl_span(flags["excl_span"])
                     self._replan_at_box()
                     # the state's forces are those of its positions
                     self._forces_valid = True
-            self._check_rebuild_drift()
-            self._check_excl_span()
+            if flags:
+                self._check_rebuild_drift(flags["drift"])
+                self._check_excl_span(flags["excl_span"])
+                hardwall = flags["hardwall"]
         self._ke_valid = True
         self._pe_valid = False
-        self._check_hardwall_runaway()
+        self._check_hardwall_runaway(hardwall)
 
-    def _check_rebuild_drift(self) -> None:
-        nbl = self._state.neighbors
-        if nbl is None or self._drift_warned:
-            return
-        if bool(nbl.drift_exceeded):
+    def _check_rebuild_drift(self, exceeded: bool) -> None:
+        """Warn once if the drift latch is set (`exceeded`, as read with
+        the chunk's latches)."""
+        if exceeded and not self._drift_warned:
             self._drift_warned = True
             warnings.warn(
                 "an atom moved further than the neighbor skin between "
@@ -757,10 +792,10 @@ class Context:
                 "reduce the step size or the rebuild interval",
                 RuntimeWarning, stacklevel=3)
 
-    def _check_excl_span(self) -> None:
-        nbl = self._state.neighbors
-        span = nbl.excl_span_exceeded if nbl is not None else None
-        if span is not None and bool(span):
+    def _check_excl_span(self, span: bool) -> None:
+        """Raise if the excl-span latch is set (`span`, as read with the
+        chunk's latches)."""
+        if span:
             raise RuntimeError(
                 "an excluded pair stretched across >= 2 cells mid-run while "
                 "the sweep skipped the exclusion test at far stencil "
@@ -768,9 +803,13 @@ class Context:
                 "nb_options={'excl_skip': False} if the geometry is "
                 "intentional)")
 
-    def _check_hardwall_runaway(self) -> None:
-        hw = self._state.hardwall_runaway
-        if hw is None or not bool(hw):
+    def _check_hardwall_runaway(self, hw=None) -> None:
+        """Raise or warn once if the hard-wall latch is set (`hw`, as read
+        with the chunk's latches; None: read it here)."""
+        if hw is None:
+            hw = self._state.hardwall_runaway
+            hw = hw is not None and bool(hw)
+        if not hw:
             return
         if self._hardwall_strict:
             self.clearHardwallRunaway()
@@ -931,11 +970,12 @@ class Context:
         ke = 0.5 * float(np.sum(m * np.sum(v * v, axis=-1)))
         pe = float(st.potential_energy)
         # the chain arrays of a flattened ensemble carry a leading (R,)
-        eta = st.eta.double().numpy()
-        eta_dot = st.eta_dot.double().numpy()[..., :-1]
-        q = spec.nh_eta_mass.double().numpy()
-        nkbt = spec.nh_nkbt.double().numpy()
-        kbt_chain = spec.nh_kbt_chain.double().numpy()
+        host = lambda t: t.double().cpu().numpy()
+        eta = host(st.eta)
+        eta_dot = host(st.eta_dot)[..., :-1]
+        q = host(spec.nh_eta_mass)
+        nkbt = host(spec.nh_nkbt)
+        kbt_chain = host(spec.nh_kbt_chain)
         chain = 0.5 * np.sum(q * eta_dot ** 2)
         chain += float(np.sum(nkbt * eta[..., 0]))
         if eta.shape[-1] > 1:
@@ -993,7 +1033,7 @@ class Context:
             kw["potential_energy"] = float(self._state.potential_energy)
             if self._ke_valid:
                 # a flattened ensemble caches per-replica sums (R,)
-                ke = float(np.sum(self._state.ke_sum.double().numpy()))
+                ke = float(np.sum(self._state.ke_sum.double().cpu().numpy()))
             else:
                 m = self._spec.mass.double().cpu().numpy()
                 v = self._state.velocities.double().cpu().numpy()
@@ -1002,8 +1042,8 @@ class Context:
         if groups:
             # group_ke holds 2*KE per bath: T_g = T_target * 2KE_g / NkbT_g
             # ((R, G+2) per replica in a flattened ensemble)
-            two_ke = self._state.group_ke.double().numpy()
-            nkbt = self._spec.nh_nkbt.double().numpy()
+            two_ke = self._state.group_ke.double().cpu().numpy()
+            nkbt = self._spec.nh_nkbt.double().cpu().numpy()
             temps = np.where(nkbt > 0, two_ke / np.where(nkbt > 0, nkbt,
                                                          1.0), 0.0)
             targets = np.full_like(temps, self._integrator.getTemperature())

@@ -608,10 +608,8 @@ def load_checkpoint(path: str, context) -> None:
             kw[name] = None
             continue
         like = template if template is not None else st.positions
-        on_host = like.device.type == "cpu" and name in (
-            "eta", "eta_dot", "eta_dot_dot", "ke_sum", "group_ke")
-        kw[name] = torch.as_tensor(data[key], dtype=like.dtype,
-                                   device="cpu" if on_host else dev)
+        # every tensor, the chain's too, on the Context's device
+        kw[name] = torch.as_tensor(data[key], dtype=like.dtype, device=dev)
     step, time, scale, nacc, natt = data["scalars"].tolist()
     gen = torch.Generator(device="cpu")
     gen.set_state(torch.as_tensor(data["baro_gen"]))

@@ -147,7 +147,7 @@ class StateDataReporter(_IntervalReporter):
 
 def total_dof(spec, integ) -> float:
     """Total DOF = the sum over baths of NkbT_g / (kB T_g target)."""
-    nkbt = spec.nh_nkbt.double().numpy()
+    nkbt = spec.nh_nkbt.double().cpu().numpy()
     t_real = integ.getTemperature()
     t_drude = integ.getDrudeTemperature()
     dof = nkbt[:-1].sum() / (BOLTZ * t_real) if t_real > 0 else 0.0

@@ -95,7 +95,7 @@ def spread_vsite_forces(spec, static, forces, positions=None):
     if static.n_vsites_lc:
         idx = spec.vs_lc_idx
         fs = out[idx]
-        out[idx] = 0.0
+        scatter.zero_rows_(out, idx)
         p = positions[spec.vs_lc_p].to(forces.dtype)
         _, vjp = torch.func.vjp(lambda q: _lc_sites(spec, q), p)
         (g,) = vjp(fs)                                # (Vl, K, 3)
@@ -104,7 +104,7 @@ def spread_vsite_forces(spec, static, forces, positions=None):
     if static.n_vsites_oop:
         idx, par = spec.vs_oop_idx, spec.vs_oop_p
         fs = out[idx]
-        out[idx] = 0.0
+        scatter.zero_rows_(out, idx)
         w = spec.vs_oop_w.to(forces.dtype)
         p1 = positions[par[:, 0]].to(forces.dtype)
         r12 = positions[par[:, 1]].to(forces.dtype) - p1
@@ -118,7 +118,7 @@ def spread_vsite_forces(spec, static, forces, positions=None):
         scatter.index_add_(out, par[:, 2], f3)
     if static.n_vsites_avg:
         fs = out[spec.vs_avg_idx]                     # (Va, 3)
-        out[spec.vs_avg_idx] = 0.0
+        scatter.zero_rows_(out, spec.vs_avg_idx)
         for k in range(3):
             scatter.index_add_(out, spec.vs_avg_p[:, k],
                                spec.vs_avg_w[:, k:k + 1] * fs)

@@ -19,10 +19,10 @@ import torch
 from .core.spec import SystemSpec
 from .core.state import SimState
 
-_HOST_SPEC = ("nh_nkbt", "nh_eta_mass", "nh_kbt_chain", "nh_link_active")
 _SCALAR_SPEC = ("dt", "max_drude_distance", "hardwall_scale",
                 "baro_pressure", "baro_kt")
-_HOST_STATE = ("eta", "eta_dot", "eta_dot_dot", "ke_sum", "group_ke")
+# the NH chain's state (on the device, as the chain's constants)
+_CHAIN_STATE = ("eta", "eta_dot", "eta_dot_dot", "ke_sum", "group_ke")
 
 
 def _tensor(a, device):
@@ -41,8 +41,6 @@ def spec_from_numpy(d: dict, device="cpu") -> SystemSpec:
         v = d[f]
         if f in _SCALAR_SPEC:
             kw[f] = float(np.asarray(v))
-        elif f in _HOST_SPEC:
-            kw[f] = _tensor(v, "cpu")
         else:
             kw[f] = _tensor(v, device)
     return SystemSpec(**kw)
@@ -55,8 +53,8 @@ def state_from_numpy(d: dict, device="cpu") -> SimState:
     for f in ("positions", "velocities", "forces", "potential_energy",
               "box"):
         kw[f] = _tensor(d[f], device)
-    for f in _HOST_STATE:
-        kw[f] = _tensor(d[f], "cpu")
+    for f in _CHAIN_STATE:
+        kw[f] = _tensor(d[f], device)
     kw["step"] = int(np.asarray(d["step"]))
     kw["time"] = float(np.asarray(d["time"]))
     hw = d.get("hardwall_runaway")
@@ -220,8 +218,7 @@ def load_jax_checkpoint(path: str, context) -> None:
                          f"context {tpl.positions.shape[0]}")
     kw = {}
     for name in ("positions", "velocities", "forces", "potential_energy",
-                 "box", "eta", "eta_dot", "eta_dot_dot", "ke_sum",
-                 "group_ke"):
+                 "box") + _CHAIN_STATE:
         v, like = getattr(st, name), getattr(tpl, name)
         if tuple(v.shape) != tuple(like.shape):
             raise ValueError(f"{path}: {name} of shape {tuple(v.shape)}, "

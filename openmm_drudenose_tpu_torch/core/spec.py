@@ -16,8 +16,8 @@ does and as the reference plugin's initialize() does
     tables of the average, out-of-plane and local-coordinates sites
   - the MonteCarloBarostat's frequency, pressure and kT
 
-Per-atom tables go to the simulation device; the NH chain constants stay
-on the host, where the chain is integrated.
+Per-atom tables and the NH chain constants go to the simulation device,
+where the chain is integrated (ops/nh_chain.py).
 
 A flattened replica ensemble (ensemble_r = R > 1, parallel/flatrep.py:
 R identical replicas, replica-major) keeps one replica's bath constants:
@@ -81,10 +81,10 @@ class SystemSpec:
     is_pair: torch.Tensor       # (N,) bool, member of a Drude pair
     is_parent: torch.Tensor     # (N,) bool, core of a pair
     partner: torch.Tensor       # (N,) pair partner (self if unpaired)
-    nh_nkbt: torch.Tensor       # (G+2,) host
-    nh_eta_mass: torch.Tensor   # (G+2, M) host
-    nh_kbt_chain: torch.Tensor  # (G+2,) host
-    nh_link_active: torch.Tensor  # (G+2, M) host bool
+    nh_nkbt: torch.Tensor       # (G+2,)
+    nh_eta_mass: torch.Tensor   # (G+2, M)
+    nh_kbt_chain: torch.Tensor  # (G+2,)
+    nh_link_active: torch.Tensor  # (G+2, M) bool
     dt: float                   # step size, ps
     max_drude_distance: float
     hardwall_scale: float       # sqrt(kB T_drude)
@@ -335,14 +335,13 @@ def build_spec(system, integrator, real_dtype, accum_dtype, device,
 
     r, a = real_dtype, accum_dtype
     dev = lambda x, dt=None: torch.as_tensor(x, dtype=dt, device=device)
-    host = lambda x, dt=None: torch.as_tensor(x, dtype=dt, device="cpu")
     spec = SystemSpec(
         mass=dev(masses, r), inv_mass=dev(inv_mass, r),
         tg=dev(tg), resid=dev(resid.astype(np.int64)),
         res_mass=dev(res_mass, r), res_inv_mass=dev(res_inv_mass, r),
         is_pair=dev(is_pair), is_parent=dev(is_parent), partner=dev(partner),
-        nh_nkbt=host(nkbt, a), nh_eta_mass=host(eta_mass, a),
-        nh_kbt_chain=host(kbt_chain, a), nh_link_active=host(link_active),
+        nh_nkbt=dev(nkbt, a), nh_eta_mass=dev(eta_mass, a),
+        nh_kbt_chain=dev(kbt_chain, a), nh_link_active=dev(link_active),
         dt=float(integrator.getStepSize()),
         max_drude_distance=float(integrator.getMaxDrudeDistance()),
         hardwall_scale=float(np.sqrt(BOLTZ

@@ -1,10 +1,10 @@
 """SimState: the dynamic state of a simulation, as a dataclass of tensors.
 
-Per-atom arrays live on the simulation device.  The Nose-Hoover chain
-state (a few numbers per bath) lives on the host in the accumulation
-dtype: the chain is integrated there (integrators/tgnh.py), as the
-reference plugin's host loop does.  So does the barostat's state (its
-move size and counters, Python numbers) and the torch.Generator its
+Per-atom arrays live on the simulation device, and so does the
+Nose-Hoover chain state (a few numbers per bath, in the accumulation
+dtype): the chain is integrated there (ops/nh_chain.py), so a step reads
+nothing back.  The barostat's state lives on the host: its move size
+and counters (Python numbers) and the torch.Generator its
 proposals and Metropolis tests draw from: the host chooses the attempt
 steps and reads one accept flag per attempt (integrators/barostat.py).
 A flat-ensemble NPT run keeps its per-replica box scales there too
@@ -28,11 +28,11 @@ class SimState:
     box: torch.Tensor             # (3, 3) nm, rows are box vectors
     # the chain arrays, ke_sum and group_ke carry a leading replica axis
     # (R,) in a flattened replica ensemble (the JAX core/state.py:57-60)
-    eta: torch.Tensor             # (G+2, M) host
-    eta_dot: torch.Tensor         # (G+2, M+1) host; last column stays 0
-    eta_dot_dot: torch.Tensor     # (G+2, M) host
-    ke_sum: torch.Tensor          # () host: KE at the last NH half step
-    group_ke: torch.Tensor        # (G+2,) host: per-bath 2*KE
+    eta: torch.Tensor             # (G+2, M)
+    eta_dot: torch.Tensor         # (G+2, M+1); last column stays 0
+    eta_dot_dot: torch.Tensor     # (G+2, M)
+    ke_sum: torch.Tensor          # (): KE at the last NH half step
+    group_ke: torch.Tensor        # (G+2,): per-bath 2*KE
     step: int = 0
     time: float = 0.0
     # sticky: a Drude moved > 2x past the hard wall since the last reset
@@ -63,7 +63,7 @@ def zeros_state(n_atoms: int, n_baths: int, n_chains: int, box, real_dtype,
                 accum_dtype, device, seed: int = 0,
                 ensemble_r: int = 1) -> SimState:
     kw = dict(dtype=real_dtype, device=device)
-    host = dict(dtype=accum_dtype, device="cpu")
+    acc = dict(dtype=accum_dtype, device=device)
     lead = (ensemble_r,) if ensemble_r > 1 else ()
     return SimState(
         positions=torch.zeros((n_atoms, 3), **kw),
@@ -71,11 +71,11 @@ def zeros_state(n_atoms: int, n_baths: int, n_chains: int, box, real_dtype,
         forces=torch.zeros((n_atoms, 3), **kw),
         potential_energy=torch.zeros((), dtype=accum_dtype, device=device),
         box=torch.as_tensor(box, **kw),
-        eta=torch.zeros(lead + (n_baths, n_chains), **host),
-        eta_dot=torch.zeros(lead + (n_baths, n_chains + 1), **host),
-        eta_dot_dot=torch.zeros(lead + (n_baths, n_chains), **host),
-        ke_sum=torch.zeros(lead, **host),
-        group_ke=torch.zeros(lead + (n_baths,), **host),
+        eta=torch.zeros(lead + (n_baths, n_chains), **acc),
+        eta_dot=torch.zeros(lead + (n_baths, n_chains + 1), **acc),
+        eta_dot_dot=torch.zeros(lead + (n_baths, n_chains), **acc),
+        ke_sum=torch.zeros(lead, **acc),
+        group_ke=torch.zeros(lead + (n_baths,), **acc),
         hardwall_runaway=torch.zeros((), dtype=torch.bool, device=device),
         baro_gen=torch.Generator(device="cpu").manual_seed(int(seed)),
     )

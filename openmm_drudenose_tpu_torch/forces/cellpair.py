@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..ops import scatter
+from ..utils import tables
 from . import boxutils
 
 
@@ -342,8 +343,15 @@ def atom_scales(rep_scale, n_atoms: int):
 
 def cell_scales(rep_scale, cfg: CellPairConfig):
     """(n_cells,) the scale of each cell's replica (float64)."""
-    rep = torch.as_tensor(rep_of_cell(cfg), device=rep_scale.device)
+    rep = tables.table(cfg, "rep_of_cell", lambda: rep_of_cell(cfg),
+                       rep_scale.device)
     return rep_scale.double()[rep]
+
+
+def grid_table(cfg: CellPairConfig, dev, dtype) -> torch.Tensor:
+    """(3,) one replica's grid (cfg.phys_grid) on the device, made once
+    per config (utils/tables.py)."""
+    return tables.table(cfg, "phys_grid", lambda: cfg.phys_grid, dev, dtype)
 
 
 def stored(positions, rep_scale):
@@ -372,10 +380,10 @@ def build_cellsort(positions, box, cfg: CellPairConfig,
     n = positions.shape[0]
     dev = positions.device
     dtype = positions.dtype
-    grid = torch.as_tensor(cfg.phys_grid, dtype=torch.int64, device=dev)
+    grid = grid_table(cfg, dev, torch.int64)
     C = cfg.capacity
     n_cells = cfg.n_cells
-    gridf = torch.as_tensor(cfg.phys_grid, dtype=dtype, device=dev)
+    gridf = grid_table(cfg, dev, dtype)
     if rep_scale is not None:
         positions = stored(positions, rep_scale)
 
@@ -385,12 +393,12 @@ def build_cellsort(positions, box, cfg: CellPairConfig,
     widths = boxutils.plane_widths(box)
     if rep_scale is not None:
         widths = widths * torch.min(rep_scale).to(dev, widths.dtype)
-    wcell = torch.as_tensor(cfg.window, dtype=dtype, device=dev) \
+    wcell = tables.table(cfg, "window", lambda: cfg.window, dev, dtype) \
         * widths / gridf
     stencil_invalid = torch.any(wcell < cfg.r_list)
     if cfg.trimmed:
-        gap = torch.as_tensor(cfg.trimmed, dtype=dtype, device=dev) \
-            * (widths / gridf)
+        gap = tables.table(cfg, "trimmed", lambda: cfg.trimmed, dev,
+                           dtype) * (widths / gridf)
         reach = (torch.amax(gap, dim=1) if cfg.triclinic
                  else torch.sqrt(torch.sum(gap * gap, dim=1)))
         stencil_invalid = stencil_invalid | torch.any(reach <= cfg.r_list)
@@ -481,14 +489,12 @@ def sorted_fields(params, positions, box, cellsort: CellSort,
         wrap = wrap * atom_scales(rep_scale.to(dev), n)[:, None]
     pos = (positions.double() if exact is None else exact) - wrap
     lo, hi = (0, cfg.n_cells) if cells is None else cells
-    c3 = torch.as_tensor(local_c3(cfg)[lo:hi], dtype=torch.float64,
-                         device=dev) + 0.5
+    c3 = tables.table(cfg, "local_c3", lambda: local_c3(cfg), dev,
+                      torch.float64)[lo:hi] + 0.5
     if cfg.triclinic:
         centers = boxutils.rows_combo(c3 * _grid_inv(cfg, dev), box64)
     else:
-        h = box64 / torch.as_tensor(cfg.phys_grid, dtype=torch.float64,
-                                    device=dev)
-        centers = c3 * h
+        centers = c3 * (box64 / grid_table(cfg, dev, torch.float64))
     if rep_scale is not None:
         centers = centers * cell_scales(rep_scale.to(dev), cfg)[:, None]
     centers = centers.repeat_interleave(cfg.capacity, dim=0)    # (S, 3)
@@ -516,9 +522,9 @@ def sorted_fields(params, positions, box, cellsort: CellSort,
 
 def _grid_inv(cfg: CellPairConfig, dev) -> torch.Tensor:
     """1 / grid per dimension (one replica's), float64 (the JAX
-    package's g_inv)."""
-    return torch.as_tensor(1.0 / np.asarray(cfg.phys_grid, np.float64),
-                           device=dev)
+    package's g_inv), made once per config."""
+    return tables.table(cfg, "grid_inv", lambda: 1.0 / np.asarray(
+        cfg.phys_grid, np.float64), dev)
 
 
 def offset_shifts(cfg: CellPairConfig, box, rep_scale=None) -> torch.Tensor:
@@ -528,13 +534,12 @@ def offset_shifts(cfg: CellPairConfig, box, rep_scale=None) -> torch.Tensor:
     flat-ensemble NPT) an (R, n_off, 3) table: replica r's shifts are
     s_r times the template's."""
     box64 = box.double()
-    offs = torch.as_tensor(cfg.offsets, dtype=torch.float64,
-                           device=box.device)
+    offs = tables.table(cfg, "offsets", lambda: cfg.offsets, box.device,
+                        torch.float64)
     if cfg.triclinic:
         return boxutils.rows_combo(offs * _grid_inv(cfg, box.device),
                                    box64).to(box.dtype)
-    h = box64 / torch.as_tensor(cfg.phys_grid, dtype=torch.float64,
-                                device=box.device)
+    h = box64 / grid_table(cfg, box.device, torch.float64)
     if rep_scale is not None:
         s = rep_scale.to(box.device, torch.float64)
         return (s[:, None, None] * (offs * h)[None]).to(box.dtype)
@@ -673,7 +678,7 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
     cutoff2 = cfg.cutoff * cfg.cutoff
     pair_eg = make_pair_eg(method, alpha, krf, crf, erfc_fn, r_switch,
                            cfg.cutoff)
-    nbr = torch.as_tensor(cfg.nbr_map[lo:hi], device=dev)
+    nbr = tables.table(cfg, "nbr_map", lambda: cfg.nbr_map, dev)[lo:hi]
     # the home cells' rows (all of them for the full range)
     xh, yh, zh, qh, sigh, sepsh, gidh = (
         a[lo:hi] for a in (x, y, z, q, sig, seps, gid))
@@ -681,20 +686,23 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
     far = np.max(np.abs(cfg.offsets), axis=1) >= 2
     if shifts.dim() == 3:
         # each home cell's replica's table: (nh, n_off, 3)
-        shifts = shifts[torch.as_tensor(rep_of_cell(cfg)[lo:hi],
-                                        device=dev)]
+        shifts = shifts[tables.table(cfg, "rep_of_cell",
+                                     lambda: rep_of_cell(cfg), dev)[lo:hi]]
 
     P_max = max(1, TILE_ELEMS // (max(nh, 1) * C * C))
     chunks = [[0]]
     rest = list(range(1, cfg.n_offsets))
     chunks += [rest[i:i + P_max] for i in range(0, len(rest), P_max)]
+    far_t = None
     for ob in chunks:
         self_block = ob == [0]
         P = len(ob)
-        obt = torch.as_tensor(ob, device=dev)
-        b = nbr[:, obt]                                       # (nh, P)
+        # a chunk is a run of consecutive offsets: sliced, not gathered
+        # by a host-made index
+        o0, o1 = ob[0], ob[-1] + 1
+        b = nbr[:, o0:o1]                                     # (nh, P)
         # (1, P, 3), or (nh, P, 3) per home cell
-        t = shifts[obt][None] if shifts.dim() == 2 else shifts[:, obt]
+        t = shifts[o0:o1][None] if shifts.dim() == 2 else shifts[:, o0:o1]
         d = []
         for comp, (src, home) in enumerate(((x, xh), (y, yh), (z, zh))):
             bv = (src[b] + t[:, :, comp:comp + 1]).reshape(nh, P * C)
@@ -715,7 +723,11 @@ def pair_tiles(fields, cfg: CellPairConfig, shifts, alpha: float,
                 word = torch.gather(ew, 2, bit // 31)
             excl = in_win & (((word >> (bit % 31)) & 1) == 1)
             if not all(check):
-                mask = torch.as_tensor(check, device=dev)
+                # some offsets skip the test (excl_skip at far offsets)
+                if far_t is None:
+                    far_t = tables.table(cfg, "far_offsets", lambda: far,
+                                         dev)
+                mask = ~far_t[o0:o1]
                 excl = excl & mask.repeat_interleave(C)[None, None, :]
             keep = valid & ~excl
         else:
@@ -782,6 +794,7 @@ def sweep(fields, cfg: CellPairConfig, shifts, alpha: float,
     f_slots = torch.stack([fx.reshape(-1), fy.reshape(-1), fz.reshape(-1)],
                           dim=1)
     if per_replica:
-        rows = torch.as_tensor(replica_cells(cfg), device=dev)
+        rows = tables.table(cfg, "replica_cells",
+                            lambda: replica_cells(cfg), dev)
         energy = torch.sum(energy[rows], dim=1)
     return energy, f_slots

@@ -370,7 +370,8 @@ class NonbondedTerm:
             self.pme = pme_mod.setup_pme(
                 cutoff=cutoff, tol=force._ewald_tol, box_diag=box0,
                 alpha=alpha0 or None, grid=(gx, gy, gz) if gx > 0 else None,
-                cell_grid=None if force.triclinic(system) else cell_grid)
+                cell_grid=None if force.triclinic(system) else cell_grid,
+                device=device, dtype=dtype)
             self.alpha = self.pme.alpha
             # the JAX package's pencil locality gate (the windows cover
             # at most a quarter of the (x, y) grid plane), recorded; the

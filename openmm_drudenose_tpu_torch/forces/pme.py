@@ -39,12 +39,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 
 import numpy as np
 import torch
 
 from ..ops import scatter
 from ..units import ONE_4PI_EPS0
+from ..utils import tables
 from . import boxutils, cellpair
 
 PME_ORDER = 5
@@ -145,22 +147,70 @@ class PmeSetup:
 
 
 def setup_pme(cutoff: float, tol: float, box_diag, alpha=None, grid=None,
-              cell_grid=None) -> PmeSetup:
+              cell_grid=None, device=None, dtype=None) -> PmeSetup:
     """alpha and grid as OpenMM chooses them; with `cell_grid` each K is
     rounded up to a multiple of the cell grid, as the JAX package plans
-    it for the cell-pair strategy (a denser grid is only more accurate)."""
+    it for the cell-pair strategy (a denser grid is only more accurate).
+    With `device` (and `dtype`, the grid's type) the B-spline moduli
+    product and the grid size are placed there now (`moduli_product`,
+    `grid_size`), so that no pass copies them from the host."""
     a = alpha if alpha else choose_alpha(cutoff, tol)
     g = tuple(int(k) for k in (grid if grid else
                                choose_grid(a, box_diag, tol)))
     if cell_grid is not None:
         g = tuple(-(-k // c) * c for k, c in zip(g, cell_grid))
-    return PmeSetup(alpha=a, grid=g,
-                    bm2x=bspline_moduli(PME_ORDER, g[0]),
-                    bm2y=bspline_moduli(PME_ORDER, g[1]),
-                    bm2z=bspline_moduli(PME_ORDER, g[2]))
+    setup = PmeSetup(alpha=a, grid=g,
+                     bm2x=bspline_moduli(PME_ORDER, g[0]),
+                     bm2y=bspline_moduli(PME_ORDER, g[1]),
+                     bm2z=bspline_moduli(PME_ORDER, g[2]))
+    if device is not None:
+        for dt in {dtype or torch.float64, torch.float64}:
+            moduli_product(setup, dt, device)
+            grid_size(setup, dt, device)
+    return setup
+
+
+def moduli_product(setup: PmeSetup, dtype, device) -> torch.Tensor:
+    """(K1, K2, K3 // 2 + 1) |b(m)|^2 = bm2x bm2y bm2z on the rfft half
+    grid, each factor rounded to `dtype` and the product formed in it;
+    made once per setup, dtype and device (utils/tables.py)."""
+    def build():
+        K3h = setup.grid[2] // 2 + 1
+        bx, by, bz = (torch.as_tensor(b, dtype=dtype) for b in (
+            setup.bm2x, setup.bm2y, setup.bm2z[:K3h]))
+        return bx[:, None, None] * by[None, :, None] * bz[None, None, :]
+    return tables.table(setup, "bm2", build, device, dtype)
+
+
+def grid_size(setup: PmeSetup, dtype, device) -> torch.Tensor:
+    """(3,) (K1, K2, K3) in `dtype` on `device`, made once."""
+    return tables.table(setup, "grid", lambda: setup.grid, device, dtype)
+
+
+# the last few eterms of each setup, with the box each was made at
+_eterms: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
 def _eterm(setup: PmeSetup, box, dtype, device):
+    """_eterm_at, made once per box value: a pass at the box of one of
+    the last three (the same storage, version, shape and strides) takes
+    its eterm.  The box is held, so its storage is not reused while it
+    is a key."""
+    key = (box.data_ptr(), box._version, tuple(box.shape),
+           tuple(box.stride()), box.dtype, dtype, str(torch.device(device)))
+    hits = _eterms.get(setup)
+    if hits is None:
+        hits = _eterms[setup] = []
+    for _, k, et in hits:
+        if k == key:
+            return et
+    et = _eterm_at(setup, box, dtype, device)
+    hits.insert(0, (box, key, et))
+    del hits[3:]
+    return et
+
+
+def _eterm_at(setup: PmeSetup, box, dtype, device):
     """exp(-pi^2 m^2 / alpha^2) / m^2 * |b(m)|^2 on the rfft half grid
     (zero at m = 0), without the conjugate-pair doubling."""
     K1, K2, K3 = setup.grid
@@ -181,9 +231,7 @@ def _eterm(setup: PmeSetup, box, dtype, device):
         my = m2[None, :, None] / box[1]
         mz = m3[None, None, :] / box[2]
     m_sq = mx * mx + my * my + mz * mz
-    bm2 = (torch.as_tensor(setup.bm2x, **kw)[:, None, None]
-           * torch.as_tensor(setup.bm2y, **kw)[None, :, None]
-           * torch.as_tensor(setup.bm2z[:K3h], **kw)[None, None, :])
+    bm2 = moduli_product(setup, dtype, device)
     m_sq_safe = torch.where(m_sq > 0, m_sq, torch.ones_like(m_sq))
     return torch.where(m_sq > 0, torch.exp(-math.pi ** 2 * m_sq_safe
                                            / (setup.alpha ** 2))
@@ -203,9 +251,7 @@ def scaled_eterm(setup: PmeSetup, box, rep_scale, dtype):
     m3 = torch.arange(K3h, **kw)[None, None, :] / b[2]
     s2 = rep_scale.to(**kw)[:, None, None, None] ** 2
     m_sq = (m1 * m1 + m2 * m2 + m3 * m3)[None] / s2
-    bm2 = (torch.as_tensor(setup.bm2x, **kw)[:, None, None]
-           * torch.as_tensor(setup.bm2y, **kw)[None, :, None]
-           * torch.as_tensor(setup.bm2z[:K3h], **kw)[None, None, :])
+    bm2 = moduli_product(setup, torch.float64, box.device)
     m_safe = torch.where(m_sq > 0, m_sq, torch.ones_like(m_sq))
     out = torch.where(m_sq > 0, torch.exp(-math.pi ** 2 * m_safe
                                           / setup.alpha ** 2)
@@ -219,8 +265,7 @@ def _taps(setup: PmeSetup, positions, box, exact=None, derivs=True):
     coordinates are formed in float64 and only the in-cell fractions
     rounded to the positions' type."""
     src = positions if exact is None else exact
-    K = torch.as_tensor(setup.grid, dtype=src.dtype,
-                        device=positions.device)
+    K = grid_size(setup, src.dtype, positions.device)
     frac = boxutils.frac_coords(src, box.to(src.dtype))
     u = (frac - torch.floor(frac)) * K
     ti = torch.floor(u)
@@ -409,8 +454,7 @@ def interpolate_forces(setup: PmeSetup, charges, positions, box, idx, wts,
         gx = gx + dwts[0][:, t] * torch.sum(w_yz * ph, dim=1)
         gy = gy + wts[0][:, t] * torch.sum(dy_z * ph, dim=1)
         gz = gz + wts[0][:, t] * torch.sum(y_dz * ph, dim=1)
-    K = torch.as_tensor(setup.grid, dtype=positions.dtype,
-                        device=positions.device)
+    K = grid_size(setup, positions.dtype, positions.device)
     if box.dim() == 2:
         # dE/dr_k = sum_d K_d inv[k, d] dE/du_d (inv lower triangular)
         ib = boxutils.inv_box(box.to(positions.dtype))

@@ -34,6 +34,14 @@ def index_add_(out: torch.Tensor, index: torch.Tensor,
     return out.index_add_(0, index, src)
 
 
+def zero_rows_(out: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """out[index] = 0 along dim 0, in place; returns `out`.  The indexed
+    assignment `out[index] = 0.0` makes a host tensor of the 0 and copies
+    it to the card, a copy that waits for the stream; index_fill_ takes
+    the 0 as a kernel argument."""
+    return out.index_fill_(0, index, 0.0)
+
+
 def fixed_point_shift(bound: float) -> int:
     """Binary digits after the point of an int64 sum whose partial sums
     never exceed `bound` in magnitude (62 bits for the bound and the

@@ -66,14 +66,19 @@ import numpy as np
 import torch
 
 from ..forces import cellpair
+from ..utils import tables
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"sweep": CSRC / "sweep.cu",
-           "sweep_chunked": CSRC / "sweep_chunked.cu"}
+           "sweep_chunked": CSRC / "sweep_chunked.cu",
+           "nh_chain": CSRC / "nh_chain.cu"}
 HEADERS = (CSRC / "pair_tile.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of one source only: the NH chain rounds each product and sum on
+# its own, as its plain version's separate PyTorch ops do (ops/nh_chain.py)
+SOURCE_FLAGS = {"nh_chain": ["-fmad=false"]}
 
 # launches of each kernel, counted where it is launched and nowhere else
 # (the force and the energy instantiations apart, each Coulomb kind apart:
@@ -157,7 +162,8 @@ def build() -> dict:
     global build_log
     key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name, src in sorted(SOURCES.items()):
-        key.update(name.encode() + src.read_bytes())
+        key.update(name.encode() + src.read_bytes()
+                   + " ".join(SOURCE_FLAGS.get(name, ())).encode())
     for hdr in HEADERS:
         key.update(hdr.name.encode() + hdr.read_bytes())
     out_dir = BUILD_ROOT / key.hexdigest()[:16]
@@ -173,7 +179,8 @@ def build() -> dict:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
             os.close(fd)
             proc = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])],
+                [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-o", tmp,
+                 str(SOURCES[name])],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             jobs[name] = (proc, tmp)
         logs, failed = [], []
@@ -394,9 +401,6 @@ def check_excl_flags(cfg, excl_skip: bool) -> np.ndarray:
     return (np.max(np.abs(cfg.offsets), axis=1) <= 1).astype(np.int32)
 
 
-_tables = {}
-
-
 def reverse_neighbors(cfg) -> np.ndarray:
     """(n_cells, n_off): the cell whose neighbour at offset o is the row's
     cell (cell - o, wrapped inside the cell's replica bands), as the
@@ -407,19 +411,20 @@ def reverse_neighbors(cfg) -> np.ndarray:
     return cellpair.neighbor_map(cfg.grid, cfg.phys_grid, cfg.offsets, -1)
 
 
+def _i32_table(cfg, name, build, dev):
+    """An int32 table of the config on the device, made once
+    (utils/tables.py)."""
+    return tables.table(cfg, name + "_i32", lambda: np.ascontiguousarray(
+        build(), np.int32), dev)
+
+
 def _device_tables(cfg, excl_skip, dev):
     """Neighbour map, reverse neighbour map and exclusion-test flags on
-    the device, cached per config (the config is held so its id stays
-    valid)."""
-    key = (id(cfg), bool(excl_skip), str(dev))
-    hit = _tables.get(key)
-    if hit is None:
-        i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
-                                        device=dev)
-        hit = _tables[key] = (cfg, i32(cfg.nbr_map),
-                              i32(reverse_neighbors(cfg)),
-                              i32(check_excl_flags(cfg, excl_skip)))
-    return hit[1:]
+    the device, made once per config."""
+    return (_i32_table(cfg, "nbr_map", lambda: cfg.nbr_map, dev),
+            _i32_table(cfg, "rev_map", lambda: reverse_neighbors(cfg), dev),
+            _i32_table(cfg, f"check_excl_{bool(excl_skip)}",
+                       lambda: check_excl_flags(cfg, excl_skip), dev))
 
 
 def unit_rows(cfg) -> np.ndarray:
@@ -435,20 +440,11 @@ def unit_rows(cfg) -> np.ndarray:
             + sub[None, None, :]).reshape(cfg.n_replicas, -1)
 
 
-_scaled_tables = {}
-
-
 def _scaled_device_tables(cfg, dev):
     """Each cell's replica and the per-replica rows of the energy
-    partials on the device, cached per config."""
-    key = (id(cfg), str(dev))
-    hit = _scaled_tables.get(key)
-    if hit is None:
-        i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
-                                        device=dev)
-        hit = _scaled_tables[key] = (cfg, i32(cellpair.rep_of_cell(cfg)),
-                                     i32(unit_rows(cfg)))
-    return hit[1:]
+    partials on the device, made once per config."""
+    return (_i32_table(cfg, "rep_of_cell", lambda: cellpair.rep_of_cell(
+        cfg), dev), _i32_table(cfg, "unit_rows", lambda: unit_rows(cfg), dev))
 
 
 def check_shifts(shifts, cfg) -> bool:

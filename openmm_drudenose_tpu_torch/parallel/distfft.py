@@ -27,6 +27,7 @@ import math
 import torch
 
 from ..units import ONE_4PI_EPS0
+from ..utils import tables
 from . import comm
 
 
@@ -49,9 +50,11 @@ def pencil_eterm(setup, box, y_lo: int, y_hi: int, dtype, device):
         None, :, None] / b[1]
     mz = torch.fft.fftfreq(K3, d=1.0 / K3, **kw)[None, None, :] / b[2]
     m_sq = mx * mx + my * my + mz * mz
-    bm2 = (torch.as_tensor(setup.bm2x, **kw)[:, None, None]
-           * torch.as_tensor(setup.bm2y[y_lo:y_hi], **kw)[None, :, None]
-           * torch.as_tensor(setup.bm2z, **kw)[None, None, :])
+    bm2 = tables.table(setup, f"bm2_pencil_{y_lo}_{y_hi}", lambda: (
+        torch.as_tensor(setup.bm2x, dtype=dtype)[:, None, None]
+        * torch.as_tensor(setup.bm2y[y_lo:y_hi], dtype=dtype)[None, :, None]
+        * torch.as_tensor(setup.bm2z, dtype=dtype)[None, None, :]),
+        device, dtype)
     m_safe = torch.where(m_sq > 0, m_sq, torch.ones_like(m_sq))
     return torch.where(m_sq > 0, torch.exp(-math.pi ** 2 * m_safe
                                            / setup.alpha ** 2)

@@ -251,7 +251,7 @@ class _Copy:
         """(1, R0)."""
         ctx = self.context
         if ctx._ke_valid:
-            return ctx._state.ke_sum.double().numpy()[None].copy()
+            return ctx._state.ke_sum.double().cpu().numpy()[None].copy()
         m = ctx._spec.mass.double().cpu().numpy()
         v = ctx._state.velocities.double().cpu().numpy()
         ke = 0.5 * m * np.sum(v * v, axis=-1)

@@ -396,7 +396,7 @@ class FlatReplicaEnsemble:
         step has run."""
         ctx = self.context
         if ctx._ke_valid:
-            return np.atleast_1d(ctx._state.ke_sum.double().numpy())[
+            return np.atleast_1d(ctx._state.ke_sum.double().cpu().numpy())[
                 :self._n_replicas].copy()
         m = ctx._spec.mass.double().cpu().numpy()
         v = ctx._state.velocities.double().cpu().numpy()

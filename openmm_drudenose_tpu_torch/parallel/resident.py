@@ -56,8 +56,9 @@ state on every rank instead).
   * The TGNH step is integrators/tgnh.py::Stepper on the LOCAL spec
     and state with a `reduce` (the JAX make_step's reduce_axis): the
     (G+2) KE vector, and with CM removal the CM momentum and the total
-    mass, are summed over the ranks on their way to the host, once a
-    fused step; the NH chains (one a rank, on its host) and the box,
+    mass, are summed over the ranks through the host (one round trip a
+    fused step), then each rank's chain runs on its device (the NH chain
+    kernel of ops/nh_chain.py); the chains and the box,
     the step and the barostat's generator and counters stay the same
     bits on every rank (`step` checks it).  The barostat's N kT ln V
     term takes the GLOBAL molecule count.
@@ -1440,8 +1441,8 @@ class ResidentContext:
     def _replicated(self) -> np.ndarray:
         """The state every rank holds alike, as float64 numbers."""
         st = self._state
-        parts = [st.eta, st.eta_dot, st.eta_dot_dot, st.group_ke,
-                 st.box.cpu(),
+        parts = [st.eta.cpu(), st.eta_dot.cpu(), st.eta_dot_dot.cpu(),
+                 st.group_ke.cpu(), st.box.cpu(),
                  torch.tensor([st.step, st.time, float(st.baro_scale),
                                st.baro_naccept, st.baro_nattempt])]
         return np.concatenate([np.asarray(p, np.float64).reshape(-1)

@@ -34,7 +34,7 @@ one mesh axis and merged by all-reduce:
     (sharded.py:218 there); here they are simply not reduced.
 
 The all-reduce gives every rank the same bits (each reduced block is
-summed once and sent to all), so the ranks' host chains and states stay
+summed once and sent to all), so the ranks' chains and states stay
 bit-identical: tests/test_torch_sharded.py checks it.  Trajectories match
 the one-rank Context's to the order of the force sums.
 """

@@ -1,20 +1,22 @@
-"""The card's timing and the direct-space sweep's bound, shared by
-chip_smoke.py and the tools that time a kernel (tools/dryrun_1m.py).
+"""The card's timing and the kernels' bounds, shared by chip_smoke.py
+and the tools that time a kernel (tools/dryrun_1m.py).
 
 `sweep_bound` is the least time the card could take for a sweep on the
 given fields: the larger of its float32 operations over the card's peak
 and the bytes it must move over the memory rate, with the pair counts
-that this run's slot data gives (`pair_counts`).  `cuda_time_ms` times a
-call by CUDA events.
+that this run's slot data gives (`pair_counts`).  `nh_chain_bound` is
+the NH chain kernel's (ops/nh_chain.py), from its shapes.  `cuda_time_ms`
+times a call by CUDA events.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-# H100 SXM published peaks (NVIDIA data sheet, 700 W): float32 outside the
-# tensor cores, and HBM3 bandwidth
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): float32 and
+# float64 outside the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 34e12
 PEAK_BYTES_PER_S = 3.35e12
 # B1 operation count: every pair test is a distance and a compare (~9
 # float32 ops); every pair inside the cutoff adds the LJ + A&S-erfc force
@@ -134,3 +136,37 @@ def sweep_bound(fields, cfg, shifts, energy=False, method="ewald",
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
     return max(t_ops, t_bytes), bound_by, n_tests, n_cut, n_bytes
+
+
+def nh_chain_ops(M: int) -> int:
+    """float64 operations of one substep of one bath's chain
+    (csrc/nh_chain.cu::half_step, an exp counted as one): 2M + 1
+    exponentials, 5M for the downward sweep, 4 for the damping, 2M for
+    eta, 2 + 4 for link 0's refresh and kick, 9 (M - 1) for the upward
+    sweep."""
+    return (2 * M + 1) + 5 * M + 4 + 2 * M + 6 + 9 * (M - 1)
+
+
+def nh_chain_bound(rows: int, B: int, M: int, steps: int, halves: int,
+                   itemsize: int, cm: bool) -> tuple:
+    """(bound ms, "bytes" or "operations") of one NH chain launch on
+    `rows` bath rows of B baths and M links, `halves` half steps (1, or 2
+    for the fused pair) of `steps` substeps, the chain in `itemsize`-byte
+    floats, with the CM momenta where `cm`: the larger of its float64
+    operations over the card's float64 peak and the bytes it must move
+    (each input once: the KE, the chain, the constants and link mask, the
+    momenta; each output once: the scale, ke_a, the chain, the shift)
+    over the memory rate.  Both are far under a launch's few
+    microseconds: the kernel is bound by launch latency."""
+    R = rows // B
+    ops = rows * halves * steps * nh_chain_ops(M)
+    chain = rows * (3 * M + 1)
+    inputs = (rows + chain + B * (M + 2)) * itemsize + B * M
+    outputs = (2 * rows + chain) * itemsize
+    if cm:
+        inputs += 4 * R * itemsize
+        outputs += 3 * R * itemsize if halves == 2 else 0
+    t_ops = ops / PEAK_FP64_FLOPS
+    t_bytes = (inputs + outputs) / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")

@@ -111,7 +111,7 @@ def _part1b(mesh, n_ranks):
     rctx.step(2)
     pos = rctx.positions()
     st = rctx.state
-    rep = torch.cat([st["eta"].reshape(-1).double(),
+    rep = torch.cat([st["eta"].reshape(-1).double().cpu(),
                      st["box"].reshape(-1).double().cpu()])
     same = comm.all_gather(mesh, "atom", rep.to(mesh.device))
     return {"atoms": ctx._static.n_atoms, "planes": ctx._cp_cfg.grid[0],

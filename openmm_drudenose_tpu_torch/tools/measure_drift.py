@@ -101,8 +101,8 @@ def truncate_csv(path: str, last: int, log=print) -> None:
 def temperatures(ctx) -> np.ndarray:
     """Per-bath temperatures (K) from the state's group KE (2 KE a bath
     at the last NH half step), as the JAX script reads group_ke."""
-    two_ke = ctx._state.group_ke.double().numpy()
-    nkbt = ctx._spec.nh_nkbt.double().numpy()
+    two_ke = ctx._state.group_ke.double().cpu().numpy()
+    nkbt = ctx._spec.nh_nkbt.double().cpu().numpy()
     targets = np.full_like(two_ke, ctx._integrator.getTemperature())
     targets[..., -1] = ctx._integrator.getDrudeTemperature()
     return two_ke / nkbt * targets

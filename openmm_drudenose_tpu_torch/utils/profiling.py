@@ -8,6 +8,7 @@ torch.profiler and CUDA events.
     reading the clock
   * `step_breakdown(ctx, n)`: the time of each part of a Context's step,
     by CUDA events on the card (the host clock on the CPU)
+  * `busy_share(fn)`: the card's busy share of a call, from torch.profiler
   * `measure_steps_per_second`: best-of-N steps/s
 """
 
@@ -144,6 +145,30 @@ def step_breakdown(ctx, n: int = 16) -> Dict[str, float]:
         if gen is not None:
             st.baro_gen.set_state(gen)
     return out
+
+
+def busy_share(fn) -> Dict[str, float]:
+    """The card's busy share of fn() (on the current card): the device
+    time of every kernel and copy torch.profiler records over the call's
+    wall time, the card waited for at both ends.  Kernels of one stream
+    do not overlap, so their sum is the time the card was busy.  Only
+    the card's activity is recorded (the host's ops would multiply the
+    profile's size and its time to read).  Returns {"busy", "device_ms",
+    "wall_ms"}; raises without a card."""
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        raise RuntimeError("busy_share needs a CUDA card")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device_us = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0.0))
+                    for e in prof.key_averages())
+    return {"busy": device_us * 1e-6 / wall, "device_ms": device_us * 1e-3,
+            "wall_ms": wall * 1e3}
 
 
 def measure_steps_per_second(context, integrator, steps: int = 64,

@@ -26,7 +26,9 @@ tools/term_checks.py's systems in f64 on the card against the CPU.
 The long-run tools' pieces: the JAX drift checkpoint read into the
 bench Context on the card, tools/measure_drift.py's loop resumed bit for
 bit through B1, and B1 on the 500-water 4^3 grid of explicit images
-against its plain version.
+against its plain version.  The NH chain kernel against its plain
+version in each form, and 2 x 16 steps of the 216-water box under
+set_sync_debug_mode("error").
 Marked `gpu`; each test skips (through the `cuda` fixture) where
 no CUDA card is present.
 On the card (tests/conftest.py imports JAX, which the machine with the
@@ -1168,4 +1170,98 @@ def test_1m_snapshot_steps_through_b2(cuda):
     assert sweep.launches["b2_sweep"] >= 16
     assert sweep.launches["b1_sweep"] == 0
     assert not any(md.latches(ctx).values())
+    assert bool(torch.all(torch.isfinite(ctx._state.positions)))
+
+
+def _chain_inputs(R, G, M, dtype, device, seed):
+    """Bath constants (a _ChainSpec-like namespace, on `device`) and the
+    chain's inputs of R replicas (R = 0: one set of (G+2,) baths), made
+    from a seed with numpy."""
+    import types
+    rng = np.random.default_rng(seed)
+    nb = G + 2
+    lead = (R,) if R else ()
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    link = np.ones((nb, M), bool)
+    link[nb - 1, 1:] = False
+    spec = types.SimpleNamespace(
+        nh_eta_mass=t(np.abs(rng.normal(5.0, 1.0, (nb, M)))),
+        nh_nkbt=t(np.abs(rng.normal(250.0, 2.5, nb))),
+        nh_kbt_chain=t(np.r_[np.full(nb - 1, 2.494), 0.008314]),
+        nh_link_active=torch.as_tensor(link, device=device))
+    eta_dot = rng.normal(0, 0.5, lead + (nb, M + 1))
+    eta_dot[..., M] = 0.0
+    chain = (t(np.abs(rng.normal(250.0, 25.0, lead + (nb,)))),
+             t(rng.normal(0, 0.1, lead + (nb, M))), t(eta_dot),
+             t(rng.normal(0, 0.5, lead + (nb, M))))
+    cm = dict(mom=t(rng.normal(0, 5.0, lead + (3,))),
+              total_mass=t(np.abs(rng.normal(1e4, 10.0, lead))), m01=1.0)
+    return spec, chain, cm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("R,G,M,steps", [(0, 1, 1, 20), (0, 2, 1, 20),
+                                         (70, 1, 1, 20), (3, 2, 4, 7)])
+def test_nh_chain_kernel_matches_plain_on_card(cuda, R, G, M, steps, dtype):
+    """The NH chain kernel against its plain version on the card in each
+    form (a half step, the fused pair with the CM correction in one
+    launch, the pair in two launches around a barostat move): every
+    output to 1e-12 of its scale, in f64 and in f32 (both compute in
+    float64 and round to the chain's type at the same points); two
+    launches the same bits."""
+    import types
+    from openmm_drudenose_tpu_torch.ops import nh_chain
+    spec, (ke, eta, ed, edd), cm = _chain_inputs(R, G, M, dtype, cuda,
+                                                 R + 10 * G + 100 * M)
+    static = types.SimpleNamespace(n_temp_groups=G, n_chains=M,
+                                   drude_steps=steps)
+    tol = 1e-12
+    F, S, C = nh_chain.FIRST, nh_chain.SECOND, nh_chain.CM
+
+    def both(mode, ke_in, chain, **kw):
+        before = nh_chain.launches["nh_chain"]
+        got = nh_chain.run(spec, static, mode, ke_in, *chain, 0.001, **kw)
+        again = nh_chain.run(spec, static, mode, ke_in, *chain, 0.001, **kw)
+        assert nh_chain.launches["nh_chain"] == before + 2
+        ref = nh_chain.run_plain(spec, static, mode, ke_in, *chain, 0.001,
+                                 **kw)
+        torch.cuda.synchronize()
+        for g, a, r in zip(got, again, ref):
+            if r is None:
+                assert g is None
+                continue
+            assert g.dtype == dtype and g.shape == r.shape
+            assert torch.equal(g, a)
+            err = float(torch.max(torch.abs(g.double() - r.double())))
+            assert err <= tol * max(float(torch.max(torch.abs(r.double()))),
+                                    1e-300)
+        return got
+
+    chain = (eta, ed, edd)
+    both(F, ke, chain)
+    both(F | S | C, ke, chain, **cm)
+    both(F | S, ke, chain)
+    vs_a, ke_a, _, *mid = both(F | C, ke, chain, **cm)
+    both(S | C, ke_a, tuple(mid), vs=vs_a, **cm)
+
+
+def test_step_makes_no_sync_on_card(cuda):
+    """The 216-water box through B1: 2 x 16 steps under
+    torch.cuda.set_sync_debug_mode("error") (the chunk's latch read
+    apart) raise nothing, and the NH chain kernel ran (a launch a half
+    step and one a fused pair: 17 a 16-step block)."""
+    from openmm_drudenose_tpu_torch.ops import nh_chain
+    ctx, integ = _ctx(cuda)
+    integ.step(16)
+    torch.cuda.synchronize()
+    before = nh_chain.launches["nh_chain"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        integ.step(16)
+        integ.step(16)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert nh_chain.launches["nh_chain"] - before == 2 * 17
     assert bool(torch.all(torch.isfinite(ctx._state.positions)))

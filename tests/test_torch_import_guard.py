@@ -23,7 +23,9 @@ from openmm_drudenose_tpu_torch.utils import expr, native, profiling
 from openmm_drudenose_tpu_torch.integrators import barostat
 from openmm_drudenose_tpu_torch.io import (builders, dcd, ionic_liquid,
                                            nacl, pdbfile, polymer)
-from openmm_drudenose_tpu_torch.ops import scatter, sweep, sweep_chunked
+from openmm_drudenose_tpu_torch.ops import (nh_chain, scatter, sweep,
+                                            sweep_chunked)
+from openmm_drudenose_tpu_torch.utils import tables
 from openmm_drudenose_tpu_torch.parallel import (comm, distfft, domain,
                                                  ensemble, flatrep, resident,
                                                  sharded)
@@ -34,7 +36,7 @@ from openmm_drudenose_tpu_torch.tools import (dryrun_multichip, nacl_wall,
 from openmm_drudenose_tpu_torch.tools import (measure_drift, series, setups,
                                              validate_flatnpt, validate_npt)
 from openmm_drudenose_tpu_torch.tools import (bounds, dryrun_1m,
-                                             make_snapshot)
+                                             make_snapshot, sync_count)
 sys.path.insert(0, "tests")
 import torch_ranks
 bad = sorted(m for m in sys.modules
@@ -73,6 +75,9 @@ def test_import_leaves_jax_out():
     "openmm_drudenose_tpu_torch/tools/make_snapshot.py",
     "openmm_drudenose_tpu_torch/tools/dryrun_1m.py",
     "openmm_drudenose_tpu_torch/tools/bounds.py",
+    "openmm_drudenose_tpu_torch/ops/nh_chain.py",
+    "openmm_drudenose_tpu_torch/utils/tables.py",
+    "openmm_drudenose_tpu_torch/tools/sync_count.py",
     "tests/torch_ranks.py"])
 def test_script_imports_no_jax(name):
     """The chip script, the modules of the port's tenth to fourteenth
